@@ -8,17 +8,29 @@ non-zero exit code when it fails:
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
    off for matrix products and convolutions.
-2. Build: compile every kernel under `fscl_tpu_torch/csrc/` with nvcc.
+2. Build: compile every kernel under `fscl_tpu_torch/csrc/` with nvcc, one
+   nvcc per source, all at once.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
-   kernel, the plain version and the library call are timed.
-4. Main path: text -> mel serving (`fscl_tpu_torch.serve`) through
-   `BaselineSystem.synthesize_bucketed` at the full width of
-   `config/model/base.yaml`, with random weights made from --seed; checks
-   shapes, finiteness and that every batch launched the attention kernel
-   once per FFT block.
-5. Card vs CPU: one full-width batch run on the card and on the CPU (where
-   the plain versions run) with the same weights.
+   kernel, the plain version and (where one exists) the library call are
+   timed. The attention kernel at the FFT blocks' shapes; the MRF stage
+   kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
+   B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000.
+4. Text -> mel: `serve_batches` through `BaselineSystem.synthesize_bucketed`
+   at the full width of `config/model/base.yaml`, with random weights made
+   from --seed; checks shapes, finiteness and that every batch launched the
+   attention kernel once per FFT block.
+5. Card vs CPU, text -> mel: one full-width batch run on the card and on
+   the CPU (where the plain versions run) with the same weights.
+6. Main path, text -> wav: `serve_wav` (warm-up), then the same 32 lines
+   through its serving loop `serve_wav_on` with the full-width system and a
+   full-width HiFiGAN V1 with random weights from --seed, timed and counted;
+   checks the wavs and that the run launched the attention kernel 14 times
+   and the MRF stage kernel 4 times per batch; then once more batch by batch
+   through `serve_batches` and `vocode_batches` for the per-batch mel and
+   vocoder times and launches.
+7. Card vs CPU, vocoder: one mel vocoded on the card and on the CPU with the
+   same weights; then `chunked_vocode` on the card against the full vocode.
 
 The line before the last holds the kernels' numbers; the last line is
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or `fscl_tpu`.
@@ -46,6 +58,20 @@ BF16_TOL = 1e-2            # one bf16 rounding of the output
 # and the kernel's online softmax against the CPU's kernels) through ten
 # FFT blocks and the PostNet; 1e-3 is about 1e-4 of the mels' range.
 CARD_VS_CPU_ATOL = 1e-3
+# MRF stage kernel vs plain, float32: the bars tests/test_hifigan_fused.py
+# holds the TPU stage kernel to. bf16 compute: both versions round the same
+# operands, but an f32 sum in another order can round an intermediate to the
+# neighbouring bf16 value; relative to max |plain| (tests/test_torch_hifigan.py).
+STAGE_F32_MEAN, STAGE_F32_MAX = 1e-5, 5e-3
+STAGE_BF16_MEAN, STAGE_BF16_MAX = 1e-4, 1e-2
+# Whole generator, card vs CPU: the f32 generator bars of
+# tests/test_hifigan_fused.py (a leaky-ReLU input near 0 can flip sign under
+# another summation order). Chunked vs full vocode on the card: relative
+# max |d| (different window lengths sum in different orders).
+GEN_MEAN, GEN_MAX = 1e-4, 2e-2
+CHUNKED_REL = 1e-2
+# HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
+V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
 
 # Serving input: four batches of eight English lines, from a few symbols to
 # about 200, so that several L and T buckets are hit.
@@ -206,6 +232,104 @@ def phase_attention(seed: int):
     return max_err, timings
 
 
+def build_vocoder(seed: int, device: str):
+    """Full-width HiFiGAN V1 with torch's init from `seed`."""
+    import torch
+    from fscl_tpu_torch.models.hifigan import HiFiGANGenerator
+
+    torch.manual_seed(seed)
+    return HiFiGANGenerator().to(device).eval()
+
+
+def stage_bound(B, T, C, post, dtype_name, taps, n_convs):
+    """Least time for one MRF stage: 2*B*T*taps*C^2 (+ conv_post) operations
+    (`_stage_call`'s count) over the type's peak, against the input read
+    once, the output and the weights over the HBM rate."""
+    flops = 2 * B * T * taps * C * C + (2 * B * T * 7 * C if post else 0)
+    nbytes = 4 * (B * T * C + (B * T if post else B * T * C) + taps * C * C + n_convs * C
+                  + (7 * C + 1 if post else 0))
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def check_stage(mrf, x, rbs, conv_post, dtype, label):
+    """The wrapper against the plain version on x; fails on a miss. Returns
+    the max |kernel - plain|."""
+    import torch
+    dname = str(dtype).split(".")[-1]
+    # the plain version first: the kernel's output buffer is then fresh
+    # memory and cannot hold the plain result by accident
+    want = mrf.mrf_stage_reference(x, rbs, conv_post, dtype)
+    got = mrf.mrf_stage(x, rbs, conv_post, dtype)
+    torch.cuda.synchronize()
+    B, C, T = x.shape
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"stage {label} C={C} T={T} {dname}: shape {tuple(got.shape)} or non-finite output")
+    err = (got - want).abs()
+    mean, mx = float(err.mean()), float(err.max())
+    scale = float(want.abs().max())
+    if dtype == torch.float32:
+        ok = mean < STAGE_F32_MEAN and mx < STAGE_F32_MAX
+    else:
+        ok = mean < STAGE_BF16_MEAN * scale and mx < STAGE_BF16_MAX * scale
+    log(f"mrf_stage {dname:8s} {label} B={B} C={C:3d} T={T:6d} post={conv_post is not None}: "
+        f"mean |kernel - plain| {mean:.3g}, max {mx:.3g} (max |plain| {scale:.3g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"MRF stage kernel disagrees with its plain version ({dname}, B={B}, C={C}, T={T})")
+    return mx
+
+
+def phase_mrf_stage(seed: int):
+    """The stage kernel against its plain version at B = 2 with a ragged T,
+    and at B = 8 in every mel bucket (the main path's shapes); timed at
+    T_mel = 1000. Returns the max errors, the timings and the (B, C, T)
+    shapes checked in float32."""
+    import torch
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.systems.baseline import MEL_BUCKETS
+
+    gen = build_vocoder(seed, "cuda")
+    n = len(gen.resblock_kernel_sizes)
+    taps = sum(2 * k * len(d) for k, d in zip(gen.resblock_kernel_sizes, gen.resblock_dilations))
+    n_convs = sum(2 * len(d) for d in gen.resblock_dilations)
+    gen_x = torch.Generator(device="cuda").manual_seed(seed)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    checked = set()
+    timings = []
+    stage_args = []
+    for i, (C, up, post) in enumerate(V1_STAGES):
+        stage_args.append((gen.resblocks[i * n:(i + 1) * n], gen.conv_post if post else None))
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for (C, up, post), (rbs, conv_post) in zip(V1_STAGES, stage_args):
+                # T = 37 * up is not a multiple of the kernel's 256- or 512-row tile
+                for B, T_mel in [(2, 37)] + [(8, t) for t in MEL_BUCKETS]:
+                    x = torch.randn(B, C, T_mel * up, generator=gen_x, device="cuda")
+                    err = check_stage(mrf, x, rbs, conv_post, dtype, f"T_mel={T_mel:4d}")
+                    max_err[dname] = max(max_err[dname], err)
+                    if dtype == torch.float32:
+                        checked.add((B, C, T_mel * up))
+                # timed on the last, largest input (B = 8, T_mel = 1000)
+                B, T = x.shape[0], x.shape[2]
+                kernel_ms = cuda_time_ms(lambda: mrf.mrf_stage_cuda(x, rbs, conv_post, dtype), 3, 1)
+                plain_ms = cuda_time_ms(lambda: mrf.mrf_stage_reference(x, rbs, conv_post, dtype),
+                                        3, 1)
+                bound_ms, bound_by, flops = stage_bound(B, T, C, post, dname, taps, n_convs)
+                row = {"B": B, "T_mel": T // up, "T": T, "C": C, "post": post, "dtype": dname,
+                       "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_share": bound_ms / kernel_ms, "tflops": flops / kernel_ms / 1e9}
+                timings.append(row)
+                log(f"mrf_stage {dname:8s} B={B} C={C:3d} T={T:6d}: kernel {kernel_ms:.3f} ms "
+                    f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
+                    f"{bound_ms:.3f} ms ({bound_by}), {100 * row['bound_share']:.1f}% of bound")
+                del x
+    return max_err, timings, checked
+
+
 def build_system(seed: int, device: str):
     import torch
     from fscl_tpu_torch.core.config import model_config_from_yaml
@@ -332,6 +456,197 @@ def profile_batch(system, lines, out_dir):
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy, "top": rows[:25]}
 
 
+def run_wav_lines(system, vocoder, lines):
+    """Serve `lines` as text -> wav batch by batch; per-batch records with
+    the mel and the vocoder time split by a synchronize, and each kernel's
+    launches."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.serve import serve_batches, vocode_batches
+
+    marks = []
+
+    def timed_mels():
+        batches = serve_batches(system, lines)
+        while True:
+            torch.cuda.synchronize()
+            t0, a0 = time.perf_counter(), attn.LAUNCHES
+            batch = next(batches, None)
+            if batch is None:
+                return
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            marks.append((t1 - t0, attn.LAUNCHES - a0, t1))
+            yield batch
+
+    records = []
+    s0 = mrf.LAUNCHES
+    for batch, wav in vocode_batches(vocoder, timed_mels()):
+        torch.cuda.synchronize()
+        mel_s, attn_n, t1 = marks[-1]
+        records.append({"batch": batch, "wav": wav, "mel_s": mel_s,
+                        "voc_s": time.perf_counter() - t1,
+                        "attention": attn_n, "stage": mrf.LAUNCHES - s0})
+        s0 = mrf.LAUNCHES
+    return records
+
+
+def phase_text_to_wav(system, seed: int, card: str, stage_checked, profile: bool, out_dir):
+    import torch
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.serve import BATCH_SIZE, serve_wav, serve_wav_on
+
+    cfg = system.model_cfg
+    t = cfg.transformer
+    attn_per_batch = 2 * t.encoder_layer + t.decoder_layer
+    vocoder = Vocoder(build_vocoder(seed, "cuda"), device="cuda")
+    hop, sr = vocoder.model.hop, cfg.audio.sampling_rate
+    stages = len(vocoder.model.ups)
+    n_batches = math.ceil(len(LINES) / BATCH_SIZE)
+
+    def check_wavs(wavs, what):
+        if len(wavs) != len(LINES):
+            fail(f"{what} returned {len(wavs)} wavs for {len(LINES)} lines")
+        for i, (wav, n) in enumerate(wavs):
+            if wav.shape != (max(n, 1) * hop,) or not np_finite_bounded(wav):
+                fail(f"{what} line {i}: wav {wav.shape} for mel_len {n}, or not finite in [-1, 1]")
+
+    # warm-up through the user's entry point, from state_dicts
+    t0 = time.perf_counter()
+    wavs = serve_wav(LINES, system.state_dict(), vocoder.model.state_dict(), model_cfg=cfg)
+    log(f"text -> wav warm-up via serve_wav: {len(wavs)} wavs in {time.perf_counter() - t0:.2f} s")
+    check_wavs(wavs, "serve_wav")
+
+    # The main path: serve_wav's own serving loop on the built system and
+    # vocoder, up to the wavs cut per line on the host.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0
+    mrf.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wavs = serve_wav_on(system, vocoder, LINES)
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_wavs(wavs, "serve_wav_on")
+    if launches != {"attention_fwd": attn_per_batch * n_batches, "mrf_stage": stages * n_batches}:
+        fail(f"main path launches {launches}, expected {attn_per_batch} and {stages} "
+             f"per batch over {n_batches} batches")
+    samples = sum(n for _, n in wavs) * hop
+
+    # The same lines batch by batch, with a synchronize between the mel and
+    # the vocoder: the per-batch split and the per-batch launches.
+    records = run_wav_lines(system, vocoder, LINES)
+    for i, r in enumerate(records):
+        b, wav = r["batch"], r["wav"]
+        B, T = b.postnet_mel.shape[0], b.postnet_mel.shape[1]
+        if tuple(wav.shape) != (B, T * hop):
+            fail(f"wav batch {i}: shape {tuple(wav.shape)}, expected {(B, T * hop)}")
+        if not torch.isfinite(wav).all() or float(wav.abs().max()) > 1.0:
+            fail(f"wav batch {i}: non-finite or |wav| > 1")
+        if r["attention"] != attn_per_batch or r["stage"] != stages:
+            fail(f"wav batch {i}: {r['attention']} attention and {r['stage']} stage launches, "
+                 f"expected {attn_per_batch} and {stages}")
+        unchecked = [(B, C, T * up) for C, up, _ in V1_STAGES
+                     if (B, C, T * up) not in stage_checked]
+        if unchecked:
+            fail(f"wav batch {i}: stage shapes {unchecked} were not held to the plain version")
+        log(f"wav batch {i}: B={B} T={T} mel {1e3 * r['mel_s']:.2f} ms + vocoder "
+            f"{1e3 * r['voc_s']:.2f} ms = {1e3 * (r['mel_s'] + r['voc_s']):.2f} ms, "
+            f"{r['attention']} attention + {r['stage']} stage launches")
+    if len(records) != n_batches:
+        fail(f"served {len(records)} wav batches, expected {n_batches}")
+    summary = {
+        "batches": len(records), "lines": len(LINES),
+        "mel_buckets_hit": sorted({int(r["batch"].postnet_mel.shape[1]) for r in records}),
+        "audio_samples": samples, "audio_seconds": samples / sr, "seconds": wall,
+        "audio_s_per_s": samples / sr / wall,
+        "batch_ms": [1e3 * (r["mel_s"] + r["voc_s"]) for r in records],
+        "mel_ms": [1e3 * r["mel_s"] for r in records],
+        "vocoder_ms": [1e3 * r["voc_s"] for r in records],
+        "peak_mem_gib": peak,
+        "launches": launches,
+    }
+    log(f"text -> wav via serve_wav_on: {len(records)} batches, {summary['audio_seconds']:.2f} s "
+        f"of audio in {wall:.4f} s = {summary['audio_s_per_s']:.1f} audio-s/s, per-batch "
+        f"{', '.join(f'{ms:.1f}' for ms in summary['batch_ms'])} ms, "
+        f"peak {peak:.2f} GiB, on {card}")
+    if profile:
+        summary["profile"] = profile_wav_batch(system, vocoder, LINES[-8:], out_dir)
+    return vocoder, records, summary
+
+
+def np_finite_bounded(wav) -> bool:
+    import numpy as np
+    return bool(np.isfinite(wav).all() and np.abs(wav).max() <= 1.0)
+
+
+def profile_wav_batch(system, vocoder, lines, out_dir):
+    """Device time by kernel over one text -> wav batch (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run_wav_lines(system, vocoder, lines)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_wav_lines(system, vocoder, lines)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(({"name": e.key[:90], "calls": e.count,
+                    "ms": e.self_device_time_total / 1e3} for e in events),
+                  key=lambda r: -r["ms"])
+    busy = sum(r["ms"] for r in rows)
+    log(f"profile text -> wav: wall {1e3 * wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}%)")
+    for r in rows[:15]:
+        log(f"  {r['ms']:9.3f} ms {r['calls']:5d}x  {r['name']}")
+    if out_dir is not None:
+        prof.export_chrome_trace(str(out_dir / "chip_smoke_wav_trace.json"))
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy, "top": rows[:25]}
+
+
+def phase_vocoder_card_vs_cpu(vocoder, records):
+    """The card's generator against the same weights on the CPU, on the
+    first 32 frames of two served mels; then chunked vs full on the card."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.audio_out.streaming import chunked_vocode
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder, build_generator
+
+    mel = records[0]["batch"].postnet_mel[:2, :32].float()
+    cpu = build_generator("HifiGAN")
+    cpu.load_state_dict(vocoder.model.state_dict())
+    cpu = Vocoder(cpu, device="cpu")
+    t0 = time.perf_counter()
+    card_wav = vocoder.infer_batch(mel).cpu()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_wav = cpu.infer_batch(mel.cpu())
+    t2 = time.perf_counter()
+    err = (card_wav - cpu_wav).abs()
+    mean, mx = float(err.mean()), float(err.max())
+    log(f"vocoder card vs CPU: mel {tuple(mel.shape)}, card {1e3 * (t1 - t0):.1f} ms, CPU "
+        f"{1e3 * (t2 - t1):.1f} ms; mean |d| {mean:.3g} (bar {GEN_MEAN}), max {mx:.3g} (bar {GEN_MAX})")
+    if card_wav.shape != cpu_wav.shape or not (mean < GEN_MEAN and mx < GEN_MAX):
+        fail(f"vocoder card vs CPU: shapes {tuple(card_wav.shape)} / {tuple(cpu_wav.shape)}, "
+             f"mean {mean:.3g}, max {mx:.3g}")
+
+    long_mel = records[0]["batch"].postnet_mel[:1].float()          # one T = 128 mel
+    full = vocoder.infer_batch(long_mel).cpu().numpy()
+    parts = list(chunked_vocode(vocoder.model, long_mel, chunk=16, device="cuda"))
+    chunked = np.concatenate([w for _, w in parts], axis=1)
+    rel = float(np.abs(chunked - full).max() / np.abs(full).max())
+    log(f"chunked vs full vocode on the card: T={long_mel.shape[1]}, {len(parts)} chunks of 16, "
+        f"relative max |d| {rel:.3g} (bar {CHUNKED_REL})")
+    if chunked.shape != full.shape or not rel < CHUNKED_REL:
+        fail(f"chunked vocode differs from the full vocode: relative {rel:.3g}")
+    return {"card_vs_cpu": {"mel_shape": list(mel.shape), "mean_abs_err": mean, "max_abs_err": mx},
+            "chunked_vs_full_rel": rel}
+
+
 def phase_card_vs_cpu(system, lines):
     import torch
     from fscl_tpu_torch.frontend import text_to_sequence
@@ -372,7 +687,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one served batch with torch.profiler")
+                    help="also trace one text -> mel and one text -> wav batch "
+                         "with torch.profiler")
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for a JSON record (and the trace with --profile)")
     args = ap.parse_args(argv)
@@ -384,16 +700,21 @@ def main(argv=None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
     phase_build()
     max_err, timings = phase_attention(args.seed)
+    stage_err, stage_timings, stage_checked = phase_mrf_stage(args.seed)
     system, main_path = phase_main_path(args.seed, card, args.profile, args.out)
     card_vs_cpu = phase_card_vs_cpu(system, LINES[-8:])
+    vocoder, wav_records, text_to_wav = phase_text_to_wav(system, args.seed, card, stage_checked,
+                                                          args.profile, args.out)
+    vocoder_check = phase_vocoder_card_vs_cpu(vocoder, wav_records)
 
     main_row = next(r for r in timings if r["dtype"] == "float32" and r["L"] == 1000)
+    f32_stages = [r for r in stage_timings if r["dtype"] == "float32"]
     kernels = [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "fscl_tpu_torch/csrc/attention.cu",
         "replaces": "fscl_tpu/ops/attention.py:48",
-        "launches": main_path["attention_launches"],
+        "launches": text_to_wav["launches"]["attention_fwd"],
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -403,9 +724,28 @@ def main(argv=None) -> int:
         "timed_at": {k: main_row[k] for k in ("B", "H", "L", "Dh", "dtype")},
         "max_abs_err_bf16": max_err["bfloat16"],
         "by_shape": timings,
+    }, {
+        "name": "mrf_stage",
+        "route": "cuda",
+        "source": "fscl_tpu_torch/csrc/mrf_stage.cu",
+        "replaces": "fscl_tpu/ops/hifigan_fused.py:52",
+        "launches": text_to_wav["launches"]["mrf_stage"],
+        "max_abs_err": stage_err["float32"],
+        # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
+        "ms": sum(r["ms"] for r in f32_stages),
+        "plain_ms": sum(r["plain_ms"] for r in f32_stages),
+        "bound_ms": sum(r["bound_ms"] for r in f32_stages),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in f32_stages)
+        else "bytes",
+        "library_ms": None,
+        "timed_at": {"B": 8, "T_mel": 1000, "stages": [r["C"] for r in f32_stages],
+                     "dtype": "float32"},
+        "max_abs_err_bf16": stage_err["bfloat16"],
+        "by_shape": stage_timings,
     }]
-    record = {"card": card, "kernels": kernels, "main_path": main_path,
-              "card_vs_cpu": card_vs_cpu, "seconds": time.perf_counter() - t_start}
+    record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
+              "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
+              "vocoder_check": vocoder_check, "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"all phases passed in {record['seconds']:.1f} s on {card}")

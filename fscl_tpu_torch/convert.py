@@ -10,7 +10,14 @@ The model's keys are the reference torch FastSpeech2 keys, so
 result back to the same flax params: an independent second route the tests
 hold this one against. Layouts: a flax Dense kernel is (in, out) where torch
 keeps (out, in); a flax Conv kernel is (k, in, out) where torch keeps
-(out, in, k).
+(out, in, k); a flax ConvTranspose kernel under `transpose_kernel=True` is
+(k, out, in) where torch's ConvTranspose1d keeps (in, out, k).
+
+`hifigan_state_dict` and `melgan_state_dict` do the same for the JAX
+vocoders' params (`{"params": ...}` as `HiFiGANGenerator.init` and
+`MelGANGenerator.init` return them). Their keys are the official HiFi-GAN and
+melgan-neurips keys with weight norm folded, so each package's
+`convert_torch_checkpoint` is the second route for them.
 """
 from __future__ import annotations
 
@@ -32,6 +39,11 @@ def _linear(sd: StateDict, prefix: str, p: Mapping) -> None:
 
 
 def _conv1d(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(p["kernel"]).permute(2, 1, 0).contiguous()
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose1d(sd: StateDict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(p["kernel"]).permute(2, 1, 0).contiguous()
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -94,4 +106,46 @@ def baseline_state_dict(variables: Mapping) -> StateDict:
                      for name, table in params["embedding"].items()}
     model = fastspeech2_state_dict(params["model"], variables["batch_stats"]["model"])
     sd.update({f"model.{k}": v for k, v in model.items()})
+    return sd
+
+
+def _count(params: Mapping, prefix: str) -> int:
+    return sum(1 for k in params if k.startswith(prefix))
+
+
+def hifigan_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu HiFiGANGenerator variables -> the port's HiFiGANGenerator."""
+    p = variables["params"]
+    n_ups = _count(p, "ups_")
+    n_res = _count(p, "resblock_0_")
+    sd: StateDict = {}
+    _conv1d(sd, "conv_pre", p["conv_pre"])
+    for i in range(n_ups):
+        _conv_transpose1d(sd, f"ups.{i}", p[f"ups_{i}"])
+        for j in range(n_res):
+            rb, key = p[f"resblock_{i}_{j}"], f"resblocks.{i * n_res + j}"
+            for c in range(_count(rb, "convs1_")):
+                _conv1d(sd, f"{key}.convs1.{c}", rb[f"convs1_{c}"])
+                _conv1d(sd, f"{key}.convs2.{c}", rb[f"convs2_{c}"])
+    _conv1d(sd, "conv_post", p["conv_post"])
+    return sd
+
+
+def melgan_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu MelGANGenerator variables -> the port's MelGANGenerator,
+    whose `model.{i}` indices are melgan-neurips' nn.Sequential."""
+    p = variables["params"]
+    n_ups = _count(p, "ups_")
+    n_res = _count(p, "res_0_")
+    sd: StateDict = {}
+    _conv1d(sd, "model.1", p["conv_pre"])
+    for i in range(n_ups):
+        base = 2 + i * (2 + n_res)          # LeakyReLU, ConvTranspose1d, resblocks
+        _conv_transpose1d(sd, f"model.{base + 1}", p[f"ups_{i}"])
+        for j in range(n_res):
+            rb, key = p[f"res_{i}_{j}"], f"model.{base + 2 + j}"
+            _conv1d(sd, f"{key}.block.2", rb["conv_dil"])
+            _conv1d(sd, f"{key}.block.4", rb["conv_1x1"])
+            _conv1d(sd, f"{key}.shortcut", rb["shortcut"])
+    _conv1d(sd, f"model.{2 + n_ups * (2 + n_res) + 2}", p["conv_post"])
     return sd

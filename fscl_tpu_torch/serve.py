@@ -1,13 +1,19 @@
-"""Text -> mel serving (port of `fscl_tpu/cli/synth_cmd.py:_run_batch`).
+"""Text -> mel and text -> wav serving (port of
+`fscl_tpu/cli/synth_cmd.py:_run_batch`).
 
 Text lines go through `text_to_sequence`, are grouped into batches of up to
 8 and padded to the smallest L bucket (16 ... 256), and each batch runs the
-two-pass `BaselineSystem.synthesize_bucketed`. Weights come in as a port
-`state_dict` (see `convert.py`); checkpoints and the vocoder come with later
-slices.
+two-pass `BaselineSystem.synthesize_bucketed`. `serve_wav` then vocodes each
+batch's whole mel bucket on the same device and cuts every line's wav to
+its mel length. Weights come in as port `state_dict`s (see `convert.py`);
+an official vocoder checkpoint is folded by
+`audio_out.vocoder.load_state_dict`. Checkpoints of the system come with a
+later slice.
 
-    from fscl_tpu_torch.serve import serve
+    from fscl_tpu_torch.serve import serve, serve_wav
     mels = serve(["Hello world."], state_dict)   # [(postnet_mel (n, 80), n)]
+    wavs = serve_wav(["Hello world."], state_dict, vocoder_state_dict)
+    # [(wav (max(n, 1) * 256,), n)]
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, 
 import numpy as np
 import torch
 
+from fscl_tpu_torch.audio_out.vocoder import Vocoder
 from fscl_tpu_torch.core.config import ModelConfig
 from fscl_tpu_torch.frontend import text_to_sequence
 from fscl_tpu_torch.frontend.define import LANG_NAME2ID, n_symbols
@@ -91,3 +98,48 @@ def serve(
             n = int(lens[i])
             results.append((mels[i, :max(n, 1)], n))
     return results
+
+
+def vocode_batches(vocoder: Vocoder, batches: Iterator[ServedBatch]
+                   ) -> Iterator[Tuple[ServedBatch, torch.Tensor]]:
+    """Vocode each served batch's whole mel bucket on the vocoder's device;
+    yields (batch, wav (B, T_bucket * hop))."""
+    for batch in batches:
+        yield batch, vocoder.infer_batch(batch.postnet_mel)
+
+
+def serve_wav_on(system: BaselineSystem, vocoder: Vocoder, lines: Sequence[str],
+                 **kwargs) -> List[Tuple[np.ndarray, int]]:
+    """`serve_wav` with a system and a vocoder already built: returns
+    (wav[:max(n, 1) * hop] as float32 numpy on the CPU, n) per line, in
+    input order."""
+    hop = vocoder.model.hop
+    results: List[Tuple[np.ndarray, int]] = []
+    for batch, wav in vocode_batches(vocoder, serve_batches(system, lines, **kwargs)):
+        wavs, lens = wav.cpu().numpy(), batch.mel_len.cpu()
+        for i in range(len(batch.lines)):
+            n = int(lens[i])
+            results.append((wavs[i, :max(n, 1) * hop], n))
+    return results
+
+
+def serve_wav(
+    lines: Sequence[str],
+    state_dict: Dict[str, torch.Tensor],
+    vocoder_state_dict: Dict[str, torch.Tensor],
+    model_cfg: Optional[ModelConfig] = None,
+    symbol_id: str = "en",
+    device: Optional[Union[str, torch.device]] = None,
+    **kwargs,
+) -> List[Tuple[np.ndarray, int]]:
+    """Text -> wav: build a BaselineSystem with `state_dict` and the vocoder
+    the config names (`model_cfg.vocoder.model`, HiFi-GAN V1 by default)
+    with `vocoder_state_dict`, both on `device` (default cuda); returns
+    (wav[:max(n, 1) * hop] as float32 numpy on the CPU, n) per line, in
+    input order."""
+    model_cfg = model_cfg if model_cfg is not None else ModelConfig()
+    system = BaselineSystem(model_cfg, ((symbol_id, n_symbols(symbol_id)),), device=device)
+    system.load_state_dict(state_dict, strict=True)
+    vocoder = Vocoder.from_state_dict(vocoder_state_dict, kind=model_cfg.vocoder.model,
+                                      device=system.device)
+    return serve_wav_on(system, vocoder, lines, symbol_id=symbol_id, **kwargs)

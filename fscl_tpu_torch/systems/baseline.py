@@ -65,13 +65,13 @@ class BaselineSystem(nn.Module):
     @torch.inference_mode()
     def pick_mel_bucket(self, texts, src_lens, speaker_args, lang_ids,
                         symbol_id: Optional[str] = None,
-                        mel_buckets=MEL_BUCKETS, d_control: float = 1.0) -> int:
-        """Pass 1: the smallest bucket covering every predicted length (the
-        largest bucket when none does)."""
+                        mel_buckets=MEL_BUCKETS) -> int:
+        """Pass 1: the smallest bucket covering every length predicted at
+        d_control 1 (the largest bucket when none does)."""
         emb = self.embedding_model(self._tensor(texts), symbol_id)
         mel_len = self.model.predict_mel_len(
             emb, self._tensor(src_lens), self._tensor(speaker_args),
-            self._tensor(lang_ids), d_control=d_control)
+            self._tensor(lang_ids))
         max_len = int(mel_len.max())
         return next((b for b in mel_buckets if max_len <= b), mel_buckets[-1])
 
@@ -79,9 +79,10 @@ class BaselineSystem(nn.Module):
                             symbol_id: Optional[str] = None,
                             mel_buckets=MEL_BUCKETS, **controls) -> FastSpeech2Output:
         """Two-pass serving synthesis at the smallest adequate mel bucket.
-        Pass 1 predicts lengths with the same `d_control` as pass 2."""
+        As in fscl_tpu, pass 1 predicts lengths at d_control 1 whatever the
+        controls of pass 2, so a d_control above 1 can pick a bucket that
+        pass 2 then clips mel_len to."""
         T = self.pick_mel_bucket(texts, src_lens, speaker_args, lang_ids,
-                                 symbol_id, mel_buckets,
-                                 controls.get("d_control", 1.0))
+                                 symbol_id, mel_buckets)
         return self.synthesize(texts, src_lens, T, speaker_args, lang_ids,
                                symbol_id=symbol_id, **controls)

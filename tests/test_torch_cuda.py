@@ -5,22 +5,35 @@ port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-(`--noconftest` because tests/conftest.py configures JAX.) The kernel is
-held to its plain version at f32 atol 2e-5 and bf16 atol/rtol 1e-2; a small
-system on the card is held to the same system on the CPU as chip_smoke.py
-holds the full-width one: durations exact, mels at atol 1e-3.
+(`--noconftest` because tests/conftest.py configures JAX.) The attention
+kernel is held to its plain version at f32 atol 2e-5 and bf16 atol/rtol
+1e-2; a small system on the card is held to the same system on the CPU as
+chip_smoke.py holds the full-width one: durations exact, mels at atol 1e-3.
+The MRF stage kernel is held to its plain version at the four HiFiGAN V1
+stage shapes with a ragged T (f32: mean |d| < 1e-5, max < 5e-3, the bars of
+tests/test_hifigan_fused.py; bf16 compute: see STAGE_BF16_*), and a V1
+generator on the card to the same one on the CPU at the f32 generator bars.
 """
 import numpy as np
 import pytest
 import torch
 
 from fscl_tpu_torch.core import config as C
+from fscl_tpu_torch.models.hifigan import HiFiGANGenerator, ResBlock1
 from fscl_tpu_torch.ops import attention as tattn
+from fscl_tpu_torch.ops import mrf_stage as tmrf
 from fscl_tpu_torch.systems.baseline import BaselineSystem
 
 F32_ATOL = 2e-5
 BF16_TOL = 1e-2
 CARD_VS_CPU_ATOL = 1e-3
+STAGE_F32_MEAN, STAGE_F32_MAX = 1e-5, 5e-3
+# bf16 compute: both versions round the same operands, but an f32 sum taken
+# in another order can round an intermediate to the neighbouring bf16 value
+# (2^-8 relative), which the next convs carry; bars relative to max |plain|,
+# as tests/test_torch_hifigan.py holds the plain version to the TPU kernel.
+STAGE_BF16_MEAN, STAGE_BF16_MAX = 1e-4, 1e-2
+GEN_MEAN, GEN_MAX = 1e-4, 2e-2
 
 
 @pytest.fixture
@@ -84,3 +97,68 @@ def test_cuda_system_matches_cpu(cuda_device):
     torch.testing.assert_close(got.mel_len.cpu(), want.mel_len, rtol=0, atol=0)
     torch.testing.assert_close(got.postnet_mel.cpu(), want.postnet_mel,
                                atol=CARD_VS_CPU_ATOL, rtol=0)
+
+
+def _stage(C, post, seed=0):
+    torch.manual_seed(seed)
+    rbs = [ResBlock1(C, k, (1, 3, 5)) for k in (3, 7, 11)]
+    conv_post = torch.nn.Conv1d(C, 1, 7, padding=3) if post else None
+    return rbs, conv_post
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,T,post", [(256, 517, False), (128, 1031, False),
+                                      (64, 2053, False), (32, 4099, True)])
+def test_mrf_stage_kernel_matches_plain_version(cuda_device, compute_dtype, C, T, post):
+    rbs, conv_post = _stage(C, post)
+    for m in rbs + ([conv_post] if post else []):
+        m.to(cuda_device)
+    rng = np.random.default_rng(C)
+    x = torch.from_numpy(rng.normal(size=(2, C, T)).astype(np.float32)).to(cuda_device)
+    want = tmrf.mrf_stage_reference(x, rbs, conv_post, compute_dtype)
+    before = tmrf.LAUNCHES
+    got = tmrf.mrf_stage(x, rbs, conv_post, compute_dtype)
+    torch.cuda.synchronize()
+    assert tmrf.LAUNCHES == before + 1
+    assert got.shape == want.shape == ((2, T) if post else (2, C, T))
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    if compute_dtype == torch.float32:
+        assert err.mean() < STAGE_F32_MEAN and err.max() < STAGE_F32_MAX
+    else:
+        scale = want.abs().max()
+        assert err.mean() < STAGE_BF16_MEAN * scale and err.max() < STAGE_BF16_MAX * scale
+
+
+@pytest.mark.cuda
+def test_mrf_stage_kernel_refuses_what_it_cannot_run(cuda_device):
+    rbs, _ = _stage(32, False)
+    for m in rbs:
+        m.to(cuda_device)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tmrf.mrf_stage(torch.zeros(1, 48, 10, device=cuda_device), rbs)
+    with pytest.raises(ValueError, match="float32"):
+        tmrf.mrf_stage(torch.zeros(1, 32, 10, device=cuda_device, dtype=torch.float64), rbs)
+    with pytest.raises(ValueError, match="post conv"):
+        tmrf.mrf_stage(torch.zeros(1, 32, 10, device=cuda_device), rbs,
+                       torch.nn.Conv1d(32, 1, 5).to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_hifigan_card_matches_cpu(cuda_device):
+    """HiFiGAN V1 (stages at C = 256, 128, 64, 32) on 6 mel frames."""
+    torch.manual_seed(1)
+    cpu = HiFiGANGenerator().eval()
+    card = HiFiGANGenerator().to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    mel = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 6, 80)).astype(np.float32))
+    before = tmrf.LAUNCHES
+    with torch.inference_mode():
+        got = card(mel.to(cuda_device)).cpu()
+        want = cpu(mel)
+    assert tmrf.LAUNCHES == before + 4
+    assert got.shape == want.shape == (2, 6 * 256)
+    err = (got - want).abs()
+    assert err.mean() < GEN_MEAN and err.max() < GEN_MAX

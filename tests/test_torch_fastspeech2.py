@@ -196,16 +196,23 @@ def test_synthesize_bucketed_same_bucket(pair):
 
 
 def test_bucketed_pass_one_uses_d_control(pair):
-    """The port predicts pass-1 lengths with the caller's d_control, so the
-    bucket covers the lengths pass 2 produces (fscl_tpu's pass 1 uses 1.0)."""
-    _, _, tsys = pair
+    """Pass 1 predicts lengths at d_control 1 in both packages, whatever
+    d_control pass 2 gets: at d_control 2 the port picks fscl_tpu's bucket
+    and gives its mel_len and mels."""
+    jsys, variables, tsys = pair
     texts, src_lens, spk, lang = _synth_inputs(7)
-    base = tsys.pick_mel_bucket(texts, src_lens, spk, lang, mel_buckets=(16, 32, 64, 128))
-    out = tsys.synthesize_bucketed(texts, src_lens, spk, lang,
-                                   mel_buckets=(16, 32, 64, 128), d_control=2.0)
-    assert out.mel.shape[1] > base
-    full = tsys.synthesize(texts, src_lens, 128, spk, lang, d_control=2.0)
-    np.testing.assert_array_equal(_np(out.mel_len), _np(full.mel_len))
+    buckets = (16, 32, 64, 128)
+    want = jsys.synthesize_bucketed(
+        to_jax(variables["params"]), to_jax(variables["batch_stats"]), jnp.asarray(texts),
+        jnp.asarray(src_lens), jnp.asarray(spk), jnp.asarray(lang),
+        mel_buckets=buckets, d_control=2.0)
+    got = tsys.synthesize_bucketed(texts, src_lens, spk, lang, mel_buckets=buckets,
+                                   d_control=2.0)
+    assert got.mel.shape[1] == want.mel.shape[1] == tsys.pick_mel_bucket(
+        texts, src_lens, spk, lang, mel_buckets=buckets)
+    np.testing.assert_array_equal(_np(got.mel_len), np.asarray(want.mel_len))
+    np.testing.assert_allclose(_np(got.postnet_mel), np.asarray(want.postnet_mel),
+                               atol=SYSTEM_ATOL)
 
 
 def test_serve_matches_jax_bucketed_synthesis(pair):

@@ -59,3 +59,38 @@ def test_serve_asks_for_cuda_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve(["hello"], {})
+
+
+def _no_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is available")
+
+
+def test_vocoder_asks_for_cuda_by_default():
+    _no_card()
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder, build_generator
+    with pytest.raises(RuntimeError, match="cuda"):
+        Vocoder(build_generator("MelGAN"))
+
+
+def test_serve_wav_asks_for_cuda_by_default():
+    _no_card()
+    from fscl_tpu_torch.serve import serve_wav
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_wav(["hello"], {}, {})
+
+
+@pytest.mark.parametrize("entry", ["make_text2wav", "chunked_vocode", "make_streaming_text2wav"])
+def test_audio_entry_points_ask_for_cuda_by_default(entry):
+    _no_card()
+    from fscl_tpu_torch.audio_out import pipeline, streaming
+    from fscl_tpu_torch.models.hifigan import HiFiGANGenerator
+    gen = HiFiGANGenerator(upsample_initial_channel=32)
+    call = {
+        "make_text2wav": lambda: pipeline.make_text2wav(object(), gen, 16),
+        "chunked_vocode": lambda: next(streaming.chunked_vocode(gen, [[[0.0] * 80]])),
+        "make_streaming_text2wav": lambda: streaming.make_streaming_text2wav(object(), gen, 16),
+    }[entry]
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
