@@ -13,7 +13,11 @@ non-zero exit code when it fails:
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
-   timed. The attention kernel at the FFT blocks' shapes; the MRF stage
+   timed. The attention kernel at every L and T bucket the FFT blocks are
+   served at, a few edge lengths and HuBERT-large's head layout, at each key
+   split, held to f32 2e-5 / bf16 1e-2 and the all-invalid sample to the mean
+   of V (timed in phase 8); phases 4-6 fail if the main path launches it at
+   a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
    B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000.
 4. Text -> mel: `serve_batches` through `BaselineSystem.synthesize_bucketed`
@@ -31,6 +35,14 @@ non-zero exit code when it fails:
    vocoder times and launches.
 7. Card vs CPU, vocoder: one mel vocoded on the card and on the CPU with the
    same weights; then `chunked_vocode` on the card against the full vocode.
+8. Attention timing: the kernel at each key split, its plain version and
+   SDPA (with SDPA's own error against the plain version), each in a CUDA
+   graph, at the encoder's and decoder's lengths and HuBERT-large's head
+   layout, beside its route's bound (split TF32 or bf16 tensor cores) and
+   the f32 FMA bound of the earlier design. The kernel also through its
+   public wrapper with CUDA events over back-to-back calls (how the main
+   path calls it, and how earlier versions of this script timed it), and
+   the wrapper's host time per call.
 
 The line before the last holds the kernels' numbers; the last line is
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or `fscl_tpu`.
@@ -38,6 +50,7 @@ The line before the last holds the kernels' numbers; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -48,8 +61,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): float32 on the
-# CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.
+# CUDA cores, bf16 and TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12
 
 F32_ATOL = 2e-5            # the bar tests/test_ops.py holds the TPU kernel to
@@ -122,6 +136,33 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters: int, stream, replays: int = 3) -> float:
+    """Mean device time of fn() over `iters` calls captured in one CUDA graph
+    on `stream` and replayed: the launches run back to back, so a call
+    shorter than the host's per-call cost is not timed as that cost. One
+    stream serves every capture, so that cuBLAS keeps one workspace."""
+    import torch
+    fn()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -170,66 +211,182 @@ def attention_inputs(gen, B, H, L, Dh, dtype):
 
 
 def attention_bound(B, H, L, Dh, dtype_name, itemsize):
+    """Least time for one attention call by the route the kernel takes for
+    the type (f32: split TF32, three TF32 products per f32 product; bf16:
+    the tensor cores), against the bytes moved once; and the f32 FMA bound
+    of the earlier design, for comparison."""
     flops = 4 * B * H * L * L * Dh
     nbytes = 4 * B * H * L * Dh * itemsize + B * L
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    if dtype_name == "float32":
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_fma = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_fma
+
+
+def check_attention(attn, q, k, v, valid, key_split, label):
+    """The kernel at one key split against the plain version; fails on a
+    miss. Returns the max |kernel - plain|."""
+    import torch
+    want = attn.attention_reference(q, k, v, valid)
+    got = (attn.attend(q, k, v, valid) if key_split is None
+           else attn._launch(q, k, v, valid, None, key_split))
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or got.shape != q.shape:
+        fail(f"attention {label}: got {got.dtype} {tuple(got.shape)}")
+    if not torch.isfinite(got.float()).all():
+        fail(f"attention {label}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    if q.dtype == torch.float32:
+        ok = err <= F32_ATOL
+    else:
+        ok = torch.allclose(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    # the sample with no valid key gets uniform weights: the mean of V
+    mean_v = v[-1].float().mean(dim=1, keepdim=True).expand(v.shape[1:])
+    mean_err = float((got[-1].float() - mean_v).abs().max())
+    ok = ok and mean_err <= (F32_ATOL if q.dtype == torch.float32 else BF16_TOL)
+    if not ok:
+        fail(f"attention kernel disagrees with its plain version ({label}: max err {err:.3g}, "
+             f"all-invalid sample vs mean of V {mean_err:.3g})")
+    return err
 
 
 def phase_attention(seed: int):
+    """The kernel against its plain version at every key split: at B = 8 and
+    the FFT blocks' heads, at each L bucket (encoder) and T bucket (decoder)
+    of the served path and at L = 1 and 77; at L = 2048 with Dh = 64; at
+    HuBERT-large's head layout. Returns the max errors and the
+    (B, H, L, Dh, dtype) shapes checked."""
+    import torch
+    from fscl_tpu_torch.core.config import model_config_from_yaml
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.serve import BATCH_SIZE, L_BUCKETS
+    from fscl_tpu_torch.systems.baseline import MEL_BUCKETS
+
+    t = model_config_from_yaml(str(REPO / "config" / "model" / "base.yaml")).transformer
+    if t.encoder_head != t.decoder_head or t.encoder_hidden != t.decoder_hidden:
+        fail("the check below assumes one head layout for the encoder and the decoder")
+    H, Dh = t.encoder_head, t.encoder_hidden // t.encoder_head
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = sorted({1, 77, *L_BUCKETS, *MEL_BUCKETS})
+    shapes = [(BATCH_SIZE, H, L, Dh) for L in lengths]
+    shapes += [(8, 2, 2048, 64), (8, 16, 1000, 64)]
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    checked = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for B, H, L, Dh in shapes:
+            q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
+            auto = attn.choose_key_split(B * H, L, n_sm, dtype)
+            errs = {s: check_attention(attn, q, k, v, valid, None if s == auto else s,
+                                       f"{dname} B={B} H={H} L={L} Dh={Dh} key_split={s}")
+                    for s in attn.KEY_SPLITS}
+            max_err[dname] = max(max_err[dname], *errs.values())
+            checked.add((B, H, L, Dh, dname))
+            log(f"attention {dname:8s} B={B} H={H:2d} L={L:4d} Dh={Dh:3d}: max |kernel - plain| "
+                + ", ".join(f"{e:.3g}" + ("*" if s == auto else "") for s, e in errs.items())
+                + " at key_split 1, 2, 4 (* the wrapper's choice) ok")
+    return max_err, checked
+
+
+@contextlib.contextmanager
+def attention_shapes(attn, checked, what: str):
+    """Record the (B, H, L, Dh, dtype) of every `attention_cuda` call made
+    inside (through `attend`, which looks the wrapper up at call time); on
+    leaving, fail if one of them was not held to the plain version."""
+    launch = attn.attention_cuda
+    seen = set()
+
+    def recording(q, *args):
+        seen.add((*q.shape, str(q.dtype).split(".")[-1]))
+        return launch(q, *args)
+
+    attn.attention_cuda = recording
+    try:
+        yield seen
+    finally:
+        attn.attention_cuda = launch
+    if not seen:
+        fail(f"{what}: no attention launch recorded")
+    if seen - checked:
+        fail(f"{what}: attention launched at {sorted(seen - checked)}, shapes phase 3 did "
+             f"not hold to the plain version")
+    log(f"{what}: attention launched at {sorted(seen)}, all held to the plain version")
+
+
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host time per call of fn(), issued back to back without waiting for
+    the card (100 launches stay inside the launch queue)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / calls
+
+
+def phase_attention_timing(seed: int):
+    """The attention kernel at each key split, the plain version and SDPA,
+    timed at the encoder's and decoder's lengths of the served layout and at
+    HuBERT-large's head layout (16 heads of 64). Runs after the main path:
+    the captures' cuBLAS workspace stays allocated and would count in its
+    peak memory. The kernel is also timed through `attention_cuda` with CUDA
+    events over 50 back-to-back calls, as the script of PR 2 timed the
+    earlier design: a call shorter than the wrapper's host time reads as that
+    time there."""
     import torch
     import torch.nn.functional as F
     from fscl_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shapes = [(8, 2, L, 128) for L in (1, 16, 64, 77, 128, 256, 512, 1000)]
-    shapes.append((8, 2, 2048, 64))
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        for B, H, L, Dh in shapes:
-            q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
-            got = attn.attend(q, k, v, valid)
-            want = attn.attention_reference(q, k, v, valid)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or got.shape != q.shape:
-                fail(f"attention {dname} L={L} Dh={Dh}: got {got.dtype} {tuple(got.shape)}")
-            if not torch.isfinite(got.float()).all():
-                fail(f"attention {dname} L={L} Dh={Dh}: non-finite output")
-            err = float((got.float() - want.float()).abs().max())
-            max_err[dname] = max(max_err[dname], err)
-            if dtype == torch.float32:
-                ok = err <= F32_ATOL
-            else:
-                ok = torch.allclose(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
-            log(f"attention {dname:8s} B={B} H={H} L={L:4d} Dh={Dh:3d}: "
-                f"max |kernel - plain| = {err:.3g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"attention kernel disagrees with its plain version "
-                     f"({dname}, L={L}, Dh={Dh}, max err {err:.3g})")
-
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.Stream()
+    timed = [(8, 2, L, 128) for L in (64, 128, 256, 512, 1000)] + [(8, 16, 1000, 64)]
     timings = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for L in (512, 1000):
-            B, H, Dh = 8, 2, 128
+        for B, H, L, Dh in timed:
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
             mask4 = valid[:, None, None, :]
-            kernel_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), 50)
-            plain_ms = cuda_time_ms(lambda: attn.attention_reference(q, k, v, valid), 20)
-            library_ms = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 50)
-            bound_ms, bound_by = attention_bound(B, H, L, Dh, dname, q.element_size())
+            iters = 100 if L <= 256 else 20
+            split_ms = {s: graph_time_ms(lambda: attn._launch(q, k, v, valid, None, s),
+                                         iters, stream) for s in attn.KEY_SPLITS}
+            key_split = attn.choose_key_split(B * H, L, n_sm, dtype)
+            kernel_ms = split_ms[key_split]
+            events_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), 50)
+            host_us = host_us_per_call(lambda: attn.attention_cuda(q, k, v, valid))
+            plain_ms = graph_time_ms(lambda: attn.attention_reference(q, k, v, valid), 10, stream)
+            library_ms = graph_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), iters, stream)
+            # SDPA's own agreement with the plain version, on the samples
+            # with a valid key (a boolean mask with none gives NaN there)
+            lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask4)
+            lib_err = float((lib[:-1].float() - attn.attention_reference(q, k, v, valid)[:-1]
+                             .float()).abs().max())
+            bound_ms, bound_by, fma_ms = attention_bound(B, H, L, Dh, dname, q.element_size())
             row = {"B": B, "H": H, "L": L, "Dh": Dh, "dtype": dname,
-                   "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "key_split": key_split,
+                   "ms": kernel_ms, "ms_by_key_split": split_ms,
+                   "events_ms": events_ms, "host_us": host_us, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "library_max_abs_err": lib_err,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bound_share": bound_ms / kernel_ms}
+                   "bound_route": "split TF32" if dname == "float32" else "bf16 tensor cores",
+                   "fma_bound_ms": fma_ms, "bound_share": bound_ms / kernel_ms}
             timings.append(row)
-            log(f"attention {dname:8s} B={B} H={H} L={L:4d} Dh={Dh}: kernel {kernel_ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of bound")
-    return max_err, timings
+            log(f"attention {dname:8s} B={B} H={H:2d} L={L:4d} Dh={Dh}: kernel {kernel_ms:.4f} ms "
+                f"(key_split {row['key_split']}; 1/2/4: "
+                + "/".join(f"{split_ms[s]:.4f}" for s in attn.KEY_SPLITS)
+                + f"; events {events_ms:.4f} ms, host {host_us:.1f} us per call)"
+                f", plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max |SDPA - plain| "
+                f"{lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by}, {row['bound_route']}), "
+                f"{100 * bound_ms / kernel_ms:.1f}% of bound; f32 FMA bound {fma_ms:.4f} ms")
+    return timings
 
 
 def build_vocoder(seed: int, device: str):
@@ -370,7 +527,7 @@ def run_lines(system, lines):
     return records
 
 
-def phase_main_path(seed: int, card: str, profile: bool, out_dir):
+def phase_main_path(seed: int, card: str, attn_checked, profile: bool, out_dir):
     import torch
     from fscl_tpu_torch.ops import attention as attn
     from fscl_tpu_torch.serve import L_BUCKETS, pack_batch
@@ -385,7 +542,8 @@ def phase_main_path(seed: int, card: str, profile: bool, out_dir):
     run_lines(system, LINES)            # warm-up: cuDNN plans, allocator
     torch.cuda.reset_peak_memory_stats()
     attn.LAUNCHES = 0
-    records = run_lines(system, LINES)
+    with attention_shapes(attn, attn_checked, "text -> mel"):
+        records = run_lines(system, LINES)
     launches = attn.LAUNCHES
 
     seqs = [text_to_sequence(l, ["english_cleaners"], "en") for l in LINES]
@@ -492,7 +650,8 @@ def run_wav_lines(system, vocoder, lines):
     return records
 
 
-def phase_text_to_wav(system, seed: int, card: str, stage_checked, profile: bool, out_dir):
+def phase_text_to_wav(system, seed: int, card: str, attn_checked, stage_checked,
+                      profile: bool, out_dir):
     import torch
     from fscl_tpu_torch.audio_out.vocoder import Vocoder
     from fscl_tpu_torch.ops import attention as attn
@@ -526,9 +685,10 @@ def phase_text_to_wav(system, seed: int, card: str, stage_checked, profile: bool
     torch.cuda.reset_peak_memory_stats()
     attn.LAUNCHES = 0
     mrf.LAUNCHES = 0
-    t0 = time.perf_counter()
-    wavs = serve_wav_on(system, vocoder, LINES)
-    wall = time.perf_counter() - t0
+    with attention_shapes(attn, attn_checked, "text -> wav"):
+        t0 = time.perf_counter()
+        wavs = serve_wav_on(system, vocoder, LINES)
+        wall = time.perf_counter() - t0
     launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_wavs(wavs, "serve_wav_on")
@@ -647,9 +807,10 @@ def phase_vocoder_card_vs_cpu(vocoder, records):
             "chunked_vs_full_rel": rel}
 
 
-def phase_card_vs_cpu(system, lines):
+def phase_card_vs_cpu(system, lines, attn_checked):
     import torch
     from fscl_tpu_torch.frontend import text_to_sequence
+    from fscl_tpu_torch.ops import attention as attn
     from fscl_tpu_torch.frontend.define import n_symbols
     from fscl_tpu_torch.serve import pack_batch
     from fscl_tpu_torch.systems.baseline import BaselineSystem
@@ -663,8 +824,11 @@ def phase_card_vs_cpu(system, lines):
     cpu.load_state_dict(system.state_dict(), strict=True)
     outs = {}
     for name, s in (("cuda", system), ("cpu", cpu)):
+        shapes = (attention_shapes(attn, attn_checked, "card vs CPU") if name == "cuda"
+                  else contextlib.nullcontext())
         t0 = time.perf_counter()
-        o = s.synthesize_bucketed(texts, src_lens, spk, lang, symbol_id="en")
+        with shapes:
+            o = s.synthesize_bucketed(texts, src_lens, spk, lang, symbol_id="en")
         outs[name] = {k: getattr(o, k).cpu() for k in ("duration_rounded", "mel_len", "postnet_mel")}
         log(f"card vs CPU: {name} run {time.perf_counter() - t0:.2f} s, "
             f"T={o.postnet_mel.shape[1]}")
@@ -699,15 +863,17 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     phase_build()
-    max_err, timings = phase_attention(args.seed)
+    max_err, attn_checked = phase_attention(args.seed)
     stage_err, stage_timings, stage_checked = phase_mrf_stage(args.seed)
-    system, main_path = phase_main_path(args.seed, card, args.profile, args.out)
-    card_vs_cpu = phase_card_vs_cpu(system, LINES[-8:])
-    vocoder, wav_records, text_to_wav = phase_text_to_wav(system, args.seed, card, stage_checked,
-                                                          args.profile, args.out)
+    system, main_path = phase_main_path(args.seed, card, attn_checked, args.profile, args.out)
+    card_vs_cpu = phase_card_vs_cpu(system, LINES[-8:], attn_checked)
+    vocoder, wav_records, text_to_wav = phase_text_to_wav(
+        system, args.seed, card, attn_checked, stage_checked, args.profile, args.out)
     vocoder_check = phase_vocoder_card_vs_cpu(vocoder, wav_records)
+    timings = phase_attention_timing(args.seed)
 
-    main_row = next(r for r in timings if r["dtype"] == "float32" and r["L"] == 1000)
+    main_row = next(r for r in timings
+                    if r["dtype"] == "float32" and r["L"] == 1000 and r["H"] == 2)
     f32_stages = [r for r in stage_timings if r["dtype"] == "float32"]
     kernels = [{
         "name": "attention_fwd",
@@ -721,6 +887,8 @@ def main(argv=None) -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "bound_route": main_row["bound_route"],
+        "fma_bound_ms": main_row["fma_bound_ms"],
         "timed_at": {k: main_row[k] for k in ("B", "H", "L", "Dh", "dtype")},
         "max_abs_err_bf16": max_err["bfloat16"],
         "by_shape": timings,

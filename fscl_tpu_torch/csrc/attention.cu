@@ -1,282 +1,610 @@
-// Masked self-attention forward for Hopper (sm_90a).
+// Masked self-attention forward for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel fscl_tpu/ops/attention.py:_attn_kernel (launched by
 // pallas_attention). Per (batch, head): scores = Q K^T / temperature in f32,
 // keys with key_valid == 0 filled with the finite -1e9 (so a row with no
 // valid key gets uniform weights, the mean of V, never NaN), a row softmax,
-// then weights . V in f32, cast to the input type on store.
+// then weights . V accumulated in f32, cast to the input type on store.
 //
-// What bounds it on the card: the work is 4 * L^2 * Dh operations per
-// (batch, head) against 4 * L * Dh elements moved, about L operations per
-// element, so at the lengths this model serves (L >= 128) it is bound by
-// operations, not bytes. The f32 path must stay within 2e-5 of the plain
-// version, which rules out TF32 tensor cores; both input types therefore run
-// every product on the f32 FMA units (67 TFLOP/s on an H100 SXM).
+// What bounds it on the card: 4 * L^2 * Dh operations per (batch, head)
+// against 4 * L * Dh elements moved, so at the lengths this model serves
+// (L >= 128) operations bound it, by route:
+// - bf16: bf16 x bf16 -> f32 products on the tensor cores (989 TFLOP/s).
+//   The unnormalised weights P are rounded to bf16 to be the A operand of
+//   P V, as xla_attention (fscl_tpu/ops/attention.py:40) rounds its weights
+//   to V's type; that is the path the JAX package takes in bf16 (HuBERT's
+//   64-wide heads never reach the Pallas kernel). _attn_kernel and the plain
+//   version keep the weights in f32, so in bf16 this kernel differs from them
+//   by up to a few bf16 ulps of the output, more than the f32-FMA design of
+//   this file did; the bf16 bar (atol = rtol = 1e-2) holds it.
+// - f32, by split TF32 ("3xTF32"): one TF32 product keeps 11 significant bits,
+//   too few for the 2e-5 bar. Each f32 operand x is split into big = tf32(x)
+//   and small = tf32(x - big), both rounded to nearest with ties away from
+//   zero (the rounding of cvt.rna.tf32.f32, done here with two integer
+//   operations, which run faster than the conversion), and each product
+//   is taken as small*big + big*small + big*big on the TF32 tensor cores,
+//   accumulated in f32; the dropped small*small term is below 2^-22
+//   relative. Three TF32 products per f32 product bound it at
+//   3 * 4 * L^2 * Dh over 495 TFLOP/s, 2.5x below the f32 FMA units.
 //
-// What the design does about it: one block of 256 threads per (64-query
-// tile, batch * head). The Q tile stays in shared memory; K and V stream
-// through shared memory in 64-key tiles, converted to f32 once on load. Each
-// thread holds a 4 x 4 register tile of scores and a 4 x (Dh / 16) tile of
-// the output, so every shared-memory load feeds 8 (scores) or 4 (P.V) FMAs.
-// An online softmax (running max and sum per row, in f32) means the L x L
-// score matrix never exists in memory. K rows are padded by 4 floats so the
-// 16 different rows a half-warp reads land in different banks. The P tile
-// reuses K's buffer, which keeps shared memory at 98 KB for Dh = 128, so two
-// blocks fit on one SM.
+// What the design does (the FlashAttention-2 layout, on mma.sync):
+// - A block of warps owns a tile of query rows; each warp owns 16 of them and
+//   keeps its Q fragments in registers for the whole key loop. S = Q K^T and
+//   O += P V accumulate in f32 registers with mma.sync (m16n8k16 bf16,
+//   m16n8k8 tf32). The online softmax runs on the S accumulator in registers
+//   (row max and sum across the 4 lanes of a quad), and P goes from the S
+//   accumulator into the A operand of P V without touching shared memory.
+//   mma.sync rather than wgmma: its fragments belong to one warp, so all of
+//   this needs no warpgroup synchronisation or shared-memory descriptors;
+//   wgmma, the road to the full tensor-core rate, is left for later.
+// - K and V stream through a ring of STAGES shared-memory stages filled by
+//   cp.async: the next tiles land while this one is computed, and one block
+//   barrier per tile is the ring's only handshake. Shared-memory rows are
+//   padded so that every fragment load is free of bank conflicts.
+// - f32: splitting costs integer and float instructions, not tensor-core
+//   time, so each K and V element is split once per block, not once per warp:
+//   the thread that copied a chunk splits it in place once it has landed
+//   (K into big and small tiles, V into (big, small) pairs), before the
+//   tile's barrier. A block has 8 warps (128 query rows) so that each split
+//   feeds 8 warps; the ring then fills one block per SM. The head dimension
+//   is permuted within each 16 (the same way in Q and K, so the dot product is
+//   unchanged) so that a lane's A or B elements of two k-steps are 4 adjacent
+//   floats, one 16-byte load; the keys are permuted within each 8 the same
+//   way in P and V, so that the tf32 S accumulator is the A operand of P V as
+//   it stands.
+// - bf16: 4 warps (64 query rows), two blocks per SM; ldmatrix for K,
+//   ldmatrix.trans for V, and the standard accumulator-to-A repacking.
+// - Grid: one block per (query tile, batch * head). Where full query tiles
+//   give too few blocks for the card (short L), the block's warps also split
+//   the key loop (key_split 2 or 4: each warp a slice of every key tile, the
+//   block 1/2 or 1/4 as many query rows) and merge their softmax states
+//   through shared memory at the end.
 //
-// Keys past L (the ragged edge of the last tile) are excluded outright
-// (weight 0); keys inside L that are masked take the -1e9 fill, exactly as
-// the reference does. Query rows past L are computed on zeros and not stored.
+// Keys past L (the ragged edge of the last tile) get weight 0: score -inf and
+// zero-filled K and V rows. Keys inside L that are masked take the -1e9 fill,
+// exactly as the reference does. Scores are held in log2 units (scaled by
+// log2(e) / temperature) for exp2. Query rows past L are computed on zeros and
+// not stored.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int BLOCK_M = 64;     // queries per block
-constexpr int BLOCK_N = 64;     // keys per tile
-constexpr int THREADS = 256;    // 16 x 16 threads
-constexpr float MASK_FILL = -1e9f;
+constexpr int STAGES = 3;            // K/V ring depth
+constexpr int MAX_LEN = 2048;        // the key_valid bytes of one sample
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float MASK_FILL_LOG2 = -1e9f * LOG2E;
 
-template <int DH>
-struct Smem {
-  static constexpr int LDK = DH + 4;          // padded row of Q and K (floats)
-  static constexpr int LDV = DH;
-  static constexpr int LDP = BLOCK_N + 4;
-  static constexpr int Q_FLOATS = BLOCK_M * LDK;
-  static constexpr int K_FLOATS = BLOCK_N * LDK;
-  static constexpr int V_FLOATS = BLOCK_N * LDV;
-  static constexpr size_t BYTES = sizeof(float) * (Q_FLOATS + K_FLOATS + V_FLOATS);
-  static_assert(BLOCK_M * LDP <= K_FLOATS, "P tile must fit in the K buffer");
+template <typename T, int DH, int SPLIT>
+struct Cfg {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int HEAD_DIM = DH;
+  static constexpr int WARPS = F32 ? 8 : 4;         // ops/attention.py QUERY_ROWS = 16 * WARPS
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = F32 ? 1 : 2;      // per SM
+  static constexpr int WM = WARPS / SPLIT;            // warps along the queries
+  static constexpr int BLOCK_M = 16 * WM;             // query rows per block
+  static constexpr int STAGE_KEYS = F32 ? 32 : 64;    // keys per ring stage
+  static constexpr int BN = STAGE_KEYS / SPLIT;       // keys per warp per stage
+  // Row pitches (elements). f32 K (big and small tiles): 16-byte loads by
+  // lanes (g, t) at g * LDK + 4t, conflict-free for LDK = 16 mod 32 words.
+  // f32 V, (big, small) pairs: 8-byte loads at rows 2t (+1), pair g,
+  // conflict-free for a pitch of 2 mod 8 pairs. bf16: the 8 rows of an
+  // ldmatrix 8x8 tile 16 bytes apart modulo 128.
+  static constexpr int LDK = F32 ? DH + 16 : DH + 8;
+  static constexpr int LDV = F32 ? 2 * (DH + 2) : DH + 8;
+  static constexpr int K_ELEMS = STAGE_KEYS * LDK;
+  static constexpr int V_OFFSET = (F32 ? 2 : 1) * K_ELEMS;   // after K (and its small parts)
+  static constexpr int STAGE_ELEMS = V_OFFSET + STAGE_KEYS * LDV;
+  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(T);
+  static constexpr int CHUNKS = DH * (int)sizeof(T) / 16;   // 16-byte chunks per row
+  static constexpr int COPIES = STAGE_KEYS * CHUNKS / THREADS;   // per thread, K and V each
+  // the key-split merge: o fragments, m and l of each non-leading warp
+  static constexpr int MERGE_FLOATS = DH / 2 + 4;
+  static_assert(BN % (F32 ? 8 : 16) == 0, "a warp's key slice is whole k-steps");
+  static_assert(STAGE_KEYS * CHUNKS % THREADS == 0, "whole copies per thread");
+  static_assert((K_ELEMS * (int)sizeof(T)) % 16 == 0 && (STAGE_ELEMS * (int)sizeof(T)) % 16 == 0,
+                "ring stages stay 16-byte aligned");
+  static_assert(WARPS * 32 * MERGE_FLOATS * 4 <= RING_BYTES, "merge fits in the ring");
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copy a (rows, DH) tile from global memory into f32 shared memory with row
-// stride ld; rows at or past `valid_rows` are zero.
-template <int DH>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, float* dst,
-                                          int valid_rows, int ld) {
-  constexpr int PER_ROW = DH / 4;
-  for (int i = threadIdx.x; i < BLOCK_N * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid_rows) x = ld4(src + (size_t)r * DH + c);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = x;
-  }
+// 16-byte copy global -> shared; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// f32 -> TF32 bits, to nearest with ties away from zero: cvt.rna.tf32.f32's
+// result for finite x (the carry of the add rounds the magnitude up).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32, |small| <= 2^-11 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b for f32 a, b given as their TF32 splits; small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big[0], b_big[1]);
+  mma_tf32(d, a_big, b_small[0], b_small[1]);
+  mma_tf32(d, a_big, b_big[0], b_big[1]);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A warp's 16 query rows as mma A fragments, kept for the whole key loop.
+// f32 (raw, split per use): for the k-step pair j, lane (g, t) holds
+// Q[g][16j + 4t .. +3] in a[j] and Q[g + 8][...] in b[j].
+// bf16: the m16n8k16 A fragment of each k-step.
+template <typename T, int DH> struct QFrag;
+
 template <int DH>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src, float* dst,
-                                          int valid_rows, int ld) {
-  constexpr int PER_ROW = DH / 8;
-  for (int i = threadIdx.x; i < BLOCK_N * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < valid_rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * DH + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+struct QFrag<float, DH> {
+  float a[DH / 16][4], b[DH / 16][4];
+  __device__ __forceinline__ void load(const float* q, int row, int L, int g, int t) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float2 x = __bfloat1622float2(h[t]);
-        f[2 * t] = x.x;
-        f[2 * t + 1] = x.y;
-      }
+    for (int j = 0; j < DH / 16; ++j) {
+      const float4 x = row + g < L ? *reinterpret_cast<const float4*>(q + (size_t)(row + g) * DH + 16 * j + 4 * t)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 y = row + g + 8 < L
+          ? *reinterpret_cast<const float4*>(q + (size_t)(row + g + 8) * DH + 16 * j + 4 * t)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[j][0] = x.x; a[j][1] = x.y; a[j][2] = x.z; a[j][3] = x.w;
+      b[j][0] = y.x; b[j][1] = y.y; b[j][2] = y.z; b[j][3] = y.w;
     }
-    *reinterpret_cast<float4*>(dst + r * ld + c) = make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(dst + r * ld + c + 4) = make_float4(f[4], f[5], f[6], f[7]);
+  }
+};
+
+template <int DH>
+struct QFrag<__nv_bfloat16, DH> {
+  uint32_t a[DH / 16][4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* q, int row, int L, int g, int t) {
+    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(q + (size_t)(row + g) * DH);
+    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(q + (size_t)(row + g + 8) * DH);
+    const bool ok0 = row + g < L, ok1 = row + g + 8 < L;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      a[ks][0] = ok0 ? r0[8 * ks + t] : 0u;
+      a[ks][1] = ok1 ? r1[8 * ks + t] : 0u;
+      a[ks][2] = ok0 ? r0[8 * ks + t + 4] : 0u;
+      a[ks][3] = ok1 ? r1[8 * ks + t + 4] : 0u;
+    }
+  }
+};
+
+// Where the thread's u-th 16-byte copy of a stage goes: key row r, element c.
+template <class C>
+__device__ __forceinline__ void copy_slot(int u, int& r, int& c) {
+  const int i = threadIdx.x + u * C::THREADS;
+  r = i / C::CHUNKS;
+  c = (i % C::CHUNKS) * (16 / (C::F32 ? 4 : 2));
+}
+
+// Start the copies of key tile `tile` into the stage at `st`. f32 V lands at
+// 2c in its pair row, where its (big, small) pairs will go.
+template <class C, typename T>
+__device__ __forceinline__ void load_stage(T* st, const T* kb, const T* vb, int tile, int L) {
+  const int n0 = tile * C::STAGE_KEYS;
+#pragma unroll
+  for (int u = 0; u < C::COPIES; ++u) {
+    int r, c;
+    copy_slot<C>(u, r, c);
+    const bool in = n0 + r < L;
+    const size_t off = in ? (size_t)(n0 + r) * C::HEAD_DIM + c : 0;
+    cp_async16(st + r * C::LDK + c, kb + off, in);
+    cp_async16(st + C::V_OFFSET + r * C::LDV + (C::F32 ? 2 * c : c), vb + off, in);
   }
 }
 
-__device__ __forceinline__ void store4(float* dst, float4 x) {
-  *reinterpret_cast<float4*>(dst) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
-  __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(x.x, x.y), __floats2bfloat162_rn(x.z, x.w)};
-  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(pair);
-}
-
-// Reductions over the 16 lanes that share a row (lanes 0-15 or 16-31).
-__device__ __forceinline__ float row_max(float x) {
+// f32: split this thread's landed copies in place. K: big over the raw tile,
+// small into the tile after it. V: 4 raw floats at 2c become 4 (big, small)
+// pairs at 2c .. 2c + 7 (no other copy lands there).
+template <class C>
+__device__ __forceinline__ void split_stage(float* st) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
-  return x;
+  for (int u = 0; u < C::COPIES; ++u) {
+    int r, c;
+    copy_slot<C>(u, r, c);
+    float* kp = st + r * C::LDK + c;
+    const float4 x = *reinterpret_cast<const float4*>(kp);
+    uint4 big, small;
+    split_tf32(x.x, big.x, small.x);
+    split_tf32(x.y, big.y, small.y);
+    split_tf32(x.z, big.z, small.z);
+    split_tf32(x.w, big.w, small.w);
+    *reinterpret_cast<uint4*>(kp) = big;
+    *reinterpret_cast<uint4*>(kp + C::K_ELEMS) = small;
+    float* vp = st + C::V_OFFSET + r * C::LDV + 2 * c;
+    const float4 y = *reinterpret_cast<const float4*>(vp);
+    uint4 p0, p1;
+    split_tf32(y.x, p0.x, p0.y);
+    split_tf32(y.y, p0.z, p0.w);
+    split_tf32(y.z, p1.x, p1.y);
+    split_tf32(y.w, p1.z, p1.w);
+    *reinterpret_cast<uint4*>(vp) = p0;
+    *reinterpret_cast<uint4*>(vp + 4) = p1;
+  }
 }
 
-__device__ __forceinline__ float row_sum(float x) {
+// s[nt] += Q K^T for the warp's key slice: big K tile at kt, small at kt + K_ELEMS.
+template <class C, int DH>
+__device__ __forceinline__ void scores(float (&s)[C::BN / 8][4], const QFrag<float, DH>& q,
+                                       const float* kt, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const float* k0 = kt + g * C::LDK + 4 * t;
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
+  for (int j = 0; j < DH / 16; ++j) {
+    // k-step 2j: A = (Q[g][d0], Q[g+8][d0], Q[g][d1], Q[g+8][d1]) with d0, d1
+    // the first two of this lane's four columns; k-step 2j + 1: the last two
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      split_tf32(q.a[j][2 * h], ab[h][0], as[h][0]);
+      split_tf32(q.b[j][2 * h], ab[h][1], as[h][1]);
+      split_tf32(q.a[j][2 * h + 1], ab[h][2], as[h][2]);
+      split_tf32(q.b[j][2 * h + 1], ab[h][3], as[h][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < C::BN / 8; ++nt) {
+      const uint4 kb = *reinterpret_cast<const uint4*>(k0 + nt * 8 * C::LDK + 16 * j);
+      const uint4 ks = *reinterpret_cast<const uint4*>(k0 + C::K_ELEMS + nt * 8 * C::LDK + 16 * j);
+      const uint32_t bb0[2] = {kb.x, kb.y}, bs0[2] = {ks.x, ks.y};
+      const uint32_t bb1[2] = {kb.z, kb.w}, bs1[2] = {ks.z, ks.w};
+      mma_3xtf32(s[nt], ab[0], as[0], bb0, bs0);
+      mma_3xtf32(s[nt], ab[1], as[1], bb1, bs1);
+    }
+  }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS, 2)
+template <class C, int DH>
+__device__ __forceinline__ void scores(float (&s)[C::BN / 8][4], const QFrag<__nv_bfloat16, DH>& q,
+                                       const __nv_bfloat16* kt, int lane) {
+  // ldmatrix x4 over 8 keys x 32 columns: B of k-steps 2j and 2j + 1
+  const __nv_bfloat16* k0 = kt + (lane & 7) * C::LDK + 8 * (lane >> 3);
+#pragma unroll
+  for (int j = 0; j < DH / 32; ++j)
+#pragma unroll
+    for (int nt = 0; nt < C::BN / 8; ++nt) {
+      uint32_t b[4];
+      ldmatrix_x4(b, k0 + nt * 8 * C::LDK + 32 * j);
+      mma_bf16(s[nt], q.a[2 * j], b[0], b[1]);
+      mma_bf16(s[nt], q.a[2 * j + 1], b[2], b[3]);
+    }
+}
+
+// o += P V for the warp's key slice; p holds the S accumulator after exp2.
+template <class C, int DH>
+__device__ __forceinline__ void weighted_values(float (&o)[DH / 8][4], const float (&p)[C::BN / 8][4],
+                                                const float* vt, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < C::BN / 8; ++kk) {
+    // keys 8kk + 2t and 8kk + 2t + 1 play k = t and t + 4: the accumulator
+    // (c0, c1 | c2, c3) is A = (c0, c2, c1, c3)
+    uint32_t ab[4], as[4];
+    split_tf32(p[kk][0], ab[0], as[0]);
+    split_tf32(p[kk][2], ab[1], as[1]);
+    split_tf32(p[kk][1], ab[2], as[2]);
+    split_tf32(p[kk][3], ab[3], as[3]);
+    const float* v0 = vt + (8 * kk + 2 * t) * C::LDV + 2 * g;
+#pragma unroll
+    for (int dn = 0; dn < DH / 8; ++dn) {
+      const uint2 x0 = *reinterpret_cast<const uint2*>(v0 + 16 * dn);           // key 2t
+      const uint2 x1 = *reinterpret_cast<const uint2*>(v0 + C::LDV + 16 * dn);  // key 2t + 1
+      const uint32_t bb[2] = {x0.x, x1.x}, bs[2] = {x0.y, x1.y};
+      mma_3xtf32(o[dn], ab, as, bb, bs);
+    }
+  }
+}
+
+template <class C, int DH>
+__device__ __forceinline__ void weighted_values(float (&o)[DH / 8][4], const float (&p)[C::BN / 8][4],
+                                                const __nv_bfloat16* vt, int lane) {
+  // ldmatrix.trans x4 over 16 keys x 16 columns: B of two 8-column n-tiles
+  const __nv_bfloat16* v0 = vt + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LDV + 8 * (lane >> 4);
+#pragma unroll
+  for (int kk = 0; kk < C::BN / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, v0 + 16 * kk * C::LDV + 16 * dp);
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <typename T, int DH, int SPLIT>
+__global__ void __launch_bounds__(Cfg<T, DH, SPLIT>::THREADS, Cfg<T, DH, SPLIT>::MIN_BLOCKS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const uint8_t* __restrict__ key_valid, T* __restrict__ out,
-                     int H, int L, float temperature) {
-  using S = Smem<DH>;
-  constexpr int CG = DH / 64;   // float4 column groups of the output per thread
+                     int H, int L, float scale_log2) {
+  using C = Cfg<T, DH, SPLIT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  uint8_t* valid_s = smem + C::RING_BYTES;
 
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + S::Q_FLOATS;
-  float* vs = ks + S::K_FLOATS;
-  float* ps = ks;               // P reuses K's buffer once the scores are done
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / SPLIT, wn = warp % SPLIT;
+  const int g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)blockIdx.y * L * DH;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const int row0 = blockIdx.x * C::BLOCK_M + 16 * wm;     // this warp's first query row
+  const int n_tiles = (L + C::STAGE_KEYS - 1) / C::STAGE_KEYS;
 
-  const int bh = blockIdx.y;
-  const int m0 = blockIdx.x * BLOCK_M;
-  const size_t base = (size_t)bh * L * DH;
-  const uint8_t* valid = key_valid + (size_t)(bh / H) * L;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_tile<DH>(q + base + (size_t)m0 * DH, qs, min(BLOCK_M, L - m0), S::LDK);
-
-  float m_run[4], l_run[4], acc[4][CG * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CG * 4; ++c) acc[i][c] = 0.f;
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_stage<C>(ring + st * C::STAGE_ELEMS, kb, vb, st, L);
+    cp_async_commit();
   }
+  const uint8_t* kv = key_valid + (size_t)(blockIdx.y / H) * L;
+  for (int i = threadIdx.x; i < L; i += C::THREADS) valid_s[i] = kv[i];
 
-  for (int n0 = 0; n0 < L; n0 += BLOCK_N) {
-    const int n_rows = min(BLOCK_N, L - n0);
-    load_tile<DH>(k + base + (size_t)n0 * DH, ks, n_rows, S::LDK);
-    load_tile<DH>(v + base + (size_t)n0 * DH, vs, n_rows, S::LDV);
-    __syncthreads();
+  QFrag<T, DH> qf;
+  qf.load(q + base, row0, L, g, t);
 
-    // scores for rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
+  float o[DH / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int dn = 0; dn < DH / 8; ++dn)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ld4(qs + (ty + 16 * i) * S::LDK + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ld4(ks + (tx + 16 * j) * S::LDK + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};   // rows g, g + 8
+
+  for (int it = 0; it < n_tiles; ++it) {
+    T* st = ring + (it % STAGES) * C::STAGE_ELEMS;
+    cp_async_wait<STAGES - 2>();   // this thread's copies of tile `it` have landed
+    if constexpr (C::F32) split_stage<C>(st);
+    __syncthreads();               // everyone's, split; and everyone is done with tile it - 1
+    {
+      const int next = it + STAGES - 1;   // refill the stage tile it - 1 used
+      if (next < n_tiles) load_stage<C>(ring + (next % STAGES) * C::STAGE_ELEMS, kb, vb, next, L);
+      cp_async_commit();
     }
+    const int key0 = it * C::STAGE_KEYS + wn * C::BN;   // first key of this warp's slice
+    if (key0 >= L) continue;                            // the whole slice lies past L
 
+    float s[C::BN / 8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = n0 + tx + 16 * j;
-      const bool in_range = key < L;
-      const bool ok = in_range && valid[key] != 0;
+    for (int nt = 0; nt < C::BN / 8; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[i][j] = !in_range ? -INFINITY : (ok ? s[i][j] / temperature : MASK_FILL);
-    }
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    scores<C, DH>(s, qf, st + wn * C::BN * C::LDK, lane);
 
-    // online softmax; key n0 (< L) is in every tile, so each row max is finite
-    float alpha[4];
+    // mask and scale; accumulator element e is row g + 8 (e / 2), key 2t + e % 2
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m_run[i], row_max(mt));
-      alpha[i] = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      float rs = 0.f;
+    for (int nt = 0; nt < C::BN / 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l_run[i] = l_run[i] * alpha[i] + row_sum(rs);
-    }
-
-    __syncthreads();            // every thread is done reading K
+      for (int c = 0; c < 2; ++c) {
+        const int key = key0 + 8 * nt + 2 * t + c;
+        const bool in = key < L;
+        const bool ok = in && valid_s[key] != 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * S::LDP + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CG * 4; ++c) acc[i][c] *= alpha[i];
-    for (int kk = 0; kk < n_rows; ++kk) {   // keys past n_rows carry weight 0
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * S::LDP + kk];
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        const float4 x = ld4(vs + kk * S::LDV + g * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][g * 4 + 0] = fmaf(p[i], x.x, acc[i][g * 4 + 0]);
-          acc[i][g * 4 + 1] = fmaf(p[i], x.y, acc[i][g * 4 + 1]);
-          acc[i][g * 4 + 2] = fmaf(p[i], x.z, acc[i][g * 4 + 2]);
-          acc[i][g * 4 + 3] = fmaf(p[i], x.w, acc[i][g * 4 + 3]);
+        for (int r = 0; r < 2; ++r) {
+          float& x = s[nt][2 * r + c];
+          x = ok ? x * scale_log2 : (in ? MASK_FILL_LOG2 : -INFINITY);
+          mx[r] = fmaxf(mx[r], x);
         }
       }
+    // online softmax; key0 < L is in the slice, so each row max is finite
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
     }
-    __syncthreads();            // K, V and P are overwritten by the next tile
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < C::BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - m_run[e / 2]);
+        rs[e / 2] += s[nt][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];   // lane-partial sums
+#pragma unroll
+    for (int dn = 0; dn < DH / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dn][e] *= alpha[e / 2];
+
+    weighted_values<C, DH>(o, s, st + C::V_OFFSET + wn * C::BN * C::LDV, lane);
   }
 
+  if constexpr (SPLIT > 1) {
+    // merge the key slices: warps wn > 0 hand (o, m, l) to warp wn = 0 of
+    // their query rows through the (now idle) ring, in fragment order
+    cp_async_wait<0>();
+    __syncthreads();
+    float* merge = reinterpret_cast<float*>(smem);
+    auto slot = [&](int w) { return merge + (wm * (SPLIT - 1) + w - 1) * 32 * C::MERGE_FLOATS + lane; };
+    if (wn > 0) {
+      float* dst = slot(wn);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
+      for (int dn = 0; dn < DH / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[(4 * dn + e) * 32] = o[dn][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dst[(DH / 2 + r) * 32] = m_run[r];
+        dst[(DH / 2 + 2 + r) * 32] = l_run[r];
+      }
+    }
+    __syncthreads();
+    if (wn > 0) return;
+#pragma unroll
+    for (int w = 1; w < SPLIT; ++w) {
+      const float* src = slot(w);
+      float a_own[2], a_w[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // m_run[r] is finite (warp 0's slice of tile 0 holds key 0); a warp
+        // whose slices all lay past L left m = -inf, l = 0, o = 0
+        const float m_w = src[(DH / 2 + r) * 32];
+        const float m_new = fmaxf(m_run[r], m_w);
+        a_own[r] = exp2f(m_run[r] - m_new);
+        a_w[r] = exp2f(m_w - m_new);
+        l_run[r] = l_run[r] * a_own[r] + src[(DH / 2 + 2 + r) * 32] * a_w[r];
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[dn][e] = o[dn][e] * a_own[e / 2] + src[(4 * dn + e) * 32] * a_w[e / 2];
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l_run[r]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
     if (row >= L) continue;
-    const float inv = 1.f / l_run[i];
+    T* dst = out + base + (size_t)row * DH + 2 * t;
 #pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      const float4 x = make_float4(acc[i][g * 4] * inv, acc[i][g * 4 + 1] * inv,
-                                   acc[i][g * 4 + 2] * inv, acc[i][g * 4 + 3] * inv);
-      store4(out + base + (size_t)row * DH + g * 64 + tx * 4, x);
-    }
+    for (int dn = 0; dn < DH / 8; ++dn)
+      store2(dst + 8 * dn, o[dn][2 * r] * inv[r], o[dn][2 * r + 1] * inv[r]);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int SPLIT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid, void* out,
-                   int B, int H, int L, float temperature, cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<T, DH>;
-  const size_t smem = Smem<DH>::BYTES;   // above the 48 KB default for both head dims
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   int B, int H, int L, float scale_log2, cudaStream_t stream) {
+  using C = Cfg<T, DH, SPLIT>;
+  auto kernel = attention_fwd_kernel<T, DH, SPLIT>;
+  // The shared-memory allowance (above the 48 KB default) is set once per
+  // instance and device, for the longest L.
+  constexpr int MAX_DEVICES = 64;
+  static bool allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::RING_BYTES + MAX_LEN);
     if (err != cudaSuccess) return err;
-    smem_raised = true;
+    if (dev < MAX_DEVICES) allowed[dev] = true;
   }
-  const dim3 grid((L + BLOCK_M - 1) / BLOCK_M, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  const size_t smem = C::RING_BYTES + ((L + 15) & ~15);
+  const dim3 grid((L + C::BLOCK_M - 1) / C::BLOCK_M, B * H);
+  kernel<<<grid, C::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), H, L, temperature);
+      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), H, L, scale_log2);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const void* key_valid,
+                         void* out, int B, int H, int L, float scale_log2, int key_split,
+                         cudaStream_t stream) {
+  switch (key_split) {
+    case 1: return launch<T, DH, 1>(q, k, v, key_valid, out, B, H, L, scale_log2, stream);
+    case 2: return launch<T, DH, 2>(q, k, v, key_valid, out, B, H, L, scale_log2, stream);
+    case 4: return launch<T, DH, 4>(q, k, v, key_valid, out, B, H, L, scale_log2, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q, k, v, out: contiguous (B, H, L, Dh); key_valid: contiguous (B, L) bytes.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. key_split: warps of a block that share
+// the key loop (1, 2 or 4); a block owns 128 (f32) or 64 (bf16) query rows
+// divided by key_split. Returns a cudaError_t (0 on success).
 extern "C" int fscl_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* key_valid, void* out, int B, int H, int L,
-                                  int Dh, int dtype, float temperature, void* stream) {
+                                  int Dh, int dtype, float temperature, int key_split,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && Dh == 128) return (int)launch<float, 128>(q, k, v, key_valid, out, B, H, L, temperature, s);
-  if (dtype == 0 && Dh == 64) return (int)launch<float, 64>(q, k, v, key_valid, out, B, H, L, temperature, s);
-  if (dtype == 1 && Dh == 128) return (int)launch<__nv_bfloat16, 128>(q, k, v, key_valid, out, B, H, L, temperature, s);
-  if (dtype == 1 && Dh == 64) return (int)launch<__nv_bfloat16, 64>(q, k, v, key_valid, out, B, H, L, temperature, s);
+  if (L < 1 || L > MAX_LEN || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const float scale_log2 = (float)(1.4426950408889634 / (double)temperature);
+  if (dtype == 0 && Dh == 128)
+    return (int)launch_split<float, 128>(q, k, v, key_valid, out, B, H, L, scale_log2, key_split, s);
+  if (dtype == 0 && Dh == 64)
+    return (int)launch_split<float, 64>(q, k, v, key_valid, out, B, H, L, scale_log2, key_split, s);
+  if (dtype == 1 && Dh == 128)
+    return (int)launch_split<__nv_bfloat16, 128>(q, k, v, key_valid, out, B, H, L, scale_log2,
+                                                 key_split, s);
+  if (dtype == 1 && Dh == 64)
+    return (int)launch_split<__nv_bfloat16, 64>(q, k, v, key_valid, out, B, H, L, scale_log2,
+                                                key_split, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,6 +2,8 @@
 
 `attention_cuda` launches the Hopper kernel of `csrc/attention.cu`, which
 replaces the TPU kernel `_attn_kernel` (`fscl_tpu/ops/attention.py:48-66`).
+It runs on the tensor cores: bf16 products directly, f32 products by split
+TF32 (three TF32 products per f32 product, within 2e-5 of the plain version).
 `attention_reference` is its plain PyTorch version, with the kernel's math:
 scores in f32, invalid keys filled with the finite -1e9, softmax weights and
 weights . V in f32, the result cast to the input dtype.
@@ -12,6 +14,7 @@ launches the kernel or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -22,6 +25,8 @@ NEG_INF = -1e9
 HEAD_DIMS = (64, 128)
 MAX_LEN = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KEY_SPLITS = (1, 2, 4)
+QUERY_ROWS = {torch.float32: 128, torch.bfloat16: 64}   # per block at key_split 1
 
 # Launches of the CUDA kernel; chip_smoke.py reads it to show that the main
 # path went through the kernel.
@@ -53,9 +58,28 @@ def _load():
     fn = built.lib.fscl_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def choose_key_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype) -> int:
+    """Warps of a block that share the key loop. A block owns QUERY_ROWS
+    query rows in warps of 16 (8 warps in f32, 4 in bf16); with key_split s
+    it owns 1/s of them, and each warp takes a slice of every key tile. The
+    smallest s whose grid has a block for every two SMs, else 4: on an H100
+    that was the fastest split, or within 15 % of it, at B * H = 16 and
+    L = 64 ... 1000 in both types (chip_smoke.py phase 3)."""
+    rows = QUERY_ROWS[dtype]
+    for split in KEY_SPLITS:
+        if 2 * -(-L // (rows // split)) * batch_heads >= n_sm:
+            return split
+    return KEY_SPLITS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def attention_cuda(
@@ -68,6 +92,20 @@ def attention_cuda(
     """Launch the Hopper kernel. q, k, v: contiguous (B, H, L, Dh) CUDA
     tensors of one dtype (float32 or bfloat16), Dh in {64, 128},
     1 <= L <= 2048; key_valid: contiguous (B, L) bool on the same device."""
+    return _launch(q, k, v, key_valid, temperature, None)
+
+
+def _launch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: torch.Tensor,
+    temperature: Optional[float],
+    key_split: Optional[int],
+) -> torch.Tensor:
+    """`attention_cuda` at a given key split (1, 2 or 4), or at the one
+    `choose_key_split` picks when None. Tests and chip_smoke.py sweep every
+    split through it."""
     global LAUNCHES
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, Dh), got {tuple(q.shape)}")
@@ -95,15 +133,19 @@ def attention_cuda(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:   # the kernel loads 16 bytes at a time
             raise ValueError(f"{name} must start on a 16-byte boundary")
+    if key_split is not None and key_split not in KEY_SPLITS:
+        raise ValueError(f"key_split {key_split} not in {KEY_SPLITS}")
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
     temp = float(temperature if temperature is not None else Dh ** 0.5)
+    if key_split is None:
+        key_split = choose_key_split(B * H, L, _sm_count(q.device.index), q.dtype)
 
     fn = _load()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-             out.data_ptr(), B, H, L, Dh, _DTYPE_CODES[q.dtype], temp, stream)
+             out.data_ptr(), B, H, L, Dh, _DTYPE_CODES[q.dtype], temp, key_split, stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     LAUNCHES += 1

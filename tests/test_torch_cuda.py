@@ -7,7 +7,7 @@ port is installed:
 
 (`--noconftest` because tests/conftest.py configures JAX.) The attention
 kernel is held to its plain version at f32 atol 2e-5 and bf16 atol/rtol
-1e-2; a small system on the card is held to the same system on the CPU as
+1e-2, at each key split and at the edges of its tiles; a small system on the card is held to the same system on the CPU as
 chip_smoke.py holds the full-width one: durations exact, mels at atol 1e-3.
 The MRF stage kernel is held to its plain version at the four HiFiGAN V1
 stage shapes with a ragged T (f32: mean |d| < 1e-5, max < 5e-3, the bars of
@@ -50,23 +50,37 @@ def _inputs(seed, B, H, L, Dh, dtype, device):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(a).to(device, dtype)
                for a in rng.normal(size=(3, B, H, L, Dh)).astype(np.float32))
-    lens = np.array([max(1, L - L // 3), L, 0])[:B]   # ragged, full, no valid key
+    # ragged, full, no valid key, a single valid key
+    lens = np.resize(np.array([max(1, L - L // 3), L, 0, 1]), B)
     valid = torch.from_numpy(np.arange(L)[None, :] < lens[:, None]).to(device)
     return q, k, v, valid
 
 
+# The kernel's tiling edges: 16-row warp tiles and 32- (f32) or 64-key (bf16)
+# ring stages, each split across 1, 2 or 4 warps; B * H = 32 at L = 256; and
+# the served L bucket 32 (one full f32 ring stage) at the served B = 8.
 @pytest.mark.cuda
+@pytest.mark.parametrize("key_split", [None, 1, 2, 4], ids=["auto", "ks1", "ks2", "ks4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh,L", [(128, 16), (128, 1000), (64, 2048), (128, 77)])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, Dh, L):
-    q, k, v, valid = _inputs(5, 3, 2, L, Dh, dtype, cuda_device)
+@pytest.mark.parametrize("Dh,L,B,H", [
+    (128, 16, 3, 2), (128, 1000, 3, 2), (64, 2048, 3, 2), (128, 77, 3, 2), (128, 1, 3, 2),
+    (128, 63, 3, 2), (128, 65, 3, 2), (128, 129, 3, 2), (64, 2047, 3, 2), (128, 256, 4, 8),
+    (128, 32, 8, 2)])
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype, Dh, L, B, H, key_split):
+    q, k, v, valid = _inputs(5, B, H, L, Dh, dtype, cuda_device)
     before = tattn.LAUNCHES
-    got = tattn.attend(q, k, v, valid)
+    if key_split is None:
+        got = tattn.attend(q, k, v, valid)
+    else:
+        got = tattn._launch(q, k, v, valid, None, key_split)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == before + 1
     want = tattn.attention_reference(q, k, v, valid)
     atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    # the sample with no valid key gets the mean of V
+    mean_v = v[2].float().mean(dim=1, keepdim=True).expand(v.shape[1:])
+    torch.testing.assert_close(got[2].float(), mean_v, atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
