@@ -19,7 +19,11 @@ non-zero exit code when it fails:
    of V (timed in phase 8); phases 4-6 fail if the main path launches it at
    a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
-   B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000.
+   B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000 beside its
+   route's bound (split TF32 or bf16 tensor cores) and the f32 FMA bound,
+   its plain version, its conv_post + tanh kernel alone, the stage's convs
+   alone in cuDNN (no single library call computes a stage), and one conv
+   pair at each kernel size (time per tap and per conv launch).
 4. Text -> mel: `serve_batches` through `BaselineSystem.synthesize_bucketed`
    at the full width of `config/model/base.yaml`, with random weights made
    from --seed; checks shapes, finiteness and that every batch launched the
@@ -399,15 +403,42 @@ def build_vocoder(seed: int, device: str):
 
 
 def stage_bound(B, T, C, post, dtype_name, taps, n_convs):
-    """Least time for one MRF stage: 2*B*T*taps*C^2 (+ conv_post) operations
-    (`_stage_call`'s count) over the type's peak, against the input read
-    once, the output and the weights over the HBM rate."""
-    flops = 2 * B * T * taps * C * C + (2 * B * T * 7 * C if post else 0)
+    """Least time for one MRF stage by the route the kernel takes for the
+    type: the convs' 2*B*T*taps*C^2 operations (`_stage_call`'s count) over
+    the split-TF32 rate (three TF32 products per f32 product) in f32 or the
+    bf16 tensor-core rate, plus conv_post's 2*B*T*7*C over the f32 FMA rate;
+    against the input read once, the output and the weights over the HBM
+    rate. Also the bound on the f32 FMA units, for comparison."""
+    conv_flops = 2 * B * T * taps * C * C
+    post_flops = 2 * B * T * 7 * C if post else 0
     nbytes = 4 * (B * T * C + (B * T if post else B * T * C) + taps * C * C + n_convs * C
                   + (7 * C + 1 if post else 0))
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    if dtype_name == "float32":
+        t_ops = 3 * conv_flops / PEAK_TF32_FLOPS * 1e3
+    else:
+        t_ops = conv_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_ops += post_flops / PEAK_FLOPS["float32"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+    t_fma = (conv_flops + post_flops) / PEAK_FLOPS["float32"] * 1e3
+    route = "split TF32" if dtype_name == "float32" else "bf16 tensor cores"
+    return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
+            conv_flops + post_flops, route, t_fma)
+
+
+def cudnn_convs(x, rbs, dtype):
+    """A callable running the stage's convs alone (for V1, 18) as F.conv1d on
+    x, in `dtype` tensors: cuDNN's time for the same products, a yardstick
+    for the kernel's convs (no leaky, residual or mean)."""
+    import torch.nn.functional as F
+    xs = x.to(dtype)
+    convs = [(c.weight.detach().to(dtype), c.bias.detach().to(dtype), dil, c.weight.shape[-1])
+             for rb in rbs for d, c1, c2 in zip(rb.dilations, rb.convs1, rb.convs2)
+             for c, dil in ((c1, d), (c2, 1))]
+
+    def run():
+        for w, b, d, k in convs:
+            F.conv1d(xs, w, b, padding=(k - 1) // 2 * d, dilation=d)
+    return run, len(convs)
 
 
 def check_stage(mrf, x, rbs, conv_post, dtype, label):
@@ -444,6 +475,7 @@ def phase_mrf_stage(seed: int):
     T_mel = 1000. Returns the max errors, the timings and the (B, C, T)
     shapes checked in float32."""
     import torch
+    from fscl_tpu_torch.models.hifigan import ResBlock1
     from fscl_tpu_torch.ops import mrf_stage as mrf
     from fscl_tpu_torch.systems.baseline import MEL_BUCKETS
 
@@ -458,6 +490,8 @@ def phase_mrf_stage(seed: int):
     stage_args = []
     for i, (C, up, post) in enumerate(V1_STAGES):
         stage_args.append((gen.resblocks[i * n:(i + 1) * n], gen.conv_post if post else None))
+    # made outside inference mode: the weight packing reads version counters
+    pairs = {C: {k: ResBlock1(C, k, (1,)).to("cuda") for k in (3, 7, 11)} for C, _, _ in V1_STAGES}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -474,15 +508,38 @@ def phase_mrf_stage(seed: int):
                 kernel_ms = cuda_time_ms(lambda: mrf.mrf_stage_cuda(x, rbs, conv_post, dtype), 3, 1)
                 plain_ms = cuda_time_ms(lambda: mrf.mrf_stage_reference(x, rbs, conv_post, dtype),
                                         3, 1)
-                bound_ms, bound_by, flops = stage_bound(B, T, C, post, dname, taps, n_convs)
+                post_ms = (cuda_time_ms(lambda: mrf._launch_post(x, conv_post, dtype), 10, 2)
+                           if post else None)
+                convs, n_convs_run = cudnn_convs(x, rbs, dtype)
+                cudnn_ms = cuda_time_ms(convs, 3, 1)
+                # one resblock of one dilation-1 pair (two conv launches) at
+                # each kernel size: a straight line through the three splits
+                # a conv's time into a part per tap and a part per launch
+                pair_ms = {k: cuda_time_ms(lambda: mrf.mrf_stage_cuda(x, [rb], None, dtype), 3, 1)
+                           for k, rb in pairs[C].items()}
+                tap_ms = (pair_ms[11] - pair_ms[3]) / (2 * 8)
+                launch_ms = pair_ms[3] / 2 - 3 * tap_ms
+                bound_ms, bound_by, flops, route, fma_ms = stage_bound(B, T, C, post, dname, taps,
+                                                                       n_convs)
                 row = {"B": B, "T_mel": T // up, "T": T, "C": C, "post": post, "dtype": dname,
                        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bound_share": bound_ms / kernel_ms, "tflops": flops / kernel_ms / 1e9}
+                       "post_ms": post_ms, "cudnn_convs_ms": cudnn_ms, "cudnn_convs": n_convs_run,
+                       "conv_pair_ms": pair_ms, "conv_ms_per_tap": tap_ms,
+                       "conv_ms_per_launch": launch_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": route,
+                       "fma_bound_ms": fma_ms, "bound_share": bound_ms / kernel_ms,
+                       "tflops": flops / kernel_ms / 1e9}
                 timings.append(row)
                 log(f"mrf_stage {dname:8s} B={B} C={C:3d} T={T:6d}: kernel {kernel_ms:.3f} ms "
-                    f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
-                    f"{bound_ms:.3f} ms ({bound_by}), {100 * row['bound_share']:.1f}% of bound")
+                    f"({row['tflops']:.1f} TFLOP/s"
+                    + (f"; conv_post + tanh alone {post_ms:.3f} ms" if post else "")
+                    + f"), plain {plain_ms:.3f} ms, its {n_convs_run} convs alone in cuDNN "
+                    f"{cudnn_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {route}), "
+                    f"{100 * row['bound_share']:.1f}% of bound; f32 FMA bound {fma_ms:.3f} ms; "
+                    f"a conv pair at k = 3/7/11 "
+                    + "/".join(f"{pair_ms[k]:.3f}" for k in (3, 7, 11))
+                    + f" ms: {tap_ms:.4f} ms per tap + {launch_ms:.4f} ms per conv")
+                del convs
                 del x
     return max_err, timings, checked
 
@@ -906,8 +963,17 @@ def main(argv=None) -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in f32_stages)
         else "bytes",
         "library_ms": None,
+        "bound_route": "split TF32",
+        "fma_bound_ms": sum(r["fma_bound_ms"] for r in f32_stages),
         "timed_at": {"B": 8, "T_mel": 1000, "stages": [r["C"] for r in f32_stages],
                      "dtype": "float32"},
+        # no single library call computes a stage: its convs alone in cuDNN
+        # (f32 with TF32 off, and bf16 tensors) as the yardstick instead
+        "cudnn_convs_ms": {d: sum(r["cudnn_convs_ms"] for r in stage_timings if r["dtype"] == d)
+                           for d in ("float32", "bfloat16")},
+        "ms_bf16": sum(r["ms"] for r in stage_timings if r["dtype"] == "bfloat16"),
+        "bound_ms_bf16": sum(r["bound_ms"] for r in stage_timings if r["dtype"] == "bfloat16"),
+        "post_ms": {r["dtype"]: r["post_ms"] for r in stage_timings if r["post"]},
         "max_abs_err_bf16": stage_err["bfloat16"],
         "by_shape": stage_timings,
     }]

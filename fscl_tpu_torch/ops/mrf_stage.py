@@ -2,7 +2,10 @@
 `fscl_tpu/ops/hifigan_fused.py:fused_mrf_stage`).
 
 `mrf_stage_cuda` launches the Hopper kernels of `csrc/mrf_stage.cu`, which
-replace the TPU kernel `_stage_kernel` (`fscl_tpu/ops/hifigan_fused.py:52`).
+replace the TPU kernel `_stage_kernel` (`fscl_tpu/ops/hifigan_fused.py:52`):
+its convs run on the tensor cores, float32 by split TF32 and bfloat16
+directly, on weights packed once per module in the kernel's fragment order
+(`_pack_weight`).
 `mrf_stage_reference` is its plain PyTorch version: the mean of the
 ResBlock1 forwards on `F.conv1d`, then, with `post`, leaky -> conv_post ->
 tanh. Leaky ReLU has slope 0.1. With a bfloat16 compute dtype both round the
@@ -94,20 +97,50 @@ def _load():
     return fn
 
 
+def _pack_weight(w: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    """A (C_out, C_in, k) conv weight in the kernel's fragment order: for each
+    (16 output channels m, input-channel k-step c, tap i), the mma.sync A
+    fragments of the 32 lanes (g, t) = (lane // 4, lane % 4), registers
+    a0..a3 at rows g, g + 8, g, g + 8 and k offsets 0, 0, +half, +half.
+
+    float32: (C_out/16, C_in/8, k, 32, 4), m16n8k8's
+    a[r] = w[16m + g + 8(r % 2), 8c + t + 4(r // 2), i], as float32 (the
+    kernel splits each into its TF32 big and small parts in registers).
+    bfloat16: (C_out/16, C_in/16, k, 32, 4, 2), m16n8k16's register r as
+    the pair w[16m + g + 8(r % 2), 16c + 2t + 8(r // 2) + (0, 1), i]."""
+    c_out, c_in, k = w.shape
+    w = w.detach().float()
+    if round_bf16:
+        # co = 16m + 8h + g, ci = 16c + 8q + 2t + e -> (m, c, i, g, t, q, h, e)
+        a = w.to(torch.bfloat16).reshape(c_out // 16, 2, 8, c_in // 16, 2, 4, 2, k)
+        return a.permute(0, 3, 7, 2, 5, 4, 1, 6).reshape(
+            c_out // 16, c_in // 16, k, 32, 4, 2).contiguous()
+    # co = 16m + 8h + g, ci = 8c + 4q + t -> (m, c, i, g, t, q, h)
+    a = w.reshape(c_out // 16, 2, 8, c_in // 8, 2, 4, k).permute(0, 3, 6, 2, 5, 4, 1)
+    return a.reshape(c_out // 16, c_in // 8, k, 32, 4).contiguous()
+
+
+def _pack_post(w: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    """conv_post's (1, C, 7) weight as (7, C, 1), the layout its kernel reads."""
+    w = w.detach().float()
+    if round_bf16:
+        w = w.to(torch.bfloat16).float()
+    return w.permute(2, 1, 0).contiguous()
+
+
 def _packed(conv: nn.Conv1d, round_bf16: bool):
-    """conv's weight as (k, C_in, C_out), the layout the kernel reads, and its
-    bias as float32. Packed once and kept on the module until the weight or
-    the bias is replaced or changed in place."""
+    """conv's weight in the layout its kernel reads (`_pack_weight`, or
+    `_pack_post` for conv_post, C -> 1) and its bias as float32. Packed once
+    and kept on the module until the weight or the bias is replaced or
+    changed in place."""
     w, b = conv.weight.detach(), conv.bias.detach()      # share the version counters
     key = (w.data_ptr(), w._version, b.data_ptr(), b._version)
     cache = conv.__dict__.setdefault("_mrf_packed", {})
     hit = cache.get(round_bf16)
     if hit is None or hit[0] != key:
-        wp = w.float()
-        if round_bf16:
-            wp = wp.to(torch.bfloat16).float()
+        pack = _pack_post if w.shape[0] == 1 else _pack_weight
         # holding w and b keeps their addresses from going to another tensor
-        hit = (key, w, b, wp.permute(2, 1, 0).contiguous(), b.float().contiguous())
+        hit = (key, w, b, pack(w, round_bf16), b.float().contiguous())
         cache[round_bf16] = hit
     return hit[3], hit[4]
 
@@ -188,6 +221,30 @@ def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1
         raise RuntimeError(f"MRF stage kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return wav if post is not None else out
+
+
+def _launch_post(y: torch.Tensor, post: nn.Conv1d,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The stage's last kernel alone: tanh(conv_post(leaky(y))) as (B, T),
+    for y (B, C, T) contiguous float32 on the card. chip_smoke.py times it
+    apart from the convs; it is not a stage launch and is not counted."""
+    B, C, T = y.shape
+    if y.dtype != torch.float32 or not y.is_contiguous() or y.device.type != "cuda":
+        raise ValueError("y must be a contiguous float32 CUDA tensor")
+    if tuple(post.weight.shape) != (1, C, POST_KERNEL):
+        raise ValueError(f"post conv weight {tuple(post.weight.shape)} not (1, {C}, {POST_KERNEL})")
+    round_bf16 = compute_dtype == torch.bfloat16
+    post_w, post_b = _packed(post, round_bf16)
+    wav = torch.empty(B, T, dtype=torch.float32, device=y.device)
+    fn = cuda_lib.build("mrf_stage").lib.fscl_mrf_post
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(y.data_ptr(), post_w.data_ptr(), post_b.data_ptr(), wav.data_ptr(), B, C, T,
+             int(round_bf16), torch.cuda.current_stream(y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_post kernel launch failed: cudaError {err}")
+    return wav
 
 
 def mrf_stage(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1d] = None,

@@ -10,7 +10,8 @@ kernel is held to its plain version at f32 atol 2e-5 and bf16 atol/rtol
 1e-2, at each key split and at the edges of its tiles; a small system on the card is held to the same system on the CPU as
 chip_smoke.py holds the full-width one: durations exact, mels at atol 1e-3.
 The MRF stage kernel is held to its plain version at the four HiFiGAN V1
-stage shapes with a ragged T (f32: mean |d| < 1e-5, max < 5e-3, the bars of
+stage widths, at a ragged T and at the edges of its time tile (f32: mean
+|d| < 1e-5, max < 5e-3, the bars of
 tests/test_hifigan_fused.py; bf16 compute: see STAGE_BF16_*), and a V1
 generator on the card to the same one on the CPU at the f32 generator bars.
 """
@@ -120,11 +121,20 @@ def _stage(C, post, seed=0):
     return rbs, conv_post
 
 
+# The stage kernel's time tile (csrc/mrf_stage.cu, Cfg::BT): 512 rows. Per V1
+# stage width: a ragged T, T = 1, one short of the tile and one past it (odd
+# T: 4-byte window copies), and a ragged T that is a multiple of 4 (bulk
+# copies with zero-filled edge rows, as every served T).
+TIME_TILE = 512
+STAGE_SHAPES = [(256, 517, False), (128, 1031, False), (64, 2053, False), (32, 4099, True)] + [
+    (C, T, C == 32) for C in (256, 128, 64, 32)
+    for T in (1, TIME_TILE - 1, TIME_TILE + 1, TIME_TILE + 4)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("C,T,post", [(256, 517, False), (128, 1031, False),
-                                      (64, 2053, False), (32, 4099, True)])
+@pytest.mark.parametrize("C,T,post", STAGE_SHAPES)
 def test_mrf_stage_kernel_matches_plain_version(cuda_device, compute_dtype, C, T, post):
     rbs, conv_post = _stage(C, post)
     for m in rbs + ([conv_post] if post else []):

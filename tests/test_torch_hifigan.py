@@ -291,14 +291,13 @@ def test_stage_refuses_what_the_kernel_cannot_run():
 
 @pytest.mark.parametrize("round_bf16", [False, True], ids=["f32", "bf16"])
 def test_packed_weights_are_kept_until_the_weight_changes(round_bf16):
-    """The kernel's (k, C_in, C_out) weights are packed once per conv and
+    """The kernel's fragment-order weights (`_pack_weight`; the layout is
+    pinned in tests/test_torch_mrf_split.py) are packed once per conv and
     packed again after the weight or the bias changes in place or is
     replaced."""
     conv = torch.nn.Conv1d(32, 32, 3)
     w, b = tmrf._packed(conv, round_bf16)
-    want = conv.weight.detach().permute(2, 1, 0).clone()
-    if round_bf16:
-        want = want.to(torch.bfloat16).float()
+    want = tmrf._pack_weight(conv.weight.detach().clone(), round_bf16)
     torch.testing.assert_close(w, want, rtol=0, atol=0)
     torch.testing.assert_close(b, conv.bias.detach(), rtol=0, atol=0)
     assert tmrf._packed(conv, round_bf16)[0] is w
@@ -306,8 +305,9 @@ def test_packed_weights_are_kept_until_the_weight_changes(round_bf16):
         conv.weight.mul_(2.0)
     w2, _ = tmrf._packed(conv, round_bf16)
     assert w2 is not w
-    torch.testing.assert_close(w2, (want * 2.0).to(torch.bfloat16).float() if round_bf16
-                               else want * 2.0, rtol=0, atol=0)
+    torch.testing.assert_close(w2, tmrf._pack_weight(conv.weight.detach().clone(), round_bf16),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(w2.float(), 2.0 * w.float(), rtol=0, atol=0)
     with torch.no_grad():
         conv.bias.add_(1.0)
     torch.testing.assert_close(tmrf._packed(conv, round_bf16)[1], conv.bias.detach(),
