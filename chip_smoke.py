@@ -16,7 +16,7 @@ non-zero exit code when it fails:
    timed. The attention kernel at every L and T bucket the FFT blocks are
    served at, a few edge lengths and HuBERT-large's head layout, at each key
    split, held to f32 2e-5 / bf16 1e-2 and the all-invalid sample to the mean
-   of V (timed in phase 8); phases 4-6 fail if the main path launches it at
+   of V (timed in phase 9); phases 4-8 fail if a main path launches it at
    a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
    B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000 beside its
@@ -39,7 +39,17 @@ non-zero exit code when it fails:
    vocoder times and launches.
 7. Card vs CPU, vocoder: one mel vocoded on the card and on the CPU with the
    same weights; then `chunked_vocode` on the card against the full vocode.
-8. Attention timing: the kernel at each key split, its plain version and
+8. Training: `attend` under autograd (the kernel forward through a
+   `torch.autograd.Function`, the recompute backward) against autograd
+   through the plain version at B = 16 and 4, L = 128 and 512; then
+   `Trainer.fit` on `BaselineSystem` at base.yaml width, B = 16, L = 128,
+   T = 512, f32, with batches from `collate_batch`: 30 steps counted (every
+   loss finite, the last five below the first five, 10 attention launches
+   per step at shapes held to the plain version), 20 timed, one pass split
+   into forward, backward and optimizer, peak memory, a traced step with
+   --profile; 5 steps at B = 4 without dropout on the card and on the CPU;
+   the Function's forward + backward timed beside SDPA's.
+9. Attention timing: the kernel at each key split, its plain version and
    SDPA (with SDPA's own error against the plain version), each in a CUDA
    graph, at the encoder's and decoder's lengths and HuBERT-large's head
    layout, beside its route's bound (split TF32 or bf16 tensor cores) and
@@ -88,6 +98,21 @@ STAGE_BF16_MEAN, STAGE_BF16_MAX = 1e-4, 1e-2
 # max |d| (different window lengths sum in different orders).
 GEN_MEAN, GEN_MAX = 1e-4, 2e-2
 CHUNKED_REL = 1e-2
+# Training (phase 8): the repo's full-size training batch
+# (benchmarks/bench_train_precision.py:21, config/train/baseline.yaml
+# batch_size 16); steps counted with a loss read per step, then steps timed.
+TRAIN_B, TRAIN_L, TRAIN_T = 16, 128, 512
+TRAIN_STEPS, TIMED_STEPS = 30, 20
+# The attention Function's gradients against autograd through the plain
+# version: both recompute the weights in f32 from the same q, k, v and take
+# the same products (TF32 off), in another order; 1e-5 at unit-scale inputs.
+GRAD_ATOL = 1e-5
+# Card vs CPU training, B = 4, no dropout: the first step's loss differs only
+# by the forward's summation order (the kernel's split TF32 included); later
+# steps add the divergence of Adam at eps 1e-9, whose rounding differences
+# training amplifies (tests/test_torch_train.py).
+CHECK_B, CARD_STEPS = 4, 5
+TRAIN_FIRST_RTOL, TRAIN_LATER_RTOL = 1e-5, 1e-3
 # HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
 V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
 
@@ -316,8 +341,8 @@ def attention_shapes(attn, checked, what: str):
     if not seen:
         fail(f"{what}: no attention launch recorded")
     if seen - checked:
-        fail(f"{what}: attention launched at {sorted(seen - checked)}, shapes phase 3 did "
-             f"not hold to the plain version")
+        fail(f"{what}: attention launched at {sorted(seen - checked)}, shapes phases 3 and 8 "
+             f"did not hold to the plain version")
     log(f"{what}: attention launched at {sorted(seen)}, all held to the plain version")
 
 
@@ -904,6 +929,379 @@ def phase_card_vs_cpu(system, lines, attn_checked):
     return {"T": int(a["postnet_mel"].shape[1]), "max_abs_err": err, "mel_abs_max": scale}
 
 
+def train_batches(seed: int, B: int, n_symbols: int, variance):
+    """An endless stream of numpy `Batch`es from `collate_batch` at B lines:
+    40-128 phonemes of 1-4 frames each, the first line 128 phonemes of 4
+    frames, so every batch lands in the L = 128, T = 512 bucket. Targets are
+    learnable: mel frames, pitch and energy from a fixed random table per
+    phoneme plus noise, all from `seed`."""
+    import numpy as np
+    from fscl_tpu_torch.data.batch import collate_batch
+
+    rng = np.random.default_rng(seed)
+    table = np.random.default_rng(seed + 1).normal(size=(n_symbols, 82)).astype(np.float32)
+    levels = {"pitch": variance.pitch_feature, "energy": variance.energy_feature}
+    n_batch = 0
+    while True:
+        samples = []
+        for i in range(B):
+            n = TRAIN_L if i == 0 else int(rng.integers(40, TRAIN_L + 1))
+            dur = np.full(n, 4) if i == 0 else rng.integers(1, 5, n)
+            ph = rng.integers(1, n_symbols, n)
+            frames = np.repeat(ph, dur)
+            sample = dict(id=f"{n_batch}-{i}", text="", phonemes=ph, duration=dur,
+                          mel=table[frames, :80] + 0.1 * rng.normal(size=(len(frames), 80)),
+                          speaker=0, lang_id=int(rng.integers(0, 4)))
+            for col, key in ((80, "pitch"), (81, "energy")):
+                target = table[ph, col] + 0.1 * rng.normal(size=n)
+                sample[key] = np.repeat(target, dur) if levels[key] == "frame_level" else target
+            samples.append(sample)
+        n_batch += 1
+        yield collate_batch(samples, pitch_feature=levels["pitch"],
+                            energy_feature=levels["energy"])[1]
+
+
+def train_attention_bound(B, H, L, Dh):
+    """Least time for the Function's forward + backward in f32: the forward's
+    4 B H L^2 Dh and the backward's five products (10 B H L^2 Dh), all by
+    split TF32 (three TF32 products per f32 product, the f32 route of the
+    forward kernel), against q, k, v, the upstream gradient and the mask read
+    once and the output and three gradients written once; and the same
+    products on the f32 FMA units, for comparison."""
+    flops = (4 + 10) * B * H * L * L * Dh
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = (8 * B * H * L * Dh * 4 + B * L) / PEAK_BYTES_PER_S * 1e3
+    t_fma = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_fma
+
+
+def phase_train_kernel_grads(seed: int, attn_checked):
+    """`attend` under autograd on the card (the Function: the kernel forward,
+    the recompute backward) against autograd through the plain version, at
+    the training phase's shapes: H = 2, Dh = 128, f32, B = 16 (and B = 4 of
+    the card-vs-CPU check) at L = 128 and T = 512, ragged keys and one sample
+    with none. The forward is first held at every key split as phase 3 holds
+    the served shapes; the shapes join the set the recorders accept."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    H, Dh = 2, 128
+    worst = {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for B in (TRAIN_B, CHECK_B):
+        for L in (TRAIN_L, TRAIN_T):
+            q, k, v, valid = attention_inputs(gen, B, H, L, Dh, torch.float32)
+            auto = attn.choose_key_split(B * H, L, n_sm, torch.float32)
+            for s in attn.KEY_SPLITS:
+                check_attention(attn, q, k, v, valid, None if s == auto else s,
+                                f"train float32 B={B} L={L} key_split={s}")
+            attn_checked.add((B, H, L, Dh, "float32"))
+            g = torch.randn(q.shape, generator=gen, device="cuda")
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = attn.attend(*leaves, valid)
+            if out.grad_fn is None:
+                fail("attend on CUDA under autograd returned an output without grad_fn")
+            got = torch.autograd.grad(out, leaves, g)
+            ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = attn.attention_reference(*ref_leaves, valid)
+            want = torch.autograd.grad(ref, ref_leaves, g)
+            torch.cuda.synchronize()
+            errs = {"fwd": float((out - ref).detach().abs().max())}
+            errs.update({f"d{n}": float((a - b).abs().max()) for n, a, b in zip("qkv", got, want)})
+            if not all(torch.isfinite(t).all() for t in got):
+                fail(f"attention gradients B={B} L={L}: non-finite")
+            # no gradient reaches a key of the sample that has none valid
+            dead = float(got[1][-1].abs().max())
+            log(f"attention Function B={B} H={H} L={L} Dh={Dh} f32: max |d| fwd {errs['fwd']:.3g} "
+                f"(bar {F32_ATOL}), dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv {errs['dv']:.3g} "
+                f"(bar {GRAD_ATOL}); dk of the all-invalid sample {dead:.3g}")
+            if errs["fwd"] > F32_ATOL or max(errs[n] for n in ("dq", "dk", "dv")) > GRAD_ATOL \
+                    or dead != 0.0:
+                fail(f"attention Function disagrees with autograd of the plain version at B={B} "
+                     f"L={L}: {errs}, dk of the all-invalid sample {dead:.3g}")
+            worst = {n: max(worst[n], errs[n]) for n in worst}
+    return worst
+
+
+def time_train_attention():
+    """The Function's forward + backward, its backward alone, autograd
+    through the plain version and SDPA's forward + backward (the yardstick),
+    each by CUDA events over back-to-back calls, at B = 16, H = 2, Dh = 128,
+    f32, L = 128 and 512; every sample has a valid key (SDPA gives NaN for a
+    row with none)."""
+    import torch
+    import torch.nn.functional as F
+    from fscl_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for L in (TRAIN_L, TRAIN_T):
+        B, H, Dh = TRAIN_B, 2, 128
+        q, k, v, valid = attention_inputs(gen, B, H, L, Dh, torch.float32)
+        valid[-1, 0] = True
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        mask4 = valid[:, None, None, :]
+
+        def fwd_bwd(f):
+            return lambda: torch.autograd.grad(f(*leaves), leaves, g)
+
+        iters = 50 if L <= 128 else 20
+        kernel_ms = cuda_time_ms(fwd_bwd(lambda a, b, c: attn.attend(a, b, c, valid)), iters)
+        fwd_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), iters)
+        bwd_ms = cuda_time_ms(lambda: attn.attention_bwd(q, k, v, valid, None, g), iters)
+        plain_ms = cuda_time_ms(
+            fwd_bwd(lambda a, b, c: attn.attention_reference(a, b, c, valid)), iters)
+        library_ms = cuda_time_ms(fwd_bwd(
+            lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask4)), iters)
+        bound_ms, bound_by, fma_ms = train_attention_bound(B, H, L, Dh)
+        row = {"B": B, "H": H, "L": L, "Dh": Dh, "dtype": "float32", "ms": kernel_ms,
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "fma_bound_ms": fma_ms}
+        rows.append(row)
+        log(f"attention fwd + bwd B={B} H={H} L={L} Dh={Dh} f32: Function {kernel_ms:.4f} ms "
+            f"(kernel forward {fwd_ms:.4f} + recompute backward {bwd_ms:.4f}), plain autograd "
+            f"{plain_ms:.4f} ms, SDPA fwd + bwd {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; f32 FMA bound {fma_ms:.4f} ms)")
+    return rows
+
+
+def train_model_config(dropout: bool):
+    from dataclasses import replace
+    from fscl_tpu_torch.core.config import model_config_from_yaml
+
+    cfg = model_config_from_yaml(str(REPO / "config" / "model" / "base.yaml"))
+    if dropout:
+        return cfg
+    return replace(cfg, transformer=replace(cfg.transformer, encoder_dropout=0.0,
+                                            decoder_dropout=0.0),
+                   variance_predictor=replace(cfg.variance_predictor, dropout=0.0))
+
+
+def build_train_system(cfg, seed: int, device: str):
+    import torch
+    from fscl_tpu_torch.core.config import OptimConfig
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+
+    # lr 2e-3 after a 10-step warmup: the default warmup of 4000 steps would
+    # leave the rate near 0 for a run this short
+    optim = OptimConfig(batch_size=TRAIN_B, lr=2e-3, warmup_step=10, anneal_steps=())
+    torch.manual_seed(seed)
+    return BaselineSystem(cfg, (("en", n_symbols("en")),), device=device, optim_cfg=optim)
+
+
+class LossRecorder:
+    """Trainer callbacks: every logged step's metrics."""
+
+    def __init__(self):
+        self.logs = []
+
+    def on_log(self, step, metrics, steps_per_sec):
+        self.logs.append((step, metrics, steps_per_sec))
+
+    def on_validation(self, step, metrics):
+        pass
+
+    def on_save(self, step, state):
+        pass
+
+
+def profile_train_step(system, state, batch, out_dir):
+    """Device time by kernel over two train steps (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    system.train_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            system.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(({"name": e.key[:90], "calls": e.count / 2,
+                    "ms": e.self_device_time_total / 2e3} for e in events),
+                  key=lambda r: -r["ms"])
+    busy = sum(r["ms"] for r in rows)
+    # the host's side of one step: the kernels it launched, its copies, and
+    # the times a copy made it wait for the device (cudaStreamSynchronize);
+    # the window's own closing synchronizes are cudaDeviceSynchronize, counted
+    # apart. Per step over two steps, so a single wait reads 0.5.
+    host = {e.key: e.count / 2 for e in prof.key_averages()
+            if e.key.startswith(("cudaLaunchKernel", "cudaStreamSynchronize",
+                                 "cudaDeviceSynchronize", "cudaMemcpyAsync"))}
+    launches = sum(n for k, n in host.items() if k.startswith("cudaLaunchKernel"))
+    syncs = host.get("cudaStreamSynchronize", 0)
+    log(f"profile train step: wall {1e3 * wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}%); per step {launches:g} kernel launches, "
+        f"{syncs:g} host waits for the device, {host.get('cudaMemcpyAsync', 0):g} copies; "
+        f"{2 * host.get('cudaDeviceSynchronize', 0):g} device synchronizes at the window's end")
+    for r in rows[:15]:
+        log(f"  {r['ms']:9.3f} ms {r['calls']:7.1f}x  {r['name']}")
+    if out_dir is not None:
+        prof.export_chrome_trace(str(out_dir / "chip_smoke_train_trace.json"))
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "device_busy_share": busy / (1e3 * wall), "host_calls_per_step": host,
+            "top": rows[:25]}
+
+
+def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
+    """Main path, training: `Trainer.fit` on `BaselineSystem` at base.yaml
+    width, B = 16, L = 128, T = 512, f32; the counted run (TRAIN_STEPS steps,
+    a loss each), then a timed run, one pass split by synchronizes, and
+    (with --profile) a traced step. Then card vs CPU at B = 4 without
+    dropout, and the attention Function's timings."""
+    import torch
+    from fscl_tpu_torch.core.config import TrainConfig
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    grads = phase_train_kernel_grads(seed, attn_checked)
+    cfg = train_model_config(dropout=True)
+    t = cfg.transformer
+    per_step = t.encoder_layer + t.decoder_layer
+    system = build_train_system(cfg, seed, "cuda")
+    n_params = sum(p.numel() for p in system.parameters())
+    state = system.init_state()
+    # made before the runs (set-up): the prefetch thread only copies them
+    stream = train_batches(seed, TRAIN_B, n_symbols("en"), cfg.variance)
+    counted = [next(stream) for _ in range(TRAIN_STEPS)]
+    timed = [next(stream) for _ in range(TIMED_STEPS)]
+    if any(b.texts.shape != (TRAIN_B, TRAIN_L) or b.mels.shape[1] != TRAIN_T
+           for b in counted + timed):
+        fail(f"train batch shapes differ from B = {TRAIN_B}, L = {TRAIN_L}, T = {TRAIN_T}")
+
+    # the counted run: every step logged, so that each loss is read
+    rec = LossRecorder()
+    train_cfg = TrainConfig(optim=system.optim_cfg, total_step=TRAIN_STEPS, log_step=1,
+                            val_step=10 ** 9, save_step=10 ** 9, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0
+    mrf.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "train"):
+        t0 = time.perf_counter()
+        state = Trainer(system, train_cfg, [rec]).fit(state, iter(counted))
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+    launches, stage_launches = attn.LAUNCHES, mrf.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [mt["Total Loss"] for _, mt, _ in rec.logs]
+    if state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        fail(f"train: {state.step} steps and {len(losses)} losses, expected {TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: non-finite loss in {losses}")
+    head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not tail < head:
+        fail(f"train: loss did not fall (first 5 mean {head:.4f}, last 5 mean {tail:.4f})")
+    if launches != per_step * TRAIN_STEPS:
+        fail(f"train: {launches} attention launches in {TRAIN_STEPS} steps, expected "
+             f"{per_step} per step")
+    log(f"train: {TRAIN_STEPS} steps through Trainer.fit at B={TRAIN_B} L={TRAIN_L} "
+        f"T={TRAIN_T} ({n_params / 1e6:.2f} M parameters), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 5 mean {head:.4f}, last 5 mean {tail:.4f}), {launches} "
+        f"attention launches ({per_step} per step), {counted_s:.2f} s with a loss read per "
+        f"step, peak {peak:.2f} GiB")
+
+    # the timed run: no read of the loss until its end
+    timed_cfg = TrainConfig(optim=system.optim_cfg, total_step=TRAIN_STEPS + TIMED_STEPS,
+                            log_step=TRAIN_STEPS + TIMED_STEPS, val_step=10 ** 9,
+                            save_step=10 ** 9, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = Trainer(system, timed_cfg, [rec]).fit(state, iter(timed))
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    step_ms = 1e3 * timed_s / TIMED_STEPS
+    log(f"train: {TIMED_STEPS} steps in {timed_s:.3f} s = {TIMED_STEPS / timed_s:.2f} "
+        f"steps/s, {step_ms:.2f} ms per step, {TRAIN_B * TIMED_STEPS / timed_s:.1f} "
+        f"utterances/s, loss {rec.logs[-1][1]['Total Loss']:.4f}, on {card}")
+
+    # one pass split into forward, backward and optimizer by synchronizes
+    batch = to_device(next(stream), "cuda")
+    splits = []
+    for _ in range(3):
+        system.train()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = system.loss_and_metrics(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = torch.autograd.grad(loss, system.optimizer.params, allow_unused=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        system.eval()
+        system.optimizer.update(state.opt_state, g)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        splits.append((1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2)))
+        del g, loss
+    fwd_ms, bwd_ms, opt_ms = sorted(splits)[1]
+    log(f"train: one synchronised pass: forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, "
+        f"optimizer {opt_ms:.2f} ms (median of 3)")
+    summary = {
+        "B": TRAIN_B, "L": TRAIN_L, "T": TRAIN_T, "parameters": n_params,
+        "steps": TRAIN_STEPS, "losses": losses, "attention_launches": launches,
+        "mrf_stage_launches": stage_launches,
+        "counted_seconds": counted_s, "peak_mem_gib": peak,
+        "timed_steps": TIMED_STEPS, "timed_seconds": timed_s,
+        "steps_per_s": TIMED_STEPS / timed_s, "ms_per_step": step_ms,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
+        "kernel_grads_max_abs_err": grads,
+    }
+    if profile:
+        summary["profile"] = profile_train_step(system, state, batch, out_dir)
+    del system, state, batch
+    summary["card_vs_cpu"] = phase_train_card_vs_cpu(seed, attn_checked)
+    summary["attention_fwd_bwd"] = time_train_attention()
+    return summary
+
+
+def phase_train_card_vs_cpu(seed: int, attn_checked):
+    """CARD_STEPS train steps at B = 4 without dropout from the same weights
+    on the card and on the CPU (where the plain versions run): the per-step
+    losses against TRAIN_FIRST_RTOL at the first step and TRAIN_LATER_RTOL
+    after it."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.ops import attention as attn
+
+    cfg = train_model_config(dropout=False)
+    card = build_train_system(cfg, seed, "cuda")
+    cpu = build_train_system(cfg, seed, "cpu")
+    cpu.load_state_dict(card.state_dict(), strict=True)
+    stream = train_batches(seed + 7, CHECK_B, n_symbols("en"), cfg.variance)
+    batches = [next(stream) for _ in range(CARD_STEPS)]
+    losses = {}
+    for name, system in (("cuda", card), ("cpu", cpu)):
+        system.model.postnet.dropout.p = 0.0
+        state = system.init_state()
+        shapes = (attention_shapes(attn, attn_checked, "train card vs CPU") if name == "cuda"
+                  else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with shapes:
+            losses[name] = [float(system.train_step(state, to_device(b, name))[1]["Total Loss"])
+                            for b in batches]
+        log(f"train card vs CPU: {name} {CARD_STEPS} steps in {time.perf_counter() - t0:.2f} s")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    log("train card vs CPU: losses " + ", ".join(
+        f"{a:.6f}/{b:.6f}" for a, b in zip(losses["cuda"], losses["cpu"]))
+        + " (card/CPU), relative |d| " + ", ".join(f"{r:.3g}" for r in rel)
+        + f" (bars {TRAIN_FIRST_RTOL} at step 1, {TRAIN_LATER_RTOL} after)")
+    if not (rel[0] <= TRAIN_FIRST_RTOL and max(rel[1:]) <= TRAIN_LATER_RTOL):
+        fail(f"train card vs CPU: relative loss differences {rel}")
+    return {"B": CHECK_B, "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+            "rel": rel}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -927,6 +1325,8 @@ def main(argv=None) -> int:
     vocoder, wav_records, text_to_wav = phase_text_to_wav(
         system, args.seed, card, attn_checked, stage_checked, args.profile, args.out)
     vocoder_check = phase_vocoder_card_vs_cpu(vocoder, wav_records)
+    del system, vocoder, wav_records     # out of the training phase's peak memory
+    train = phase_train(args.seed, card, attn_checked, args.profile, args.out)
     timings = phase_attention_timing(args.seed)
 
     main_row = next(r for r in timings
@@ -938,6 +1338,9 @@ def main(argv=None) -> int:
         "source": "fscl_tpu_torch/csrc/attention.cu",
         "replaces": "fscl_tpu/ops/attention.py:48",
         "launches": text_to_wav["launches"]["attention_fwd"],
+        "launches_by_path": {"text_to_mel": main_path["attention_launches"],
+                             "text_to_wav": text_to_wav["launches"]["attention_fwd"],
+                             "train": train["attention_launches"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -949,12 +1352,19 @@ def main(argv=None) -> int:
         "timed_at": {k: main_row[k] for k in ("B", "H", "L", "Dh", "dtype")},
         "max_abs_err_bf16": max_err["bfloat16"],
         "by_shape": timings,
+        # training: the Function (kernel forward, recompute backward) at
+        # B = 16, H = 2, L = 128 and 512, f32; SDPA's forward + backward as
+        # library_ms
+        "train_grads_max_abs_err": train["kernel_grads_max_abs_err"],
+        "train_fwd_bwd": train["attention_fwd_bwd"],
     }, {
         "name": "mrf_stage",
         "route": "cuda",
         "source": "fscl_tpu_torch/csrc/mrf_stage.cu",
         "replaces": "fscl_tpu/ops/hifigan_fused.py:52",
         "launches": text_to_wav["launches"]["mrf_stage"],
+        "launches_by_path": {"text_to_wav": text_to_wav["launches"]["mrf_stage"],
+                             "train": train["mrf_stage_launches"]},
         "max_abs_err": stage_err["float32"],
         # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
         "ms": sum(r["ms"] for r in f32_stages),
@@ -979,7 +1389,8 @@ def main(argv=None) -> int:
     }]
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
-              "vocoder_check": vocoder_check, "seconds": time.perf_counter() - t_start}
+              "vocoder_check": vocoder_check, "train": train,
+              "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"all phases passed in {record['seconds']:.1f} s on {card}")

@@ -1,15 +1,16 @@
-"""Frozen model configuration objects.
+"""Frozen model and training configuration objects.
 
-The port's own copy of the model half of `fscl_tpu/core/config.py`
-(`:25-157` and `model_config_from_yaml`, `:442-522`): the same frozen
-dataclasses, defaults and YAML reading, so a `config/model/*.yaml` file
-gives the same `ModelConfig` in both packages. Training, data and
-algorithm configs come with the slices that need them.
+The port's own copy of the model and training halves of
+`fscl_tpu/core/config.py` (`:25-200`, `train_config_from_yaml` at `:381-433`
+and `model_config_from_yaml` at `:442-522`): the same frozen dataclasses,
+defaults and YAML reading, so a `config/model/*.yaml` or `config/train/*.yaml`
+file gives the same config in both packages. Data and algorithm configs come
+with the slices that need them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import yaml
 
@@ -150,8 +151,104 @@ class ModelConfig:
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     # dtype policy: "float32" for parity, "bfloat16" for speed
     compute_dtype: str = "float32"
-    # rematerialize FFT blocks in backward (jax.checkpoint): HBM <-> FLOPs
+    # rematerialize FFT blocks in backward (jax.checkpoint): HBM <-> FLOPs;
+    # the port raises NotImplementedError when it is set
     remat: bool = False
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Adam + warmup/anneal schedule (reference: config/train/fscl.yaml:1-17,
+    lightning/optimizer.py:5-15, lightning/scheduler.py:5-60)."""
+    batch_size: int = 8
+    lr: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-9
+    weight_decay: float = 0.0
+    grad_clip_thresh: float = 1.0
+    grad_acc_step: int = 1
+    warmup_step: int = 4000
+    anneal_steps: Tuple[int, ...] = (30000, 40000, 50000)
+    anneal_rate: float = 0.3
+    scheduler: str = "sqrt"   # "sqrt" | "const"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    total_step: int = 50000
+    log_step: int = 100
+    synth_step: int = 1000
+    val_step: int = 1000
+    save_step: int = 1000
+    seed: int = 43
+    # input-pipeline depth: batches collated and copied to the device ahead
+    # of the step by a background thread (0 disables; train/trainer.py)
+    prefetch: int = 2
+    # optimizer steps per dispatch in the JAX package (a scan of k steps in
+    # one program); the port runs k single steps, the same math, and keeps
+    # the check that log/val/synth/save cadences are multiples of k
+    steps_per_dispatch: int = 1
+    # output locations (reference: config/train/*-output.yaml `path:` block)
+    ckpt_path: Optional[str] = None
+    log_path: Optional[str] = None
+    result_path: Optional[str] = None
+
+
+def train_config_from_yaml(paths) -> TrainConfig:
+    """Merge one or more reference-style config/train/*.yaml overlays
+    (main.py:351-357 merges multiple train configs in order)."""
+    if isinstance(paths, str):
+        paths = [paths]
+    raw: Dict[str, Any] = {}
+    for p in paths:
+        with open(p) as f:
+            overlay = yaml.safe_load(f) or {}
+        for k, v in overlay.items():
+            if isinstance(v, dict) and isinstance(raw.get(k), dict):
+                raw[k].update(v)
+            else:
+                raw[k] = v
+    o = raw.get("optimizer", {})
+    optim = OptimConfig(
+        batch_size=o.get("batch_size", 8),
+        lr=o.get("lr", 1e-3),
+        betas=tuple(o.get("betas", (0.9, 0.98))),
+        eps=o.get("eps", 1e-9),
+        weight_decay=o.get("weight_decay", 0.0),
+        grad_clip_thresh=o.get("grad_clip_thresh", 1.0),
+        grad_acc_step=o.get("grad_acc_step", 1),
+        warmup_step=o.get("warm_up_step", o.get("warmup_step", 4000)),
+        anneal_steps=tuple(o.get("anneal_steps", (30000, 40000, 50000))),
+        anneal_rate=o.get("anneal_rate", 0.3),
+        # reference tune configs put scheduler_type at the top level
+        # (config/train/tune-500.yaml:1); the optimizer block wins if both
+        scheduler=o.get("scheduler_type", raw.get("scheduler_type", "sqrt")),
+    )
+    # step counts: flat (this repo) or under a `step:` block (reference
+    # config/train/fscl.yaml:11-17)
+    step = raw.get("step", {}) or {}
+
+    def s(key, default):
+        return raw.get(key, step.get(key, default))
+
+    paths = raw.get("path", {}) or {}
+    return TrainConfig(
+        optim=optim,
+        total_step=s("total_step", 50000),
+        log_step=s("log_step", 100),
+        synth_step=s("synth_step", 1000),
+        val_step=s("val_step", 1000),
+        save_step=s("save_step", 1000),
+        seed=raw.get("seed", 43),
+        prefetch=raw.get("prefetch", 2),
+        steps_per_dispatch=raw.get("steps_per_dispatch", 1),
+        ckpt_path=paths.get("ckpt_path"),
+        log_path=paths.get("log_path"),
+        result_path=paths.get("result_path"),
+    )
+
+
 def _as_tuple(x):
     if isinstance(x, (list, tuple)):
         return tuple(_as_tuple(i) for i in x)

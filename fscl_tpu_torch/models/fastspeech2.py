@@ -2,9 +2,12 @@
 
 Pre-embedded text -> Encoder -> (+speaker embedding, optionally
 batch-averaged) -> (+language embedding) -> VarianceAdaptor -> (+speaker
-embedding) -> Decoder -> mel linear -> PostNet residual. Inference only in
-this slice: the target arguments are kept so teacher-forced synthesis
-matches the JAX model, but no loss or backward exists yet.
+embedding) -> Decoder -> mel linear -> PostNet residual. With targets it is
+the teacher-forced forward of training: the duration targets drive the
+length regulator, the pitch and energy targets pick the embeddings, and
+gradients reach the predictors through their predictions and the embedding
+tables through the looked-up rows, as in the JAX model. Train or eval mode
+is the module's (`nn.Module.train`); the JAX model's `deterministic` flag.
 """
 from __future__ import annotations
 
@@ -42,6 +45,9 @@ class FastSpeech2(nn.Module):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype!r}: the port runs float32")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat: the port does not rematerialise FFT blocks in the backward")
         self.cfg = cfg
         t = cfg.transformer
         self.encoder = Encoder(

@@ -9,7 +9,10 @@ key names (`encoder.layer_stack.{i}.slf_attn.w_qs`, `postnet.convolutions.
 {i}.0.conv`), which `benchmarks/convert_reference.py` reads.
 
 LayerNorm eps is 1e-6 (flax's default, not torch's 1e-5); BatchNorm eps is
-1e-5 in both.
+1e-5 in both. Dropout sits where the JAX package puts it (`:62, 83, 212,
+221`): after the attention's output projection, after the FFN's second conv,
+and after each PostNet layer (rate 0.5, fixed). In train mode the PostNet's
+BatchNorm follows flax (`BatchNorm`, below), not `nn.BatchNorm1d`.
 """
 from __future__ import annotations
 
@@ -174,6 +177,30 @@ class ConvNorm(nn.Module):
         return self.conv(x)
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """flax's `nn.BatchNorm(momentum=0.9)` over (B, C, T), under torch's
+    BatchNorm1d keys. Eval mode normalises with the running statistics, as
+    BatchNorm1d does. Train mode normalises with the biased batch statistics
+    over B and T (padding frames included, as in flax) and updates the
+    running buffers as flax does: `r = 0.9 r + 0.1 stat`, with the biased
+    variance where BatchNorm1d takes the unbiased one (a difference of
+    1 / (B T - 1), 3 % at a few dozen frames). `num_batches_tracked` is
+    not advanced: flax keeps no such count."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x):       # (B, C, T)
+        if not self.training:
+            return super().forward(x)
+        var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
 class PostNet(nn.Module):
     """5-layer conv postnet with batch norm + tanh (Layers.py:66-137)."""
 
@@ -183,7 +210,7 @@ class PostNet(nn.Module):
         chans = [n_mel_channels] + [embedding_dim] * (n_convolutions - 1) + [n_mel_channels]
         self.convolutions = nn.ModuleList(
             nn.Sequential(ConvNorm(chans[i], chans[i + 1], kernel_size),
-                          nn.BatchNorm1d(chans[i + 1], eps=BN_EPS, momentum=0.1))
+                          BatchNorm(chans[i + 1]))
             for i in range(n_convolutions))
         self.dropout = nn.Dropout(0.5)
 

@@ -1,5 +1,5 @@
 """Variance adaptor: duration/pitch/energy prediction + length regulation
-(port of `fscl_tpu/nn/variance_adaptor.py:24-188`, inference half).
+(port of `fscl_tpu/nn/variance_adaptor.py:24-188`).
 
 Bin edges come from the global normalization stats as in the JAX package;
 `digitize` is `torch.bucketize`. Durations are

@@ -9,7 +9,13 @@ scores in f32, invalid keys filled with the finite -1e9, softmax weights and
 weights . V in f32, the result cast to the input dtype.
 
 `attend` takes the plain version only for CPU tensors. For CUDA tensors it
-launches the kernel or raises: there is no fallback.
+launches the kernel or raises: there is no fallback. Under autograd (grad
+mode on and an input that requires grad) it launches the kernel through
+`AttentionFunction`, the port of `_pallas_attention_ad` (`:106-130`), whose
+backward `attention_bwd` recomputes the weights from q, k and v as
+`_pallas_attention_bwd` (`:120-127`) does. The JAX package has no backward
+kernel (its backward is XLA code outside any Pallas call), so the backward
+here is plain PyTorch: two products recompute P, three give the gradients.
 """
 from __future__ import annotations
 
@@ -152,6 +158,55 @@ def _launch(
     return out
 
 
+def attention_bwd(
+    q: torch.Tensor,                       # (B, H, L, Dh)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: torch.Tensor,               # (B, L) bool, True = valid
+    temperature: Optional[float],
+    g: torch.Tensor,                       # (B, H, L, Dh), d loss / d out
+):
+    """(dq, dk, dv) of the kernel's attention at (q, k, v), by recomputing
+    the weights with its math (scores in f32, finite -1e9 fill at invalid
+    keys, softmax): dV = P^T g; dS = P * (g V^T - rowsum(g V^T * P)), zeroed
+    at invalid keys as `jnp.where`'s VJP zeroes them (in a row with no valid
+    key P is uniform, and dS would otherwise carry a gradient to those keys);
+    dQ = dS K / temp, dK = dS^T Q / temp. Products in f32 as batched products
+    over B * H, whose transposed operands cuBLAS reads in place; the (L, L)
+    temporaries are updated in place. Each gradient is cast to its input's
+    dtype."""
+    B, H, L, Dh = q.shape
+    temp = temperature if temperature is not None else Dh ** 0.5
+    qf, kf, vf, gf = (t.reshape(B * H, L, Dh).float() for t in (q, k, v, g))
+    invalid = (~key_valid).repeat_interleave(H, dim=0)[:, None, :]
+    scores = torch.bmm(qf, kf.transpose(1, 2)).div_(temp).masked_fill_(invalid, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    dv = torch.bmm(weights.transpose(1, 2), gf)
+    dw = torch.bmm(gf, vf.transpose(1, 2))
+    ds = dw.sub_((dw * weights).sum(dim=-1, keepdim=True)).mul_(weights)
+    ds = ds.masked_fill_(invalid, 0.0).div_(temp)
+    dq = torch.bmm(ds, kf)
+    dk = torch.bmm(ds.transpose(1, 2), qf)
+    return tuple(d.view(B, H, L, Dh).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
+
+
+class AttentionFunction(torch.autograd.Function):
+    """The kernel under autograd: forward `attention_cuda`, backward
+    `attention_bwd` from the saved q, k, v and key_valid."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, temperature):
+        ctx.save_for_backward(q, k, v, key_valid)
+        ctx.temperature = temperature
+        return attention_cuda(q, k, v, key_valid, temperature)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_valid = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, key_valid, ctx.temperature, g)
+        return dq, dk, dv, None, None
+
+
 def attend(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -168,4 +223,6 @@ def attend(
             "return_weights on CUDA: the kernel does not write the weights")
     if key_valid is None:
         key_valid = torch.ones(q.shape[0], k.shape[2], dtype=torch.bool, device=q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, key_valid, temperature)
     return attention_cuda(q, k, v, key_valid, temperature)

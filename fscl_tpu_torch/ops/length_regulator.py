@@ -1,9 +1,10 @@
-"""Length regulator as a gather, forward only
-(port of `fscl_tpu/ops/length_regulator.py:55-79`).
+"""Length regulator as a gather (port of `fscl_tpu/ops/length_regulator.py:28-79`).
 
 Frame t of sample b copies phoneme j(t) = #{l : cumsum(durations)[l] <= t};
-frames past the total duration are zero. The one-hot VJP of the JAX package
-(`:39-49`) comes with the training slice.
+frames past the total duration are zero. The gradient is the autograd of
+`torch.gather` + `masked_fill`: a scatter-add of the valid frames' gradients
+onto their phonemes, which is what the JAX package's one-hot VJP
+(`_gather_expand_bwd`, `:39-49`) computes as a matmul to suit the TPU.
 """
 from __future__ import annotations
 

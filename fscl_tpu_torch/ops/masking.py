@@ -20,13 +20,15 @@ def _expand_to(valid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def mask_fill(x: torch.Tensor, valid: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """Zero (or fill) invalid positions; valid broadcast over trailing dims."""
-    return torch.where(_expand_to(valid, x), x, torch.tensor(fill, dtype=x.dtype, device=x.device))
+    """Zero (or fill) invalid positions; valid broadcast over trailing dims.
+    The fill goes in as a Python number: a tensor made from it on the card
+    is a copy from pageable host memory, which waits for the device."""
+    return torch.where(_expand_to(valid, x), x, fill)
 
 
 def masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Mean of x over valid positions (at least one position in the count)."""
     valid = _expand_to(valid, x).expand(x.shape)
-    total = torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device)).sum()
+    total = torch.where(valid, x, 0.0).sum()
     count = valid.sum().clamp(min=1)
     return total / count

@@ -1,33 +1,38 @@
-"""BaselineSystem: multilingual FastSpeech2 serving
-(port of `fscl_tpu/systems/baseline.py`, the inference half, `:119-176`).
+"""BaselineSystem: supervised multilingual FastSpeech2
+(port of `fscl_tpu/systems/baseline.py`).
 
-A MultilingualEmbedding feeding the headless FastSpeech2. `synthesize` is
-the no-target forward; `synthesize_bucketed` is the two-pass serving path:
-(1) encoder + duration predictor give each sample's predicted frame count,
-(2) the full forward runs at the smallest mel bucket that covers the batch.
-Training (`train_step`, the loss, the optimizer) comes with a later slice.
+A MultilingualEmbedding feeding the headless FastSpeech2, trained with the
+full FastSpeech2 loss (`forward`, `loss_and_metrics`, `trainable_mask`,
+`:42-116`; `train_step` and `eval_step` from `systems/base.py`).
+`synthesize` is the no-target forward; `synthesize_bucketed` is the two-pass
+serving path (`:119-176`): (1) encoder + duration predictor give each
+sample's predicted frame count, (2) the full forward runs at the smallest
+mel bucket that covers the batch.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
-from torch import nn
 
-from fscl_tpu_torch.core.config import ModelConfig
+from fscl_tpu_torch.core.config import ModelConfig, OptimConfig
 from fscl_tpu_torch.core.device import resolve_device
 from fscl_tpu_torch.core.stats import DEFAULT_STATS, GlobalStats
+from fscl_tpu_torch.data.batch import Batch
 from fscl_tpu_torch.frontend.define import n_symbols
 from fscl_tpu_torch.models.fastspeech2 import FastSpeech2, FastSpeech2Output
 from fscl_tpu_torch.nn.embeddings import MultilingualEmbedding
+from fscl_tpu_torch.nn.losses import fastspeech2_loss
+from fscl_tpu_torch.systems.base import System
 
 MEL_BUCKETS = (128, 256, 512, 1000)
 
 
-class BaselineSystem(nn.Module):
+class BaselineSystem(System):
     """Parameters live under `embedding_model.` and `model.`; the model's
     keys are the reference torch FastSpeech2 keys. The system is built on
-    `device` (default `cuda`) in eval mode, with dropout off."""
+    `device` (default `cuda`) in eval mode, with dropout off; `train_step`
+    switches to train mode for the step."""
 
     def __init__(
         self,
@@ -35,8 +40,9 @@ class BaselineSystem(nn.Module):
         id2symbols: Optional[Tuple[Tuple[str, int], ...]] = None,
         stats: GlobalStats = DEFAULT_STATS,
         device: Optional[Union[str, torch.device]] = None,
+        optim_cfg: Optional[OptimConfig] = None,
     ):
-        super().__init__()
+        super().__init__(optim_cfg)
         self.device = resolve_device(device)
         self.model_cfg = model_cfg if model_cfg is not None else ModelConfig()
         if id2symbols is None:
@@ -49,6 +55,37 @@ class BaselineSystem(nn.Module):
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    # -- training ------------------------------------------------------------
+    def trainable_mask(self) -> Dict[str, bool]:
+        """emb_type "dvec" keeps the pretrained GE2E speaker encoder frozen
+        ("encoder"/"scratch_encoder" fine-tune it), as reference
+        speaker_encoder.py:115-136 detaches the d-vector path. Inert until
+        the d-vector speakers are ported: no parameter lies under `ge2e`."""
+        freeze_ge2e = self.model_cfg.speaker.emb_type == "dvec"
+        return {name: not (freeze_ge2e and "ge2e" in name.split("."))
+                for name, _ in self.named_parameters()}
+
+    def forward(self, batch: Batch, symbol_id: Optional[str] = None) -> FastSpeech2Output:
+        """Teacher-forced forward on a batch of tensors on the system's
+        device (`data.batch.to_device`), at the batch's mel length T, in the
+        module's mode."""
+        emb = self.embedding_model(batch.texts, symbol_id)
+        return self.model(
+            emb, batch.src_lens, batch.mels.shape[1],
+            speaker_args=batch.speaker_args, mel_lens=batch.mel_lens,
+            p_targets=batch.pitches, e_targets=batch.energies,
+            d_targets=batch.durations, lang_args=batch.lang_ids)
+
+    def loss_and_metrics(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        out = self(batch)
+        var = self.model_cfg.variance
+        losses = fastspeech2_loss(
+            out.mel, out.postnet_mel, out.pitch_prediction,
+            out.energy_prediction, out.log_duration_prediction,
+            batch.mels, batch.pitches, batch.energies, batch.durations,
+            out.src_valid, out.mel_valid, var.pitch_feature, var.energy_feature)
+        return losses.total, {k: v.detach() for k, v in losses.as_dict().items()}
 
     @torch.inference_mode()
     def synthesize(self, texts, src_lens, max_mel_len: int, speaker_args,

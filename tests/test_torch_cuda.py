@@ -9,6 +9,12 @@ port is installed:
 kernel is held to its plain version at f32 atol 2e-5 and bf16 atol/rtol
 1e-2, at each key split and at the edges of its tiles; a small system on the card is held to the same system on the CPU as
 chip_smoke.py holds the full-width one: durations exact, mels at atol 1e-3.
+Under autograd `attend` runs the kernel through a `torch.autograd.Function`
+whose backward recomputes the weights; its gradients are held to autograd
+through the plain version at atol 1e-5 (the same f32 products, TF32 off, in
+another order), and a small system's train steps on the card to the same
+steps on the CPU (losses 1e-5 relative at the first step, 1e-3 after it:
+Adam at eps 1e-9 amplifies rounding differences).
 The MRF stage kernel is held to its plain version at the four HiFiGAN V1
 stage widths, at a ragged T and at the edges of its time tile (f32: mean
 |d| < 1e-5, max < 5e-3, the bars of
@@ -20,6 +26,7 @@ import pytest
 import torch
 
 from fscl_tpu_torch.core import config as C
+from fscl_tpu_torch.data.batch import collate_batch, to_device
 from fscl_tpu_torch.models.hifigan import HiFiGANGenerator, ResBlock1
 from fscl_tpu_torch.ops import attention as tattn
 from fscl_tpu_torch.ops import mrf_stage as tmrf
@@ -35,6 +42,8 @@ STAGE_F32_MEAN, STAGE_F32_MAX = 1e-5, 5e-3
 # as tests/test_torch_hifigan.py holds the plain version to the TPU kernel.
 STAGE_BF16_MEAN, STAGE_BF16_MAX = 1e-4, 1e-2
 GEN_MEAN, GEN_MAX = 1e-4, 2e-2
+GRAD_ATOL = 1e-5
+TRAIN_FIRST_RTOL, TRAIN_LATER_RTOL = 1e-5, 1e-3
 
 
 @pytest.fixture
@@ -112,6 +121,86 @@ def test_cuda_system_matches_cpu(cuda_device):
     torch.testing.assert_close(got.mel_len.cpu(), want.mel_len, rtol=0, atol=0)
     torch.testing.assert_close(got.postnet_mel.cpu(), want.postnet_mel,
                                atol=CARD_VS_CPU_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,L", [(128, 77), (64, 129), (128, 512)])
+def test_attention_function_grads_match_plain_autograd(cuda_device, Dh, L):
+    q, k, v, valid = _inputs(7, 4, 2, L, Dh, torch.float32, cuda_device)
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
+    g = g.to(cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = tattn.LAUNCHES
+    out = tattn.attend(*leaves, valid)
+    got = torch.autograd.grad(out, leaves, g)
+    assert tattn.LAUNCHES == before + 1          # the backward launches nothing
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tattn.attention_reference(*ref_leaves, valid)
+    want = torch.autograd.grad(ref, ref_leaves, g)
+    torch.testing.assert_close(out, ref, atol=F32_ATOL, rtol=0)
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0, msg=f"d{name}")
+    assert float(got[1][2].abs().max()) == 0.0   # sample 2 has no valid key
+
+
+@pytest.mark.cuda
+def test_attend_under_autograd_gives_qkv_gradients(cuda_device):
+    """The kernel's output is no autograd leaf: q, k and v get gradients."""
+    q, k, v, valid = _inputs(9, 3, 2, 64, 128, torch.float32, cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tattn.attend(*leaves, valid)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert all(t.grad is not None and float(t.grad.abs().max()) > 0 for t in leaves)
+    with torch.no_grad():
+        assert tattn.attend(*leaves, valid).grad_fn is None
+
+
+def _train_batch(rng, B, table):
+    samples = []
+    for i in range(B):
+        n = int(rng.integers(12, 31))
+        ph = rng.integers(1, len(table), n)
+        dur = rng.integers(1, 5, n)
+        frames = np.repeat(ph, dur)
+        samples.append(dict(
+            id=str(i), text="", phonemes=ph, duration=dur,
+            mel=table[frames, :80] + 0.1 * rng.normal(size=(len(frames), 80)),
+            pitch=table[ph, 80] + 0.1 * rng.normal(size=n),
+            energy=table[ph, 81] + 0.1 * rng.normal(size=n), speaker=0, lang_id=0))
+    return collate_batch(samples, (32,), (128,), pitch_feature="phoneme_level",
+                         energy_feature="phoneme_level")[1]
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_cpu(cuda_device):
+    """Three train steps of a 2 + 2 layer system at d_model 128 (head dim
+    64) without dropout, from the same weights, on the card and on the CPU."""
+    cfg = C.ModelConfig(
+        transformer=C.TransformerConfig(
+            encoder_layer=2, decoder_layer=2, encoder_hidden=128, decoder_hidden=128,
+            encoder_head=2, decoder_head=2, conv_filter_size=256, encoder_dropout=0.0,
+            decoder_dropout=0.0),
+        variance_predictor=C.VariancePredictorConfig(dropout=0.0), max_seq_len=256)
+    optim = C.OptimConfig(lr=2e-3, warmup_step=10, anneal_steps=())
+    torch.manual_seed(0)
+    card = BaselineSystem(cfg, (("en", 152),), device=cuda_device, optim_cfg=optim)
+    cpu = BaselineSystem(cfg, (("en", 152),), device="cpu", optim_cfg=optim)
+    cpu.load_state_dict(card.state_dict(), strict=True)
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(152, 82)).astype(np.float32)
+    batches = [_train_batch(rng, 4, table) for _ in range(3)]
+    losses = {}
+    for system in (card, cpu):
+        system.model.postnet.dropout.p = 0.0
+        state = system.init_state()
+        before = tattn.LAUNCHES
+        losses[system.device.type] = [
+            float(system.train_step(state, to_device(b, system.device))[1]["Total Loss"])
+            for b in batches]
+        assert tattn.LAUNCHES - before == (4 * 3 if system is card else 0)
+    rel = np.abs(np.subtract(losses["cuda"], losses["cpu"])) / np.abs(losses["cpu"])
+    assert rel[0] <= TRAIN_FIRST_RTOL and rel[1:].max() <= TRAIN_LATER_RTOL, rel
 
 
 def _stage(C, post, seed=0):
