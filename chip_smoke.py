@@ -14,10 +14,11 @@ non-zero exit code when it fails:
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
    timed. The attention kernel at every L and T bucket the FFT blocks are
-   served at, a few edge lengths and HuBERT-large's head layout, at each key
-   split, held to f32 2e-5 / bf16 1e-2 and the all-invalid sample to the mean
-   of V (timed in phase 9); phases 4-8 fail if a main path launches it at
-   a shape not held here. The MRF stage
+   served at, a few edge lengths and HuBERT-large's head layout (at
+   L = 1000 and at phase 10's (32, 16, 199, 64) and card-vs-CPU shapes), at
+   each key split, held to f32 2e-5 / bf16 1e-2 and the all-invalid sample
+   to the mean of V (timed in phase 9); phases 4-10 fail if a main path
+   launches it at a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
    B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000 beside its
    route's bound (split TF32 or bf16 tensor cores) and the f32 FMA bound,
@@ -49,10 +50,26 @@ non-zero exit code when it fails:
    into forward, backward and optimizer, peak memory, a traced step with
    --profile; 5 steps at B = 4 without dropout on the card and on the CPU;
    the Function's forward + backward timed beside SDPA's.
-9. Attention timing: the kernel at each key split, its plain version and
-   SDPA (with SDPA's own error against the plain version), each in a CUDA
-   graph, at the encoder's and decoder's lengths and HuBERT-large's head
-   layout, beside its route's bound (split TF32 or bf16 tensor cores) and
+10. FSCL meta-episode: `TransEmbSystem` at config/model/fscl-fastspeech2.yaml
+   width (base trunk, `speaker_emb: dvec`, a 128 x 4 codebook) with a
+   HuBERT-large of random weights drawn on the card from --seed, at the
+   episode shape of benchmarks/bench_fscl_fullsize.py: 32 support wavs of
+   4 s (int16 PCM, 64 phonemes each, 100 symbols), an 8-line query batch at
+   L = 128, T = 512 with DvecRefs of 10 slices (two samples padded). First
+   card vs CPU on a small episode (table and eval loss) and the bf16
+   upstream's table against the f32 one's; then, with the upstream stored in
+   f32 and again in bf16: 10 episodes through `Trainer.fit` counted (every
+   loss finite, the last five below the first five, 34 attention launches
+   per episode at shapes held in phase 3), 10 timed (episodes/s), one split
+   by synchronizes into upstream forward, table, trunk forward + backward and
+   optimizer (the upstream's share), the upstream's checksum unchanged and
+   the codebook changed, peak memory, the positional conv alone, and with
+   --profile a traced episode.
+9. Attention timing (run last, after phase 10): the kernel at each key
+   split, its plain version and SDPA (with SDPA's own error against the
+   plain version), each in a CUDA graph, at the encoder's and decoder's
+   lengths and HuBERT-large's head layout (L = 1000 and phase 10's
+   (32, 16, 199, 64)), beside its route's bound (split TF32 or bf16 tensor cores) and
    the f32 FMA bound of the earlier design. The kernel also through its
    public wrapper with CUDA events over back-to-back calls (how the main
    path calls it, and how earlier versions of this script timed it), and
@@ -113,6 +130,23 @@ GRAD_ATOL = 1e-5
 # training amplifies (tests/test_torch_train.py).
 CHECK_B, CARD_STEPS = 4, 5
 TRAIN_FIRST_RTOL, TRAIN_LATER_RTOL = 1e-5, 1e-3
+# FSCL meta-episode (phase 10): the episode shape of
+# benchmarks/bench_fscl_fullsize.py:45-48 (32-shot support of 4 s wavs, 64
+# phonemes each, 100 symbols; an 8-line query batch at L = 128, T = 512) and
+# the d-vector references of config/model/fscl-fastspeech2.yaml (10 slices of
+# 160 x 40); episodes counted, then timed.
+FSCL_S, FSCL_WAV, FSCL_PHONES, FSCL_NSYM = 32, 64000, 64, 100
+FSCL_B, FSCL_L, FSCL_T, DVEC_N = 8, 128, 512, 10
+FSCL_EPISODES, FSCL_TIMED = 10, 10
+# Card vs CPU, one small episode at full width in eval mode (S, samples, B,
+# L, T): the upstream's 24 layers in f32 (TF32 off; the kernel's split TF32,
+# about 1e-6 relative per call) summed in another order; the table is an
+# average of those features through the codebook, the loss a mean of the
+# trunk's errors. bf16 upstream vs f32: 8-bit mantissas through 24 layers,
+# about sqrt(24 * 5) roundings of 2^-8, then the codebook's softmax.
+FSCL_CHECK = (4, 32000, 4, 64, 256)
+FSCL_TABLE_REL, FSCL_LOSS_RTOL = 1e-4, 1e-4
+FSCL_BF16_TABLE_REL = 0.1
 # HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
 V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
 
@@ -302,7 +336,13 @@ def phase_attention(seed: int):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     lengths = sorted({1, 77, *L_BUCKETS, *MEL_BUCKETS})
     shapes = [(BATCH_SIZE, H, L, Dh) for L in lengths]
-    shapes += [(8, 2, 2048, 64), (8, 16, 1000, 64)]
+    # HuBERT-large (16 heads of 64) at phase 10's support set and at its
+    # card-vs-CPU episode, whose query batch runs the trunk at B = 4
+    from fscl_tpu_torch.models.hubert import ssl_num_frames
+    S, n_samples, B_check, L_check, T_check = FSCL_CHECK
+    shapes += [(8, 2, 2048, 64), (8, 16, 1000, 64), (FSCL_S, 16, ssl_num_frames(FSCL_WAV), 64),
+               (S, 16, ssl_num_frames(n_samples), 64), (B_check, H, L_check, Dh),
+               (B_check, H, T_check, Dh)]
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
     for dtype in (torch.float32, torch.bfloat16):
@@ -376,7 +416,9 @@ def phase_attention_timing(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.Stream()
-    timed = [(8, 2, L, 128) for L in (64, 128, 256, 512, 1000)] + [(8, 16, 1000, 64)]
+    from fscl_tpu_torch.models.hubert import ssl_num_frames
+    timed = [(8, 2, L, 128) for L in (64, 128, 256, 512, 1000)] + [
+        (8, 16, 1000, 64), (FSCL_S, 16, ssl_num_frames(FSCL_WAV), 64)]
     timings = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -1068,11 +1110,12 @@ def time_train_attention():
     return rows
 
 
-def train_model_config(dropout: bool):
+def train_model_config(dropout: bool, name: str = "base.yaml"):
+    """config/model/<name>, with every dropout rate 0 unless `dropout`."""
     from dataclasses import replace
     from fscl_tpu_torch.core.config import model_config_from_yaml
 
-    cfg = model_config_from_yaml(str(REPO / "config" / "model" / "base.yaml"))
+    cfg = model_config_from_yaml(str(REPO / "config" / "model" / name))
     if dropout:
         return cfg
     return replace(cfg, transformer=replace(cfg.transformer, encoder_dropout=0.0,
@@ -1109,7 +1152,22 @@ class LossRecorder:
         pass
 
 
-def profile_train_step(system, state, batch, out_dir):
+def busy_union_ms(prof) -> float:
+    """Time the device ran at least one kernel or copy in a trace: the union
+    of their intervals (a sum of their times counts overlapping ones twice:
+    a traced FSCL episode's kernel times summed to 110 % of its wall)."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profile_train_step(system, state, batch, out_dir, name: str = "train"):
     """Device time by kernel over two train steps (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1127,6 +1185,7 @@ def profile_train_step(system, state, batch, out_dir):
                     "ms": e.self_device_time_total / 2e3} for e in events),
                   key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
+    union = busy_union_ms(prof) / 2
     # the host's side of one step: the kernels it launched, its copies, and
     # the times a copy made it wait for the device (cudaStreamSynchronize);
     # the window's own closing synchronizes are cudaDeviceSynchronize, counted
@@ -1136,16 +1195,17 @@ def profile_train_step(system, state, batch, out_dir):
                                  "cudaDeviceSynchronize", "cudaMemcpyAsync"))}
     launches = sum(n for k, n in host.items() if k.startswith("cudaLaunchKernel"))
     syncs = host.get("cudaStreamSynchronize", 0)
-    log(f"profile train step: wall {1e3 * wall:.2f} ms, device busy {busy:.2f} ms "
-        f"({100 * busy / (1e3 * wall):.1f}%); per step {launches:g} kernel launches, "
+    log(f"profile {name} step: wall {1e3 * wall:.2f} ms, kernel time {busy:.2f} ms, device "
+        f"busy {union:.2f} ms ({100 * union / (1e3 * wall):.1f}%); per step {launches:g} "
+        f"kernel launches, "
         f"{syncs:g} host waits for the device, {host.get('cudaMemcpyAsync', 0):g} copies; "
         f"{2 * host.get('cudaDeviceSynchronize', 0):g} device synchronizes at the window's end")
     for r in rows[:15]:
         log(f"  {r['ms']:9.3f} ms {r['calls']:7.1f}x  {r['name']}")
     if out_dir is not None:
-        prof.export_chrome_trace(str(out_dir / "chip_smoke_train_trace.json"))
-    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
-            "device_busy_share": busy / (1e3 * wall), "host_calls_per_step": host,
+        prof.export_chrome_trace(str(out_dir / f"chip_smoke_{name}_trace.json"))
+    return {"wall_ms": 1e3 * wall, "kernel_ms": busy, "device_busy_ms": union,
+            "device_busy_share": union / (1e3 * wall), "host_calls_per_step": host,
             "top": rows[:25]}
 
 
@@ -1302,6 +1362,311 @@ def phase_train_card_vs_cpu(seed: int, attn_checked):
             "rel": rel}
 
 
+def fscl_model_config(compute_dtype: str):
+    """config/model/fscl-fastspeech2.yaml (base trunk, `speaker_emb: dvec`,
+    a 128 x 4 codebook over HuBERT-large's 25 hidden states), with the
+    upstream stored and run in `compute_dtype`."""
+    from dataclasses import replace
+
+    cfg = train_model_config(True, "fscl-fastspeech2.yaml")
+    return replace(cfg, upstream=replace(cfg.upstream, compute_dtype=compute_dtype))
+
+
+def build_fscl_system(cfg, seed: int, device: str, upstream=None):
+    """TransEmbSystem with the trunk and codebook from torch's init under
+    `seed` and HuBERT-large drawn on the device from `seed` (or `upstream`,
+    an unfilled module to load weights into)."""
+    import torch
+    from fscl_tpu_torch.core.config import OptimConfig
+    from fscl_tpu_torch.systems.fscl import TransEmbSystem
+
+    optim = OptimConfig(batch_size=FSCL_B, lr=2e-3, warmup_step=5, anneal_steps=())
+    torch.manual_seed(seed)
+    return TransEmbSystem(cfg, FSCL_NSYM, device=device, optim_cfg=optim,
+                          upstream=upstream, upstream_seed=seed)
+
+
+def fscl_episodes(seed: int, n: int, S: int, n_samples: int, B: int, L: int, T: int):
+    """`n` numpy Episodes: S support wavs of n_samples 16-bit PCM samples
+    (noise at 0.1 of full scale; every fourth cut to 3/4 of its length) with
+    FSCL_PHONES phonemes of 1-3 SSL frames each; a query batch of B lines
+    from `collate_batch` in the (L, T) bucket (the first line L phonemes of
+    4 frames), learnable targets from a fixed random table per phoneme plus
+    noise, and DvecRefs of DVEC_N slices of (160, 40), the last two samples
+    padded (6 and 3 real slices)."""
+    import numpy as np
+    from fscl_tpu_torch.data.batch import SupInfo, collate_batch
+    from fscl_tpu_torch.systems.fscl import Episode
+
+    rng = np.random.default_rng(seed)
+    table = np.random.default_rng(seed + 1).normal(size=(FSCL_NSYM, 82)).astype(np.float32)
+    out = []
+    for e in range(n):
+        wavs = np.clip(0.1 * rng.normal(size=(S, n_samples)) * 32767, -32768, 32767)
+        wav_lens = np.full(S, n_samples, np.int32)
+        wav_lens[3::4] = 3 * n_samples // 4
+        wavs[np.arange(n_samples)[None, :] >= wav_lens[:, None]] = 0
+        sup = SupInfo(wavs.astype(np.int16), wav_lens,
+                      rng.integers(1, 4, (S, FSCL_PHONES)).astype(np.int32),
+                      rng.integers(1, FSCL_NSYM, (S, FSCL_PHONES)).astype(np.int32), FSCL_NSYM)
+        samples = []
+        for i in range(B):
+            n_ph = L if i == 0 else int(rng.integers(L // 3, L + 1))
+            dur = np.full(n_ph, 4) if i == 0 else rng.integers(1, 5, n_ph)
+            ph = rng.integers(1, FSCL_NSYM, n_ph)
+            frames = np.repeat(ph, dur)
+            n_slices = {B - 2: 6, B - 1: 3}.get(i, DVEC_N)
+            samples.append(dict(
+                id=f"{e}-{i}", text="", phonemes=ph, duration=dur,
+                mel=table[frames, :80] + 0.1 * rng.normal(size=(len(frames), 80)),
+                pitch=table[ph, 80] + 0.1 * rng.normal(size=n_ph),
+                energy=table[ph, 81] + 0.1 * rng.normal(size=n_ph), lang_id=0,
+                spk_ref_mel_slices=rng.normal(size=(n_slices, 160, 40)).astype(np.float32)))
+        qry = collate_batch(samples, (L,), (T,), dvec_slices=DVEC_N,
+                            pitch_feature="phoneme_level", energy_feature="phoneme_level")[1]
+        out.append(Episode(sup=sup, qry=qry))
+    return out
+
+
+def fscl_table_and_loss(system, episode):
+    """The episode's table and its eval-mode loss, without gradients."""
+    import torch
+    system.eval()
+    with torch.no_grad():
+        hidden, _ = system.extract_ssl(episode.sup.wavs, episode.sup.wav_lens)
+        table = system.build_embedding_table(hidden, episode.sup)
+        loss = system.query_loss(system.forward_query(table, episode.qry), episode.qry).total
+    return table.float().cpu(), float(loss)
+
+
+def checksum(module) -> float:
+    import torch
+    with torch.no_grad():
+        return sum(float(p.double().sum()) + float(p.double().abs().sum())
+                   for p in module.parameters())
+
+
+def phase_fscl_card_vs_cpu(system, seed: int, attn_checked):
+    """One small episode (FSCL_CHECK) through the card's system and the same
+    weights on the CPU (where the plain versions run), in eval mode: the
+    table and the loss against FSCL_TABLE_REL and FSCL_LOSS_RTOL."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.models.hubert import make_upstream
+    from fscl_tpu_torch.ops import attention as attn
+
+    S, n_samples, B, L, T = FSCL_CHECK
+    ep = fscl_episodes(seed + 5, 1, S, n_samples, B, L, T)[0]
+    up = system.model_cfg.upstream
+    with torch.device("meta"):
+        shell = make_upstream(up.name, up)
+    cpu = build_fscl_system(system.model_cfg, seed, "cpu", upstream=shell.to_empty(device="cpu"))
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    got = {}
+    for name, s in (("cuda", system), ("cpu", cpu)):
+        shapes = (attention_shapes(attn, attn_checked, "fscl card vs CPU") if name == "cuda"
+                  else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with shapes:
+            got[name] = fscl_table_and_loss(s, to_device(ep, name))
+        log(f"fscl card vs CPU: {name} episode in {time.perf_counter() - t0:.2f} s")
+    (t_card, l_card), (t_cpu, l_cpu) = got["cuda"], got["cpu"]
+    table_rel = float((t_card - t_cpu).abs().max() / t_cpu.abs().max())
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"fscl card vs CPU (S={S} wavs of {n_samples} samples, B={B} L={L} T={T}, eval mode): "
+        f"table relative max |d| {table_rel:.3g} (bar {FSCL_TABLE_REL}), loss {l_card:.6f} / "
+        f"{l_cpu:.6f}, relative {loss_rel:.3g} (bar {FSCL_LOSS_RTOL})")
+    if not (table_rel <= FSCL_TABLE_REL and loss_rel <= FSCL_LOSS_RTOL):
+        fail(f"fscl card vs CPU: table {table_rel:.3g}, loss {loss_rel:.3g}")
+    del cpu
+    return {"S": S, "samples": n_samples, "B": B, "L": L, "T": T, "table_rel": table_rel,
+            "loss_cuda": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel}
+
+
+def fscl_split(system, state, ep):
+    """One synchronised episode: upstream forward, table (segment ops +
+    codebook), trunk forward + backward, optimizer; ms, median of 3."""
+    import torch
+    splits = []
+    for _ in range(3):
+        system.train()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden, _ = system.extract_ssl(ep.sup.wavs, ep.sup.wav_lens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        table = system.build_embedding_table(hidden, ep.sup)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss = system.query_loss(system.forward_query(table, ep.qry), ep.qry).total
+        g = torch.autograd.grad(loss, system.optimizer.params, allow_unused=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        system.eval()
+        system.optimizer.update(state.opt_state, g)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        splits.append(tuple(1e3 * d for d in (t1 - t0, t2 - t1, t3 - t2, t4 - t3)))
+        del g, loss, table, hidden
+    return sorted(splits, key=sum)[1]
+
+
+def run_fscl(system, dtype_name: str, episodes, timed, extra, card: str, attn_checked,
+             profile: bool, out_dir):
+    """The main path for one upstream dtype: FSCL_EPISODES episodes through
+    `Trainer.fit` counted (a loss each, 34 attention launches each at shapes
+    held in phase 3), FSCL_TIMED more timed, one split by synchronizes, the
+    upstream's checksum before and after, the codebook changed, peak memory,
+    and with --profile a traced episode."""
+    import torch
+    from fscl_tpu_torch.core.config import TrainConfig
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    t = system.model_cfg.transformer
+    per_episode = system.upstream.n_layers + t.encoder_layer + t.decoder_layer
+    up_sum = checksum(system.upstream)
+    codebook = {k: v.clone() for k, v in system.codebook.state_dict().items()}
+    state = system.init_state()
+    rec = LossRecorder()
+    cfg = TrainConfig(optim=system.optim_cfg, total_step=FSCL_EPISODES, log_step=1,
+                      val_step=10 ** 9, save_step=10 ** 9, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, f"fscl episode {dtype_name}"):
+        t0 = time.perf_counter()
+        state = Trainer(system, cfg, [rec]).fit(state, iter(episodes))
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["Total Loss"] for _, m, _ in rec.logs]
+    if state.step != FSCL_EPISODES or len(losses) != FSCL_EPISODES:
+        fail(f"fscl {dtype_name}: {state.step} episodes and {len(losses)} losses")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"fscl {dtype_name}: non-finite loss in {losses}")
+    head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not tail < head:
+        fail(f"fscl {dtype_name}: loss did not fall (first 5 mean {head:.4f}, last 5 {tail:.4f})")
+    if launches != per_episode * FSCL_EPISODES:
+        fail(f"fscl {dtype_name}: {launches} attention launches in {FSCL_EPISODES} episodes, "
+             f"expected {per_episode} per episode")
+    log(f"fscl {dtype_name}: {FSCL_EPISODES} episodes through Trainer.fit, loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} (first 5 mean {head:.4f}, last 5 mean {tail:.4f}), {launches} "
+        f"attention launches ({per_episode} per episode), {counted_s:.2f} s with a loss read "
+        f"per episode, peak {peak:.2f} GiB")
+
+    timed_cfg = TrainConfig(optim=system.optim_cfg, total_step=FSCL_EPISODES + FSCL_TIMED,
+                            log_step=FSCL_EPISODES + FSCL_TIMED, val_step=10 ** 9,
+                            save_step=10 ** 9, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = Trainer(system, timed_cfg, [rec]).fit(state, iter(timed))
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    ms = 1e3 * timed_s / FSCL_TIMED
+    ep = to_device(extra, "cuda")
+    up_ms, table_ms, trunk_ms, opt_ms = fscl_split(system, state, ep)
+    split_total = up_ms + table_ms + trunk_ms + opt_ms
+    log(f"fscl {dtype_name}: {FSCL_TIMED} episodes in {timed_s:.3f} s = "
+        f"{FSCL_TIMED / timed_s:.3f} episodes/s, {ms:.2f} ms per episode, on {card}; one "
+        f"synchronised episode: upstream forward {up_ms:.2f} ms, table {table_ms:.2f}, trunk "
+        f"forward + backward {trunk_ms:.2f}, optimizer {opt_ms:.2f}: upstream share "
+        f"{100 * up_ms / split_total:.1f}%")
+    up_after = checksum(system.upstream)
+    changed = any(not torch.equal(v, system.codebook.state_dict()[k]) for k, v in codebook.items())
+    log(f"fscl {dtype_name}: upstream checksum {up_sum!r} before, {up_after!r} after; codebook "
+        f"{'changed' if changed else 'UNCHANGED'}")
+    if up_after != up_sum or not changed:
+        fail(f"fscl {dtype_name}: the upstream changed or the codebook did not")
+    summary = {
+        "upstream_dtype": dtype_name, "episodes": FSCL_EPISODES, "losses": losses,
+        "attention_launches": launches, "attention_per_episode": per_episode,
+        "counted_seconds": counted_s, "peak_mem_gib": peak,
+        "timed_episodes": FSCL_TIMED, "timed_seconds": timed_s,
+        "episodes_per_s": FSCL_TIMED / timed_s, "ms_per_episode": ms,
+        "upstream_ms": up_ms, "table_ms": table_ms, "trunk_fwd_bwd_ms": trunk_ms,
+        "optimizer_ms": opt_ms, "upstream_share": up_ms / split_total,
+        "upstream_checksum": up_sum,
+    }
+    if profile:
+        summary["profile"] = profile_train_step(system, state, ep, out_dir,
+                                                f"fscl_{dtype_name}")
+    return summary
+
+
+def time_pos_conv(system):
+    """The positional conv alone (k = 128, 16 groups, 1024 channels, cuDNN)
+    at the episode's (S, T', 1024), in the upstream's storage dtype."""
+    import torch
+    from fscl_tpu_torch.models.hubert import ssl_num_frames
+    conv = system.upstream.encoder.pos_conv_embed
+    w = next(conv.parameters())
+    x = torch.randn(FSCL_S, ssl_num_frames(FSCL_WAV), system.upstream.dim, device=w.device,
+                    dtype=w.dtype)
+    with torch.no_grad():
+        return cuda_time_ms(lambda: conv(x), 10)
+
+
+def phase_fscl(seed: int, card: str, attn_checked, profile: bool, out_dir):
+    """Main path, the FSCL meta-episode: `TransEmbSystem` at
+    fscl-fastspeech2.yaml width with a random HuBERT-large from `seed`, at
+    the episode shape of benchmarks/bench_fscl_fullsize.py (32 support wavs
+    of 4 s, 64 phonemes each, 100 symbols; an 8-line query batch at L = 128,
+    T = 512), trained through `Trainer.fit` once with the f32 upstream and
+    once with it stored in bf16. Before training: card vs CPU on a small
+    episode, and the bf16 upstream's table against the f32 one's."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.ops import attention as attn
+
+    # made before the runs (set-up): the prefetch thread only copies them
+    episodes = fscl_episodes(seed, FSCL_EPISODES + FSCL_TIMED + 1, FSCL_S, FSCL_WAV,
+                             FSCL_B, FSCL_L, FSCL_T)
+    counted, timed = episodes[:FSCL_EPISODES], episodes[FSCL_EPISODES:-1]
+    extra = episodes[-1]
+
+    summary = {"S": FSCL_S, "wav_samples": FSCL_WAV, "phones": FSCL_PHONES,
+               "n_symbols": FSCL_NSYM, "B": FSCL_B, "L": FSCL_L, "T": FSCL_T,
+               "dvec_slices": DVEC_N}
+    first = to_device(counted[0], "cuda")
+    tables, trunk_sums = {}, {}
+    for dtype_name in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        system = build_fscl_system(fscl_model_config(dtype_name), seed, "cuda")
+        torch.cuda.synchronize()
+        n_up = sum(p.numel() for p in system.upstream.parameters())
+        mask = system.trainable_mask()
+        n_train = sum(p.numel() for n, p in system.named_parameters() if mask[n])
+        log(f"fscl {dtype_name}: built in {time.perf_counter() - t0:.2f} s: upstream "
+            f"{n_up / 1e6:.1f} M parameters ({dtype_name}), {n_train / 1e6:.2f} M trainable")
+        if dtype_name == "float32":
+            summary["card_vs_cpu"] = phase_fscl_card_vs_cpu(system, seed, attn_checked)
+        # the same seed gives both builds the same weights (the bf16 one cast)
+        trunk_sums[dtype_name] = checksum(system.model) + checksum(system.codebook)
+        with attention_shapes(attn, attn_checked, f"fscl table {dtype_name}"):
+            tables[dtype_name] = fscl_table_and_loss(system, first)[0]
+        summary[f"pos_conv_ms_{dtype_name}"] = time_pos_conv(system)
+        summary[dtype_name] = run_fscl(system, dtype_name, counted, timed, extra, card,
+                                       attn_checked, profile, out_dir)
+        log(f"fscl {dtype_name}: positional conv alone {summary[f'pos_conv_ms_{dtype_name}']:.3f}"
+            f" ms per episode (upstream forward {summary[dtype_name]['upstream_ms']:.2f} ms)")
+        del system
+        torch.cuda.empty_cache()
+    if trunk_sums["bfloat16"] != trunk_sums["float32"]:
+        fail(f"fscl: the two builds from one seed differ ({trunk_sums})")
+    rel = float((tables["bfloat16"] - tables["float32"]).abs().max()
+                / tables["float32"].abs().max())
+    log(f"fscl: bf16 upstream's table vs the f32 upstream's, relative max |d| {rel:.3g} "
+        f"(bar {FSCL_BF16_TABLE_REL})")
+    if not rel <= FSCL_BF16_TABLE_REL:
+        fail(f"fscl: the bf16 upstream's table is {rel:.3g} from the f32 one's")
+    summary["bf16_vs_f32_table_rel"] = rel
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1327,6 +1692,7 @@ def main(argv=None) -> int:
     vocoder_check = phase_vocoder_card_vs_cpu(vocoder, wav_records)
     del system, vocoder, wav_records     # out of the training phase's peak memory
     train = phase_train(args.seed, card, attn_checked, args.profile, args.out)
+    fscl = phase_fscl(args.seed, card, attn_checked, args.profile, args.out)
     timings = phase_attention_timing(args.seed)
 
     main_row = next(r for r in timings
@@ -1340,7 +1706,9 @@ def main(argv=None) -> int:
         "launches": text_to_wav["launches"]["attention_fwd"],
         "launches_by_path": {"text_to_mel": main_path["attention_launches"],
                              "text_to_wav": text_to_wav["launches"]["attention_fwd"],
-                             "train": train["attention_launches"]},
+                             "train": train["attention_launches"],
+                             "fscl_episode": fscl["float32"]["attention_launches"],
+                             "fscl_episode_bf16_upstream": fscl["bfloat16"]["attention_launches"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1389,7 +1757,7 @@ def main(argv=None) -> int:
     }]
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
-              "vocoder_check": vocoder_check, "train": train,
+              "vocoder_check": vocoder_check, "train": train, "fscl": fscl,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

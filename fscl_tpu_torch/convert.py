@@ -18,6 +18,15 @@ vocoders' params (`{"params": ...}` as `HiFiGANGenerator.init` and
 `MelGANGenerator.init` return them). Their keys are the official HiFi-GAN and
 melgan-neurips keys with weight norm folded, so each package's
 `convert_torch_checkpoint` is the second route for them.
+
+The FSCL slice: `hubert_state_dict` (SSLUpstream params, per-layer layout
+`layer_{i}`; scan-layout params go through `unstack_layer_params` first)
+gives HF HubertModel keys, which `fscl_tpu/models/hubert.py:
+convert_torch_checkpoint` reads back; `ge2e_state_dict` gives resemblyzer's
+LSTM keys, which `convert_resemblyzer_checkpoint` reads back (flax keeps one
+bias per gate on the hidden side: it goes to `bias_hh`, `bias_ih` is 0);
+`codebook_state_dict` the codebook's; `transemb_state_dict` the whole
+TransEmbSystem, the frozen upstream included when the variables hold it.
 """
 from __future__ import annotations
 
@@ -94,8 +103,96 @@ def fastspeech2_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
         sd[f"{key}.1.running_var"] = _t(stats[f"bn_{i}"]["var"])
         sd[f"{key}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     for name in ("speaker_emb", "language_emb"):
-        if name in params:
+        if name in params and "table" in params[name]:
             sd[f"{name}.model.weight"] = _t(params[name]["table"]["embedding"])
+    if "ge2e" in params.get("speaker_emb", {}):
+        sd.update({f"speaker_emb.ge2e.{k}": v
+                   for k, v in ge2e_state_dict(params["speaker_emb"]["ge2e"]).items()})
+    return sd
+
+
+LSTM_GATES = ("i", "f", "g", "o")     # torch's row order in weight_ih / weight_hh
+
+
+def _gates(cell: Mapping, side: str, leaf: str) -> torch.Tensor:
+    """A flax LSTM cell's per-gate Dense leaves (`ii`..`io` on the input
+    side, `hi`..`ho` on the hidden side) stacked in torch's layout."""
+    parts = [_t(cell[f"{side}{g}"][leaf]) for g in LSTM_GATES]
+    return torch.cat([x.T for x in parts] if leaf == "kernel" else parts).contiguous()
+
+
+def ge2e_state_dict(params: Mapping) -> StateDict:
+    """flax GE2EEncoder params (`lstm_{i}` cells, `proj`) -> the port's
+    GE2EEncoder (resemblyzer keys)."""
+    sd: StateDict = {}
+    i = 0
+    while f"lstm_{i}" in params:
+        cell = params[f"lstm_{i}"]
+        sd[f"lstm.weight_ih_l{i}"] = _gates(cell, "i", "kernel")
+        sd[f"lstm.weight_hh_l{i}"] = _gates(cell, "h", "kernel")
+        sd[f"lstm.bias_hh_l{i}"] = _gates(cell, "h", "bias")
+        sd[f"lstm.bias_ih_l{i}"] = torch.zeros_like(sd[f"lstm.bias_hh_l{i}"])
+        i += 1
+    _linear(sd, "linear", params["proj"])
+    return sd
+
+
+def codebook_state_dict(params: Mapping) -> StateDict:
+    """flax SoftMultiAttCodebook(2) params -> the port's codebook."""
+    sd: StateDict = {name: _t(params[name]) for name in ("weight_raw", "emb_banks", "att_banks")
+                     if name in params}
+    if "q_linear" in params:
+        _linear(sd, "q_linear", params["q_linear"])
+    return sd
+
+
+def hubert_state_dict(variables: Mapping) -> StateDict:
+    """flax SSLUpstream params (or `{"params": ...}`) in the per-layer
+    layout -> the port's SSLUpstream (HF HubertModel keys)."""
+    p = variables.get("params", variables)
+    if "layers" in p:
+        raise ValueError("scan-layout params: unstack them (hubert.unstack_layer_params)")
+    fe = p["feature_extractor"]
+    sd: StateDict = {}
+    i = 0
+    while f"conv_{i}" in fe:
+        key = f"feature_extractor.conv_layers.{i}"
+        sd[f"{key}.conv.weight"] = _t(fe[f"conv_{i}"]["kernel"]).permute(2, 1, 0).contiguous()
+        if "bias" in fe[f"conv_{i}"]:
+            sd[f"{key}.conv.bias"] = _t(fe[f"conv_{i}"]["bias"])
+        norm = fe.get(f"conv_ln_{i}", fe.get("group_norm") if i == 0 else None)
+        if norm is not None:
+            _norm(sd, f"{key}.layer_norm", norm)
+        i += 1
+    _norm(sd, "feature_projection.layer_norm", p["feat_layer_norm"])
+    _linear(sd, "feature_projection.projection", p["post_extract_proj"])
+    _conv1d(sd, "encoder.pos_conv_embed.conv", p["pos_conv"]["conv"])
+    if "encoder_layer_norm" in p:
+        _norm(sd, "encoder.layer_norm", p["encoder_layer_norm"])
+    i = 0
+    while f"layer_{i}" in p:
+        layer, key = p[f"layer_{i}"], f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{key}.attention.{name}", layer[name])
+        _linear(sd, f"{key}.feed_forward.intermediate_dense", layer["fc1"])
+        _linear(sd, f"{key}.feed_forward.output_dense", layer["fc2"])
+        _norm(sd, f"{key}.layer_norm", layer["self_attn_layer_norm"])
+        _norm(sd, f"{key}.final_layer_norm", layer["final_layer_norm"])
+        i += 1
+    return sd
+
+
+def transemb_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu TransEmbSystem variables (`{"params": {"codebook", "model"},
+    "batch_stats": {"model"}, "frozen": {"upstream"}}`) -> the port's
+    TransEmbSystem; the `upstream.` keys only when `frozen` is there."""
+    params = variables["params"]
+    sd = {f"codebook.{k}": v for k, v in codebook_state_dict(params["codebook"]).items()}
+    model = fastspeech2_state_dict(params["model"], variables["batch_stats"]["model"])
+    sd.update({f"model.{k}": v for k, v in model.items()})
+    if variables.get("frozen") is not None:
+        up = hubert_state_dict(variables["frozen"]["upstream"])
+        sd.update({f"upstream.{k}": v for k, v in up.items()})
     return sd
 
 

@@ -4,8 +4,8 @@ The reference collates every task into a 13-tuple
 (lightning/collates/utils.py:70-101). Here the device part is a `Batch` of
 numpy arrays with bucketed shapes, as in the JAX package, and host-only
 metadata (utterance ids, raw text) rides in `BatchMeta`. `to_device` copies
-a `Batch` to the card, from pinned memory without blocking the host.
-`SupInfo`, the FSCL episode's support set, comes with that slice.
+a `Batch` (or an FSCL `Episode`: `SupInfo` and a query `Batch`) to the
+card, from pinned memory without blocking the host.
 """
 from __future__ import annotations
 
@@ -48,6 +48,17 @@ def collate_dvec_refs(samples: List[dict], n_slices: int) -> DvecRefs:
         out[i, : len(sl)] = sl
         mask[i, : len(sl)] = 1.0
     return DvecRefs(out, mask)
+
+
+class SupInfo(NamedTuple):
+    """The raw SSL inputs of an FSCL episode's support set (the JAX
+    package's flax struct, `fscl_tpu/data/batch.py:63-72`). `n_symbols` is
+    static metadata: `to_device` passes it through."""
+    wavs: np.ndarray            # (S, T_wav) 16 kHz: float32, or int16 PCM
+    wav_lens: np.ndarray        # (S,) int32
+    avg_frames: np.ndarray      # (S, L) int32 SSL frames per phoneme
+    phonemes: np.ndarray        # (S, L) int32 phoneme ids
+    n_symbols: int = 0
 
 
 @dataclass
@@ -156,14 +167,20 @@ def collate_batch(
     return meta, batch
 
 
-def to_device(batch: Union[Batch, DvecRefs], device: Union[str, torch.device]):
-    """The same NamedTuple with each numpy array as a tensor on `device`
-    (dtypes kept). For a CUDA device each array is copied into pinned host
-    memory and on to the card with `non_blocking`, on the calling thread's
-    current stream, so a background thread can run ahead of the step."""
+def to_device(batch: Union[Batch, DvecRefs, SupInfo, tuple],
+              device: Union[str, torch.device]):
+    """The same NamedTuple (nested ones included: a `DvecRefs` as
+    `speaker_args`, an `Episode`'s `SupInfo` and `Batch`es) with each numpy
+    array as a tensor on `device` (dtypes kept); None and Python numbers
+    (`SupInfo.n_symbols`) pass through. For a CUDA device each array is
+    copied into pinned host memory and on to the card with `non_blocking`,
+    on the calling thread's current stream, so a background thread can run
+    ahead of the step."""
     device = torch.device(device)
 
     def put(x):
+        if x is None or isinstance(x, (int, float)):
+            return x
         if isinstance(x, tuple):
             return type(x)(*(put(f) for f in x))
         t = torch.from_numpy(np.ascontiguousarray(x))

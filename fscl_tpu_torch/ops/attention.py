@@ -9,13 +9,15 @@ scores in f32, invalid keys filled with the finite -1e9, softmax weights and
 weights . V in f32, the result cast to the input dtype.
 
 `attend` takes the plain version only for CPU tensors. For CUDA tensors it
-launches the kernel or raises: there is no fallback. Under autograd (grad
-mode on and an input that requires grad) it launches the kernel through
-`AttentionFunction`, the port of `_pallas_attention_ad` (`:106-130`), whose
+launches the kernel or raises: there is no fallback. With grad mode on (where
+autograd or a `torch.func` transform may be tracing) it launches the kernel
+through `AttentionFunction`, the port of `_pallas_attention_ad` (`:106-130`), whose
 backward `attention_bwd` recomputes the weights from q, k and v as
 `_pallas_attention_bwd` (`:120-127`) does. The JAX package has no backward
 kernel (its backward is XLA code outside any Pallas call), so the backward
 here is plain PyTorch: two products recompute P, three give the gradients.
+Like the JAX custom VJP, the Function can be differentiated twice and
+transformed by `torch.func.grad` and `torch.func.vmap`.
 """
 from __future__ import annotations
 
@@ -172,19 +174,29 @@ def attention_bwd(
     at invalid keys as `jnp.where`'s VJP zeroes them (in a row with no valid
     key P is uniform, and dS would otherwise carry a gradient to those keys);
     dQ = dS K / temp, dK = dS^T Q / temp. Products in f32 as batched products
-    over B * H, whose transposed operands cuBLAS reads in place; the (L, L)
-    temporaries are updated in place. Each gradient is cast to its input's
-    dtype."""
+    over B * H, whose transposed operands cuBLAS reads in place. Each
+    gradient is cast to its input's dtype.
+
+    With grad mode off (a first-order backward) the (L, L) temporaries are
+    updated in place. With it on (a double backward, `torch.func`) every step
+    is out of place, so that autograd can differentiate the backward itself,
+    as JAX differentiates `jax.vjp(xla_attention)` again."""
     B, H, L, Dh = q.shape
     temp = temperature if temperature is not None else Dh ** 0.5
     qf, kf, vf, gf = (t.reshape(B * H, L, Dh).float() for t in (q, k, v, g))
     invalid = (~key_valid).repeat_interleave(H, dim=0)[:, None, :]
-    scores = torch.bmm(qf, kf.transpose(1, 2)).div_(temp).masked_fill_(invalid, NEG_INF)
-    weights = torch.softmax(scores, dim=-1)
-    dv = torch.bmm(weights.transpose(1, 2), gf)
     dw = torch.bmm(gf, vf.transpose(1, 2))
-    ds = dw.sub_((dw * weights).sum(dim=-1, keepdim=True)).mul_(weights)
-    ds = ds.masked_fill_(invalid, 0.0).div_(temp)
+    if torch.is_grad_enabled():
+        scores = (torch.bmm(qf, kf.transpose(1, 2)) / temp).masked_fill(invalid, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        ds = (dw - (dw * weights).sum(dim=-1, keepdim=True)) * weights
+        ds = ds.masked_fill(invalid, 0.0) / temp
+    else:
+        scores = torch.bmm(qf, kf.transpose(1, 2)).div_(temp).masked_fill_(invalid, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        ds = dw.sub_((dw * weights).sum(dim=-1, keepdim=True)).mul_(weights)
+        ds = ds.masked_fill_(invalid, 0.0).div_(temp)
+    dv = torch.bmm(weights.transpose(1, 2), gf)
     dq = torch.bmm(ds, kf)
     dk = torch.bmm(ds.transpose(1, 2), qf)
     return tuple(d.view(B, H, L, Dh).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
@@ -192,19 +204,40 @@ def attention_bwd(
 
 class AttentionFunction(torch.autograd.Function):
     """The kernel under autograd: forward `attention_cuda`, backward
-    `attention_bwd` from the saved q, k, v and key_valid."""
+    `attention_bwd` from the saved q, k, v and key_valid. Written in the
+    `setup_context` form with a `vmap` rule, so that `torch.func.grad`,
+    `torch.func.vmap` and double backwards run through it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_valid, temperature):
+    def forward(q, k, v, key_valid, temperature):
+        return attention_cuda(q, k, v, key_valid, temperature)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_valid, temperature = inputs
         ctx.save_for_backward(q, k, v, key_valid)
         ctx.temperature = temperature
-        return attention_cuda(q, k, v, key_valid, temperature)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_valid = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, key_valid, ctx.temperature, g)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, key_valid, temperature):
+        """Fold the vmapped dim into B: (N, B, H, L, Dh) -> (N * B, H, L, Dh),
+        one launch for all N. An input without the vmapped dim (key_valid
+        when only q, k and v are vmapped) is expanded to it."""
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+            return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+        args = [fold(t, d) for t, d in zip((q, k, v, key_valid), in_dims[:4])]
+        out = AttentionFunction.apply(*args, temperature)
+        return out.view(n, out.shape[0] // n, *out.shape[1:]), 0
 
 
 def attend(
@@ -223,6 +256,6 @@ def attend(
             "return_weights on CUDA: the kernel does not write the weights")
     if key_valid is None:
         key_valid = torch.ones(q.shape[0], k.shape[2], dtype=torch.bool, device=q.device)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if torch.is_grad_enabled():     # autograd or a torch.func transform may be tracing
         return AttentionFunction.apply(q, k, v, key_valid, temperature)
     return attention_cuda(q, k, v, key_valid, temperature)

@@ -50,8 +50,9 @@ class System(nn.Module):
         raise NotImplementedError
 
     def trainable_mask(self) -> Dict[str, bool]:
-        """Parameter name -> trains; default: everything trains."""
-        return {name: True for name, _ in self.named_parameters()}
+        """Parameter name -> trains; default: every parameter that requires
+        grad trains."""
+        return {name: p.requires_grad for name, p in self.named_parameters()}
 
     # --- provided ----------------------------------------------------------
     def init_state(self) -> TrainState:

@@ -60,11 +60,12 @@ class BaselineSystem(System):
     def trainable_mask(self) -> Dict[str, bool]:
         """emb_type "dvec" keeps the pretrained GE2E speaker encoder frozen
         ("encoder"/"scratch_encoder" fine-tune it), as reference
-        speaker_encoder.py:115-136 detaches the d-vector path. Inert until
-        the d-vector speakers are ported: no parameter lies under `ge2e`."""
+        speaker_encoder.py:115-136 detaches the d-vector path: the
+        parameters under `model.speaker_emb.ge2e` stay out of the optimizer
+        and its clip."""
         freeze_ge2e = self.model_cfg.speaker.emb_type == "dvec"
-        return {name: not (freeze_ge2e and "ge2e" in name.split("."))
-                for name, _ in self.named_parameters()}
+        return {name: p.requires_grad and not (freeze_ge2e and "ge2e" in name.split("."))
+                for name, p in self.named_parameters()}
 
     def forward(self, batch: Batch, symbol_id: Optional[str] = None) -> FastSpeech2Output:
         """Teacher-forced forward on a batch of tensors on the system's

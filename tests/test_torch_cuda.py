@@ -144,6 +144,86 @@ def test_attention_function_grads_match_plain_autograd(cuda_device, Dh, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend_at_hubert_large_episode_shape(cuda_device, dtype):
+    """HuBERT-large over an FSCL episode's support set: 32 wavs of 4 s,
+    16 heads of 64 at 199 frames, under no_grad as the frozen upstream runs."""
+    q, k, v, valid = _inputs(11, 32, 16, 199, 64, dtype, cuda_device)
+    before = tattn.LAUNCHES
+    with torch.no_grad():
+        got = tattn.attend(q, k, v, valid)
+    assert tattn.LAUNCHES == before + 1
+    want = tattn.attention_reference(q, k, v, valid)
+    tol = F32_ATOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=0 if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_function_twice_differentiable_on_card(cuda_device):
+    """A double backward, torch.func.grad and vmap(grad) over a task axis
+    through `attend` on the card (the kernel forward, the recompute backward
+    differentiated again), against the same through the plain version."""
+    from torch.func import grad, vmap
+    q, k, v, valid = _inputs(12, 4, 2, 77, 64, torch.float32, cuda_device)
+    rng = np.random.default_rng(13)
+    w, u = (torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+
+    def second(attn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        first = torch.autograd.grad((attn(*leaves, valid) * w).sum(), leaves, create_graph=True)
+        return torch.autograd.grad(sum((d * u).sum() for d in first), leaves)
+
+    before = tattn.LAUNCHES
+    got = second(lambda *a: tattn.attend(*a))
+    assert tattn.LAUNCHES == before + 1
+    for a, b in zip(got, second(tattn.attention_reference)):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+    def loss(attn):
+        return lambda q_, k_, v_: (attn(q_, k_, v_, valid) * w).sum()
+
+    got = grad(loss(tattn.attend), argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(got, grad(loss(tattn.attention_reference), argnums=(0, 1, 2))(q, k, v)):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+    tasks = [t.expand(3, *t.shape).contiguous() for t in (q, k, v)]
+    before = tattn.LAUNCHES
+    got = vmap(grad(loss(tattn.attend), argnums=(0, 1, 2)))(*tasks)
+    assert tattn.LAUNCHES == before + 1          # the tasks folded into one launch
+    want = vmap(grad(loss(tattn.attention_reference), argnums=(0, 1, 2)))(*tasks)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_hubert_forward_card_matches_cpu(cuda_device):
+    """A 2-layer HuBERT of 128 dims in 2 heads of 64 (the kernel's head dim),
+    layer_norm extractor, ragged wavs, on the card against the CPU: the same
+    f32 math (TF32 off; the kernel's split TF32) through the conv stack and
+    two layers, hidden states of O(1) after the LayerNorms."""
+    from fscl_tpu_torch.models.hubert import SSLUpstream, frozen_upstream_features
+    from fscl_tpu_torch.ops.masking import length_mask
+    torch.manual_seed(0)
+    cpu = SSLUpstream(dim=128, n_layers=2, n_heads=2, ffn_dim=256, pos_conv_kernel=16,
+                      extractor_mode="layer_norm").eval()
+    card = SSLUpstream(dim=128, n_layers=2, n_heads=2, ffn_dim=256, pos_conv_kernel=16,
+                       extractor_mode="layer_norm").to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(14)
+    pcm = torch.from_numpy((0.1 * 32767 * rng.normal(size=(3, 8000))).astype(np.int16))
+    lens = torch.tensor([8000, 5000, 900])
+    want, want_v = frozen_upstream_features(cpu, pcm, length_mask(lens, 8000))
+    before = tattn.LAUNCHES
+    got, got_v = frozen_upstream_features(card, pcm.to(cuda_device),
+                                          length_mask(lens.to(cuda_device), 8000))
+    assert tattn.LAUNCHES == before + 2
+    assert torch.equal(got_v.cpu(), want_v)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
 def test_attend_under_autograd_gives_qkv_gradients(cuda_device):
     """The kernel's output is no autograd leaf: q, k and v get gradients."""
     q, k, v, valid = _inputs(9, 3, 2, 64, 128, torch.float32, cuda_device)
