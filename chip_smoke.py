@@ -16,9 +16,10 @@ non-zero exit code when it fails:
    timed. The attention kernel at every L and T bucket the FFT blocks are
    served at, a few edge lengths and HuBERT-large's head layout (at
    L = 1000 and at phase 10's (32, 16, 199, 64) and card-vs-CPU shapes), at
-   each key split, held to f32 2e-5 / bf16 1e-2 and the all-invalid sample
-   to the mean of V (timed in phase 9); phases 4-10 fail if a main path
-   launches it at a shape not held here. The MRF stage
+   phase 11's shapes (tasks folded into the batch included) and at the head
+   dims 40 and 48 it pads, at each key split, held to f32 2e-5 / bf16 1e-2
+   and the all-invalid sample to the mean of V (timed in phase 9); phases
+   4-11 fail if a main path launches it at a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
    B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000 beside its
    route's bound (split TF32 or bf16 tensor cores) and the f32 FMA bound,
@@ -65,7 +66,20 @@ non-zero exit code when it fails:
    optimizer (the upstream's share), the upstream's checksum unchanged and
    the codebook changed, peak memory, the positional conv alone, and with
    --profile a traced episode.
-9. Attention timing (run last, after phase 10): the kernel at each key
+11. Few-shot tune: the reference table of a 32-shot split (phase 10's wavs
+   and lines) through HuBERT-large stored in f32 and in bf16, streamed in
+   SupInfo batches of 4 (timed, 24 attention launches per batch, bf16 table
+   within 0.1 of f32's, upstream unchanged); `tune_init` into a
+   `TransEmbTuneSystem` at fscl-fastspeech2.yaml width; the resident split
+   adapted at B = 4, lr 1e-3 with SGD and with the tune Adam (10 steps
+   counted, 50 timed: steps/s; losses finite and falling, every GE2E
+   tensor moved); with --profile a traced adaptation step; 3 Adam steps
+   card vs CPU (losses and parameters 1e-4 relative); `adapt_many_on_chip`
+   at benchmarks/bench_adapt_many.py's configuration with N = 1 and 8 tasks
+   (aggregate steps/s, one attention launch per layer for all tasks) and
+   with d-vector speakers at N = 2, each task held to its run alone
+   (1e-4); `synthesize_bucketed` with the adapted parameters on 8 lines.
+9. Attention timing (run last, after phase 11): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
@@ -147,6 +161,30 @@ FSCL_EPISODES, FSCL_TIMED = 10, 10
 FSCL_CHECK = (4, 32000, 4, 64, 256)
 FSCL_TABLE_REL, FSCL_LOSS_RTOL = 1e-4, 1e-4
 FSCL_BF16_TABLE_REL = 0.1
+# Few-shot tune (phase 11): the 32-shot split of config/algorithm/language/
+# fscl.yaml:24 (its test shots), made as phase 10's support set and query
+# lines: 32 int16 wavs of 4 s streamed through the upstream in SupInfo
+# batches of 4, as cli/tune_cmd.py:55-57 groups them, and the 32 lines as a
+# resident support Batch at L = 128, T = 512 with DvecRefs of 10 slices;
+# adapted at batch_size 4 (config/train/tune-1500.yaml:4) and the task lr
+# 1e-3 (fscl.yaml:28), steps counted, then timed.
+TUNE_K, TUNE_SUP_BATCH, TUNE_B, TUNE_LR, TUNE_SYMBOL = 32, 4, 4, 1e-3, "xx"
+TUNE_COUNTED, TUNE_TIMED = 10, 50
+# Task-parallel adaptation at benchmarks/bench_adapt_many.py:24-63's
+# configuration (base width, table speakers, n_speakers 8, B = 4, L = 64,
+# T = 256, lr 1e-4), N = 1 and 8 tasks of 20 steps; and GE2E d-vectors at
+# fscl-fastspeech2.yaml width under vmap, N = 2 tasks of 3 steps. Each task
+# against the same task adapted alone on the card: vmap batches the products
+# (and GE2E's written-out gates replace cuDNN's LSTM), so the sums run in
+# another order; losses 1e-4 relative (the bar of phase 10's loss).
+MANY_B, MANY_L, MANY_T, MANY_LR, MANY_STEPS, MANY_TASKS = 4, 64, 256, 1e-4, 20, (1, 8)
+MANY_DVEC_TASKS, MANY_DVEC_STEPS = 2, 3
+TUNE_RTOL = 1e-4
+# Card vs CPU adaptation: 3 Adam steps of the d-vector trunk at B = 4, L = 64,
+# T = 256 (lr 1e-4, where an entry whose gradient sits at rounding level
+# moves by at most about lr per step in either direction): per-step losses
+# and the adapted parameters (relative L2 over all of them) within 1e-4.
+TUNE_CHECK_STEPS = 3
 # HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
 V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
 
@@ -343,6 +381,18 @@ def phase_attention(seed: int):
     shapes += [(8, 2, 2048, 64), (8, 16, 1000, 64), (FSCL_S, 16, ssl_num_frames(FSCL_WAV), 64),
                (S, 16, ssl_num_frames(n_samples), 64), (B_check, H, L_check, Dh),
                (B_check, H, T_check, Dh)]
+    # phase 11: HuBERT-large over a SupInfo batch of the split, the trunk
+    # adapting at B = 4 on the resident split (L = 128, T = 512) and at
+    # bench_adapt_many's (L = 64, T = 256; N = 8 tasks folded into B = 32);
+    # and head dims the kernel pads (the `mel` upstream's 40, a 96-dim
+    # custom upstream's 48)
+    shapes += [(TUNE_SUP_BATCH, 16, ssl_num_frames(FSCL_WAV), 64), (TUNE_B, H, FSCL_L, Dh),
+               (TUNE_B, H, FSCL_T, Dh), (MANY_B, H, MANY_L, Dh), (MANY_B, H, MANY_T, Dh),
+               (max(MANY_TASKS) * MANY_B, H, MANY_L, Dh),
+               (max(MANY_TASKS) * MANY_B, H, MANY_T, Dh),
+               (MANY_DVEC_TASKS * MANY_B, H, MANY_L, Dh), (MANY_DVEC_TASKS * MANY_B, H, MANY_T, Dh),
+               (8, 2, 199, 40), (8, 2, 199, 48)]
+    shapes = list(dict.fromkeys(shapes))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
     for dtype in (torch.float32, torch.bfloat16):
@@ -386,6 +436,17 @@ def attention_shapes(attn, checked, what: str):
     log(f"{what}: attention launched at {sorted(seen)}, all held to the plain version")
 
 
+def export_trace(prof, path: Path) -> None:
+    """The profiler's Chrome trace at `path` + ".gz" (a traced step's trace
+    is tens of MB as text)."""
+    import gzip
+    import shutil
+    prof.export_chrome_trace(str(path))
+    with open(path, "rb") as src, gzip.open(f"{path}.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    path.unlink()
+
+
 def host_us_per_call(fn, calls: int = 100) -> float:
     """Host time per call of fn(), issued back to back without waiting for
     the card (100 launches stay inside the launch queue)."""
@@ -402,13 +463,13 @@ def host_us_per_call(fn, calls: int = 100) -> float:
 
 def phase_attention_timing(seed: int):
     """The attention kernel at each key split, the plain version and SDPA,
-    timed at the encoder's and decoder's lengths of the served layout and at
-    HuBERT-large's head layout (16 heads of 64). Runs after the main path:
-    the captures' cuBLAS workspace stays allocated and would count in its
-    peak memory. The kernel is also timed through `attention_cuda` with CUDA
-    events over 50 back-to-back calls, as the script of PR 2 timed the
-    earlier design: a call shorter than the wrapper's host time reads as that
-    time there."""
+    timed at the encoder's and decoder's lengths of the served layout, at
+    HuBERT-large's head layout (16 heads of 64) and at phase 11's shapes.
+    Runs after the main path: the captures' cuBLAS workspace stays allocated
+    and would count in its peak memory. The kernel is also timed through
+    `attention_cuda` with CUDA events over 50 back-to-back calls, as earlier
+    versions of this script timed the earlier design: a call shorter than the
+    wrapper's host time reads as that time there."""
     import torch
     import torch.nn.functional as F
     from fscl_tpu_torch.ops import attention as attn
@@ -418,7 +479,11 @@ def phase_attention_timing(seed: int):
     stream = torch.cuda.Stream()
     from fscl_tpu_torch.models.hubert import ssl_num_frames
     timed = [(8, 2, L, 128) for L in (64, 128, 256, 512, 1000)] + [
-        (8, 16, 1000, 64), (FSCL_S, 16, ssl_num_frames(FSCL_WAV), 64)]
+        (8, 16, 1000, 64), (FSCL_S, 16, ssl_num_frames(FSCL_WAV), 64),
+        # phase 11: a SupInfo batch through HuBERT-large, 8 tasks folded
+        # into one launch, and a head dim the wrapper pads (40 -> 64)
+        (TUNE_SUP_BATCH, 16, ssl_num_frames(FSCL_WAV), 64),
+        (max(MANY_TASKS) * MANY_B, 2, MANY_T, 128), (8, 2, ssl_num_frames(FSCL_WAV), 40)]
     timings = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -734,7 +799,7 @@ def profile_batch(system, lines, out_dir):
     for r in rows[:15]:
         log(f"  {r['ms']:9.3f} ms {r['calls']:5d}x  {r['name']}")
     if out_dir is not None:
-        prof.export_chrome_trace(str(out_dir / "chip_smoke_trace.json"))
+        export_trace(prof, out_dir / "chip_smoke_trace.json")
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy, "top": rows[:25]}
 
 
@@ -888,7 +953,7 @@ def profile_wav_batch(system, vocoder, lines, out_dir):
     for r in rows[:15]:
         log(f"  {r['ms']:9.3f} ms {r['calls']:5d}x  {r['name']}")
     if out_dir is not None:
-        prof.export_chrome_trace(str(out_dir / "chip_smoke_wav_trace.json"))
+        export_trace(prof, out_dir / "chip_smoke_wav_trace.json")
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy, "top": rows[:25]}
 
 
@@ -1167,43 +1232,45 @@ def busy_union_ms(prof) -> float:
     return total / 1e3
 
 
-def profile_train_step(system, state, batch, out_dir, name: str = "train"):
-    """Device time by kernel over two train steps (torch.profiler)."""
+def profile_steps(fn, steps_per_call: int, out_dir, name: str):
+    """Device time by kernel over two calls of fn (after one untraced),
+    reported per step: fn runs `steps_per_call` steps (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    system.train_step(state, batch)
+    fn()
     torch.cuda.synchronize()
+    n = 2 * steps_per_call
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            system.train_step(state, batch)
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 2
+        wall = (time.perf_counter() - t0) / n
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(({"name": e.key[:90], "calls": e.count / 2,
-                    "ms": e.self_device_time_total / 2e3} for e in events),
+    rows = sorted(({"name": e.key[:90], "calls": e.count / n,
+                    "ms": e.self_device_time_total / (1e3 * n)} for e in events),
                   key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
-    union = busy_union_ms(prof) / 2
+    union = busy_union_ms(prof) / n
     # the host's side of one step: the kernels it launched, its copies, and
     # the times a copy made it wait for the device (cudaStreamSynchronize);
     # the window's own closing synchronizes are cudaDeviceSynchronize, counted
-    # apart. Per step over two steps, so a single wait reads 0.5.
-    host = {e.key: e.count / 2 for e in prof.key_averages()
+    # apart. Per step over two or more steps, so a single wait reads 0.5 or less.
+    host = {e.key: e.count / n for e in prof.key_averages()
             if e.key.startswith(("cudaLaunchKernel", "cudaStreamSynchronize",
                                  "cudaDeviceSynchronize", "cudaMemcpyAsync"))}
-    launches = sum(n for k, n in host.items() if k.startswith("cudaLaunchKernel"))
+    launches = sum(k_n for k, k_n in host.items() if k.startswith("cudaLaunchKernel"))
     syncs = host.get("cudaStreamSynchronize", 0)
     log(f"profile {name} step: wall {1e3 * wall:.2f} ms, kernel time {busy:.2f} ms, device "
         f"busy {union:.2f} ms ({100 * union / (1e3 * wall):.1f}%); per step {launches:g} "
         f"kernel launches, "
         f"{syncs:g} host waits for the device, {host.get('cudaMemcpyAsync', 0):g} copies; "
-        f"{2 * host.get('cudaDeviceSynchronize', 0):g} device synchronizes at the window's end")
+        f"{n * host.get('cudaDeviceSynchronize', 0):g} device synchronizes at the window's end")
     for r in rows[:15]:
         log(f"  {r['ms']:9.3f} ms {r['calls']:7.1f}x  {r['name']}")
     if out_dir is not None:
-        prof.export_chrome_trace(str(out_dir / f"chip_smoke_{name}_trace.json"))
+        export_trace(prof, out_dir / f"chip_smoke_{name}_trace.json")
     return {"wall_ms": 1e3 * wall, "kernel_ms": busy, "device_busy_ms": union,
             "device_busy_share": union / (1e3 * wall), "host_calls_per_step": host,
             "top": rows[:25]}
@@ -1317,7 +1384,8 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
         "kernel_grads_max_abs_err": grads,
     }
     if profile:
-        summary["profile"] = profile_train_step(system, state, batch, out_dir)
+        summary["profile"] = profile_steps(lambda: system.train_step(state, batch), 1, out_dir,
+                                           "train")
     del system, state, batch
     summary["card_vs_cpu"] = phase_train_card_vs_cpu(seed, attn_checked)
     summary["attention_fwd_bwd"] = time_train_attention()
@@ -1592,8 +1660,8 @@ def run_fscl(system, dtype_name: str, episodes, timed, extra, card: str, attn_ch
         "upstream_checksum": up_sum,
     }
     if profile:
-        summary["profile"] = profile_train_step(system, state, ep, out_dir,
-                                                f"fscl_{dtype_name}")
+        summary["profile"] = profile_steps(lambda: system.train_step(state, ep), 1, out_dir,
+                                           f"fscl_{dtype_name}")
     return summary
 
 
@@ -1667,6 +1735,359 @@ def phase_fscl(seed: int, card: str, attn_checked, profile: bool, out_dir):
     return summary
 
 
+def tune_split(seed: int):
+    """The few-shot split: phase 10's support set and query lines at
+    TUNE_K each; the wavs in SupInfo batches of TUNE_SUP_BATCH, the lines one
+    K-row support Batch."""
+    from fscl_tpu_torch.data.batch import SupInfo
+
+    ep = fscl_episodes(seed, 1, TUNE_K, FSCL_WAV, TUNE_K, FSCL_L, FSCL_T)[0]
+    sups = [SupInfo(*(x[i:i + TUNE_SUP_BATCH] for x in ep.sup[:4]), FSCL_NSYM)
+            for i in range(0, TUNE_K, TUNE_SUP_BATCH)]
+    return sups, ep.qry
+
+
+def many_tasks(seed: int, n_tasks: int, n_steps: int, dvec: bool):
+    """benchmarks/bench_adapt_many.py's tasks: per step a numpy Batch of
+    MANY_B lines at L = MANY_L, T = MANY_T (random texts of 100 symbols,
+    random targets, one duration pattern), with DvecRefs of DVEC_N slices
+    when `dvec`."""
+    import numpy as np
+    from fscl_tpu_torch.data.batch import Batch, DvecRefs
+
+    B, L, T = MANY_B, MANY_L, MANY_T
+    dur = np.random.default_rng(seed).integers(1, 5, (B, L)).astype(np.int32)
+
+    def mk(s):
+        r = np.random.default_rng(s)
+        spk = (DvecRefs(r.normal(size=(B, DVEC_N, 160, 40)).astype(np.float32),
+                        np.ones((B, DVEC_N), np.float32)) if dvec else np.zeros(B, np.int32))
+        return Batch(spk, r.integers(1, 100, (B, L)).astype(np.int32), np.full(B, L, np.int32),
+                     r.normal(size=(B, T, 80)).astype(np.float32),
+                     np.minimum(dur.sum(1), T).astype(np.int32),
+                     r.normal(size=(B, L)).astype(np.float32),
+                     r.normal(size=(B, L)).astype(np.float32), dur, np.zeros(B, np.int32))
+
+    return [[mk(seed + 1000 * t + i) for i in range(n_steps)] for t in range(n_tasks)]
+
+
+def params_rel(a, b) -> float:
+    """||a - b|| / ||b|| over every tensor of two parameter dicts, in f64."""
+    num = sum(float((a[k].double() - b[k].double().to(a[k].device)).square().sum()) for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def build_tune_system(seed: int, device: str):
+    """TransEmbTuneSystem at fscl-fastspeech2.yaml width (its trunk: base
+    width, GE2E d-vectors) with one table of FSCL_NSYM symbols, torch's init
+    from `seed` and the duration head pinned as in `build_system`."""
+    import torch
+    from fscl_tpu_torch.systems.tune import TransEmbTuneSystem
+
+    torch.manual_seed(seed)
+    system = TransEmbTuneSystem(fscl_model_config("float32"), ((TUNE_SYMBOL, FSCL_NSYM),),
+                                device=device)
+    with torch.no_grad():
+        head = system.model.variance_adaptor.duration_predictor.linear_layer
+        head.weight.mul_(0.1)
+        head.bias.add_(math.log(5.0))
+    return system
+
+
+def phase_tune_tables(seed: int, sups, attn_checked):
+    """The reference table over the split through HuBERT-large stored in f32
+    and in bf16 (one warm-up batch, then the whole split timed and its
+    attention launches counted); returns the f32 FSCL system and a
+    summary."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.tune import build_reference_table
+
+    summary, tables, keep = {}, {}, None
+    for dtype_name in ("float32", "bfloat16"):
+        fscl = build_fscl_system(fscl_model_config(dtype_name), seed, "cuda")
+        up_sum = checksum(fscl.upstream)
+        build_reference_table(fscl, sups[:1])
+        torch.cuda.synchronize()
+        attn.LAUNCHES = 0
+        with attention_shapes(attn, attn_checked, f"tune reference table {dtype_name}"):
+            t0 = time.perf_counter()
+            table = build_reference_table(fscl, sups)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        launches = attn.LAUNCHES
+        if launches != fscl.upstream.n_layers * len(sups):
+            fail(f"tune table {dtype_name}: {launches} attention launches for {len(sups)} "
+                 f"batches of {fscl.upstream.n_layers} layers")
+        if table.shape != (FSCL_NSYM, fscl.model_cfg.transformer.encoder_hidden) \
+                or not torch.isfinite(table).all() or float(table[0].abs().max()) != 0.0:
+            fail(f"tune table {dtype_name}: shape {tuple(table.shape)}, finite "
+                 f"{bool(torch.isfinite(table).all())}, PAD row {float(table[0].abs().max())}")
+        if checksum(fscl.upstream) != up_sum:
+            fail(f"tune table {dtype_name}: the upstream changed")
+        tables[dtype_name] = table.float().cpu()
+        summary[dtype_name] = {"ms": ms, "attention_launches": launches,
+                               "upstream_checksum": up_sum}
+        log(f"tune reference table {dtype_name}: {TUNE_K} wavs of {FSCL_WAV} samples in "
+            f"{len(sups)} SupInfo batches of {TUNE_SUP_BATCH}: {ms:.2f} ms, {launches} attention "
+            f"launches ({fscl.upstream.n_layers} per batch), upstream unchanged")
+        if dtype_name == "float32":
+            keep = fscl
+        else:
+            del fscl
+            torch.cuda.empty_cache()
+    rel = float((tables["bfloat16"] - tables["float32"]).abs().max()
+                / tables["float32"].abs().max())
+    log(f"tune reference table: bf16 upstream's vs f32's, relative max |d| {rel:.3g} "
+        f"(bar {FSCL_BF16_TABLE_REL})")
+    if not rel <= FSCL_BF16_TABLE_REL:
+        fail(f"tune: the bf16 upstream's table is {rel:.3g} from the f32 one's")
+    summary["bf16_vs_f32_rel"] = rel
+    return keep, summary
+
+
+def phase_tune_adapt(system, p0, support, optimizer: str, card: str, attn_checked):
+    """`adapt_on_chip_resident` over the resident split: TUNE_COUNTED steps
+    counted (attention launches, shapes, losses read at the end), then
+    TUNE_TIMED steps from the same parameters timed (no read until the
+    end); the losses fall and stay finite, every parameter moved the GE2E
+    encoder's included."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.tune import adapt_on_chip_resident
+
+    t = system.model_cfg.transformer
+    per_step = t.encoder_layer + t.decoder_layer
+    kw = dict(batch_size=TUNE_B, lr=TUNE_LR, symbol_id=TUNE_SYMBOL, optimizer=optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, f"tune adapt {optimizer}"):
+        t0 = time.perf_counter()
+        _, losses = adapt_on_chip_resident(system, p0, support, TUNE_COUNTED, seed=1, **kw)
+        counted = losses.cpu().tolist()
+        counted_s = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+    if launches != per_step * TUNE_COUNTED:
+        fail(f"tune adapt {optimizer}: {launches} attention launches in {TUNE_COUNTED} steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adapted, losses = adapt_on_chip_resident(system, p0, support, TUNE_TIMED, seed=2, **kw)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = losses.cpu().tolist()
+    if not all(math.isfinite(x) for x in counted + timed):
+        fail(f"tune adapt {optimizer}: non-finite loss in {counted} / {timed}")
+    head, tail = sum(timed[:5]) / 5, sum(timed[-5:]) / 5
+    if not tail < head:
+        fail(f"tune adapt {optimizer}: loss did not fall (first 5 mean {head:.4f}, last 5 "
+             f"{tail:.4f})")
+    moved = [k for k in p0 if not torch.equal(adapted[k], p0[k])]
+    ge2e = [k for k in p0 if ".ge2e." in k]
+    if not ge2e or any(k not in moved for k in ge2e) or len(moved) < 0.5 * len(p0):
+        fail(f"tune adapt {optimizer}: {len(moved)} of {len(p0)} tensors moved, GE2E's "
+             f"{sum(k in moved for k in ge2e)} of {len(ge2e)}")
+    log(f"tune adapt {optimizer}: adapt_on_chip_resident at B={TUNE_B} from {TUNE_K} rows, lr "
+        f"{TUNE_LR}: {TUNE_COUNTED} steps counted ({launches} attention launches, "
+        f"{counted_s:.2f} s, loss {counted[0]:.4f} -> {counted[-1]:.4f}); {TUNE_TIMED} steps "
+        f"in {timed_s:.3f} s = {TUNE_TIMED / timed_s:.2f} steps/s, "
+        f"{1e3 * timed_s / TUNE_TIMED:.2f} ms per step (first 5 mean {head:.4f}, last 5 {tail:.4f}); {len(moved)} of {len(p0)} "
+        f"tensors moved, all {len(ge2e)} of GE2E; peak {peak:.2f} GiB, on {card}")
+    return adapted, {"counted_losses": counted, "attention_launches": launches,
+                     "counted_seconds": counted_s, "timed_losses": timed,
+                     "timed_seconds": timed_s, "steps_per_s": TUNE_TIMED / timed_s,
+                     "ms_per_step": 1e3 * timed_s / TUNE_TIMED, "peak_mem_gib": peak,
+                     "tensors_moved": len(moved), "tensors": len(p0)}
+
+
+def phase_tune_card_vs_cpu(system, seed: int, attn_checked):
+    """TUNE_CHECK_STEPS Adam steps of `adapt_on_chip` from the tune system's
+    weights on the card and on the CPU (where the plain versions run)."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.tune import adaptable_params, adapt_on_chip
+
+    cpu = build_tune_system(seed, "cpu")
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    batches = many_tasks(seed + 21, 1, TUNE_CHECK_STEPS, dvec=True)[0]
+    got = {}
+    for name, s in (("cuda", system), ("cpu", cpu)):
+        shapes = (attention_shapes(attn, attn_checked, "tune card vs CPU") if name == "cuda"
+                  else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with shapes:
+            p, losses = adapt_on_chip(s, adaptable_params(s), batches, lr=MANY_LR,
+                                      symbol_id=TUNE_SYMBOL, optimizer="adam")
+            got[name] = (p, losses.cpu().tolist())
+        log(f"tune card vs CPU: {name} {TUNE_CHECK_STEPS} Adam steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (p_card, l_card), (p_cpu, l_cpu) = got["cuda"], got["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu)]
+    prel = params_rel(p_card, p_cpu)
+    pmax = max(float((p_card[k].cpu() - v).abs().max()) for k, v in p_cpu.items())
+    log("tune card vs CPU: losses " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(l_card, l_cpu))
+        + f" (card/CPU), relative {max(rel):.3g}; parameters relative L2 {prel:.3g}, max |d| "
+        f"{pmax:.3g} (bars {TUNE_RTOL})")
+    if not (max(rel) <= TUNE_RTOL and prel <= TUNE_RTOL):
+        fail(f"tune card vs CPU: losses {rel}, parameters {prel:.3g}")
+    del cpu
+    return {"losses_cuda": l_card, "losses_cpu": l_cpu, "loss_rel": rel, "params_rel": prel,
+            "params_max_abs": pmax}
+
+
+def run_many(system, params, tasks, symbol_id, lr, what, attn_checked, optimizer="sgd"):
+    """`adapt_many_on_chip` over `tasks`, then each task alone through
+    `adapt_on_chip`, both timed; each task's losses and parameters against
+    its run alone (TUNE_RTOL)."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.tune import adapt_many_on_chip, adapt_on_chip
+
+    n, steps = len(tasks), len(tasks[0])
+    t = system.model_cfg.transformer
+    torch.cuda.synchronize()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, f"{what} N={n}"):
+        t0 = time.perf_counter()
+        many, losses = adapt_many_on_chip(system, params, tasks, lr=lr, symbol_id=symbol_id,
+                                          optimizer=optimizer)
+        torch.cuda.synchronize()
+        many_s = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+    if launches != (t.encoder_layer + t.decoder_layer) * steps:
+        fail(f"{what} N={n}: {launches} attention launches in {steps} steps (the vmap rule "
+             f"folds the tasks into one launch per layer)")
+    losses = losses.cpu()
+    if losses.shape != (n, steps) or not torch.isfinite(losses).all():
+        fail(f"{what} N={n}: losses {tuple(losses.shape)}, finite "
+             f"{bool(torch.isfinite(losses).all())}")
+    seq_s, worst, worst_p = 0.0, 0.0, 0.0
+    for i, task in enumerate(tasks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one, one_losses = adapt_on_chip(system, params, task, lr=lr, symbol_id=symbol_id,
+                                        optimizer=optimizer)
+        torch.cuda.synchronize()
+        seq_s += time.perf_counter() - t0
+        rel = ((losses[i] - one_losses.cpu()).abs() / one_losses.cpu().abs()).max().item()
+        worst = max(worst, rel)
+        worst_p = max(worst_p, params_rel({k: v[i] for k, v in many.items()}, one))
+    log(f"{what} N={n}: {steps} steps in {many_s:.3f} s = {n * steps / many_s:.2f} aggregate "
+        f"steps/s ({launches} attention launches); each task alone {seq_s:.3f} s = "
+        f"{n * steps / seq_s:.2f} steps/s; task by task vs alone: losses relative {worst:.3g}, "
+        f"parameters relative L2 {worst_p:.3g} (bar {TUNE_RTOL})")
+    if not (worst <= TUNE_RTOL and worst_p <= TUNE_RTOL):
+        fail(f"{what} N={n}: tasks differ from their runs alone (losses {worst:.3g}, "
+             f"parameters {worst_p:.3g})")
+    return {"n_tasks": n, "steps": steps, "seconds": many_s,
+            "aggregate_steps_per_s": n * steps / many_s, "sequential_seconds": seq_s,
+            "sequential_steps_per_s": n * steps / seq_s, "attention_launches": launches,
+            "loss_rel": worst, "params_rel": worst_p}
+
+
+def phase_tune_many(seed: int, dvec_system, attn_checked):
+    """Task-parallel adaptation at bench_adapt_many.py's configuration, at N
+    = 1 and 8 (after one untimed N = 1 run), and the d-vector tune system
+    at N = MANY_DVEC_TASKS."""
+    import dataclasses
+    import torch
+    from fscl_tpu_torch.core.config import SpeakerConfig
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    from fscl_tpu_torch.systems.tune import adaptable_params, adapt_many_on_chip
+
+    cfg = train_model_config(dropout=False)
+    cfg = dataclasses.replace(cfg, speaker=SpeakerConfig(n_speakers=8))
+    torch.manual_seed(seed)
+    system = BaselineSystem(cfg, (("ko", 100),), device="cuda")
+    params = adaptable_params(system)
+    adapt_many_on_chip(system, params, many_tasks(seed, 1, 2, False), lr=MANY_LR,
+                       symbol_id="ko")
+    summary = {"B": MANY_B, "L": MANY_L, "T": MANY_T, "lr": MANY_LR}
+    for n in MANY_TASKS:
+        summary[f"n{n}"] = run_many(system, params, many_tasks(seed + n, n, MANY_STEPS, False),
+                                    "ko", MANY_LR, "tune adapt_many", attn_checked)
+    del system, params
+    torch.cuda.empty_cache()
+    summary["dvec"] = run_many(
+        dvec_system, adaptable_params(dvec_system),
+        many_tasks(seed + 50, MANY_DVEC_TASKS, MANY_DVEC_STEPS, True), TUNE_SYMBOL, MANY_LR,
+        "tune adapt_many dvec", attn_checked, optimizer="adam")
+    return summary
+
+
+def phase_tune(seed: int, card: str, attn_checked, profile: bool, out_dir):
+    """Main path, few-shot tune: the reference table over a 32-shot split
+    through HuBERT-large (f32 and bf16 storage), `tune_init` into a
+    TransEmbTuneSystem at fscl-fastspeech2.yaml width, adaptation with SGD
+    and the tune Adam on the resident split, synthesis with the adapted
+    parameters, card vs CPU, and task-parallel adaptation."""
+    import torch
+    from fscl_tpu_torch.data.batch import DvecRefs, to_device
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.systems.baseline import MEL_BUCKETS
+    from fscl_tpu_torch.systems.tune import (adaptable_params, adapt_on_chip_resident,
+                                             load_adapted, tune_init)
+
+    sups, support = tune_split(seed + 11)
+    summary = {"K": TUNE_K, "sup_batch": TUNE_SUP_BATCH, "B": TUNE_B, "lr": TUNE_LR,
+               "L": FSCL_L, "T": FSCL_T, "dvec_slices": DVEC_N}
+    mrf.LAUNCHES = 0
+    fscl, summary["reference_table"] = phase_tune_tables(seed, sups, attn_checked)
+    up_sum = checksum(fscl.upstream)
+    system = build_tune_system(seed, "cuda")
+    with attention_shapes(attn, attn_checked, "tune_init"):
+        table = tune_init(fscl, system, sups, TUNE_SYMBOL)
+    if not torch.equal(system.embedding_model.tables[f"table-{TUNE_SYMBOL}"].detach(), table):
+        fail("tune_init: the table was not transplanted")
+    if checksum(fscl.upstream) != up_sum:
+        fail("tune_init: the upstream changed")
+    del fscl
+    torch.cuda.empty_cache()
+
+    p0 = {k: v.clone() for k, v in adaptable_params(system).items()}
+    resident = to_device(support, "cuda")
+    adapted = {}
+    for optimizer in ("sgd", "adam"):
+        adapted[optimizer], summary[optimizer] = phase_tune_adapt(
+            system, p0, resident, optimizer, card, attn_checked)
+    if profile:
+        summary["profile"] = profile_steps(
+            lambda: adapt_on_chip_resident(system, p0, resident, 2, batch_size=TUNE_B,
+                                           lr=TUNE_LR, symbol_id=TUNE_SYMBOL, optimizer="adam"),
+            2, out_dir, "tune_adapt_adam")
+    summary["card_vs_cpu"] = phase_tune_card_vs_cpu(system, seed, attn_checked)
+    summary["many"] = phase_tune_many(seed, system, attn_checked)
+
+    # synthesis with the adapted parameters: 8 of the split's lines
+    rows = slice(0, 8)
+    spk = DvecRefs(*(x[rows] for x in support.speaker_args))
+    summary["synthesis"] = {}
+    for optimizer in ("sgd", "adam"):
+        load_adapted(system, adapted[optimizer])
+        attn.LAUNCHES = 0
+        with attention_shapes(attn, attn_checked, f"tune synthesis {optimizer}"):
+            out = system.synthesize_bucketed(support.texts[rows], support.src_lens[rows], spk,
+                                             support.lang_ids[rows], symbol_id=TUNE_SYMBOL)
+            torch.cuda.synchronize()
+        T = out.postnet_mel.shape[1]
+        mel_len = out.mel_len.cpu()
+        if T not in MEL_BUCKETS or not torch.isfinite(out.postnet_mel).all() \
+                or int(mel_len.max()) > T or int(mel_len.min()) < 1:
+            fail(f"tune synthesis {optimizer}: T {T}, mel_len {mel_len.tolist()}, finite "
+                 f"{bool(torch.isfinite(out.postnet_mel).all())}")
+        summary["synthesis"][optimizer] = {"T": T, "mel_len": mel_len.tolist(),
+                                           "attention_launches": attn.LAUNCHES}
+        log(f"tune synthesis {optimizer}: 8 lines through the adapted system at T = {T}, "
+            f"mel_len {mel_len.tolist()}, {attn.LAUNCHES} attention launches, finite")
+    summary["mrf_stage_launches"] = mrf.LAUNCHES
+    del system
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1693,6 +2114,7 @@ def main(argv=None) -> int:
     del system, vocoder, wav_records     # out of the training phase's peak memory
     train = phase_train(args.seed, card, attn_checked, args.profile, args.out)
     fscl = phase_fscl(args.seed, card, attn_checked, args.profile, args.out)
+    tune = phase_tune(args.seed, card, attn_checked, args.profile, args.out)
     timings = phase_attention_timing(args.seed)
 
     main_row = next(r for r in timings
@@ -1708,7 +2130,15 @@ def main(argv=None) -> int:
                              "text_to_wav": text_to_wav["launches"]["attention_fwd"],
                              "train": train["attention_launches"],
                              "fscl_episode": fscl["float32"]["attention_launches"],
-                             "fscl_episode_bf16_upstream": fscl["bfloat16"]["attention_launches"]},
+                             "fscl_episode_bf16_upstream": fscl["bfloat16"]["attention_launches"],
+                             "tune_reference_table": tune["reference_table"]["float32"][
+                                 "attention_launches"],
+                             "tune_reference_table_bf16_upstream": tune["reference_table"][
+                                 "bfloat16"]["attention_launches"],
+                             "tune_adapt_sgd": tune["sgd"]["attention_launches"],
+                             "tune_adapt_adam": tune["adam"]["attention_launches"],
+                             "tune_adapt_many_n8": tune["many"]["n8"]["attention_launches"],
+                             "tune_synthesis": tune["synthesis"]["adam"]["attention_launches"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1732,7 +2162,8 @@ def main(argv=None) -> int:
         "replaces": "fscl_tpu/ops/hifigan_fused.py:52",
         "launches": text_to_wav["launches"]["mrf_stage"],
         "launches_by_path": {"text_to_wav": text_to_wav["launches"]["mrf_stage"],
-                             "train": train["mrf_stage_launches"]},
+                             "train": train["mrf_stage_launches"],
+                             "tune": tune["mrf_stage_launches"]},
         "max_abs_err": stage_err["float32"],
         # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
         "ms": sum(r["ms"] for r in f32_stages),
@@ -1757,7 +2188,7 @@ def main(argv=None) -> int:
     }]
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
-              "vocoder_check": vocoder_check, "train": train, "fscl": fscl,
+              "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -17,11 +17,11 @@ JAX package's, not HF's: GELU is the tanh approximation (flax's `nn.gelu`)
 and LayerNorm / GroupNorm eps is 1e-6 (flax's default).
 
 The attention runs through `ops.attention.attend` at head dim 64 (16 heads
-in the large model): on the card, the attention kernel. Upstreams whose head
-dim the kernel does not take (the custom dims of `make_upstream`, such as
-dim 80 in 2 heads of 40) run on the CPU only: on CUDA `attention_cuda`
-raises for them. The layers run as a plain loop (the JAX package's
-`scan_layers` only shortens its compiles).
+in the large model): on the card, the attention kernel. The custom dims of
+`make_upstream` give other head dims (dim 80 in 2 heads of 40, dim 96 in 2
+of 48): `attention_cuda` zero-pads those to the kernel's 64. The layers run
+as a plain loop (the JAX package's `scan_layers` only shortens its
+compiles).
 """
 from __future__ import annotations
 

@@ -24,6 +24,30 @@ def _unit(e: torch.Tensor) -> torch.Tensor:
     return e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-5)
 
 
+def lstm_unrolled(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+    """`lstm(x)[0]` for a batch-first LSTM without dropout from a zero state,
+    with the gate arithmetic written out step by step on the module's
+    current weights (those `functional_call` puts in): each layer's input
+    products for all steps at once, then per step the hidden product and
+    the gates in torch's (i, f, g, o) order. x (N, T, C) -> (N, T, H)."""
+    H = lstm.hidden_size
+    out = x
+    for layer in range(lstm.num_layers):
+        w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{name}_l{layer}") for name in
+                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+        xw = nn.functional.linear(out, w_ih, b_ih + b_hh)
+        h = c = x.new_zeros(x.shape[0], H)
+        hs = []
+        for t in range(x.shape[1]):
+            gates = xw[:, t] + h @ w_hh.T
+            sig = torch.sigmoid(gates)
+            c = torch.addcmul(sig[:, H:2 * H] * c, sig[:, :H], torch.tanh(gates[:, 2 * H:3 * H]))
+            h = sig[:, 3 * H:] * torch.tanh(c)
+            hs.append(h)
+        out = torch.stack(hs, dim=1)
+    return out
+
+
 class GE2EEncoder(nn.Module):
     """3-layer LSTM(40 -> 256) -> Linear -> ReLU -> unit norm per slice; the
     slices' masked mean, normalised again, is the d-vector. Parameter names
@@ -35,7 +59,12 @@ class GE2EEncoder(nn.Module):
     flax's cell has one bias per gate, which the converter makes torch's
     bias_ih + bias_hh. `bias_ih` does not require grad, so only `bias_hh`
     trains: a step then moves the sum as far as the JAX step moves its bias,
-    and the global norm of the clip counts that gradient once, not twice."""
+    and the global norm of the clip counts that gradient once, not twice.
+
+    Under a `torch.func` transform (the tune flow's task-parallel
+    adaptation vmaps `grad` over the trunk) the LSTM runs as `lstm_unrolled`:
+    on the card `nn.LSTM` reads its weights' storage, which the transforms'
+    wrapped tensors do not have."""
 
     def __init__(self, mel_n_channels: int = 40, hidden_size: int = 256,
                  num_layers: int = 3, out_dim: int = 256):
@@ -50,7 +79,11 @@ class GE2EEncoder(nn.Module):
         slices run through the LSTM and are left out of the mean), or None.
         Returns (B, out_dim)."""
         B, N = mel_slices.shape[:2]
-        out, _ = self.lstm(mel_slices.reshape(B * N, *mel_slices.shape[2:]))
+        x = mel_slices.reshape(B * N, *mel_slices.shape[2:])
+        if torch._C._functorch.is_functorch_wrapped_tensor(self.lstm.weight_hh_l0):
+            out = lstm_unrolled(self.lstm, x)
+        else:
+            out, _ = self.lstm(x)
         e = _unit(torch.relu(self.linear(out[:, -1]))).reshape(B, N, -1)
         if mask is None:
             d = e.mean(dim=1)

@@ -8,6 +8,9 @@ TF32 (three TF32 products per f32 product, within 2e-5 of the plain version).
 scores in f32, invalid keys filled with the finite -1e9, softmax weights and
 weights . V in f32, the result cast to the input dtype.
 
+The kernel has instances for head dims 64 and 128; the wrapper zero-pads
+other head dims up to 128 to the next one (`_launch`).
+
 `attend` takes the plain version only for CPU tensors. For CUDA tensors it
 launches the kernel or raises: there is no fallback. With grad mode on (where
 autograd or a `torch.func` transform may be tracing) it launches the kernel
@@ -98,7 +101,8 @@ def attention_cuda(
     temperature: Optional[float] = None,
 ) -> torch.Tensor:
     """Launch the Hopper kernel. q, k, v: contiguous (B, H, L, Dh) CUDA
-    tensors of one dtype (float32 or bfloat16), Dh in {64, 128},
+    tensors of one dtype (float32 or bfloat16), Dh <= 128 (the kernel's
+    instances take 64 and 128; other head dims are padded, see `_launch`),
     1 <= L <= 2048; key_valid: contiguous (B, L) bool on the same device."""
     return _launch(q, k, v, key_valid, temperature, None)
 
@@ -113,7 +117,32 @@ def _launch(
 ) -> torch.Tensor:
     """`attention_cuda` at a given key split (1, 2 or 4), or at the one
     `choose_key_split` picks when None. Tests and chip_smoke.py sweep every
-    split through it."""
+    split through it.
+
+    A head dim below 128 that has no kernel instance (the `mel` upstream's
+    40, a custom upstream's 48 or 80) is zero-padded along Dh to the next
+    instance's, with the temperature kept at sqrt(the true Dh): zero columns
+    add nothing to q k^T, and v's zero columns only give output columns,
+    which are sliced off. The JAX package sends such shapes to XLA."""
+    Dh = q.shape[-1]
+    if Dh in HEAD_DIMS or Dh > HEAD_DIMS[-1] or q.dim() != 4:
+        return _launch_kernel(q, k, v, key_valid, temperature, key_split)
+    pad = next(d for d in HEAD_DIMS if d > Dh) - Dh
+    temp = temperature if temperature is not None else Dh ** 0.5
+    q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out = _launch_kernel(q, k, v, key_valid, temp, key_split)
+    return out[..., :Dh].contiguous()
+
+
+def _launch_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: torch.Tensor,
+    temperature: Optional[float],
+    key_split: Optional[int],
+) -> torch.Tensor:
+    """One launch of the kernel at a head dim it has an instance for."""
     global LAUNCHES
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, Dh), got {tuple(q.shape)}")
@@ -127,7 +156,8 @@ def _launch(
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
     if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not supported {HEAD_DIMS}")
+        raise ValueError(f"head dim {Dh} not supported: the kernel takes {HEAD_DIMS} "
+                         f"and pads smaller head dims")
     if not 1 <= L <= MAX_LEN:
         raise ValueError(f"length {L} outside 1..{MAX_LEN}")
     if B * H > 65535:

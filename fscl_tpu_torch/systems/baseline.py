@@ -53,7 +53,11 @@ class BaselineSystem(System):
         self.to(self.device)
         self.eval()
 
-    def _tensor(self, x) -> torch.Tensor:
+    def _tensor(self, x):
+        """x on the system's device; a `DvecRefs` (the d-vector speakers'
+        speaker_args) field by field."""
+        if isinstance(x, tuple):
+            return type(x)(*(self._tensor(f) for f in x))
         return torch.as_tensor(x, device=self.device)
 
     # -- training ------------------------------------------------------------

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from fscl_tpu_torch.core import config as C
-from fscl_tpu_torch.data.batch import collate_batch, to_device
+from fscl_tpu_torch.data.batch import DvecRefs, collate_batch, to_device
 from fscl_tpu_torch.models.hifigan import HiFiGANGenerator, ResBlock1
 from fscl_tpu_torch.ops import attention as tattn
 from fscl_tpu_torch.ops import mrf_stage as tmrf
@@ -91,6 +91,26 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, Dh, L, B, H, key_
     # the sample with no valid key gets the mean of V
     mean_v = v[2].float().mean(dim=1, keepdim=True).expand(v.shape[1:])
     torch.testing.assert_close(got[2].float(), mean_v, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [40, 48, 80])
+def test_cuda_kernel_pads_other_head_dims(cuda_device, dtype, Dh):
+    """Head dims without a kernel instance (the `mel` upstream's 40, custom
+    upstreams' 48 and 80) run zero-padded to 64 or 128: at every key split
+    and through `attend`, held to the plain version at the true head dim."""
+    q, k, v, valid = _inputs(14, 8, 2, 199, Dh, dtype, cuda_device)
+    want = tattn.attention_reference(q, k, v, valid)
+    atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+    for key_split in (None, 1, 2, 4):
+        before = tattn.LAUNCHES
+        with torch.no_grad():
+            got = (tattn.attend(q, k, v, valid) if key_split is None
+                   else tattn._launch(q, k, v, valid, None, key_split))
+        torch.cuda.synchronize()
+        assert tattn.LAUNCHES == before + 1 and got.shape == q.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -355,3 +375,81 @@ def test_hifigan_card_matches_cpu(cuda_device):
     assert got.shape == want.shape == (2, 6 * 256)
     err = (got - want).abs()
     assert err.mean() < GEN_MEAN and err.max() < GEN_MAX
+
+
+def _tune_system(device, speaker="dvec"):
+    from fscl_tpu_torch.systems.tune import TransEmbTuneSystem
+    cfg = C.ModelConfig(
+        transformer=C.TransformerConfig(
+            encoder_layer=2, decoder_layer=2, encoder_hidden=128, decoder_hidden=128,
+            encoder_head=2, decoder_head=2, conv_filter_size=256, encoder_dropout=0.0,
+            decoder_dropout=0.0),
+        variance_predictor=C.VariancePredictorConfig(dropout=0.0), max_seq_len=256,
+        speaker=C.SpeakerConfig(emb_type=speaker, n_speakers=4, n_ref_slices=3))
+    torch.manual_seed(0)
+    system = TransEmbTuneSystem(cfg, (("xx", 40),), device=device)
+    system.model.postnet.dropout.p = 0.0
+    return system
+
+
+def _tune_batches(seed, n, B=4):
+    """Batches with d-vector references of 3 slices of 40 frames, one
+    sample's padded."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(40, 82)).astype(np.float32)
+    out = []
+    for _ in range(n):
+        b = _train_batch(rng, B, table)
+        slices = rng.normal(size=(B, 3, 40, 40)).astype(np.float32)
+        mask = np.ones((B, 3), np.float32)
+        mask[-1, 1:] = 0.0
+        out.append(b._replace(speaker_args=DvecRefs(slices, mask)))
+    return out
+
+
+@pytest.mark.cuda
+def test_tune_adaptation_step_card_matches_cpu(cuda_device):
+    """One SGD adaptation step of a 2 + 2 layer trunk with GE2E d-vectors
+    (eval mode, GE2E's cuDNN LSTM differentiated), from the same weights on
+    the card and on the CPU: the loss 1e-5 relative (the forward's summation
+    order), every parameter within 1e-6 (lr 1e-3 times gradients 1e-5
+    relative apart), GE2E moved on both."""
+    from fscl_tpu_torch.systems.tune import adaptable_params, adapt_on_chip
+    card, cpu = _tune_system(cuda_device), _tune_system("cpu")
+    cpu.load_state_dict(card.state_dict(), strict=True)
+    batches = _tune_batches(21, 1)
+    got = {}
+    for system in (card, cpu):
+        before = tattn.LAUNCHES
+        got[system.device.type] = adapt_on_chip(system, adaptable_params(system), batches,
+                                                lr=1e-3, symbol_id="xx")
+        assert tattn.LAUNCHES - before == (4 if system is card else 0)
+        assert not system.training
+    (p_card, l_card), (p_cpu, l_cpu) = got["cuda"], got["cpu"]
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=0)
+    before = adaptable_params(cpu)
+    for name, value in p_cpu.items():
+        torch.testing.assert_close(p_card[name].cpu(), value, atol=1e-6, rtol=0, msg=name)
+        if "ge2e.lstm.weight_hh" in name:
+            assert not torch.equal(value, before[name]), name
+
+
+@pytest.mark.cuda
+def test_adapt_many_dvec_on_card_matches_sequential(cuda_device):
+    """Two tasks of two SGD steps adapted at once under vmap (GE2E on its
+    written-out gates, the attention Function's vmap rule folding both
+    tasks into one launch per layer) against each task adapted alone
+    (cuDNN's LSTM): losses 1e-5 relative, parameters within 1e-6."""
+    from fscl_tpu_torch.systems.tune import adaptable_params, adapt_many_on_chip, adapt_on_chip
+    system = _tune_system(cuda_device)
+    params = adaptable_params(system)
+    tasks = [_tune_batches(30 + t, 2) for t in range(2)]
+    before = tattn.LAUNCHES
+    many, many_losses = adapt_many_on_chip(system, params, tasks, lr=1e-3, symbol_id="xx")
+    assert tattn.LAUNCHES - before == 4 * 2
+    assert many_losses.shape == (2, 2)
+    for t, batches in enumerate(tasks):
+        one, losses = adapt_on_chip(system, params, batches, lr=1e-3, symbol_id="xx")
+        torch.testing.assert_close(many_losses[t], losses, rtol=1e-5, atol=0)
+        for name, value in one.items():
+            torch.testing.assert_close(many[name][t], value, atol=1e-6, rtol=0, msg=name)
