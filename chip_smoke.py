@@ -79,7 +79,29 @@ non-zero exit code when it fails:
    (aggregate steps/s, one attention launch per layer for all tasks) and
    with d-vector speakers at N = 2, each task held to its run alone
    (1e-4); `synthesize_bucketed` with the adapted parameters on 8 lines.
-9. Attention timing (run last, after phase 11): the kernel at each key
+12. The command line on a preprocessed corpus, through
+   `fscl_tpu_torch.cli.main` in this process: two corpora (`en`, `zh`; 2
+   speakers, 64 + 16 utterances of 2-7.9 s, 30-100 phonemes each) written
+   from --seed with the port's FeatureStore into a temporary directory;
+   `train --system baseline` (config/model/base.yaml with a 2-row speaker
+   table, config/train/baseline.yaml + an overlay: lr 2e-3, warmup 10, log
+   every 5, save every 10) for 20 steps, then `--resume` to 30 (the restored
+   step, parameters and Adam moments equal to the file; every loss finite,
+   the last five below the first five; the loss table and metrics written;
+   steps/s from the store beside phase 8's, the host's batch-making time per
+   step, checkpoint save / restore ms and bytes); `synth --text_file` of the
+   32 lines in batches of 8 with a HiFi-GAN V1 checkpoint in the official
+   layout (14 attention + 4 stage launches per batch, wavs finite and
+   bounded, audio-s/s) and `synth --text` of one line on the card and with
+   `--device cpu` (mels within phase 5's 1e-3); `train --system fscl` with
+   config/model/fscl-fastspeech2.yaml (HuBERT-large drawn from the seed,
+   d-vectors), config/algorithm/language/fscl.yaml (32 + 8) and
+   config/train/fscl.yaml + an overlay, 6 episodes (no `upstream.` tensor
+   in the checkpoint, the codebook moved, episodes/s beside phase 10's);
+   `tune --scan_adapt` (Adam, lr 1e-3, 50 steps) to a 32-utterance split
+   (adaptation.csv finite and falling, adaptation steps/s). Every attention
+   launch is held in phase 3, every stage launch in phase 3's shapes.
+9. Attention timing (run last, after phase 12): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
@@ -100,8 +122,10 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 
@@ -185,6 +209,19 @@ TUNE_RTOL = 1e-4
 # moves by at most about lr per step in either direction): per-step losses
 # and the adapted parameters (relative L2 over all of them) within 1e-4.
 TUNE_CHECK_STEPS = 3
+# The command line on a corpus (phase 12): two languages the frontend has
+# tables for, each 2 speakers with 64 train and 16 val utterances of 2-7.9 s
+# (mel T 172-680 at hop 256 / 22.05 kHz: the 256, 512 and 768 buckets; 16 kHz
+# wavs in the 4 s and 8 s buckets) and 30-100 phonemes; the baseline trained
+# 20 steps then resumed to 30, 6 FSCL episodes, 50 adaptation steps on a
+# 32-utterance split. Depth (these step counts) is what to cut first. The
+# corpora come from tests/torch_corpus.py:write_corpus, the CPU tests' writer,
+# whose docstring names the features the datasets read.
+CLI_LANGS = (("en", 0), ("zh", 1))
+CLI_SPEAKERS = ("spkA", "spkB")
+CLI_TRAIN, CLI_VAL, CLI_TUNE_K = 64, 16, 32
+CLI_FRAMES, CLI_PHONES = (172, 680), (30, 100)
+CLI_STEPS, CLI_RESUME_STEPS, CLI_FSCL_EPISODES, CLI_ADAPT_STEPS = 20, 30, 6, 50
 # HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
 V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
 
@@ -392,6 +429,18 @@ def phase_attention(seed: int):
                (max(MANY_TASKS) * MANY_B, H, MANY_T, Dh),
                (MANY_DVEC_TASKS * MANY_B, H, MANY_L, Dh), (MANY_DVEC_TASKS * MANY_B, H, MANY_T, Dh),
                (8, 2, 199, 40), (8, 2, 199, 48)]
+    # phase 12: the trunk at every text and mel bucket of the data layer in
+    # training (B = 16) and in FSCL queries and tune batches (B = 8);
+    # HuBERT-large over the 4 s and 8 s wav buckets (T' = 199 and 399) for a
+    # 32-wav support set and the tune table's batches of 4; and the
+    # unbucketed (L, T) of `synth --text`'s line at B = 1
+    from fscl_tpu_torch.data.batch import MEL_BUCKETS as DATA_MEL_BUCKETS, TEXT_BUCKETS
+    from fscl_tpu_torch.data.episodic import WAV_BUCKETS
+    _, line_L, line_T = cli_synth_line()
+    shapes += [(B, H, L, Dh) for B in (16, 8) for L in (*TEXT_BUCKETS, *DATA_MEL_BUCKETS)]
+    shapes += [(S, 16, ssl_num_frames(w), 64) for S in (FSCL_S, TUNE_SUP_BATCH)
+               for w in WAV_BUCKETS[:2]]
+    shapes += [(1, H, line_L, Dh), (1, H, line_T, Dh)]
     shapes = list(dict.fromkeys(shapes))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
@@ -2088,6 +2137,555 @@ def phase_tune(seed: int, card: str, attn_checked, profile: bool, out_dir):
     return summary
 
 
+# -- phase 12: the CLI workflow on a corpus ------------------------------------------
+
+class CliProbe:
+    """Records what the CLI does inside it, without changing it: every
+    checkpoint save (ms with the device synchronised, bytes on disk) and
+    restore (ms; after a full restore, the restored step and whether every
+    parameter and Adam moment equals the file), every `Trainer.fit` (steps,
+    seconds, and the seconds of the saves made inside it), every train
+    step's loss (the device tensor, read after the run) and the system built
+    by `System.init_state` (with its codebook at init, if any)."""
+
+    def __init__(self):
+        self.saves, self.restores, self.fits, self.losses, self.systems = [], [], [], [], []
+        self._in_fit = False
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+        from fscl_tpu_torch.core import checkpoint as ckpt
+        from fscl_tpu_torch.systems.base import System
+        from fscl_tpu_torch.train.trainer import Trainer
+
+        def save(orig):
+            def call(mgr, step, system, state):
+                t0 = time.perf_counter()
+                path = orig(mgr, step, system, state)
+                self.saves.append({"step": step, "in_fit": self._in_fit,
+                                   "ms": 1e3 * (time.perf_counter() - t0),
+                                   "bytes": (Path(path) / ckpt.STATE_FILE).stat().st_size})
+                return path
+            return call
+
+        def restore_into(orig):
+            def call(mgr, system, state=None, step=None, remap=None, full=False):
+                t0 = time.perf_counter()
+                out = orig(mgr, system, state, step, remap, full)
+                torch.cuda.synchronize()
+                rec = {"full": full, "ms": 1e3 * (time.perf_counter() - t0)}
+                if full:
+                    raw = mgr.restore(step)
+                    live = dict(system.named_parameters())
+                    names = ckpt.optimizer_names(system)
+                    rec.update(step=out.step, params_equal=all(
+                        torch.equal(live[k].cpu(), v) for k, v in raw["params"].items()),
+                        moments_equal=all(
+                            torch.equal(t.cpu(), raw["opt_state"][m][n])
+                            for m, ts in (("mu", out.opt_state.mu), ("nu", out.opt_state.nu))
+                            for t, n in zip(ts, names)),
+                        count=out.opt_state.count)
+                self.restores.append(rec)
+                return out
+            return call
+
+        def fit(orig):
+            def call(trainer, state, *args, **kwargs):
+                s0, n_saves = state.step, len(self.saves)
+                self._in_fit = True
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    out = orig(trainer, state, *args, **kwargs)
+                    torch.cuda.synchronize()
+                finally:
+                    self._in_fit = False
+                seconds = time.perf_counter() - t0
+                save_s = sum(s["ms"] for s in self.saves[n_saves:]) / 1e3
+                self.fits.append({"steps": out.step - s0, "seconds": seconds,
+                                  "save_seconds": save_s,
+                                  "steps_per_s": (out.step - s0) / (seconds - save_s)})
+                return out
+            return call
+
+        def train_step(orig):
+            def call(system, state, batch):
+                state, metrics = orig(system, state, batch)
+                self.losses.append(metrics["Total Loss"])
+                return state, metrics
+            return call
+
+        def init_state(orig):
+            def call(system):
+                codebook = getattr(system, "codebook", None)
+                self.systems.append((system, None if codebook is None else
+                                     {k: v.clone() for k, v in codebook.state_dict().items()}))
+                return orig(system)
+            return call
+
+        Manager = ckpt.CheckpointManager
+        with mock.patch.object(Manager, "save", save(Manager.save)), \
+                mock.patch.object(Manager, "restore_into", restore_into(Manager.restore_into)), \
+                mock.patch.object(Trainer, "fit", fit(Trainer.fit)), \
+                mock.patch.object(System, "train_step", train_step(System.train_step)), \
+                mock.patch.object(System, "init_state", init_state(System.init_state)):
+            yield self
+
+    def read_losses(self):
+        losses = [float(x) for x in self.losses]
+        self.losses = []
+        return losses
+
+
+def falling(losses) -> bool:
+    return len(losses) >= 10 and sum(losses[-5:]) / 5 < sum(losses[:5]) / 5
+
+
+def cli_train_overlay(root: Path, name: str, text: str) -> str:
+    path = root / f"{name}.yaml"
+    path.write_text(text)
+    return str(path)
+
+
+def cli_synth_line():
+    """The line of the card-vs-CPU synthesis and its (L, T): `synth --text`
+    runs at L = its length and T = min(1000, max(64, 12 L)), unbucketed, so
+    phase 3 holds both shapes."""
+    from fscl_tpu_torch.frontend import text_to_sequence
+    line = SENTENCES[2]
+    L = len(text_to_sequence(line, ["basic_cleaners"], "en"))
+    return line, L, min(1000, max(64, 12 * L))
+
+
+def phase_cli(seed: int, card: str, attn_checked, stage_checked, train, fscl):
+    """Main path, the command line on a preprocessed corpus: two corpora
+    written with the port's FeatureStore, then `fscl_tpu_torch.cli.main` as
+    a user runs it: train the baseline (then resume it), synthesize from its
+    checkpoint through both kernels, train FSCL meta-episodes with
+    HuBERT-large, tune to a 32-utterance split with --scan_adapt. At full
+    width; the step counts are the depth to cut first should the script
+    outgrow its time."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="fscl_cli_"))
+    try:
+        sys.path.insert(0, str(REPO / "tests"))
+        from torch_corpus import write_corpus
+
+        t0 = time.perf_counter()
+        en, zh = (write_corpus(str(root), f"{sid}-cli", sid, lang, seed + 40 + lang,
+                               n_train=CLI_TRAIN, n_val=CLI_VAL, speakers=CLI_SPEAKERS,
+                               frames=CLI_FRAMES, n_phones=CLI_PHONES,
+                               n_slices=(DVEC_N, DVEC_N), tune=CLI_TUNE_K)
+                  for sid, lang in CLI_LANGS)
+        zh_tune = str(Path(zh).with_name("tune.yaml"))
+        corpus_s = time.perf_counter() - t0
+        corpus_bytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+        log(f"cli: wrote 2 corpora ({len(CLI_SPEAKERS)} speakers, {CLI_TRAIN} + {CLI_VAL} "
+            f"utterances of {CLI_FRAMES[0]}-{CLI_FRAMES[1]} mel frames each) in "
+            f"{corpus_s:.2f} s, {corpus_bytes / 2**20:.1f} MiB")
+        summary = {"corpus_seconds": corpus_s, "corpus_bytes": corpus_bytes}
+        summary["train"] = cli_baseline(root, en, card, attn_checked, train)
+        summary["synth"] = cli_synth(root, en, seed, attn_checked, stage_checked,
+                                     summary["train"].pop("ckpt"))
+        summary["fscl"] = cli_fscl(root, en, zh, attn_checked, fscl)
+        summary["tune"] = cli_tune(root, zh_tune, attn_checked, summary["fscl"].pop("ckpt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
+def cli_baseline(root: Path, en: str, card: str, attn_checked, train):
+    """`train --system baseline` on `en` for CLI_STEPS steps, then
+    `--resume --total_step CLI_RESUME_STEPS`; steps/s beside phase 8's and
+    the host's batch-making time per step (`train_cmd.baseline_batches`, the
+    prefetch thread's work, timed alone), and the same steps on batches made
+    beforehand with and without the CLI's callbacks."""
+    import dataclasses
+
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.cli import train_cmd
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    from fscl_tpu_torch.core.config import (TrainConfig, model_config_from_yaml,
+                                            read_data_config, train_config_from_yaml)
+    from fscl_tpu_torch.obs.loggers import (CheckpointCallback, LossTableLogger,
+                                            TensorBoardLogger)
+    from fscl_tpu_torch.data.datasets import FastSpeech2Dataset
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    from fscl_tpu_torch.train.trainer import Trainer
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.ops import attention as attn
+
+    # base.yaml names no speaker table (one row) and the corpus has two
+    # speakers: the port refuses that (fscl_tpu would train on NaN rows)
+    model = root / "base-2spk.yaml"
+    model.write_text((REPO / "config" / "model" / "base.yaml").read_text()
+                     + f"\nspeaker:\n  n_speakers: {len(CLI_SPEAKERS)}\n")
+    # warmup 10 and lr 2e-3 as phase 8 (the yaml's 4000-step warmup leaves
+    # the rate near 0 for a run this short)
+    overlay = cli_train_overlay(root, "baseline-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 10\n  anneal_steps: []\n"
+                                "step:\n  log_step: 5\n  val_step: 10\n  save_step: 10\n")
+    exp = root / "exp-baseline"
+    args = ["train", "--system", "baseline", "--data_config", en, "--model_config", str(model),
+            "--train_config", str(REPO / "config" / "train" / "baseline.yaml"),
+            "--train_config", overlay, "--exp_dir", str(exp)]
+    t = model_config_from_yaml(str(model)).transformer
+    per_step = t.encoder_layer + t.decoder_layer
+    out = {}
+    probe = CliProbe()
+    for run, extra in (("first", ["--total_step", str(CLI_STEPS)]),
+                       ("resume", ["--resume", "--total_step", str(CLI_RESUME_STEPS)])):
+        attn.LAUNCHES = 0
+        with probe.active(), attention_shapes(attn, attn_checked, f"cli train {run}"):
+            t0 = time.perf_counter()
+            system, state = cli(args + extra)
+            wall = time.perf_counter() - t0
+        fit = probe.fits[-1]
+        losses = probe.read_losses()
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"cli train {run}: non-finite loss in {losses}")
+        if attn.LAUNCHES != per_step * fit["steps"]:
+            fail(f"cli train {run}: {attn.LAUNCHES} attention launches in {fit['steps']} steps")
+        out[run] = {"steps": fit["steps"], "wall_s": wall, "fit_s": fit["seconds"],
+                    "save_s_in_fit": fit["save_seconds"], "steps_per_s": fit["steps_per_s"],
+                    "losses": losses, "attention_launches": attn.LAUNCHES}
+        log(f"cli train {run}: {fit['steps']} steps in {fit['seconds']:.3f} s ({fit['save_seconds']:.3f} "
+            f"s of it saving) = {fit['steps_per_s']:.2f} steps/s from the store (phase 8 on "
+            f"prepared batches: {train['steps_per_s']:.2f}); the CLI call {wall:.2f} s; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; {attn.LAUNCHES} attention launches")
+        del system, state
+    resume = probe.restores[-1]
+    if not (resume["full"] and resume["step"] == CLI_STEPS and resume["params_equal"]
+            and resume["moments_equal"] and resume["count"] == CLI_STEPS):
+        fail(f"cli resume: restored {resume}, expected step {CLI_STEPS} with the saved "
+             "parameters and moments")
+    losses = out["first"]["losses"] + out["resume"]["losses"]
+    if not falling(losses):
+        fail(f"cli train: loss did not fall: {losses}")
+    log_txt, jsonl = exp / "log" / "log.txt", exp / "tb" / "metrics.jsonl"
+    events = list((exp / "tb").glob("events.*"))
+    if not log_txt.is_file() or not (jsonl.is_file() or events):
+        fail(f"cli train: no loss table ({log_txt}) or metrics ({jsonl} or events)")
+    n_logged = len(log_txt.read_text().splitlines())
+    # the host's work per step: utterances read from the store and collated
+    cfg = train_config_from_yaml([str(REPO / "config" / "train" / "baseline.yaml"), overlay])
+    dc = read_data_config(en)
+    mcfg = model_config_from_yaml(str(model))
+    ds = FastSpeech2Dataset(dc.subset_path("train"), FeatureStore(dc.data_dir), dc, mcfg)
+    stream = train_cmd.baseline_batches(ds, cfg, mcfg, None)
+    next(stream)
+    t0 = time.perf_counter()
+    batches = [next(stream) for _ in range(CLI_STEPS)]
+    batch_ms = 1e3 * (time.perf_counter() - t0) / CLI_STEPS
+    shapes = [tuple(b.mels.shape[:2]) for b in batches]
+    saves = list(probe.saves)
+    # the same steps on those batches made beforehand, timed as the CLI's
+    # run (saves inside the run taken out), four ways: bare, as phase 8
+    # trains (one log at the end, no callbacks); "logs", the CLI's train
+    # config and callbacks without its saves (a log every 5 steps reads the
+    # metrics, which waits for the card, then the loss table and metrics
+    # writer); "callbacks", with the saves too (every 10 steps); and
+    # "reader", the callbacks while a thread makes batches from the store
+    # at the prefetch thread's pace (at most `prefetch` ahead of the step)
+    # and drops them: what the reading thread's Python takes from the step
+    # (the GIL) rather than the step waiting for its batch. One system for
+    # all, warmed up first, the four in turn twice, so that no variant pays
+    # the first run's costs alone.
+    torch.manual_seed(cfg.seed)
+    system = BaselineSystem(mcfg, ((dc.symbol_id, n_symbols(dc.symbol_id)),), device="cuda",
+                            optim_cfg=cfg.optim)
+    bare = TrainConfig(optim=cfg.optim, total_step=CLI_STEPS, log_step=CLI_STEPS,
+                       val_step=10**9, save_step=10**9, seed=cfg.seed)
+    Trainer(system, bare).fit(system.init_state(), iter(batches))
+    variants = {"bare": bare,
+                "logs": dataclasses.replace(cfg, total_step=CLI_STEPS, save_step=10**9),
+                "callbacks": dataclasses.replace(cfg, total_step=CLI_STEPS),
+                "reader": dataclasses.replace(cfg, total_step=CLI_STEPS)}
+    prepared = {label: [] for label in variants}
+    reader_batches = []
+    for rep in range(2):
+        for label, run_cfg in variants.items():
+            callbacks, tb = [], None
+            if label != "bare":
+                pexp = root / f"exp-{label}-{rep}"
+                tb = TensorBoardLogger(str(pexp / "tb"))
+                callbacks = [LossTableLogger(str(pexp / "log")), tb, CheckpointCallback(
+                    CheckpointManager(str(pexp / "ckpt"), max_to_keep=5), system)]
+            stop, made = threading.Event(), []
+
+            def read():
+                reader = train_cmd.baseline_batches(ds, cfg, mcfg, None)
+                while not stop.is_set():
+                    if len(made) < len(probe.losses) + run_cfg.prefetch:
+                        made.append(next(reader).mels.shape[0])
+                    else:
+                        time.sleep(0.0005)
+
+            thread = threading.Thread(target=read) if label == "reader" else None
+            if thread is not None:
+                thread.start()
+            try:
+                with probe.active():
+                    Trainer(system, run_cfg, callbacks).fit(system.init_state(), iter(batches))
+            finally:
+                stop.set()
+                if thread is not None:
+                    thread.join()
+                    reader_batches.append(len(made))
+            if tb is not None:
+                tb.close()
+            prepared[label].append(probe.fits[-1]["steps_per_s"])
+            probe.read_losses()
+    del system
+    out.update({
+        "restored": resume, "saves": saves, "loss_table_lines": n_logged,
+        "metrics": "metrics.jsonl" if jsonl.is_file() else "tensorboard events",
+        "host_batch_ms": batch_ms, "batch_shapes": sorted(set(shapes)),
+        "prepared_steps_per_s": prepared, "reader_batches": reader_batches,
+        "ckpt_bytes": saves[-1]["bytes"], "save_ms": [s["ms"] for s in saves],
+        "restore_ms": resume["ms"], "phase8_steps_per_s": train["steps_per_s"],
+        "ckpt": str(exp / "ckpt")})
+    save_ms = ", ".join(f"{s['ms']:.0f}" for s in saves)
+    log(f"cli train: resume restored step {resume['step']} with parameters and moments equal "
+        f"to the file; checkpoint {saves[-1]['bytes'] / 2**20:.1f} MiB, save {save_ms} ms, "
+        f"restore {resume['ms']:.0f} ms; "
+        f"host batch making {batch_ms:.2f} ms per step of B = 16 ({sorted(set(shapes))}); "
+        f"the same {CLI_STEPS} steps on those batches made beforehand, steps/s in two rounds: "
+        + ", ".join(f"{k} {' / '.join(f'{x:.2f}' for x in v)}" for k, v in prepared.items())
+        + f" (the reader thread made {reader_batches} batches; the CLI's first run from the "
+        f"store {out['first']['steps_per_s']:.2f}); "
+        f"loss table {n_logged} lines, {out['metrics']}; on {card}")
+    return out
+
+
+def cli_synth(root: Path, en: str, seed: int, attn_checked, stage_checked, ckpt: str):
+    """`synth --text_file` (CLI_LINES lines, batches of 8) with a HiFi-GAN V1
+    checkpoint through both kernels, then one line on the card and on the
+    CPU (mels held to phase 5's bar). The checkpoint is phase 12's baseline
+    with its duration head pinned as phase 4 pins the random model's: 30
+    training steps move the head's bias by a few hundredths, and lines would
+    stay in the smallest bucket."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.cli import synth_cmd
+    from fscl_tpu_torch.core.checkpoint import STATE_FILE, CheckpointManager
+    from fscl_tpu_torch.core.config import model_config_from_yaml
+    from fscl_tpu_torch.dsp.audio_io import load_wav
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+
+    raw = CheckpointManager(ckpt).restore()
+    head = "model.variance_adaptor.duration_predictor.linear_layer."
+    raw["params"][head + "weight"].mul_(0.1)
+    raw["params"][head + "bias"].add_(math.log(5.0))
+    pinned = root / "ckpt-synth" / f"step_{raw['step']:08d}"
+    pinned.mkdir(parents=True)
+    torch.save(raw, str(pinned / STATE_FILE))
+    voc = root / "g_v1.pt"
+    from torch_corpus import write_hifigan_checkpoint
+    write_hifigan_checkpoint(str(voc), seed)
+    lines = root / "lines.txt"
+    lines.write_text("\n".join(LINES) + "\n")
+    model = str(root / "base-2spk.yaml")
+    common = ["synth", "--ckpt_dir", str(pinned.parent), "--data_config", en, "--model_config",
+              model]
+    attn.LAUNCHES, mrf.LAUNCHES = 0, 0
+    stages = []
+
+    def record_stage(orig):
+        def call(x, *args):
+            stages.append(tuple(x.shape))
+            return orig(x, *args)
+        return call
+
+    serving = {}
+
+    def time_serving(orig):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = orig(*args)
+            serving["seconds"] = time.perf_counter() - t0
+            return out
+        return call
+
+    with attention_shapes(attn, attn_checked, "cli synth"), \
+            mock.patch.object(mrf, "mrf_stage_cuda", record_stage(mrf.mrf_stage_cuda)), \
+            mock.patch.object(synth_cmd, "_run_batch", time_serving(synth_cmd._run_batch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mels = cli(common + ["--text_file", str(lines), "--batch_size", "8", "--vocoder_ckpt",
+                             str(voc), "--output", str(root / "wavs")])
+        wall = time.perf_counter() - t0
+    n_batches = math.ceil(len(LINES) / 8)
+    t = model_config_from_yaml(model).transformer
+    per_batch = 2 * t.encoder_layer + t.decoder_layer          # pass 1 + pass 2
+    launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
+    if launches != {"attention_fwd": per_batch * n_batches, "mrf_stage": 4 * n_batches}:
+        fail(f"cli synth: launches {launches}, expected {per_batch} and 4 per batch of "
+             f"{n_batches}")
+    if set(stages) - stage_checked:
+        fail(f"cli synth: stage shapes {sorted(set(stages) - stage_checked)} not held in phase 3")
+    samples = 0
+    for i, mel in enumerate(mels):
+        wav = load_wav(str(root / "wavs" / f"{i:04d}.wav"), 22050)
+        if wav.shape != (mel.shape[0] * 256,) or not np_finite_bounded(wav) \
+                or not np.isfinite(mel).all():
+            fail(f"cli synth line {i}: wav {wav.shape} for {mel.shape[0]} frames, or not finite")
+        samples += wav.shape[0]
+    audio_s = samples / 22050
+    log(f"cli synth: {len(mels)} lines in {n_batches} batches, {audio_s:.2f} s of audio in "
+        f"{wall:.3f} s = {audio_s / wall:.1f} audio-s/s through the CLI (system and vocoder "
+        f"built, checkpoints read, wavs written); of it the batches (mels, vocoder, Python "
+        f"cuts, wav files) {serving['seconds']:.3f} s = {audio_s / serving['seconds']:.1f} "
+        f"audio-s/s; mel_len {[m.shape[0] for m in mels]}; "
+        f"{launches['attention_fwd']} attention + {launches['mrf_stage']} stage launches")
+
+    line, L, T = cli_synth_line()
+    got = {}
+    for device in ("cuda", "cpu"):
+        shapes = (attention_shapes(attn, attn_checked, "cli synth card vs CPU")
+                  if device == "cuda" else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with shapes:
+            (got[device],) = cli(common + ["--text", line, "--device", device, "--output",
+                                           str(root / f"{device}.wav")])
+        log(f"cli synth --text on {device}: {got[device].shape[0]} frames in "
+            f"{time.perf_counter() - t0:.2f} s")
+    if got["cuda"].shape != got["cpu"].shape:
+        fail(f"cli synth card vs CPU: mel {got['cuda'].shape} vs {got['cpu'].shape}")
+    err = float(np.abs(got["cuda"] - got["cpu"]).max())
+    log(f"cli synth card vs CPU (L = {L}, T = {T}): max |postnet_mel| diff {err:.3g} "
+        f"(atol {CARD_VS_CPU_ATOL})")
+    if not err <= CARD_VS_CPU_ATOL:
+        fail(f"cli synth card vs CPU: {err:.3g} > {CARD_VS_CPU_ATOL}")
+    return {"lines": len(mels), "batches": n_batches, "audio_seconds": audio_s, "wall_s": wall,
+            "audio_s_per_s": audio_s / wall, "batches_s": serving["seconds"],
+            "batches_audio_s_per_s": audio_s / serving["seconds"], "mel_len": [int(m.shape[0]) for m in mels],
+            "launches": launches, "card_vs_cpu": {"L": L, "T": T, "frames": got["cpu"].shape[0],
+                                                  "max_abs_err": err}}
+
+
+def cli_fscl(root: Path, en: str, zh: str, attn_checked, fscl):
+    """`train --system fscl` on both corpora with config/model/fscl-fastspeech2.yaml
+    (HuBERT-large drawn on the card from the train seed, d-vector
+    speakers), config/algorithm/language/fscl.yaml (32 shots + 8 queries)
+    and config/train/fscl.yaml + an overlay, CLI_FSCL_EPISODES episodes."""
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.ops import attention as attn
+
+    overlay = cli_train_overlay(root, "fscl-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 5\n  anneal_steps: []\n"
+                                f"step:\n  log_step: 1\n  save_step: {CLI_FSCL_EPISODES}\n")
+    exp = root / "exp-fscl"
+    probe = CliProbe()
+    attn.LAUNCHES = 0
+    with probe.active(), attention_shapes(attn, attn_checked, "cli fscl"):
+        t0 = time.perf_counter()
+        system, state = cli([
+            "train", "--system", "fscl", "--data_config", en, "--data_config", zh,
+            "--model_config", str(REPO / "config" / "model" / "fscl-fastspeech2.yaml"),
+            "--algorithm_config", str(REPO / "config" / "algorithm" / "language" / "fscl.yaml"),
+            "--train_config", str(REPO / "config" / "train" / "fscl.yaml"),
+            "--train_config", overlay, "--exp_dir", str(exp),
+            "--total_step", str(CLI_FSCL_EPISODES)])
+        wall = time.perf_counter() - t0
+    fit, losses = probe.fits[-1], probe.read_losses()
+    per_episode = system.upstream.n_layers + system.model_cfg.transformer.encoder_layer + \
+        system.model_cfg.transformer.decoder_layer
+    if state.step != CLI_FSCL_EPISODES or not all(math.isfinite(x) for x in losses):
+        fail(f"cli fscl: {state.step} episodes, losses {losses}")
+    if attn.LAUNCHES != per_episode * CLI_FSCL_EPISODES:
+        fail(f"cli fscl: {attn.LAUNCHES} attention launches, expected {per_episode} per episode")
+    _, codebook0 = probe.systems[0]
+    moved = any(not torch.equal(v, system.codebook.state_dict()[k]) for k, v in codebook0.items())
+    saved = probe.saves[-1]
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    raw = CheckpointManager(str(exp / "ckpt")).restore()
+    upstream_keys = [k for part in (raw["params"], raw["buffers"]) for k in part
+                     if k.startswith("upstream.")]
+    if upstream_keys or not moved:
+        fail(f"cli fscl: upstream tensors in the checkpoint {upstream_keys[:3]}, or the codebook "
+             "did not move")
+    n_saved = sum(v.numel() for v in raw["params"].values())
+    log(f"cli fscl: {CLI_FSCL_EPISODES} episodes in {fit['seconds']:.3f} s "
+        f"({fit['save_seconds']:.3f} s saving) = {fit['steps_per_s']:.3f} episodes/s through the "
+        f"CLI (phase 10, f32 upstream: {fscl['float32']['episodes_per_s']:.3f}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; codebook moved; checkpoint "
+        f"{saved['bytes'] / 2**20:.1f} MiB ({n_saved / 1e6:.2f} M parameters, no upstream "
+        f"tensor), save {saved['ms']:.0f} ms; the CLI call {wall:.2f} s")
+    out = {"episodes": CLI_FSCL_EPISODES, "fit_s": fit["seconds"],
+           "save_s_in_fit": fit["save_seconds"], "episodes_per_s": fit["steps_per_s"],
+           "phase10_episodes_per_s": fscl["float32"]["episodes_per_s"], "losses": losses,
+           "attention_launches": attn.LAUNCHES, "ckpt_bytes": saved["bytes"],
+           "ckpt_parameters": n_saved, "save_ms": saved["ms"], "wall_s": wall,
+           "ckpt": str(exp / "ckpt")}
+    del system, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_tune(root: Path, zh_tune: str, attn_checked, fscl_ckpt: str):
+    """`tune --scan_adapt` (Adam, lr 1e-3, CLI_ADAPT_STEPS steps) to the
+    32-utterance split from phase 12's FSCL checkpoint. The model config's
+    d-vector speakers take the chunked path (`adapt_on_chip_chunked`,
+    batches of 8 from the datamodule, one chunk)."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.cli import tune_cmd
+    from fscl_tpu_torch.ops import attention as attn
+
+    timed = {}
+
+    def time_adapt(orig):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed["seconds"] = time.perf_counter() - t0
+            return out
+        return call
+
+    exp = root / "exp-tune"
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "cli tune"), \
+            mock.patch.object(tune_cmd, "adapt_on_chip_chunked",
+                              time_adapt(tune_cmd.adapt_on_chip_chunked)):
+        t0 = time.perf_counter()
+        system, losses = cli([
+            "tune", "--data_config", zh_tune, "--fscl_ckpt", fscl_ckpt,
+            "--model_config", str(REPO / "config" / "model" / "fscl-fastspeech2.yaml"),
+            "--exp_dir", str(exp), "--scan_adapt", "--scan_optimizer", "adam",
+            "--scan_lr", "1e-3", "--adaptation_steps", str(CLI_ADAPT_STEPS)])
+        wall = time.perf_counter() - t0
+    curve = exp / "csv" / "zh" / "adaptation.csv"
+    if not curve.is_file() or "seconds" not in timed:
+        fail(f"cli tune: no {curve}, or the chunked adaptation did not run")
+    rows = curve.read_text().splitlines()[1:]
+    written = [float(r.split(",")[1]) for r in rows]
+    if len(written) != CLI_ADAPT_STEPS or not np.array_equal(written, losses) \
+            or not all(math.isfinite(x) for x in written) or not falling(written):
+        fail(f"cli tune: adaptation.csv {written[:3]}... ({len(written)} rows) not finite and "
+             "falling, or not the run's losses")
+    steps_per_s = CLI_ADAPT_STEPS / timed["seconds"]
+    log(f"cli tune: {CLI_ADAPT_STEPS} Adam steps in {timed['seconds']:.3f} s = "
+        f"{steps_per_s:.2f} adaptation steps/s (chunked, d-vector speakers), loss "
+        f"{written[0]:.4f} -> {written[-1]:.4f}; {attn.LAUNCHES} attention launches; the CLI call "
+        f"{wall:.2f} s")
+    del system
+    torch.cuda.empty_cache()
+    return {"steps": CLI_ADAPT_STEPS, "adapt_s": timed["seconds"], "steps_per_s": steps_per_s,
+            "losses": written, "attention_launches": attn.LAUNCHES, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2115,6 +2713,7 @@ def main(argv=None) -> int:
     train = phase_train(args.seed, card, attn_checked, args.profile, args.out)
     fscl = phase_fscl(args.seed, card, attn_checked, args.profile, args.out)
     tune = phase_tune(args.seed, card, attn_checked, args.profile, args.out)
+    cli = phase_cli(args.seed, card, attn_checked, stage_checked, train, fscl)
     timings = phase_attention_timing(args.seed)
 
     main_row = next(r for r in timings
@@ -2138,7 +2737,12 @@ def main(argv=None) -> int:
                              "tune_adapt_sgd": tune["sgd"]["attention_launches"],
                              "tune_adapt_adam": tune["adam"]["attention_launches"],
                              "tune_adapt_many_n8": tune["many"]["n8"]["attention_launches"],
-                             "tune_synthesis": tune["synthesis"]["adam"]["attention_launches"]},
+                             "tune_synthesis": tune["synthesis"]["adam"]["attention_launches"],
+                             "cli_train": cli["train"]["first"]["attention_launches"]
+                             + cli["train"]["resume"]["attention_launches"],
+                             "cli_synth": cli["synth"]["launches"]["attention_fwd"],
+                             "cli_fscl": cli["fscl"]["attention_launches"],
+                             "cli_tune": cli["tune"]["attention_launches"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2163,7 +2767,8 @@ def main(argv=None) -> int:
         "launches": text_to_wav["launches"]["mrf_stage"],
         "launches_by_path": {"text_to_wav": text_to_wav["launches"]["mrf_stage"],
                              "train": train["mrf_stage_launches"],
-                             "tune": tune["mrf_stage_launches"]},
+                             "tune": tune["mrf_stage_launches"],
+                             "cli_synth": cli["synth"]["launches"]["mrf_stage"]},
         "max_abs_err": stage_err["float32"],
         # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
         "ms": sum(r["ms"] for r in f32_stages),
@@ -2189,6 +2794,7 @@ def main(argv=None) -> int:
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
+              "cli": cli,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -1,0 +1,129 @@
+"""`python -m fscl_tpu_torch.cli train|tune|synth ...` (port of
+`fscl_tpu/cli/__main__.py`).
+
+The `train`, `tune` and `synth` subparsers take fscl_tpu's flags with its
+defaults (`:41-127`), plus `--device` (default `cuda`, through
+`core.device.resolve_device`: without a card it raises unless `--device cpu`
+is passed). A flag the port does not run yet raises when it is set to
+anything but its default, naming the ROADMAP item that ports it; so do the
+other subcommands of fscl_tpu.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+# fscl_tpu's other subcommands; they wait for ROADMAP.md Queue 1, item 13
+WAITING_COMMANDS = ("preprocess", "evaluate", "make-units", "clean", "pack", "rehearse")
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs the kernels' "
+                        "plain versions)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="fscl_tpu_torch",
+        description="few-shot cross-lingual TTS, PyTorch/CUDA port")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="train a system")
+    t.add_argument("--system", default="baseline",
+                   help="registry key (baseline, baseline-tune, fscl, fscl-orig)")
+    t.add_argument("--data_config", action="append", required=True)
+    t.add_argument("--model_config", default=None)
+    t.add_argument("--train_config", action="append", default=None,
+                   help="train yaml overlays (merged in order)")
+    t.add_argument("--algorithm_config", default=None)
+    t.add_argument("--exp_dir", default="output/exp")
+    t.add_argument("--total_step", type=int, default=None)
+    t.add_argument("--steps_per_dispatch", type=int, default=None,
+                   help="optimizer steps per dispatch (k single steps here; "
+                        "log/val/save cadence must be multiples of k)")
+    t.add_argument("--pretrain_ckpt", default=None)
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--n_devices", type=int, default=None,
+                   help="not ported yet (ROADMAP item 12)")
+    t.add_argument("--upstream_parallel", choices=["none", "pp", "sp"], default="none",
+                   help="not ported yet (ROADMAP item 12)")
+    t.add_argument("--n_model", type=int, default=None,
+                   help="not ported yet (ROADMAP item 12)")
+    t.add_argument("--debug", action="store_true",
+                   help="print the model structure and cap the run to 2 steps "
+                        "(reference main.py --debug)")
+    t.add_argument("--use_tracker", action="store_true",
+                   help="not ported yet (ROADMAP item 11)")
+    t.add_argument("--exp_key", default=None, help="not ported yet (ROADMAP item 11)")
+    t.add_argument("--distributed", action="store_true",
+                   help="not ported yet (ROADMAP item 12)")
+    _add_device(t)
+
+    tu = sub.add_parser("tune", help="few-shot transfer to a new language")
+    tu.add_argument("--data_config", required=True,
+                    help="few-shot task config.yaml (task generation output)")
+    tu.add_argument("--fscl_ckpt", default=None, help="pretrained FSCL checkpoint dir")
+    tu.add_argument("--model_config", default=None)
+    tu.add_argument("--exp_dir", default="output/tune")
+    tu.add_argument("--adaptation_steps", type=int, default=20000)
+    tu.add_argument("--scan_adapt", action="store_true",
+                    help="run the whole adaptation on the device with no per-step host "
+                         "wait and write the per-step loss curve to adaptation.csv")
+    tu.add_argument("--scan_lr", type=float, default=1e-4,
+                    help="learning rate for --scan_adapt")
+    tu.add_argument("--scan_optimizer", choices=["sgd", "adam"], default="sgd",
+                    help="--scan_adapt optimizer; adam matches the reference tune flows "
+                         "(Adam beta=(0.9,0.98) + grad clip 1.0), with moments carried "
+                         "across chunks")
+    _add_device(tu)
+
+    s = sub.add_parser("synth", help="synthesize from text")
+    s.add_argument("--ckpt_dir", required=True)
+    s.add_argument("--data_config", required=True)
+    s.add_argument("--text", default=None, help="text or {PHONEME ...} string")
+    s.add_argument("--text_file", default=None,
+                   help="file with one utterance per line; batch serving over bucketed "
+                        "synthesis. --output becomes a directory of NNNN.wav files")
+    s.add_argument("--batch_size", type=int, default=8,
+                   help="serving batch size for --text_file")
+    s.add_argument("--speaker", type=int, default=0)
+    s.add_argument("--model_config", default=None)
+    s.add_argument("--ref_wav", default=None, help="not ported yet (ROADMAP item 7)")
+    s.add_argument("--output", default="output.wav")
+    s.add_argument("--vocoder_ckpt", default=None)
+    s.add_argument("--stream", action="store_true",
+                   help="chunked vocoding with receptive-field halos "
+                        "(audio_out/streaming.py); HiFiGAN vocoder + --text only")
+    s.add_argument("--chunk", type=int, default=64,
+                   help="mel frames per streamed chunk (--stream)")
+    _add_device(s)
+
+    for name in WAITING_COMMANDS:
+        sub.add_parser(name, help="not ported yet (ROADMAP item 13)", add_help=False)
+    return parser
+
+
+def main(argv=None):
+    """Parse `argv` (default sys.argv[1:]) and run the subcommand; returns
+    what the subcommand's `run` returns."""
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if args.command in WAITING_COMMANDS:
+        raise NotImplementedError(
+            f"the '{args.command}' subcommand is not ported yet: ROADMAP.md Queue 1, "
+            f"item 13, CLI, rehearse and bench")
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.command == "train":
+        from fscl_tpu_torch.cli.train_cmd import run
+    elif args.command == "tune":
+        from fscl_tpu_torch.cli.tune_cmd import run
+    else:
+        from fscl_tpu_torch.cli.synth_cmd import run
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

@@ -1,0 +1,198 @@
+"""`fscl_tpu_torch train` — train a system on preprocessed corpora (port of
+`fscl_tpu/cli/train_cmd.py`, main.py:43-208).
+
+Ported: the `baseline`/`baseline-tune` and `fscl`/`fscl-orig` paths
+(`:90-125`), `--pretrain_ckpt` (warm start), `--resume` (full restore),
+`--debug`, `--total_step` and `--steps_per_dispatch`. The generic path
+through `systems/factory.py` waits for ROADMAP Queue 1, item 6; the
+multi-device and tracking flags for items 11 and 12, and raise when set.
+
+One repair against fscl_tpu: with a d-vector model (`speaker_emb: dvec`,
+config/model/fscl-fastspeech2.yaml) fscl_tpu's episodes carry speaker ids
+where the system needs the reference mel slices, and its first episode
+raises; the port's episodes carry the slices (`DvecRefs`), as its baseline
+batches do.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from fscl_tpu_torch.core.checkpoint import CheckpointManager
+from fscl_tpu_torch.core.config import (
+    AlgorithmConfig, ModelConfig, TrainConfig, model_config_from_yaml, read_algorithm_config,
+    read_data_config, train_config_from_yaml,
+)
+from fscl_tpu_torch.core.device import resolve_device
+from fscl_tpu_torch.data.batch import collate_batch
+from fscl_tpu_torch.data.datasets import ConcatDataset, FastSpeech2Dataset, FSCLDataset
+from fscl_tpu_torch.data.episodic import EpisodicSampler, InfiniteEpisodes
+from fscl_tpu_torch.data.feature_store import FeatureStore
+from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, register_unit_symbols
+from fscl_tpu_torch.obs.loggers import CheckpointCallback, LossTableLogger, TensorBoardLogger
+from fscl_tpu_torch.systems import get_system
+from fscl_tpu_torch.train.trainer import Trainer
+
+UNPORTED_FLAGS = (  # flag, its default, the ROADMAP.md Queue 1 item that ports it
+    ("n_devices", None, "item 12, parallelism"),
+    ("upstream_parallel", "none", "item 12, parallelism"),
+    ("n_model", None, "item 12, parallelism"),
+    ("distributed", False, "item 12, parallelism"),
+    ("use_tracker", False, "item 11, observability (obs/tracking.py)"),
+    ("exp_key", None, "item 11, observability (obs/tracking.py)"),
+)
+
+
+def refuse_unported(args) -> None:
+    for name, default, item in UNPORTED_FLAGS:
+        if getattr(args, name) != default:
+            raise NotImplementedError(
+                f"--{name} is not ported yet: ROADMAP.md Queue 1, {item}")
+
+
+def check_speaker_table(datasets, model_cfg: ModelConfig) -> None:
+    """A speaker-table model must have a row for every speaker id the
+    datasets give (`speakers.json` order). fscl_tpu does not check: its
+    table lookup gives NaN for an id past the table (base.yaml has no
+    `speaker:` block, so one row); the port raises here instead of failing
+    inside the step (on the card, a device-side assert)."""
+    if model_cfg.speaker.emb_type != "table":
+        return
+    n = max((d.speaker_offset + len(d.speakers) for d in datasets), default=0)
+    if n > model_cfg.speaker.n_speakers:
+        raise ValueError(
+            f"the corpora have {n} speakers but the model config's speaker table has "
+            f"{model_cfg.speaker.n_speakers} rows: set speaker.n_speakers")
+
+
+def baseline_batches(dataset, train_cfg: TrainConfig, model_cfg: ModelConfig, dvec_slices):
+    """The baseline path's endless batch stream: batch_size utterances drawn
+    uniformly with replacement from `seed` (fscl_tpu's `batches()`), read
+    from the stores and collated on the host."""
+    rng = np.random.default_rng(train_cfg.seed)
+    bs = train_cfg.optim.batch_size
+    while True:
+        idxs = rng.integers(0, len(dataset), bs)
+        _, batch = collate_batch(
+            [dataset[int(i)] for i in idxs], dvec_slices=dvec_slices,
+            pitch_feature=model_cfg.variance.pitch_feature,
+            energy_feature=model_cfg.variance.energy_feature)
+        yield batch
+
+
+def run(args):
+    """Returns (system, final TrainState)."""
+    device = resolve_device(args.device)
+    refuse_unported(args)
+
+    data_configs = [read_data_config(p) for p in args.data_config]
+    model_cfg = (model_config_from_yaml(args.model_config)
+                 if args.model_config else ModelConfig())
+    train_cfg = (train_config_from_yaml(args.train_config)
+                 if args.train_config else TrainConfig())
+    algo_cfg = (read_algorithm_config(args.algorithm_config)
+                if args.algorithm_config else AlgorithmConfig(type=args.system))
+    if args.total_step:
+        train_cfg = dataclasses.replace(train_cfg, total_step=args.total_step)
+    if args.steps_per_dispatch:
+        train_cfg = dataclasses.replace(train_cfg, steps_per_dispatch=args.steps_per_dispatch)
+
+    # register pseudo-unit inventories recorded by `make-units`
+    # (reference: build_id2symbols adds common_symbols + unit ids,
+    # lightning/build.py:24-31)
+    for dc in data_configs:
+        if dc.unit_name and dc.unit_name not in LANG_ID2SYMBOLS:
+            attrs = FeatureStore(dc.data_dir).get_ssl_unit_store(dc.unit_name).load_attrs()
+            if "n_units" not in attrs:
+                raise FileNotFoundError(
+                    f"unit set '{dc.unit_name}' not found in {dc.data_dir}: "
+                    "run `fscl_tpu make-units` first")
+            register_unit_symbols(dc.unit_name, attrs["n_units"])
+    id2symbols = tuple((dc.symbol_id, len(LANG_ID2SYMBOLS[dc.symbol_id]))
+                       for dc in data_configs)
+
+    sys_cls = get_system(args.system)
+    if args.system not in ("baseline", "baseline-tune", "fscl", "fscl-orig"):
+        raise NotImplementedError(
+            f"system '{args.system}' goes through the generic path of systems/factory.py, "
+            "not ported yet: ROADMAP.md Queue 1, item 6")
+
+    # datasets
+    stores = {dc.name: FeatureStore(dc.data_dir) for dc in data_configs}
+    need_ssl = args.system.startswith("fscl")
+    # d-vector speaker paths need per-utterance reference mel slices
+    # (speaker_encoder.py:115-136); datasets load them, collate pads them
+    dvec_slices = model_cfg.speaker.n_ref_slices if model_cfg.speaker.uses_dvec else None
+    ds_kw = {"spk_refer_wav": True} if dvec_slices else {}
+    ds_cls = FSCLDataset if need_ssl else FastSpeech2Dataset
+    datasets = []
+    for dc in data_configs:
+        train_txt = dc.subset_path("train")
+        if not train_txt:
+            raise ValueError(f"data config {dc.name} has no train subset")
+        datasets.append(ds_cls(train_txt, stores[dc.name], dc, model_cfg, **ds_kw))
+    dataset = ConcatDataset(datasets)
+    check_speaker_table(datasets, model_cfg)
+
+    # system: the trunk from torch's init under the seed (and the FSCL
+    # upstream drawn on the device from it)
+    torch.manual_seed(train_cfg.seed)
+    if not need_ssl:
+        system = sys_cls(model_cfg, id2symbols, device=device, optim_cfg=train_cfg.optim)
+
+        def batches():
+            return baseline_batches(dataset, train_cfg, model_cfg, dvec_slices)
+    else:
+        # episodes carry raw per-language ids; the generated table only
+        # needs to cover the largest per-language inventory (static shape)
+        n_symbols = max(n for _, n in id2symbols)
+        system = sys_cls(model_cfg, n_symbols, device=device, optim_cfg=train_cfg.optim,
+                         upstream_seed=train_cfg.seed)
+        labels = []
+        for d in datasets:
+            labels.extend([d.config.lang_id] * len(d))
+        shots, queries = algo_cfg.adapt.shots, algo_cfg.adapt.queries
+        sampler = EpisodicSampler(labels, shots=shots, queries=queries, seed=train_cfg.seed)
+        # fscl_tpu draws one episode to initialise its state before
+        # training; drawing its task here keeps both on the same episodes
+        sampler.sample_task()
+        stream = InfiniteEpisodes(dataset, sampler, shots, queries,
+                                  var_kw={"dvec_slices": dvec_slices} if dvec_slices else None)
+
+        def batches():
+            return iter(stream)
+    state = system.init_state()
+
+    if args.debug:
+        # reference --debug harness (main.py:45-49, system.py:32-36): print
+        # the model structure and cap the run to a couple of steps
+        print(f"[debug] system={args.system} ({type(system).__name__} on {system.device})")
+        for name, module in system.named_children():
+            n = sum(p.numel() for p in module.parameters())
+            print(f"[debug]   {name}: {n:,} params")
+        train_cfg = dataclasses.replace(
+            train_cfg, total_step=min(train_cfg.total_step, 2),
+            log_step=1, val_step=10**9, synth_step=10**9, save_step=10**9)
+        print(f"[debug] total_step capped to {train_cfg.total_step}")
+
+    ckpt_dir = os.path.join(args.exp_dir, "ckpt")
+    strip = ("upstream",) if need_ssl else ()
+    mgr = CheckpointManager(ckpt_dir, strip_prefixes=strip, max_to_keep=5)
+    if args.pretrain_ckpt:
+        CheckpointManager(args.pretrain_ckpt).restore_into(system, state)
+    if args.resume and mgr.all_steps():
+        state = mgr.restore_into(system, state, full=True)
+
+    tb = TensorBoardLogger(os.path.join(args.exp_dir, "tb"))
+    callbacks = [LossTableLogger(os.path.join(args.exp_dir, "log")), tb,
+                 CheckpointCallback(mgr, system)]
+    try:
+        state = Trainer(system, train_cfg, callbacks=callbacks).fit(state, batches())
+    finally:
+        tb.close()
+    mgr.save(state.step, system, state)
+    print(f"[train] done at step {state.step}; ckpts in {ckpt_dir}")
+    return system, state

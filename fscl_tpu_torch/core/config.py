@@ -4,11 +4,17 @@ The port's own copy of the model and training halves of
 `fscl_tpu/core/config.py` (`:25-200`, `train_config_from_yaml` at `:381-433`
 and `model_config_from_yaml` at `:442-522`): the same frozen dataclasses,
 defaults and YAML reading, so a `config/model/*.yaml` or `config/train/*.yaml`
-file gives the same config in both packages. Data and algorithm configs come
-with the slices that need them.
+file gives the same config in both packages; and the data, algorithm and
+preprocess halves (`:203-379`, `:548-631`): `DataConfig`, `AlgorithmConfig`,
+`PreprocessConfig`, their readers, `to_dict` and `to_json`. Every YAML under
+`config/` gives equal `to_dict` in both packages (tests/test_torch_config_tree.py).
+`t2u_config_from_yaml` waits for the T2U family (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -195,6 +201,185 @@ class TrainConfig:
     result_path: Optional[str] = None
 
 
+@dataclass(frozen=True)
+class AdaptConfig:
+    """Few-shot adaptation (reference: config/algorithm/language/fscl.yaml:33-48).
+
+    Train episodes use (ways, shots, queries); the test block may override
+    episode sizes (config/algorithm/phoneme_recognition/ssl-baseline.yaml:44-48).
+    """
+    ways: int = 1
+    shots: int = 32
+    queries: int = 8
+    adaptation_lr: float = 1e-3
+    adaptation_steps: int = 0
+    test_adaptation_steps: int = 20000
+    meta_batch_size: int = 1
+    test_shots: Optional[int] = None
+    test_queries: Optional[int] = None
+    test_batch_size: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class PhonemeEmbConfig:
+    """Phoneme-embedding hub selection (reference: the `phoneme_emb` anchor in
+    config/algorithm/**.yaml — `_phn_emb_config.{embedding,codebook}`)."""
+    type: str = "embedding"          # "embedding" | "codebook"
+    size: int = 128
+    representation_dim: int = 1024
+    attention: str = "soft-m"        # "hard" | "soft" | "soft-m"
+    share: bool = False
+    refresh: bool = False
+
+
+@dataclass(frozen=True)
+class AlgorithmConfig:
+    type: str = "baseline"          # selects system + datamodule (registry key)
+    name: str = "baseline"
+    adapt: AdaptConfig = field(default_factory=AdaptConfig)
+    # reference adapt-block extras (config/algorithm/language/fscl.yaml:17-31)
+    adapt_type: str = "lang"            # "spk" | "lang"
+    adapt_class: str = "MAML"           # "MAML" | "iMAML"
+    speaker_emb: Optional[str] = None   # "shared"|"table"|"encoder"|"dvec"
+    phoneme_emb: Optional[PhonemeEmbConfig] = None
+    modules: Tuple[str, ...] = ()       # adapted module names
+    # iMAML extras (config/algorithm/language/imaml.yaml `imaml:` block)
+    imaml_cg_steps: int = 5
+    imaml_reg_param: float = 1.0
+    # set for reference algorithm types that upstream itself no longer
+    # registers (commented out of lightning/systems/__init__.py) and that
+    # have no equivalent system here; loaders keep them inspectable
+    deprecated: bool = False
+    extra: Tuple[Tuple[str, Any], ...] = ()
+
+    def get(self, key: str, default: Any = None) -> Any:
+        for k, v in self.extra:
+            if k == key:
+                return v
+        return default
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Per-dataset data-config bundle (reference: Objects/config.py:5-37).
+
+    `symbol_id` selects the phoneme symbol table; `unit_name` selects an
+    ssl_units pseudo-unit inventory for t2u targets.
+    """
+    name: str = ""
+    lang_id: int = 0
+    symbol_id: str = "en"
+    data_dir: str = ""
+    subsets: Tuple[Tuple[str, str], ...] = ()   # (split, txt path)
+    text_cleaners: Tuple[str, ...] = ("english_cleaners",)
+    unit_name: Optional[str] = None
+
+    def subset_path(self, split: str) -> Optional[str]:
+        for k, v in self.subsets:
+            if k == split:
+                return v
+        return None
+
+
+def read_data_config(path: str) -> DataConfig:
+    """Read a per-dataset config.yaml bundle, inferring symbol_id like the
+    reference's LanguageDataConfigReader (Objects/config.py:9-37)."""
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    root = os.path.dirname(os.path.abspath(path))
+    subsets = tuple(
+        (k, os.path.join(root, v)) for k, v in raw.get("subsets", {}).items()
+    )
+    lang_id = raw.get("lang_id", 0)
+    symbol_id = raw.get("symbol_id")
+    unit_name = None
+    target = raw.get("target")
+    if target is not None and "unit_name" in target:
+        unit_name = target["unit_name"]
+        symbol_id = symbol_id or unit_name
+    if symbol_id is None:
+        from fscl_tpu_torch.frontend.define import LANG_ID2NAME
+        symbol_id = LANG_ID2NAME[lang_id]
+    return DataConfig(
+        name=raw.get("name", os.path.basename(root)),
+        lang_id=lang_id,
+        symbol_id=symbol_id,
+        data_dir=raw.get("data_dir", root),
+        subsets=subsets,
+        text_cleaners=tuple(raw.get("text_cleaners", ["basic_cleaners"])),
+        unit_name=unit_name,
+    )
+
+
+def read_algorithm_config(path: str) -> AlgorithmConfig:
+    """Load a config/algorithm/*.yaml in either layout:
+
+    - flat (this repo's native): ``adapt: {ways, shots, queries,
+      adaptation_lr, adaptation_steps, test_adaptation_steps}``
+    - reference-nested (config/algorithm/language/fscl.yaml:17-48):
+      ``adapt: {type, class, speaker_emb, phoneme_emb, modules,
+      task: {...}, train: {steps, meta_batch_size}, test: {steps, ...}}``
+    """
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    a = raw.get("adapt", {}) or {}
+    task = a.get("task", {}) or {}
+    tr = a.get("train", {}) or {}
+    te = a.get("test", {}) or {}
+
+    def pick(key, default):
+        # train block > task anchor > flat adapt block > default
+        return tr.get(key, task.get(key, a.get(key, default)))
+
+    adapt = AdaptConfig(
+        ways=pick("ways", 1),
+        shots=pick("shots", 32),
+        queries=pick("queries", 8),
+        adaptation_lr=a.get("adaptation_lr",
+                            tr.get("lr", task.get("lr", a.get("lr", 1e-3)))),
+        adaptation_steps=a.get("adaptation_steps",
+                               tr.get("steps", a.get("steps", 0))),
+        test_adaptation_steps=a.get(
+            "test_adaptation_steps", te.get("steps", 20000)),
+        meta_batch_size=tr.get("meta_batch_size",
+                               a.get("meta_batch_size", 1)),
+        test_shots=te.get("shots") if te.get("shots") != task.get("shots")
+        else None,
+        test_queries=(te.get("queries")
+                      if te.get("queries") != task.get("queries") else None),
+        test_batch_size=te.get("batch_size"),
+    )
+    pe = a.get("phoneme_emb")
+    phoneme_emb = None
+    if isinstance(pe, dict):
+        att = pe.get("attention", {}) or {}
+        phoneme_emb = PhonemeEmbConfig(
+            type=pe.get("type", "embedding"),
+            size=pe.get("size", 128),
+            representation_dim=pe.get("representation_dim", 1024),
+            attention=att.get("type", "soft-m"),
+            share=att.get("share", False),
+            refresh=pe.get("refresh", False),
+        )
+    known = {"type", "name", "adapt", "deprecated", "_phn_emb_config"}
+    extra = tuple((k, v) for k, v in raw.items() if k not in known
+                  and not isinstance(v, (dict, list)))
+    return AlgorithmConfig(
+        type=raw.get("type", "baseline"),
+        name=raw.get("name", raw.get("type", "baseline")),
+        adapt=adapt,
+        adapt_type=a.get("type", "lang"),
+        adapt_class=a.get("class", "MAML"),
+        speaker_emb=a.get("speaker_emb"),
+        phoneme_emb=phoneme_emb,
+        modules=tuple(a.get("modules", ()) or ()),
+        imaml_cg_steps=(a.get("imaml", {}) or {}).get("K", 5),
+        imaml_reg_param=(a.get("imaml", {}) or {}).get("reg_param", 1.0),
+        deprecated=bool(raw.get("deprecated", False)),
+        extra=extra,
+    )
+
+
 def train_config_from_yaml(paths) -> TrainConfig:
     """Merge one or more reference-style config/train/*.yaml overlays
     (main.py:351-357 merges multiple train configs in order)."""
@@ -336,3 +521,98 @@ def model_config_from_yaml(path: str) -> ModelConfig:
             model=voc.get("model", "HifiGAN"),
             speaker=voc.get("speaker", "universal")))
     return cfg
+
+
+@dataclass(frozen=True)
+class PreprocessConfig:
+    """Per-corpus preprocessing bundle (reference:
+    config/preprocess/*.yaml, e.g. CSS10-german.yaml:1-36)."""
+    dataset: str = ""
+    parser: str = ""                 # RAW_PARSERS registry key
+    lang_id: int = 0
+    corpus_path: str = ""
+    raw_path: str = ""
+    preprocessed_path: str = ""
+    lexicon_path: Optional[str] = None
+    subsets: Tuple[Tuple[str, str], ...] = ()   # (split, subset name)
+    val_size: int = 512
+    text_cleaners: Tuple[str, ...] = ("basic_cleaners",)
+    text_language: str = "en"
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    variance: VarianceConfig = field(default_factory=VarianceConfig)
+    # "world" (DIO-style, the reference's pyworld role) or "yin"
+    pitch_method: str = "world"
+
+
+# corpus name -> RAW_PARSERS key (reference: Parsers/__init__.py:18-58).
+# config/preprocess/*.yaml dataset ids like "CSS10-german" or "kss-4" route
+# to the base corpus parser. VCTK/JVS/CV ship preprocess YAMLs upstream but
+# have no raw parser there either (their registry lacks those keys).
+DATASET2PARSER = {
+    "LJSpeech": "LJSpeech", "LibriTTS": "LibriTTS",
+    "AISHELL-3": "AISHELL-3", "kss": "KSS", "JSUT": "JSUT",
+    "CSS10": "CSS10", "GlobalPhone": "GlobalPhone",
+    "TAT": "TAT", "TATTTS": "TAT_TTS", "M-AILABS": "M-AILABS",
+    "ALFFA": "ALFFA", "LAD": "LAD", "CSMSC": "CSMSC",
+}
+
+
+def read_preprocess_config(path: str) -> PreprocessConfig:
+    """Load a reference-style config/preprocess/*.yaml."""
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    p = raw.get("path", {}) or {}
+    pp = raw.get("preprocessing", {}) or {}
+    audio_raw = pp.get("audio", {}) or {}
+    stft = pp.get("stft", {}) or {}
+    mel = pp.get("mel", {}) or {}
+    text = pp.get("text", {}) or {}
+    dataset = raw.get("dataset", "")
+    # "CSS10-german" -> css10 parser; "kss-4" -> kss
+    base = dataset.split("-")[0]
+    parser = raw.get("parser") or DATASET2PARSER.get(
+        dataset, DATASET2PARSER.get(base, base.lower()))
+    mel_fmax = mel.get("mel_fmax", 8000.0)
+    if mel_fmax is None:     # reference uses null for MelGAN compatibility
+        mel_fmax = audio_raw.get("sampling_rate", 22050) / 2.0
+    return PreprocessConfig(
+        dataset=dataset,
+        parser=parser,
+        lang_id=raw.get("lang_id", 0),
+        corpus_path=p.get("corpus_path", ""),
+        raw_path=p.get("raw_path", ""),
+        preprocessed_path=p.get("preprocessed_path", ""),
+        lexicon_path=p.get("lexicon_path"),
+        subsets=tuple((k, v) for k, v in (raw.get("subsets", {}) or {}).items()),
+        val_size=pp.get("val_size", 512),
+        text_cleaners=tuple(text.get("text_cleaners", ["basic_cleaners"])),
+        text_language=text.get("language", "en"),
+        audio=AudioConfig(
+            sampling_rate=audio_raw.get("sampling_rate", 22050),
+            n_fft=stft.get("filter_length", 1024),
+            hop_length=stft.get("hop_length", 256),
+            win_length=stft.get("win_length", 1024),
+            n_mels=mel.get("n_mel_channels", 80),
+            mel_fmin=float(mel.get("mel_fmin", 0.0) or 0.0),
+            mel_fmax=float(mel_fmax),
+        ),
+        pitch_method=(pp.get("pitch", {}) or {}).get("method", "world"),
+        variance=VarianceConfig(
+            pitch_feature=(pp.get("pitch", {}) or {}).get(
+                "feature", "phoneme_level"),
+            energy_feature=(pp.get("energy", {}) or {}).get(
+                "feature", "phoneme_level"),
+            pitch_normalization=(pp.get("pitch", {}) or {}).get(
+                "normalization", True),
+            energy_normalization=(pp.get("energy", {}) or {}).get(
+                "normalization", True),
+        ),
+    )
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def to_json(cfg) -> str:
+    return json.dumps(to_dict(cfg), indent=2, default=str)

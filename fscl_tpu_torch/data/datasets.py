@@ -1,0 +1,193 @@
+"""Datasets: feature-store readers producing sample dicts (port of
+`fscl_tpu/data/datasets.py`).
+
+Re-provides lightning/datasets/: FastSpeech2Dataset (language/
+FastSpeech2Dataset.py), FSCLDataset (language/FSCLDataset.py:14-121 — adds
+raw 16 kHz wav + avg_frames for SSL), TextDataset (inference). Normalization
+uses the global stats exactly like Define.ALLSTATS["global"] consumption.
+Items are numpy, equal to fscl_tpu's item for item. The unit, ContiAE and PR
+datasets wait for their families (ROADMAP Queue 1, items 8-10).
+
+The features an item reads from a store (`data/feature_store.py`):
+`mfa_duration`, `mel`, `mfa_duration_avg_pitch` / `interpolate_pitch`,
+`mfa_duration_avg_energy` / `energy` (by the variance levels), `phoneme` and
+`text` (json); with `spk_refer_wav`, `spk_ref_mel_slices`; FSCLDataset adds
+`wav_trim_16000` and `mfa_segment` (json). `speakers.json` maps speakers to
+ids.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from fscl_tpu_torch.core.config import DataConfig, ModelConfig
+from fscl_tpu_torch.core.stats import DEFAULT_STATS, GlobalStats
+from fscl_tpu_torch.data.feature_store import FeatureStore, read_queries_from_txt
+from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, text_to_sequence
+
+
+def segment_to_duration(segment, fp: float = 0.02) -> List[int]:
+    """TextGrid segments [(start, end), ...] -> frame counts at frame period
+    fp (dlhlp_lib segment2duration equivalent used at FSCLDataset.py:111)."""
+    durations = []
+    pos = 0.0
+    for start, end in segment:
+        n = int(round(end / fp)) - int(round(pos / fp))
+        durations.append(max(n, 0))
+        pos = end
+    return durations
+
+
+class FastSpeech2Dataset:
+    """Supervised TTS samples (mel/pitch/energy/duration/phonemes)."""
+
+    def __init__(self, split_txt: str, store: FeatureStore, config: DataConfig,
+                 model_cfg: ModelConfig, stats: GlobalStats = DEFAULT_STATS,
+                 spk_refer_wav: bool = False, id_offset: int = 0,
+                 speaker_offset: int = 0):
+        """`id_offset` re-ids phoneme ids into the concatenated multilingual
+        table space (FSCLCollate re_id / T2UCollate.py:38-44);
+        `speaker_offset` does the same for the global speaker table
+        (build_all_speakers)."""
+        self.store = store
+        self.config = config
+        self.model_cfg = model_cfg
+        self.stats = stats
+        self.spk_refer_wav = spk_refer_wav
+        self.id_offset = id_offset
+        self.speaker_offset = speaker_offset
+        self.queries = read_queries_from_txt(split_txt)
+        self.speakers = store.load_speakers()
+        self.speaker_map = {s: i for i, s in enumerate(self.speakers)}
+        self.symbol_id = config.symbol_id
+
+    def __len__(self):
+        return len(self.queries)
+
+    def _core(self, idx: int) -> Dict:
+        q = self.queries[idx]
+        query = {"spk": q["spk"], "basename": q["basename"]}
+        duration = np.asarray(self.store.mfa_duration.read_from_query(query))
+        total = int(duration.sum())
+        mel = np.asarray(self.store.mel.read_from_query(query))
+        if mel.shape[0] != total and mel.shape[-1] == total:
+            mel = mel.T                       # stored (n_mels, T) like ref
+        mel = mel[:total]
+
+        v = self.model_cfg.variance
+        if v.pitch_feature == "phoneme_level":
+            pitch = np.asarray(
+                self.store.mfa_duration_avg_pitch.read_from_query(query))
+        else:
+            pitch = np.asarray(
+                self.store.interpolate_pitch.read_from_query(query))[:total]
+        if v.energy_feature == "phoneme_level":
+            energy = np.asarray(
+                self.store.mfa_duration_avg_energy.read_from_query(query))
+        else:
+            energy = np.asarray(self.store.energy.read_from_query(query))[:total]
+
+        if v.pitch_normalization:
+            pitch = (pitch - self.stats.pitch.mean) / self.stats.pitch.std
+        if v.energy_normalization:
+            energy = (energy - self.stats.energy.mean) / self.stats.energy.std
+
+        phonemes = self.store.phoneme.read_from_query(query)
+        raw_text = self.store.text.read_from_query(query)
+        text = np.asarray(text_to_sequence(
+            f"{{{phonemes}}}", self.config.text_cleaners, self.symbol_id))
+
+        for name, arr in (("mel", mel), ("pitch", pitch), ("energy", energy)):
+            if np.isnan(arr).any():
+                raise ValueError(f"NaN in {name}: {query}")
+        if len(text) != len(duration):
+            raise ValueError(f"{len(text)} phonemes but {len(duration)} durations: {query}")
+
+        if self.id_offset:
+            text = text + self.id_offset
+        return {
+            "id": q["basename"],
+            "speaker": self.speaker_map[q["spk"]] + self.speaker_offset,
+            "speaker_name": q["spk"],
+            "text": raw_text,
+            "phonemes": text,
+            "mel": mel.astype(np.float32),
+            "pitch": pitch.astype(np.float32),
+            "energy": energy.astype(np.float32),
+            "duration": duration.astype(np.int64),
+            "lang_id": self.config.lang_id,
+            "symbol_id": self.symbol_id,
+            "n_symbols": len(LANG_ID2SYMBOLS[self.symbol_id]),
+        }
+
+    def __getitem__(self, idx: int) -> Dict:
+        sample = self._core(idx)
+        if self.spk_refer_wav:
+            q = self.queries[idx]
+            sample["spk_ref_mel_slices"] = np.asarray(
+                self.store.spk_ref_mel_slices.read_from_query(
+                    {"spk": q["spk"], "basename": q["basename"]}))
+        return sample
+
+
+class FSCLDataset(FastSpeech2Dataset):
+    """FastSpeech2Dataset + raw 16 kHz wav and avg_frames for the SSL
+    upstream (FSCLDataset.py:102-118)."""
+
+    def __init__(self, *args, upstream: str = "hubert_large_ll60k", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.upstream = upstream
+
+    def __getitem__(self, idx: int) -> Dict:
+        sample = super().__getitem__(idx)
+        q = self.queries[idx]
+        query = {"spk": q["spk"], "basename": q["basename"]}
+        if self.upstream == "mel":
+            sample["raw_feat"] = sample["mel"]
+            sample["avg_frames"] = sample["duration"]
+        else:
+            sample["raw_feat"] = np.asarray(
+                self.store.wav_trim_16000.read_from_query(query)).astype(np.float32)
+            segment = self.store.mfa_segment.read_from_query(query)
+            sample["avg_frames"] = np.asarray(
+                segment_to_duration(segment, fp=0.02), dtype=np.int64)
+        return sample
+
+
+class TextDataset:
+    """Inference-only: lines `basename|spk|{phonemes}|text` without acoustic
+    features (lightning/datasets/language/TextDataset.py)."""
+
+    def __init__(self, split_txt: str, config: DataConfig):
+        self.queries = read_queries_from_txt(split_txt)
+        self.config = config
+
+    def __len__(self):
+        return len(self.queries)
+
+    def __getitem__(self, idx: int) -> Dict:
+        q = self.queries[idx]
+        text = np.asarray(text_to_sequence(
+            q["phonemes"] if q["phonemes"].startswith("{")
+            else f"{{{q['phonemes']}}}",
+            self.config.text_cleaners, self.config.symbol_id))
+        return {
+            "id": q["basename"], "speaker": 0, "speaker_name": q["spk"],
+            "text": q["text"], "phonemes": text, "mel": None,
+            "pitch": None, "energy": None, "duration": None,
+            "lang_id": self.config.lang_id, "symbol_id": self.config.symbol_id,
+        }
+
+
+class ConcatDataset:
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def __getitem__(self, idx):
+        d = int(np.searchsorted(self.offsets, idx, side="right")) - 1
+        return self.datasets[d][idx - int(self.offsets[d])]

@@ -17,6 +17,7 @@ import torch
 
 from fscl_tpu_torch.core.config import ModelConfig, OptimConfig
 from fscl_tpu_torch.core.device import resolve_device
+from fscl_tpu_torch.core.registry import SYSTEMS
 from fscl_tpu_torch.core.stats import DEFAULT_STATS, GlobalStats
 from fscl_tpu_torch.data.batch import Batch
 from fscl_tpu_torch.frontend.define import n_symbols
@@ -28,6 +29,7 @@ from fscl_tpu_torch.systems.base import System
 MEL_BUCKETS = (128, 256, 512, 1000)
 
 
+@SYSTEMS.register("baseline", "baseline-tune")
 class BaselineSystem(System):
     """Parameters live under `embedding_model.` and `model.`; the model's
     keys are the reference torch FastSpeech2 keys. The system is built on

@@ -29,6 +29,7 @@ from torch import nn
 
 from fscl_tpu_torch.core.config import ModelConfig, OptimConfig
 from fscl_tpu_torch.core.device import resolve_device
+from fscl_tpu_torch.core.registry import SYSTEMS
 from fscl_tpu_torch.core.stats import DEFAULT_STATS, GlobalStats
 from fscl_tpu_torch.data.batch import Batch, SupInfo
 from fscl_tpu_torch.models.fastspeech2 import FastSpeech2, FastSpeech2Output
@@ -52,6 +53,7 @@ class Episode(NamedTuple):
     sup_batch: Optional[Batch] = None
 
 
+@SYSTEMS.register("fscl", "fscl-orig")
 class TransEmbSystem(System):
     """Parameters live under `upstream.` (frozen; HF HubertModel keys),
     `codebook.` and `model.` (the reference torch FastSpeech2 keys). Built on

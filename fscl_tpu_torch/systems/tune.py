@@ -40,6 +40,7 @@ from torch import nn
 from torch.func import functional_call, vmap
 from torch.utils._pytree import tree_map
 
+from fscl_tpu_torch.core.registry import SYSTEMS
 from fscl_tpu_torch.data.batch import Batch, SupInfo
 from fscl_tpu_torch.nn.losses import fastspeech2_loss
 from fscl_tpu_torch.ops.segment_ops import phoneme_query_sums, queries_from_sums
@@ -51,6 +52,7 @@ from fscl_tpu_torch.systems.maml import (Params, adam_carry, adam_scan_carry,
 OPTIMIZERS = ("sgd", "adam")
 
 
+@SYSTEMS.register("fscl-orig-tune", "fscl-tune")
 class TransEmbTuneSystem(BaselineSystem):
     """Few-shot transfer (`fscl_tpu/systems/tune.py:35-40`): after
     `tune_init` transplants the generated table, training is ordinary
@@ -88,21 +90,37 @@ def tune_init(fscl: TransEmbSystem, baseline: BaselineSystem,
 
 
 def _stack(xs, device) -> torch.Tensor:
+    """xs stacked on a new leading axis, each zero-padded at the end of its
+    axes to the largest shape among them."""
+    shape = tuple(max(dims) for dims in zip(*(np.shape(x) for x in xs)))
     if all(isinstance(x, np.ndarray) for x in xs):
-        return torch.from_numpy(np.stack(xs)).to(device)
-    return torch.stack([torch.as_tensor(x, device=device) for x in xs])
+        return torch.from_numpy(np.stack([
+            np.pad(x, [(0, n - d) for d, n in zip(x.shape, shape)]) for x in xs])).to(device)
+    xs = [torch.as_tensor(x, device=device) for x in xs]
+    return torch.stack([
+        nn.functional.pad(x, [p for d, n in zip(reversed(x.shape), reversed(shape))
+                              for p in (0, n - d)]) for x in xs])
 
 
 def stack_batches(batches: List[Batch], device) -> Batch:
-    """Same-shaped Batches (numpy or tensors, a `DvecRefs` speaker included)
-    stacked along a new leading step axis, on `device`."""
+    """Batches (numpy or tensors, a `DvecRefs` speaker included) stacked
+    along a new leading step axis, on `device`. Batches of one size from
+    different buckets stack: each field is zero-padded to the largest L and
+    T among them, a padding that each batch's lengths mask. fscl_tpu's
+    `stack_batches` takes equal shapes only and raises on a chunk that
+    spans buckets (ROADMAP Queue 3)."""
+    sizes = {len(b.src_lens) for b in batches}
+    if len(sizes) > 1:
+        raise ValueError(f"batches of different sizes {sorted(sizes)} cannot be stacked")
     return tree_map(lambda *xs: _stack(xs, device), *batches)
 
 
 def stack_tasks(task_batches: List[List[Batch]], device) -> Batch:
     """Per-task batch sequences stacked with leading axes (n_tasks,
-    n_steps); every task's batches share their shapes (bucketed padding)."""
-    return tree_map(lambda *xs: torch.stack(xs),
+    n_steps), padded as `stack_batches` pads."""
+    if len({len(b) for b in task_batches}) > 1:
+        raise ValueError("every task needs the same number of steps")
+    return tree_map(lambda *xs: _stack(xs, device),
                     *[stack_batches(b, device) for b in task_batches])
 
 

@@ -453,3 +453,61 @@ def test_adapt_many_dvec_on_card_matches_sequential(cuda_device):
         torch.testing.assert_close(many_losses[t], losses, rtol=1e-5, atol=0)
         for name, value in one.items():
             torch.testing.assert_close(many[name][t], value, atol=1e-6, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_cli_trains_on_the_card(cuda_device, tmp_path):
+    """`train` through the command line with its default device: two steps
+    on a small store at d_model 128 (head dim 64), one attention launch per
+    FFT block, finite losses, a checkpoint of CPU tensors."""
+    from fscl_tpu_torch.cli import main
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    from torch_corpus import MODEL_YAML, write_corpus
+
+    data = write_corpus(str(tmp_path), "en-mini", "en", 0, 3)
+    model = tmp_path / "model.yaml"
+    model.write_text(MODEL_YAML.replace("hidden: 32", "hidden: 128"))
+    train = tmp_path / "train.yaml"
+    train.write_text("optimizer:\n  batch_size: 4\n  warm_up_step: 2\n"
+                     "step:\n  total_step: 2\n  log_step: 1\n  save_step: 2\n")
+    before = tattn.LAUNCHES
+    system, state = main(["train", "--data_config", data, "--model_config", str(model),
+                          "--train_config", str(train), "--exp_dir", str(tmp_path / "exp")])
+    assert system.device.type == "cuda" and state.step == 2
+    assert tattn.LAUNCHES - before == 2 * 2
+    with open(tmp_path / "exp" / "log" / "log.txt") as f:
+        losses = [float(l.split("Total Loss: ")[1].split(" ")[0]) for l in f]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    raw = CheckpointManager(str(tmp_path / "exp" / "ckpt")).restore()
+    assert raw["step"] == 2 and all(t.device.type == "cpu" for t in raw["params"].values())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    """Two train steps on the card, saved, then restored in full into a
+    fresh system on the card: parameters, buffers, moments and step equal,
+    on the card."""
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    cfg = C.ModelConfig(
+        transformer=C.TransformerConfig(
+            encoder_layer=1, decoder_layer=1, encoder_hidden=128, decoder_hidden=128,
+            conv_filter_size=256), max_seq_len=256)
+    optim = C.OptimConfig(lr=2e-3, warmup_step=2)
+    rng = np.random.default_rng(4)
+    table = rng.normal(size=(152, 82)).astype(np.float32)
+    torch.manual_seed(0)
+    system = BaselineSystem(cfg, (("en", 152),), device=cuda_device, optim_cfg=optim)
+    state = system.init_state()
+    for _ in range(2):
+        state, _ = system.train_step(state, to_device(_train_batch(rng, 4, table), cuda_device))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(state.step, system, state)
+    torch.manual_seed(1)
+    fresh = BaselineSystem(cfg, (("en", 152),), device=cuda_device, optim_cfg=optim)
+    got = mgr.restore_into(fresh, fresh.init_state(), full=True)
+    assert got.step == 2 and got.opt_state.count == 2
+    for k, v in system.state_dict().items():
+        assert fresh.state_dict()[k].device.type == "cuda"
+        assert torch.equal(fresh.state_dict()[k], v), k
+    for a, b in zip(got.opt_state.mu + got.opt_state.nu, state.opt_state.mu + state.opt_state.nu):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -36,6 +36,43 @@ def test_importing_every_submodule_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+CLI_AND_DATA_MODULES = (
+    "fscl_tpu_torch.cli", "fscl_tpu_torch.cli.__main__", "fscl_tpu_torch.cli.train_cmd",
+    "fscl_tpu_torch.cli.tune_cmd", "fscl_tpu_torch.cli.synth_cmd",
+    "fscl_tpu_torch.core.checkpoint", "fscl_tpu_torch.core.registry",
+    "fscl_tpu_torch.data.datamodules", "fscl_tpu_torch.data.datasets",
+    "fscl_tpu_torch.data.episodic", "fscl_tpu_torch.data.feature_store",
+    "fscl_tpu_torch.data.samplers", "fscl_tpu_torch.dsp.audio_io", "fscl_tpu_torch.obs.loggers")
+
+
+def test_cli_and_data_modules_load_no_jax():
+    """The command line runs as `python -m fscl_tpu_torch.cli` in a fresh
+    interpreter (its help, then a call without a card that asks for one)
+    and loads no JAX; the config, data, checkpoint and logger modules with
+    it."""
+    code = (
+        "import importlib, subprocess, sys\n"
+        f"mods = {CLI_AND_DATA_MODULES!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from fscl_tpu_torch.cli import main\n"
+        "import torch\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        main(['train', '--data_config', 'missing.yaml'])\n"
+        "        sys.exit('no error')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'cuda' in str(e), e\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "fscl_tpu_torch.cli", "synth", "--help"],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "--device" in proc.stdout, proc.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_source_imports_no_jax(path):
     with open(path, encoding="utf-8") as f:

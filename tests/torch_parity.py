@@ -6,7 +6,10 @@ variables are carried to the port by `fscl_tpu_torch.convert`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+
+import flax.linen
 
 import jax
 import jax.numpy as jnp
@@ -96,3 +99,68 @@ def make_texts(rng, lens, L):
     texts = rng.integers(1, N_SYMBOLS, (len(lens), L))
     texts[np.arange(L)[None, :] >= np.asarray(lens)[:, None]] = 0
     return texts.astype(np.int32), np.asarray(lens, np.int32)
+
+
+class Losses:
+    """A trainer callback that keeps every logged total loss."""
+
+    def __init__(self):
+        self.losses = []
+
+    def on_log(self, step, metrics, **kw):
+        self.losses.append(float(metrics["Total Loss"]))
+
+    def on_validation(self, step, metrics):
+        pass
+
+    def on_save(self, step, state):
+        pass
+
+
+class NoDropout(flax.linen.Module):
+    """flax's Dropout as the identity: JAX's dropout draws cannot be
+    reproduced, so parity runs patch `flax.linen.Dropout` with this."""
+    rate: float = 0.0
+
+    @flax.linen.compact
+    def __call__(self, x, deterministic=None, rng=None):
+        return x
+
+
+def _fields(x):
+    if hasattr(x, "_fields"):
+        return {f: getattr(x, f) for f in x._fields}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    return None
+
+
+def same(got, want, where="item"):
+    """Exact equality of two nested structures: the port's NamedTuples
+    against fscl_tpu's NamedTuples or flax structs (field by field), arrays
+    by dtype, shape and every value."""
+    if got is None or want is None:
+        assert got is None and want is None, where
+        return
+    gf, wf = _fields(got), _fields(want)
+    if gf is not None or wf is not None:
+        assert gf is not None and wf is not None and list(gf) == list(wf), where
+        for k in gf:
+            same(gf[k], wf[k], f"{where}.{k}")
+        return
+    if isinstance(got, dict):
+        assert isinstance(want, dict) and sorted(got) == sorted(want), where
+        for k in got:
+            same(got[k], want[k], f"{where}[{k!r}]")
+        return
+    if isinstance(got, (list, tuple)) and not isinstance(want, np.ndarray):
+        assert len(got) == len(want), where
+        for i, (a, b) in enumerate(zip(got, want)):
+            same(a, b, f"{where}[{i}]")
+        return
+    if isinstance(got, np.ndarray) or isinstance(want, (np.ndarray, jax.Array)):
+        a, b = np.asarray(got), np.asarray(want)
+        assert a.dtype == b.dtype and a.shape == b.shape, (where, a.dtype, b.dtype, a.shape, b.shape)
+        assert np.array_equal(a, b), where
+        return
+    assert type(got) is type(want) and got == want, (where, got, want)
