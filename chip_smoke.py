@@ -6,8 +6,11 @@
 Run from the root of a checkout. Phases, each of which ends the run with a
 non-zero exit code when it fails:
 
-1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off for matrix products and convolutions.
+1. Device: require CUDA, print the card's name and power limit; the first
+   call into the port (`core/device.py:resolve_device`) turns TF32 off for
+   cuDNN convolutions and cuBLAS products, and the script checks that it did
+   (it sets neither flag itself; phases 12 and 13 check them again after
+   their CLI runs, so they measure what a user gets).
 2. Build: compile every kernel under `fscl_tpu_torch/csrc/` with nvcc, one
    nvcc per source, all at once.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
@@ -91,8 +94,9 @@ non-zero exit code when it fails:
    steps/s from the store beside phase 8's, the host's batch-making time per
    step, checkpoint save / restore ms and bytes); `synth --text_file` of the
    32 lines in batches of 8 with a HiFi-GAN V1 checkpoint in the official
-   layout (14 attention + 4 stage launches per batch, wavs finite and
-   bounded, audio-s/s) and `synth --text` of one line on the card and with
+   layout (14 attention launches per batch; each line vocoded alone, 4 stage
+   launches per line, its stage shapes held to the plain version; wavs
+   finite and bounded, audio-s/s) and `synth --text` of one line on the card and with
    `--device cpu` (mels within phase 5's 1e-3); `train --system fscl` with
    config/model/fscl-fastspeech2.yaml (HuBERT-large drawn from the seed,
    d-vectors), config/algorithm/language/fscl.yaml (32 + 8) and
@@ -100,8 +104,31 @@ non-zero exit code when it fails:
    in the checkpoint, the codebook moved, episodes/s beside phase 10's);
    `tune --scan_adapt` (Adam, lr 1e-3, 50 steps) to a 32-utterance split
    (adaptation.csv finite and falling, adaptation steps/s). Every attention
-   launch is held in phase 3, every stage launch in phase 3's shapes.
-9. Attention timing (run last, after phase 12): the kernel at each key
+   launch is held in phase 3; each stage shape phase 3 did not hold is held
+   to the plain version right after the run that launched it.
+13. A raw corpus on the card: 256 utterances of 1.5-10 s in the LJSpeech
+   layout with TextGrids, written from --seed (about 24 minutes of audio,
+   tests/torch_corpus.py:write_raw_corpus). `python -m fscl_tpu_torch.cli
+   preprocess ... --parse_raw --preprocess --create_dataset --pitch_method
+   world_device --n_workers 4` in a fresh subprocess (wall time per stage,
+   utterances/s, audio-s/s, every utterance ok); stage 2 in process on 64 of
+   its utterances with each of `world` (host C++), `world_device` and
+   `yin_device` (host prepare / device / host finish ms, one contour-fix
+   launch per DIO batch, audio-s/s; the CLI's run counted too) and each
+   bucket's batch of 16 timed alone; the contour-fix kernel bit for bit
+   against its plain version at B = 16 in every wav bucket on DIO's
+   candidates from the corpus, timed beside its bound of bytes; card vs CPU
+   on one batch per bucket, and 8 of the store's utterances preprocessed
+   again on the CPU (log-mel 1e-4, energy 1e-5 relative, F0 voicing 99 %
+   and relative median 1e-5 / max 1e-3 but on 0.1 % of frames, each within
+   one integer lag and explained by the refinement's detail; DIO with TF32
+   on recorded beside it as a control; durations, phonemes and splits
+   exactly); with --profile a traced DIO
+   chunk. Then `train` base.yaml 20 steps at B = 16 from the new store (the
+   loss falls) and `synth --text --ref_wav <a corpus wav> --vocoder_ckpt
+   <HiFi-GAN V1>` with a base.yaml `speaker_emb: dvec` copy trained 5 steps
+   (a finite wav; the mel card vs CPU within 1e-3).
+9. Attention timing (run last, after phase 13): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
@@ -111,7 +138,7 @@ non-zero exit code when it fails:
    path calls it, and how earlier versions of this script timed it), and
    the wrapper's host time per call.
 
-The line before the last holds the kernels' numbers; the last line is
+The line before the last holds the three kernels' numbers; the last line is
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or `fscl_tpu`.
 """
 from __future__ import annotations
@@ -315,10 +342,14 @@ def phase_device():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the first call into the port: a CUDA device comes with TF32 off for
+    # cuDNN and cuBLAS (core/device.py); this script sets neither flag
+    from fscl_tpu_torch.core.device import resolve_device
+    resolve_device("cuda")
+    check_f32_precision("the port's device")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; TF32 off")
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; TF32 off (the port's "
+        "setting)")
     return card
 
 
@@ -2526,11 +2557,11 @@ def cli_synth(root: Path, en: str, seed: int, attn_checked, stage_checked, ckpt:
     t = model_config_from_yaml(model).transformer
     per_batch = 2 * t.encoder_layer + t.decoder_layer          # pass 1 + pass 2
     launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
-    if launches != {"attention_fwd": per_batch * n_batches, "mrf_stage": 4 * n_batches}:
-        fail(f"cli synth: launches {launches}, expected {per_batch} and 4 per batch of "
-             f"{n_batches}")
-    if set(stages) - stage_checked:
-        fail(f"cli synth: stage shapes {sorted(set(stages) - stage_checked)} not held in phase 3")
+    # each line vocoded alone (fscl_tpu's _run_batch): 4 stage launches per line
+    if launches != {"attention_fwd": per_batch * n_batches, "mrf_stage": 4 * len(LINES)}:
+        fail(f"cli synth: launches {launches}, expected {per_batch} per batch of "
+             f"{n_batches} and 4 per line of {len(LINES)}")
+    hold_stage_shapes(stages, stage_checked, str(voc), "cli synth")
     samples = 0
     for i, mel in enumerate(mels):
         wav = load_wav(str(root / "wavs" / f"{i:04d}.wav"), 22050)
@@ -2569,6 +2600,32 @@ def cli_synth(root: Path, en: str, seed: int, attn_checked, stage_checked, ckpt:
             "batches_audio_s_per_s": audio_s / serving["seconds"], "mel_len": [int(m.shape[0]) for m in mels],
             "launches": launches, "card_vs_cpu": {"L": L, "T": T, "frames": got["cpu"].shape[0],
                                                   "max_abs_err": err}}
+
+
+def hold_stage_shapes(stages, stage_checked, voc_ckpt: str, what: str) -> None:
+    """The (B, C, T) stage shapes of a main path's run that phase 3 did not
+    hold (a line vocoded alone runs at its own length): each held now, in
+    float32, with the vocoder's own stage modules on random inputs, as
+    phase 3 holds its shapes; added to `stage_checked`."""
+    import torch
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+
+    new = sorted(set(stages) - stage_checked)
+    if not new:
+        return
+    gen = Vocoder.from_checkpoint(voc_ckpt, kind="HifiGAN", device=CARD).model
+    n = len(gen.resblock_kernel_sizes)
+    by_c = {C: (gen.resblocks[i * n:(i + 1) * n], gen.conv_post if post else None)
+            for i, (C, _, post) in enumerate(V1_STAGES)}
+    g = torch.Generator(device=CARD).manual_seed(len(new))
+    with torch.inference_mode():
+        for B, C, T in new:
+            rbs, post = by_c[C]
+            check_stage(mrf, torch.randn(B, C, T, generator=g, device=CARD), rbs, post,
+                        torch.float32, f"{what} T={T}")
+            stage_checked.add((B, C, T))
+    log(f"{what}: {len(new)} stage shapes not in phase 3 held to the plain version")
 
 
 def cli_fscl(root: Path, en: str, zh: str, attn_checked, fscl):
@@ -2686,6 +2743,724 @@ def cli_tune(root: Path, zh_tune: str, attn_checked, fscl_ckpt: str):
             "losses": written, "attention_launches": attn.LAUNCHES, "wall_s": wall}
 
 
+# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 256
+# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 24
+# minutes of audio over the 2-10 s wav buckets (tests/torch_corpus.py:
+# write_raw_corpus). `preprocess` runs once through the command line in a
+# subprocess (world_device, 4 workers for --parse_raw), then the three pitch
+# methods in process on RAW_INPROC of its utterances; the baseline trains
+# RAW_TRAIN_STEPS steps from the store and a d-vector copy RAW_DVEC_STEPS
+# steps before `synth --ref_wav`. RAW_UTTS is the depth to cut first.
+RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 256, (1.5, 10.0), 4
+RAW_INPROC, RAW_CPU_UTTS, RAW_CHECK_B = 64, 8, 4
+RAW_TRAIN_STEPS, RAW_DVEC_STEPS = 20, 5
+# phase 13's device (a CPU rehearsal of the phase sets it to "cpu")
+CARD = "cuda"
+# The preprocessing bars, card against the CPU: tests/test_torch_preprocess.py's
+# (log-mel atol 1e-4, energy rtol 1e-5 of each frame with 1e-4 absolute on
+# near-zero frames; the d-vector mel at the log-mel bar); F0 voicing equal on
+# 99 % of frames and, on frames voiced in both, a relative difference of
+# median 1e-5 and max 1e-3. The one exception is DIO's refinement: a frame
+# may pass 1e-3 by at most one integer lag (|sr / f_card - sr / f_cpu| <= 1
+# sample), on at most 0.1 % of the voiced frames, and only where a run of
+# `world_f0_batched` with `detail` on each device shows why: on one of the
+# two the refinement fitted no parabola inside (-1, 1) lag (its peak at the
+# tau range's edge, or flat: the integer lag or a clamped shift stands), or
+# the two tau ranges start a lag apart (`tau_lo`). There a rounding-level
+# change in the convolutions moves the refined lag by up to one lag (an H100
+# against the CPU: one frame of 6529 5.5e-3 apart, 0.31 lag at tau ~ 56;
+# PERF.md section 6). YIN and every other DIO frame keep max 1e-3.
+PRE_MEL_ATOL, PRE_ENERGY_RTOL = 1e-4, 1e-5
+PRE_VOICING, PRE_F0_MEDIAN, PRE_F0_MAX, PRE_F0_TAIL, PRE_F0_LAG = 0.99, 1e-5, 1e-3, 1e-3, 1.0
+# the contour fix's operations per frame (two differences, two maxima, two
+# products, six compares), for its bound beside its bytes
+DIO_OPS_PER_FRAME = 12
+
+
+def f0_agreement(got, want, valid=None, excused=None, sr: int = 22050):
+    """Voicing agreement, and on frames voiced in both the median and max
+    relative F0 difference, the share of frames beyond PRE_F0_MAX, the
+    largest lag difference |sr / got - sr / want| among them and how many of
+    them `excused` (a boolean mask like got; None excuses none) leaves
+    unexplained."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    excused = np.zeros(got.shape, bool) if excused is None else np.asarray(excused)
+    if valid is not None:
+        got, want, excused = got[valid], want[valid], excused[valid]
+    both = (got > 0) & (want > 0)
+    rel = np.abs(got[both] - want[both]) / want[both]
+    tail = rel > PRE_F0_MAX
+    lag = np.abs(sr / got[both][tail] - sr / want[both][tail])
+    return {"voicing_agreement": float(((got > 0) == (want > 0)).mean()),
+            "f0_rel_median": float(np.median(rel)) if rel.size else 0.0,
+            "f0_rel_max": float(rel.max()) if rel.size else 0.0,
+            "frames_beyond": int(tail.sum()), "frames_voiced": int(both.sum()),
+            "frames_unexcused": int((~excused[both][tail]).sum()),
+            "frames_excusable": int(excused[both].sum()),
+            "max_lag_beyond": float(lag.max()) if lag.size else 0.0}
+
+
+def f0_passes(r) -> bool:
+    return (r["voicing_agreement"] >= PRE_VOICING and r["f0_rel_median"] <= PRE_F0_MEDIAN
+            and r["frames_beyond"] <= PRE_F0_TAIL * r["frames_voiced"]
+            and r["frames_unexcused"] == 0 and r["max_lag_beyond"] <= PRE_F0_LAG)
+
+
+def f0_held(got, want, what, valid=None, excused=None):
+    r = f0_agreement(got, want, valid, excused)
+    ok = f0_passes(r)
+    log(f"{what}: voicing agreement {r['voicing_agreement']:.4f}, relative F0 diff median "
+        f"{r['f0_rel_median']:.3g} max {r['f0_rel_max']:.3g}; {r['frames_beyond']} of "
+        f"{r['frames_voiced']} frames beyond {PRE_F0_MAX} ({r['frames_unexcused']} unexplained; "
+        f"{r['frames_excusable']} voiced frames excusable), within {r['max_lag_beyond']:.3g} "
+        f"lags {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what}: F0 outside the bars (voicing {PRE_VOICING}, median {PRE_F0_MEDIAN}, "
+             f"beyond {PRE_F0_MAX} on at most {PRE_F0_TAIL} of the frames, each explained by "
+             f"the refinement's detail and by one lag at most)")
+    return r
+
+
+def dio_detail(wavs, lens, device):
+    """`world_f0_batched` on (B, T) numpy wavs on `device`, with the
+    refinement's detail: F0, and the frames where the card and the CPU may
+    land up to a lag apart (no parabola fitted inside (-1, 1)), and tau_lo."""
+    import torch
+    from fscl_tpu_torch.dsp.world_device import world_f0_batched
+    det = {}
+    with torch.no_grad():
+        f0 = world_f0_batched(torch.from_numpy(wavs).to(device),
+                              torch.from_numpy(lens).to(device), 22050, 256, detail=det)
+    return f0.cpu().numpy(), (~det["fitted"]).cpu().numpy(), det["tau_lo"].cpu().numpy()
+
+
+def tf32_round(x):
+    """A float32 tensor rounded to TF32's 10 mantissa bits (to nearest, ties
+    away from zero, as `cvt.rna.tf32.f32`)."""
+    import torch
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_conv_same(conv_same):
+    """`conv_same` (`world_device._conv_same`) as a TF32 tensor-core filter
+    computes it: signal and taps rounded to TF32, products summed in
+    float32."""
+    import torch
+
+    def call(x, h):
+        return conv_same(tf32_round(x), tf32_round(torch.from_numpy(h.copy())).numpy())
+    return call
+
+
+def dio_excused(card, cpu):
+    """Frames a card-vs-CPU difference beyond 1e-3 may fall on (see the
+    bars above), from two `dio_detail` results."""
+    return card[1] | cpu[1] | (card[2] != cpu[2])
+
+
+def check_f32_precision(what: str) -> None:
+    """The port's entry points run float32 convolutions and products without
+    TF32 (`core/device.py`); this script sets neither flag itself."""
+    import torch
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if flags != (False, False):
+        fail(f"{what}: TF32 flags (cudnn, matmul) are {flags}, not the port's (False, False)")
+
+
+def bucket_batch(trims, bucket: int, B: int):
+    """B rows of real audio at most `bucket` samples long, each longer than
+    the bucket below it: corpus trims laid end to end (wrapping around), as
+    (wavs, lengths) on the card."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.dsp.preprocess import WAV_BUCKETS
+    below = max([0] + [b for b in WAV_BUCKETS if b < bucket])
+    rows = np.zeros((B, bucket), np.float32)
+    lens = np.zeros(B, np.int64)
+    k = 0
+    for r in range(B):
+        target = below + 1 + (bucket - below - 1) * (r + 1) // (B + 1)
+        n = 0
+        while n < target:
+            w = trims[k % len(trims)][: target - n]
+            rows[r, n:n + len(w)] = w
+            n += len(w)
+            k += 1
+        lens[r] = n
+    return torch.from_numpy(rows).to(CARD), torch.from_numpy(lens).to(CARD)
+
+
+def phase_preprocess(seed: int, card: str, attn_checked, stage_checked, profile: bool, out_dir):
+    """Main path, preprocessing a raw corpus on the card, then training from
+    the store it wrote and synthesizing with a reference wav."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="fscl_pre_"))
+    try:
+        sys.path.insert(0, str(REPO / "tests"))
+        from torch_corpus import write_raw_corpus
+        t0 = time.perf_counter()
+        corpus, tg = write_raw_corpus(str(root / "raw" / "LJSpeech"), RAW_UTTS, seed + 90,
+                                      RAW_SECONDS)
+        write_s = time.perf_counter() - t0
+        from scipy.io import wavfile
+        durations = {p.stem: wavfile.read(str(p))[1].shape[0] / 22050
+                     for p in sorted(Path(corpus, "wavs").glob("*.wav"))}
+        audio_s = sum(durations.values())
+        log(f"preprocess: wrote a raw corpus of {len(durations)} utterances, "
+            f"{min(durations.values()):.2f}-{max(durations.values()):.2f} s, {audio_s / 60:.2f} "
+            f"min of audio, in {write_s:.2f} s")
+        out = {"utterances": len(durations), "audio_seconds": audio_s, "write_s": write_s}
+        store = root / "store"
+        steps = {}
+
+        def step(name, fn, *args):
+            t = time.perf_counter()
+            res = fn(*args)
+            steps[name] = time.perf_counter() - t
+            return res
+
+        out["cli"] = step("cli", preprocess_subprocess, corpus, tg, store, audio_s)
+        out["methods"], items, counted = step("in_process", preprocess_in_process, root, store,
+                                              tg, durations)
+        out["kernel"] = step("kernel", check_dio_contour, items, store)
+        out["card_vs_cpu"] = step("card_vs_cpu", preprocess_card_vs_cpu, root, store, items)
+        if profile:
+            out["profile"] = step("profile", profile_preprocess, root, store, items, out_dir)
+        out["train"], out["synth"] = step("chain", preprocess_chain, root, store, corpus, seed,
+                                          attn_checked, stage_checked)
+        out["dio_contour_launches"] = counted
+        out["step_s"] = steps
+        out["phase_s"] = time.perf_counter() - t0
+        log(f"phase 13 took {out['phase_s']:.1f} s: corpus {write_s:.1f} s, "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def preprocess_subprocess(corpus: str, tg: str, store: Path, audio_s: float):
+    """`python -m fscl_tpu_torch.cli preprocess` in a fresh interpreter, as a
+    user runs it: its wall time, the stages it prints, utterances/s and
+    audio-seconds/s, every utterance ok."""
+    import re
+    cmd = [sys.executable, "-m", "fscl_tpu_torch.cli", "preprocess", corpus, str(store),
+           "--parser", "LJSpeech", "--parse_raw", "--preprocess", "--create_dataset",
+           "--textgrid_dir", tg, "--pitch_method", "world_device",
+           "--n_workers", str(RAW_WORKERS), "--device", CARD]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"preprocess CLI exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"{proc.stderr[-3000:]}")
+    text = proc.stdout
+    parse = re.search(r"\[parse_raw\] (\d+) utterances in ([\d.]+) s", text)
+    pre = re.search(r"\[preprocess\] (\d+)/(\d+) ok in ([\d.]+) s \(host prepare ([\d.]+) s, "
+                    r"device ([\d.]+) s in (\d+) batches \((\d+) mel\), host finish ([\d.]+) s\), "
+                    r"(\d+) contour-fix launches", text)
+    if not parse or not pre or "[create_dataset]" not in text:
+        fail(f"preprocess CLI: stages not reported:\n{text[-2000:]}")
+    n_ok, n_all = int(pre.group(1)), int(pre.group(2))
+    if not n_ok == n_all == int(parse.group(1)) == RAW_UTTS:
+        fail(f"preprocess CLI: {n_ok}/{n_all} ok of {parse.group(1)} parsed, expected {RAW_UTTS}")
+    mel_batches, launches = int(pre.group(7)), int(pre.group(9))
+    # one per DIO batch on the card (none in a rehearsal on the CPU)
+    if launches != (mel_batches if CARD != "cpu" else 0) or not mel_batches:
+        fail(f"preprocess CLI: {launches} contour-fix launches for {mel_batches} mel batches "
+             "(one per DIO batch expected)")
+    res = {"wall_s": wall, "parse_raw_s": float(parse.group(2)),
+           "stage2_s": float(pre.group(3)), "prepare_s": float(pre.group(4)),
+           "device_s": float(pre.group(5)), "batches": int(pre.group(6)),
+           "mel_batches": mel_batches, "dio_contour_launches": launches,
+           "finish_s": float(pre.group(8)), "ok": n_ok,
+           "utterances_per_s": RAW_UTTS / wall, "audio_s_per_s": audio_s / wall,
+           "stage2_audio_s_per_s": audio_s / float(pre.group(3))}
+    log(f"preprocess CLI (subprocess, world_device, {RAW_WORKERS} workers): {wall:.2f} s wall: "
+        f"parse_raw {res['parse_raw_s']:.2f} s, stage 2 {res['stage2_s']:.2f} s (host prepare "
+        f"{res['prepare_s']:.2f}, device {res['device_s']:.2f} in {res['batches']} batches, "
+        f"{mel_batches} of them mel + DIO with {launches} contour-fix launches, host "
+        f"finish {res['finish_s']:.2f}), create_dataset and the interpreter's start the rest; "
+        f"{res['utterances_per_s']:.2f} utterances/s, {res['audio_s_per_s']:.1f} audio-s/s "
+        f"({res['stage2_audio_s_per_s']:.1f} in stage 2); {n_ok}/{n_all} ok")
+    return res
+
+
+def store_items(store: Path, tg: str, n: int):
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    queries = FeatureStore(str(store)).load_metadata()[:n]
+    return [(q, str(Path(tg, q["spk"], q["basename"] + ".TextGrid"))) for q in queries]
+
+
+def linked_store(root: Path, store: Path, name: str):
+    """A new store that shares `store`'s 22.05 and 16 kHz wavs (stage 1)."""
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    new = root / name
+    new.mkdir()
+    for feat in ("wav_22050", "wav_16000"):
+        (new / feat).symlink_to(store / feat)
+    return FeatureStore(str(new))
+
+
+def preprocess_in_process(root: Path, store: Path, tg: str, durations):
+    """Stage 2 on RAW_INPROC utterances of the store, once per pitch method,
+    through `preprocess_utterances_batched` on the card: the host prepare /
+    device / host finish split, the device passes counted, audio-s/s; then
+    each bucket's batch of 16 timed alone (mel + energy, + F0 by each
+    tracker, the d-vector STFT). Returns the rows, the items and the
+    contour-fix launches of the world_device run."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.core.config import AudioConfig
+    from fscl_tpu_torch.dsp import preprocess as pp
+    from fscl_tpu_torch.ops import dio_contour as dc
+
+    items = store_items(store, tg, RAW_INPROC)
+    audio_s = sum(durations[q["basename"]] for q, _ in items)
+    # warm-up (cuFFT plans, the C++ build, first launches), untimed
+    pp.preprocess_utterances_batched(linked_store(root, store, "warm-up"), items[:16],
+                                     pitch_method="world_device", device=CARD)
+    rows = {}
+    counted = None
+    for method in ("world", "world_device", "yin_device"):
+        st = linked_store(root, store, f"inproc-{method}")
+        passes = []
+
+        def count(orig):
+            def call(wavs, lengths, audio, pitch_method=None):
+                passes.append(tuple(wavs.shape))
+                return orig(wavs, lengths, audio, pitch_method)
+            return call
+
+        timings = {}
+        dc.LAUNCHES = 0
+        with mock.patch.object(pp, "mel_energy_pitch", count(pp.mel_energy_pitch)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples, ok = pp.preprocess_utterances_batched(st, items, pitch_method=method,
+                                                           device=CARD, timings=timings)
+            wall = time.perf_counter() - t0
+        launches = dc.LAUNCHES
+        want = len(passes) if method == "world_device" else 0
+        if len(ok) != len(items) or launches != want:
+            fail(f"preprocess {method}: {len(ok)}/{len(items)} ok, {launches} contour-fix "
+                 f"launches (expected {want}, one per mel batch)")
+        if method == "world_device":
+            counted = launches
+        rows[method] = {"wall_s": wall, "prepare_ms": 1e3 * timings["prepare"],
+                        "device_ms": 1e3 * timings["device"],
+                        "finish_ms": 1e3 * timings["finish"], "batches": timings["batches"],
+                        "mel_batches": passes, "audio_s_per_s": audio_s / wall,
+                        "dio_contour_launches": launches}
+        log(f"preprocess in process, {method}: {len(items)} utterances ({audio_s:.1f} s of "
+            f"audio) in {wall:.3f} s = {audio_s / wall:.1f} audio-s/s: host prepare "
+            f"{rows[method]['prepare_ms']:.1f} ms, device {rows[method]['device_ms']:.1f} ms "
+            f"({timings['batches']} batches launched, then one synchronize), host finish "
+            f"{rows[method]['finish_ms']:.1f} ms; mel batches {passes}; {launches} contour-fix "
+            f"launches")
+    check_f32_precision("preprocess in process")
+    # each bucket's batch of 16 alone, on real trims
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    st = FeatureStore(str(root / "inproc-world_device"))
+    trims22 = [st.wav_trim_22050.read_from_query(q) for q, _ in items]
+    trims16 = [st.wav_trim_16000.read_from_query(q) for q, _ in items]
+    audio = AudioConfig()
+    used = sorted({b for b in pp.WAV_BUCKETS for t in trims22
+                   if pp.bucket_len(len(t), pp.WAV_BUCKETS) == b})
+    per_bucket = []
+    for bucket in used:
+        wavs, lens = bucket_batch(trims22, bucket, 16)
+        w16, _ = bucket_batch(trims16, bucket * 16000 // 22050, 16)
+        row = {"bucket_s": bucket / 22050, "B": 16}
+        for name, method in (("mel_energy", None), ("mel_energy_world", "world_device"),
+                             ("mel_energy_yin", "yin_device")):
+            row[f"{name}_ms"] = cuda_time_ms(
+                lambda: pp.mel_energy_pitch(wavs, lens, audio, method), 3, 1)
+        row["dvec_ms"] = cuda_time_ms(lambda: pp.dvec_mel(w16), 5, 1)
+        per_bucket.append(row)
+        log(f"preprocess device pass, {row['bucket_s']:.0f} s bucket, B = 16: mel + energy "
+            f"{row['mel_energy_ms']:.2f} ms, + DIO {row['mel_energy_world_ms']:.2f} ms, + YIN "
+            f"{row['mel_energy_yin_ms']:.2f} ms, d-vector STFT {row['dvec_ms']:.2f} ms")
+        del wavs, lens, w16
+    rows["per_bucket"] = per_bucket
+    torch.cuda.empty_cache()
+    return rows, items, counted
+
+
+def check_dio_contour(items, store: Path):
+    """The contour-fix kernel bit for bit against its plain version at B = 16
+    in every wav bucket, on the candidates DIO makes from the corpus's audio
+    (laid end to end to fill the buckets the corpus does not reach); both
+    timed in a CUDA graph (device time), the wrapper also back to back (its
+    host cost per call), beside the bound: one read and one write of B * F
+    floats, or the compares if those took longer."""
+    import torch
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.dsp import preprocess as pp
+    from fscl_tpu_torch.dsp.world_device import band_candidates
+    from fscl_tpu_torch.ops import dio_contour as dc
+
+    st = FeatureStore(str(store))
+    trims = [st.wav_trim_22050.read_from_query(q) for q, _ in items]
+    stream = torch.cuda.Stream()
+    rows = []
+    for bucket in pp.WAV_BUCKETS:
+        wavs, _ = bucket_batch(trims, bucket, 16)
+        with torch.no_grad():
+            cand = band_candidates(wavs, 22050, 256, 71.0, 800.0).contiguous()
+            want = dc.dio_contour_reference(cand)
+            got = dc.dio_contour_cuda(cand)
+        torch.cuda.synchronize()
+        B, F = cand.shape
+        if not torch.equal(got, want):
+            fail(f"dio_contour at B={B} F={F}: {int((got != want).sum())} values differ from the "
+                 "plain version")
+        ms = graph_time_ms(lambda: dc.dio_contour_cuda(cand), 50, stream)
+        plain_ms = graph_time_ms(lambda: dc.dio_contour_reference(cand), 20, stream)
+        call_ms = cuda_time_ms(lambda: dc.dio_contour_cuda(cand), 50, 3)
+        t_bytes = 2 * 4 * B * F / PEAK_BYTES_PER_S * 1e3
+        t_ops = DIO_OPS_PER_FRAME * B * F / PEAK_FLOPS["float32"] * 1e3
+        row = {"bucket_s": bucket / 22050, "B": B, "F": F, "ms": ms, "plain_ms": plain_ms,
+               "call_ms": call_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": float((got - want).abs().max()),
+               "changed": int((got != cand).sum()), "voiced": int((cand > 0).sum())}
+        rows.append(row)
+        log(f"dio_contour B={B} F={F:4d}: equal to the plain version bit for bit ({row['changed']} "
+            f"of {row['voiced']} voiced candidates dropped); kernel {ms:.4f} ms ({call_ms:.4f} "
+            f"per call back to back), plain {plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
+    dc.LAUNCHES = 0          # comparison launches are not the main path's
+    return rows
+
+
+def store_close(a, b, q, what: str):
+    """One utterance of two stores at the preprocessing bars; durations,
+    phonemes and segments exactly."""
+    import numpy as np
+    for name in ("mfa_duration",):
+        if not np.array_equal(getattr(a, name).read_from_query(q),
+                              getattr(b, name).read_from_query(q)):
+            fail(f"{what} {q['basename']}: {name} differs")
+    for name in ("phoneme", "mfa_segment"):
+        if getattr(a, name).read_from_query(q) != getattr(b, name).read_from_query(q):
+            fail(f"{what} {q['basename']}: {name} differs")
+    errs = {}
+    for name, atol in (("mel", PRE_MEL_ATOL), ("spk_ref_mel_slices", PRE_MEL_ATOL)):
+        x, y = getattr(a, name).read_from_query(q), getattr(b, name).read_from_query(q)
+        errs[name] = float(np.abs(x - y).max())
+        if x.shape != y.shape or not errs[name] <= atol:
+            fail(f"{what} {q['basename']}: {name} {x.shape} vs {y.shape}, max diff "
+                 f"{errs[name]:.3g} > {atol}")
+    e1, e2 = a.energy.read_from_query(q), b.energy.read_from_query(q)
+    errs["energy_rel"] = float((np.abs(e1 - e2) / np.maximum(np.abs(e2), 10.0)).max())
+    if not errs["energy_rel"] <= PRE_ENERGY_RTOL:
+        fail(f"{what} {q['basename']}: energy differs by {errs['energy_rel']:.3g} relative")
+    return errs
+
+
+def dio_card_and_cpu(trims, queries):
+    """DIO with the refinement's detail on the card and on the CPU for each
+    query's 22.05 kHz trim, batched by wav bucket: {basename: (F0 on the
+    card, F0 on the CPU, excused)}, each of the utterance's frames."""
+    import numpy as np
+    from fscl_tpu_torch.dsp import preprocess as pp
+    groups = {}
+    for q in queries:
+        groups.setdefault(pp.bucket_len(len(trims[q["basename"]]), pp.WAV_BUCKETS), []).append(q)
+    out = {}
+    for bucket, qs in groups.items():
+        wavs = np.zeros((len(qs), bucket), np.float32)
+        lens = np.zeros(len(qs), np.int64)
+        for r, q in enumerate(qs):
+            t = trims[q["basename"]]
+            wavs[r, :len(t)], lens[r] = t, len(t)
+        card, cpu = dio_detail(wavs, lens, CARD), dio_detail(wavs, lens, "cpu")
+        excused = dio_excused(card, cpu)
+        for r, q in enumerate(qs):
+            nf = 1 + int(lens[r]) // 256
+            out[q["basename"]] = (card[0][r, :nf], cpu[0][r, :nf], excused[r, :nf])
+    return out
+
+
+def preprocess_card_vs_cpu(root: Path, store: Path, items):
+    """One batch per wav bucket of the corpus (B = RAW_CHECK_B) on the card
+    and on the CPU: log-mel, energy, both trackers' F0 (DIO with the
+    refinement's detail) and the d-vector mel. Two controls of the F0 bar,
+    recorded, not held: DIO on the card with TF32 switched on, and with its
+    filters in emulated TF32 (`tf32_conv_same`). Then RAW_CPU_UTTS of the store's utterances preprocessed again
+    on the CPU (world_device) and held to the CLI's store."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.core.config import AudioConfig
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.dsp import preprocess as pp
+    from fscl_tpu_torch.dsp import world_device as wd
+
+    st = FeatureStore(str(store))
+    trims = {}
+    for q, _ in items:
+        t = st.wav_trim_22050.read_from_query(q)
+        trims.setdefault(pp.bucket_len(len(t), pp.WAV_BUCKETS), []).append(
+            (t, st.wav_trim_16000.read_from_query(q)))
+    audio = AudioConfig()
+    res = {"buckets": []}
+    pooled = {name: ([], [], []) for name in ("world", "yin", "tf32", "tf32_input")}
+    for bucket in sorted(trims):
+        pairs = trims[bucket][:RAW_CHECK_B]
+        wavs = np.zeros((len(pairs), bucket), np.float32)
+        w16 = np.zeros((len(pairs), bucket * 16000 // 22050), np.float32)
+        lens = np.zeros(len(pairs), np.int64)
+        for i, (a, b) in enumerate(pairs):
+            wavs[i, :len(a)], w16[i, :len(b)], lens[i] = a, b, len(a)
+        outs, dio = {}, {}
+        for device in (CARD, "cpu"):
+            w, l, v = (torch.from_numpy(x).to(device) for x in (wavs, lens, w16))
+            with torch.no_grad():
+                mel, energy, _ = pp.mel_energy_pitch(w, l, audio, None)
+                f0y = pp.DEVICE_PITCH["yin_device"](w, l)
+                outs[device] = [x.cpu().numpy() for x in (mel, energy, f0y, pp.dvec_mel(v))]
+            dio[device] = dio_detail(wavs, lens, device)
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = dio_detail(wavs, lens, CARD)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        with mock.patch.object(wd, "_conv_same", tf32_conv_same(wd._conv_same)):
+            tf32_input = dio_detail(wavs, lens, CARD)
+        (mg, eg, yg, dg), (mc, ec, yc, dcpu) = outs[CARD], outs["cpu"]
+        wg, wc = dio[CARD][0], dio["cpu"][0]
+        valid = np.arange(wg.shape[1])[None, :] < (1 + lens // 256)[:, None]
+        row = {"bucket_s": bucket / 22050, "B": len(pairs),
+               "mel_max_abs": float(np.abs(mg - mc).max()),
+               "energy_rel": float((np.abs(eg - ec) / np.maximum(np.abs(ec), 1e-4 / PRE_ENERGY_RTOL))
+                                   .max()),
+               "dvec_max_abs": float(np.abs(dg - dcpu).max()),
+               "world": f0_agreement(wg, wc, valid, dio_excused(dio[CARD], dio["cpu"])),
+               "yin": f0_agreement(yg, yc, valid),
+               "world_tf32": f0_agreement(tf32[0], wc, valid, dio_excused(tf32, dio["cpu"]))}
+        for name, got, want, excused in (
+                ("world", wg, wc, dio_excused(dio[CARD], dio["cpu"])),
+                ("yin", yg, yc, np.zeros(yg.shape, bool)),
+                ("tf32", tf32[0], wc, dio_excused(tf32, dio["cpu"])),
+                ("tf32_input", tf32_input[0], wc, dio_excused(tf32_input, dio["cpu"]))):
+            for lst, x in zip(pooled[name], (got, want, excused)):
+                lst.append(x[valid])
+        if not (row["mel_max_abs"] <= PRE_MEL_ATOL and row["energy_rel"] <= PRE_ENERGY_RTOL
+                and row["dvec_max_abs"] <= PRE_MEL_ATOL):
+            fail(f"preprocess card vs CPU, {bucket / 22050:.0f} s bucket: {row}")
+        log(f"preprocess card vs CPU, {bucket / 22050:.0f} s bucket, B = {len(pairs)}: log-mel "
+            f"{row['mel_max_abs']:.3g}, energy {row['energy_rel']:.3g} relative, d-vector mel "
+            f"{row['dvec_max_abs']:.3g} ok; F0 relative max DIO {row['world']['f0_rel_max']:.3g} "
+            f"({row['world']['frames_beyond']} beyond 1e-3, {row['world']['frames_unexcused']} "
+            f"unexplained), YIN {row['yin']['f0_rel_max']:.3g}; DIO with TF32 on "
+            f"{row['world_tf32']['f0_rel_max']:.3g}, median "
+            f"{row['world_tf32']['f0_rel_median']:.3g}")
+        res["buckets"].append(row)
+    for name, tracker in (("world", "DIO"), ("yin", "YIN")):
+        got, want, excused = (np.concatenate(x) for x in pooled[name])
+        res[name] = f0_held(got, want, f"card vs CPU {tracker}, every bucket", excused=excused)
+    card_f0 = np.concatenate(pooled["world"][0])
+    for name, what in (("tf32", "DIO on the card with TF32 on"),
+                       ("tf32_input", "DIO on the card, its filters in emulated TF32")):
+        got, want, excused = (np.concatenate(x) for x in pooled[name])
+        r = f0_agreement(got, want, excused=excused)
+        r = dict(r, passes=f0_passes(r), equal_to_tf32_off=bool(np.array_equal(got, card_f0)))
+        res[f"world_{name}_control"] = r
+        log(f"control, {what} vs the CPU, every bucket: voicing agreement "
+            f"{r['voicing_agreement']:.4f}, relative F0 diff median {r['f0_rel_median']:.3g} "
+            f"max {r['f0_rel_max']:.3g}; {r['frames_beyond']} of {r['frames_voiced']} frames "
+            f"beyond {PRE_F0_MAX} ({r['frames_unexcused']} unexplained), within "
+            f"{r['max_lag_beyond']:.3g} lags; F0 {'equal' if r['equal_to_tf32_off'] else 'not equal'}"
+            f" to the card's with TF32 off: {'passes' if r['passes'] else 'fails'} the bar")
+    # the CLI's store against the port on the CPU, utterance by utterance
+    cpu = linked_store(root, store, "cpu-check")
+    some = items[:RAW_CPU_UTTS]
+    t0 = time.perf_counter()
+    _, ok = pp.preprocess_utterances_batched(cpu, some, pitch_method="world_device", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if len(ok) != len(some):
+        fail(f"preprocess on the CPU: {len(ok)}/{len(some)} ok")
+    # the frames DIO's detail explains, from runs of the same utterances on
+    # each device; whether those runs reproduce the two stores' F0 is counted
+    detail = dio_card_and_cpu({q["basename"]: st.wav_trim_22050.read_from_query(q)
+                               for q, _ in some}, [q for q, _ in some])
+    errs, f0s, reproduced = [], ([], [], []), 0
+    for q, _ in some:
+        errs.append(store_close(st, cpu, q, "store vs CPU"))
+        a, b = st.pitch.read_from_query(q), cpu.pitch.read_from_query(q)
+        card_f0, cpu_f0, excused = detail[q["basename"]]
+        reproduced += int(np.array_equal(a, card_f0[:len(a)])
+                          and np.array_equal(b, cpu_f0[:len(b)]))
+        for lst, x in zip(f0s, (a, b, excused[:len(a)])):
+            lst.append(x)
+    res["store_vs_cpu"] = {
+        "utterances": len(some), "cpu_s": cpu_s,
+        "mel_max_abs": max(e["mel"] for e in errs),
+        "energy_rel": max(e["energy_rel"] for e in errs),
+        "dvec_max_abs": max(e["spk_ref_mel_slices"] for e in errs),
+        "f0_detail_reproduces": reproduced,
+        "f0": f0_held(*(np.concatenate(x) for x in f0s[:2]), "store vs CPU F0",
+                      excused=np.concatenate(f0s[2]))}
+    log(f"store vs CPU F0: the detail runs reproduce both stores' F0 exactly for {reproduced} "
+        f"of {len(some)} utterances")
+    # the splits: monospeaker tail split of the ok utterances (template.py:103-115)
+    from fscl_tpu_torch.data.feature_store import read_queries_from_txt
+    queries = st.load_metadata()
+    k = min(400, max(1, len(queries) // 10))
+    splits = {n: [(q["spk"], q["basename"]) for q in
+                  read_queries_from_txt(str(store / "splits" / f"{n}.txt"))]
+              for n in ("train", "val", "test")}
+    want = {"train": queries[:-2 * k], "val": queries[-2 * k:-k], "test": queries[-k:]}
+    if any(splits[n] != [(q["spk"], q["basename"]) for q in want[n]] for n in want):
+        fail("preprocess: the splits are not the monospeaker tail split")
+    log(f"preprocess store vs the CPU ({len(some)} utterances, {cpu_s:.2f} s on the CPU): "
+        f"log-mel {res['store_vs_cpu']['mel_max_abs']:.3g}, energy "
+        f"{res['store_vs_cpu']['energy_rel']:.3g} relative, d-vector slices "
+        f"{res['store_vs_cpu']['dvec_max_abs']:.3g}; durations, phonemes, segments and the "
+        f"splits ({', '.join(f'{n} {len(v)}' for n, v in splits.items())}) equal")
+    return res
+
+
+def profile_preprocess(root: Path, store: Path, items, out_dir):
+    """One traced world_device chunk (RAW_INPROC utterances, after one
+    untraced): device busy share and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fscl_tpu_torch.dsp import preprocess as pp
+
+    st = linked_store(root, store, "profiled")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp.preprocess_utterances_batched(st, items, pitch_method="world_device", device=CARD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_union_ms(prof)
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:80])
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    log(f"profile preprocess world_device chunk ({len(items)} utterances): wall "
+        f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}%), "
+        f"{launches} kernel launches")
+    for ms, n, name in kernels[:12]:
+        log(f"  {ms:9.3f} ms {n:6d}x  {name}")
+    if out_dir is not None:
+        export_trace(prof, out_dir / "chip_smoke_preprocess_trace.json")
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "device_busy_share": busy / (1e3 * wall), "launches": launches,
+            "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in kernels[:20]]}
+
+
+def preprocess_chain(root: Path, store: Path, corpus: str, seed: int, attn_checked,
+                     stage_checked):
+    """`train` base.yaml RAW_TRAIN_STEPS steps at B = 16 from the new store
+    (the loss falls), then a base.yaml copy with `speaker_emb: dvec` trained
+    RAW_DVEC_STEPS steps, its duration head pinned as phase 12 pins it, and
+    `synth --text --ref_wav <a store wav> --vocoder_ckpt <HiFi-GAN V1>`: a
+    finite wav, the mel on the card against the CPU at phase 5's bar."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.core.checkpoint import STATE_FILE, CheckpointManager
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.dsp.audio_io import load_wav
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from torch_corpus import write_hifigan_checkpoint
+
+    data = root / "lj.yaml"
+    data.write_text(f"name: lj\nlang_id: 0\nsymbol_id: en\ndata_dir: {store}\n"
+                    "text_cleaners: [basic_cleaners]\n"
+                    f"subsets:\n  train: {store}/splits/train.txt\n"
+                    f"  val: {store}/splits/val.txt\n")
+    base = (REPO / "config" / "model" / "base.yaml").read_text()
+    models = {"base": root / "base.yaml", "dvec": root / "base-dvec.yaml"}
+    models["base"].write_text(base)
+    models["dvec"].write_text(base + "\nspeaker_emb: dvec\n")
+    out = {}
+    probe = CliProbe()
+    for name, steps in (("base", RAW_TRAIN_STEPS), ("dvec", RAW_DVEC_STEPS)):
+        # warmup 10 and lr 2e-3 as phase 12; the d-vector model saves its
+        # last step for `synth`
+        overlay = cli_train_overlay(
+            root, f"pre-overlay-{name}",
+            "optimizer:\n  lr: 0.002\n  warm_up_step: 10\n  anneal_steps: []\n"
+            f"step:\n  log_step: 5\n  val_step: 1000\n  save_step: {steps}\n")
+        attn.LAUNCHES = 0
+        with probe.active(), attention_shapes(attn, attn_checked, f"preprocess train {name}"):
+            t0 = time.perf_counter()
+            system, state = cli(["train", "--data_config", str(data), "--model_config",
+                                 str(models[name]), "--train_config",
+                                 str(REPO / "config" / "train" / "baseline.yaml"),
+                                 "--train_config", overlay, "--exp_dir", str(root / f"exp-{name}"),
+                                 "--total_step", str(steps)])
+            wall = time.perf_counter() - t0
+        check_f32_precision(f"preprocess train {name}")
+        losses = probe.read_losses()
+        fit = probe.fits[-1]
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+                or (name == "base" and not falling(losses)):
+            fail(f"preprocess train {name}: losses {losses} not finite (and falling)")
+        out[name] = {"steps": steps, "steps_per_s": fit["steps_per_s"], "wall_s": wall,
+                     "losses": losses, "attention_launches": attn.LAUNCHES}
+        log(f"preprocess train {name} from the new store: {steps} steps at "
+            f"{fit['steps_per_s']:.2f} steps/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"{attn.LAUNCHES} attention launches; the CLI call {wall:.2f} s")
+        del system, state
+    torch.cuda.empty_cache()
+
+    raw = CheckpointManager(str(root / "exp-dvec" / "ckpt")).restore()
+    head = "model.variance_adaptor.duration_predictor.linear_layer."
+    raw["params"][head + "weight"].mul_(0.1)
+    raw["params"][head + "bias"].add_(math.log(5.0))
+    pinned = root / "ckpt-dvec" / f"step_{raw['step']:08d}"
+    pinned.mkdir(parents=True)
+    torch.save(raw, str(pinned / STATE_FILE))
+    voc = root / "g_v1.pt"
+    write_hifigan_checkpoint(str(voc), seed)
+    q = FeatureStore(str(store)).load_metadata()[1]
+    ref = str(Path(corpus, "wavs", q["basename"] + ".wav"))
+    line, L, T = cli_synth_line()
+    common = ["synth", "--ckpt_dir", str(pinned.parent), "--data_config", str(data),
+              "--model_config", str(models["dvec"]), "--text", line, "--ref_wav", ref]
+    stages = []
+
+    def record_stage(orig):
+        def call(x, *args):
+            stages.append(tuple(x.shape))
+            return orig(x, *args)
+        return call
+
+    attn.LAUNCHES = mrf.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "preprocess synth --ref_wav"), \
+            mock.patch.object(mrf, "mrf_stage_cuda", record_stage(mrf.mrf_stage_cuda)):
+        t0 = time.perf_counter()
+        (mel,) = cli(common + ["--vocoder_ckpt", str(voc), "--output", str(root / "ref.wav")])
+        wall = time.perf_counter() - t0
+    launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
+    check_f32_precision("preprocess synth --ref_wav")
+    wav = load_wav(str(root / "ref.wav"), 22050)
+    if launches["mrf_stage"] != 4 or not launches["attention_fwd"] \
+            or wav.shape != (mel.shape[0] * 256,) or not np_finite_bounded(wav):
+        fail(f"preprocess synth --ref_wav: launches {launches}, wav {wav.shape} for "
+             f"{mel.shape[0]} frames, or not finite")
+    hold_stage_shapes(stages, stage_checked, str(voc), "preprocess synth --ref_wav")
+    (cpu_mel,) = cli(common + ["--device", "cpu", "--output", str(root / "ref-cpu.wav")])
+    err = float(np.abs(mel - cpu_mel).max()) if mel.shape == cpu_mel.shape else math.inf
+    log(f"preprocess synth --ref_wav (d-vector of {q['basename']}): {mel.shape[0]} frames, "
+        f"{launches['attention_fwd']} attention + {launches['mrf_stage']} stage launches, "
+        f"{wall:.2f} s; card vs CPU mel max diff {err:.3g} (atol {CARD_VS_CPU_ATOL})")
+    if not err <= CARD_VS_CPU_ATOL:
+        fail(f"preprocess synth --ref_wav card vs CPU: {err:.3g} > {CARD_VS_CPU_ATOL}")
+    return out, {"frames": int(mel.shape[0]), "wall_s": wall, "launches": launches,
+                 "card_vs_cpu_max_abs": err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2714,6 +3489,9 @@ def main(argv=None) -> int:
     fscl = phase_fscl(args.seed, card, attn_checked, args.profile, args.out)
     tune = phase_tune(args.seed, card, attn_checked, args.profile, args.out)
     cli = phase_cli(args.seed, card, attn_checked, stage_checked, train, fscl)
+    check_f32_precision("phase 12")
+    pre = phase_preprocess(args.seed, card, attn_checked, stage_checked, args.profile, args.out)
+    check_f32_precision("phase 13")
     timings = phase_attention_timing(args.seed)
 
     main_row = next(r for r in timings
@@ -2742,7 +3520,11 @@ def main(argv=None) -> int:
                              + cli["train"]["resume"]["attention_launches"],
                              "cli_synth": cli["synth"]["launches"]["attention_fwd"],
                              "cli_fscl": cli["fscl"]["attention_launches"],
-                             "cli_tune": cli["tune"]["attention_launches"]},
+                             "cli_tune": cli["tune"]["attention_launches"],
+                             "preprocess_train": pre["train"]["base"]["attention_launches"],
+                             "preprocess_train_dvec": pre["train"]["dvec"]["attention_launches"],
+                             "preprocess_synth_ref_wav": pre["synth"]["launches"][
+                                 "attention_fwd"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2768,7 +3550,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"text_to_wav": text_to_wav["launches"]["mrf_stage"],
                              "train": train["mrf_stage_launches"],
                              "tune": tune["mrf_stage_launches"],
-                             "cli_synth": cli["synth"]["launches"]["mrf_stage"]},
+                             "cli_synth": cli["synth"]["launches"]["mrf_stage"],
+                             "preprocess_synth_ref_wav": pre["synth"]["launches"]["mrf_stage"]},
         "max_abs_err": stage_err["float32"],
         # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
         "ms": sum(r["ms"] for r in f32_stages),
@@ -2790,11 +3573,26 @@ def main(argv=None) -> int:
         "post_ms": {r["dtype"]: r["post_ms"] for r in stage_timings if r["post"]},
         "max_abs_err_bf16": stage_err["bfloat16"],
         "by_shape": stage_timings,
+    }, {
+        "name": "dio_contour",
+        "route": "cuda",
+        "source": "fscl_tpu_torch/csrc/dio_contour.cu",
+        # no Pallas kernel: the lax.scan of fix_step in world_f0_batched
+        "replaces": "fscl_tpu/dsp/world_device.py:211",
+        "launches": pre["dio_contour_launches"],
+        "launches_by_path": {"preprocess_in_process_world_device": pre["dio_contour_launches"],
+                             "preprocess_cli_world_device": pre["cli"]["dio_contour_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in pre["kernel"]),
+        # B = 16 in the 20 s wav bucket (F = 1723), the largest shape
+        **{k: pre["kernel"][-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")},
+        "library_ms": None,
+        "timed_at": {k: pre["kernel"][-1][k] for k in ("B", "F", "bucket_s")},
+        "by_bucket": pre["kernel"],
     }]
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
-              "cli": cli,
+              "cli": cli, "preprocess": pre,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -1,4 +1,4 @@
-"""CLI entry points: train / tune / synth (port of `fscl_tpu/cli`).
+"""CLI entry points: preprocess / train / tune / synth (port of `fscl_tpu/cli`).
 
 Usage: `python -m fscl_tpu_torch.cli <command> [...] [--device cpu]`, or
 in process `fscl_tpu_torch.cli.main([...])`.

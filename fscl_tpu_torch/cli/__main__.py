@@ -1,8 +1,8 @@
-"""`python -m fscl_tpu_torch.cli train|tune|synth ...` (port of
+"""`python -m fscl_tpu_torch.cli preprocess|train|tune|synth ...` (port of
 `fscl_tpu/cli/__main__.py`).
 
-The `train`, `tune` and `synth` subparsers take fscl_tpu's flags with its
-defaults (`:41-127`), plus `--device` (default `cuda`, through
+The `preprocess`, `train`, `tune` and `synth` subparsers take fscl_tpu's
+flags with its defaults (`:13-127`), plus `--device` (default `cuda`, through
 `core.device.resolve_device`: without a card it raises unless `--device cpu`
 is passed). A flag the port does not run yet raises when it is set to
 anything but its default, naming the ROADMAP item that ports it; so do the
@@ -14,7 +14,7 @@ import argparse
 import sys
 
 # fscl_tpu's other subcommands; they wait for ROADMAP.md Queue 1, item 13
-WAITING_COMMANDS = ("preprocess", "evaluate", "make-units", "clean", "pack", "rehearse")
+WAITING_COMMANDS = ("evaluate", "make-units", "clean", "pack", "rehearse")
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -28,6 +28,32 @@ def build_parser() -> argparse.ArgumentParser:
         prog="fscl_tpu_torch",
         description="few-shot cross-lingual TTS, PyTorch/CUDA port")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("preprocess", help="corpus -> feature store")
+    p.add_argument("corpus_dir", nargs="?", default=None)
+    p.add_argument("output_dir", nargs="?", default=None)
+    p.add_argument("--preprocess_config", default=None,
+                   help="config/preprocess/*.yaml bundle; supplies corpus_dir/output_dir/"
+                        "parser defaults")
+    p.add_argument("--parser", default=None,
+                   help="raw parser tag (see fscl_tpu_torch.data.parsers)")
+    p.add_argument("--textgrid_dir", default=None,
+                   help="directory of MFA TextGrids (required for --preprocess)")
+    p.add_argument("--parse_raw", action="store_true")
+    p.add_argument("--prepare_mfa", default=None, metavar="MFA_DATA_DIR",
+                   help="stage wav+txt pairs for the external `mfa align` CLI (prints the "
+                        "exact command to run next)")
+    p.add_argument("--preprocess", action="store_true")
+    p.add_argument("--create_dataset", action="store_true")
+    p.add_argument("--n_workers", type=int, default=4)
+    p.add_argument("--pitch_method", default=None,
+                   choices=["world", "yin", "yin_device", "world_device"],
+                   help="override the preprocess YAML's preprocessing.pitch.method "
+                        "(world = reference parity, host C++; world_device = the same DIO "
+                        "algorithm batched on --device; yin_device = batched YIN there)")
+    p.add_argument("--debug", action="store_true",
+                   help="limit to 128 utterances (reference --debug)")
+    _add_device(p)
 
     t = sub.add_parser("train", help="train a system")
     t.add_argument("--system", default="baseline",
@@ -89,7 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving batch size for --text_file")
     s.add_argument("--speaker", type=int, default=0)
     s.add_argument("--model_config", default=None)
-    s.add_argument("--ref_wav", default=None, help="not ported yet (ROADMAP item 7)")
+    s.add_argument("--ref_wav", default=None,
+                   help="reference audio of the target speaker (required for speaker_emb "
+                        "dvec/encoder models)")
     s.add_argument("--output", default="output.wav")
     s.add_argument("--vocoder_ckpt", default=None)
     s.add_argument("--stream", action="store_true",
@@ -115,7 +143,9 @@ def main(argv=None):
             f"item 13, CLI, rehearse and bench")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.command == "train":
+    if args.command == "preprocess":
+        from fscl_tpu_torch.cli.preprocess_cmd import run
+    elif args.command == "train":
         from fscl_tpu_torch.cli.train_cmd import run
     elif args.command == "tune":
         from fscl_tpu_torch.cli.tune_cmd import run

@@ -7,15 +7,15 @@ only). `--text` synthesizes one utterance at T = min(max_seq_len,
 max(64, 12 L)); `--text_file` serves the lines in batches through
 `serve.py:serve_batches` (two-pass bucketed synthesis). With
 `--vocoder_ckpt` (HiFi-GAN or MelGAN, by the model config's
-`vocoder.model`) the wavs come from the generator on the same device: a
-`--text_file` batch is vocoded whole, its mel bucket in one generator call
-(for HiFi-GAN, one launch of the MRF stage kernel per stage), and each
-line's wav cut to its mel length, where fscl_tpu vocodes line by line; the
-last frames of a line then see the batch's padding instead of the edge, as
-in `serve.py:serve_wav` (ROADMAP.md Queue 3). Without a vocoder, Griffin-Lim on the host, line by
-line. `--stream` vocodes chunk by chunk (`audio_out/streaming.py`).
-`--ref_wav` (the d-vector speakers) waits for the device STFT of ROADMAP
-Queue 1, item 7.
+`vocoder.model`) the wavs come from the generator on the same device; as
+in fscl_tpu, each line's mel is cut to its length and vocoded alone, so
+that its last frames see the edge and not the batch's padding (for
+HiFi-GAN, 4 MRF stage launches per line). Without a vocoder, Griffin-Lim on
+the host, line by line. `--stream` vocodes chunk by chunk
+(`audio_out/streaming.py`). A d-vector model (`speaker_emb: dvec` or an
+encoder) takes the speaker from `--ref_wav`: the wav at 16 kHz, its
+40-mel slices on the device (`dsp/preprocess.py:dvec_mel_slices`), the
+first `n_ref_slices` of them with a mask.
 """
 from __future__ import annotations
 
@@ -28,7 +28,9 @@ from fscl_tpu_torch.audio_out.vocoder import Vocoder, griffin_lim
 from fscl_tpu_torch.core.checkpoint import CheckpointManager
 from fscl_tpu_torch.core.config import ModelConfig, model_config_from_yaml, read_data_config
 from fscl_tpu_torch.core.device import resolve_device
-from fscl_tpu_torch.dsp.audio_io import save_wav
+from fscl_tpu_torch.data.batch import DvecRefs
+from fscl_tpu_torch.dsp.audio_io import load_wav, save_wav
+from fscl_tpu_torch.dsp.preprocess import DVEC_SR, dvec_mel_slices
 from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, text_to_sequence
 from fscl_tpu_torch.serve import serve_batches
 from fscl_tpu_torch.systems.baseline import BaselineSystem
@@ -41,13 +43,15 @@ def run(args):
     dc = read_data_config(args.data_config)
     model_cfg = (model_config_from_yaml(args.model_config)
                  if args.model_config else ModelConfig())
-    if args.ref_wav or model_cfg.speaker.uses_dvec:
-        raise NotImplementedError(
-            "--ref_wav (the d-vector speakers' reference mel slices, dsp/preprocess.py:"
-            "dvec_mel_slices) is not ported yet: ROADMAP.md Queue 1, item 7, device DSP "
-            "and preprocessing")
     if not (args.text or args.text_file):
         raise ValueError("pass --text or --text_file")
+    if model_cfg.speaker.uses_dvec:
+        if not args.ref_wav:
+            raise ValueError("this model uses a d-vector speaker encoder: pass --ref_wav "
+                             "<audio of the target speaker>")
+        if args.text_file:
+            raise ValueError("--text_file serves table speakers; synthesize a d-vector "
+                             "model's lines with --text and --ref_wav")
     id2symbols = ((dc.symbol_id, len(LANG_ID2SYMBOLS[dc.symbol_id])),)
     system = BaselineSystem(model_cfg, id2symbols, device=device)
     CheckpointManager(args.ckpt_dir).restore_into(system)
@@ -64,9 +68,10 @@ def run(args):
     seq = text_to_sequence(args.text, dc.text_cleaners, dc.symbol_id)
     L = len(seq)
     T = min(model_cfg.max_seq_len, max(64, L * 12))
+    speaker_args = (ref_wav_speaker(args.ref_wav, model_cfg.speaker.n_ref_slices, device)
+                    if model_cfg.speaker.uses_dvec else np.asarray([args.speaker]))
     out = system.synthesize(np.asarray(seq, np.int64)[None], np.asarray([L]), T,
-                            np.asarray([args.speaker]), np.asarray([dc.lang_id]),
-                            symbol_id=dc.symbol_id)
+                            speaker_args, np.asarray([dc.lang_id]), symbol_id=dc.symbol_id)
     n = int(out.mel_len[0])
 
     if args.stream:
@@ -116,12 +121,23 @@ def _run_batch(args, dc, model_cfg, system, voc):
                                lang_id=dc.lang_id, batch_size=max(1, args.batch_size)):
         lens = batch.mel_len.cpu().numpy()
         batch_mels = batch.postnet_mel.float().cpu().numpy()
-        wavs = voc.infer_batch(batch.postnet_mel).cpu().numpy() if voc is not None else None
         for i, line in enumerate(batch.lines):
-            n = max(int(lens[i]), 1)
-            mel = batch_mels[i, :n]
-            wav = wavs[i, :n * voc.model.hop] if voc is not None else griffin_lim(mel)
+            mel = batch_mels[i, :max(int(lens[i]), 1)]
+            # each line vocoded alone, cut to its length, as fscl_tpu does
+            wav = voc.infer(mel) if voc is not None else griffin_lim(mel)
             save_wav(os.path.join(args.output, f"{line:04d}.wav"), wav, sr)
             mels.append(mel)
     print(f"[synth] {len(mels)} utterances -> {args.output}/")
     return mels
+
+
+def ref_wav_speaker(path: str, n_slices: int, device) -> DvecRefs:
+    """The d-vector speaker of one reference wav: its first `n_slices` 40-mel
+    slices (the STFT on `device`) and their mask, as a batch of 1."""
+    slices = dvec_mel_slices(load_wav(path, DVEC_SR), device)
+    out = np.zeros((1, n_slices) + slices.shape[1:], np.float32)
+    mask = np.zeros((1, n_slices), np.float32)
+    k = min(len(slices), n_slices)
+    out[0, :k] = slices[:k]
+    mask[0, :k] = 1.0
+    return DvecRefs(out, mask)

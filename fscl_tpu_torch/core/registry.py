@@ -83,3 +83,5 @@ DATAMODULES: Registry = Registry("datamodule", _waiting({
     8: ("conti-ae",),
     9: _T2U_SYSTEMS + ("fscl-t2u-episodic", "fscl-t2u-orig-episodic"),
     10: _PR_SYSTEMS}))
+# the corpus walkers of data/parsers.py, filled when that module is imported
+RAW_PARSERS: Registry = Registry("raw parser")

@@ -6,13 +6,13 @@ Replaces the reference's module-import-time `stats.json` load
 energy_mean, energy_std)` matches `Define.ALLSTATS["global"]` as consumed by
 the variance adaptor (`lightning/model/modules.py:41`).
 
-The port's own copy of `fscl_tpu/core/stats.py:16-74`.
+The port's own copy of `fscl_tpu/core/stats.py`.
 """
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import Iterable, Tuple
+from typing import Dict, Iterable, Tuple
 
 
 @dataclass(frozen=True)
@@ -74,3 +74,28 @@ DEFAULT_STATS = GlobalStats(
         51.08978468237829, 40.48262468172912,
     ),
 )
+
+
+def merge_stats(per_corpus: Dict[str, dict], total_n: Dict[str, int] = None) -> GlobalStats:
+    """Merge per-corpus stats into global stats.
+
+    Mirrors scripts/gloabal_normalize_stats.py:7-24: min/max are global
+    extrema; mean/std are merged assuming equal weighting unless counts given.
+    """
+    pitches, energies = [], []
+    for stats in per_corpus.values():
+        pitches.append(stats["pitch"])
+        energies.append(stats["energy"])
+
+    def _merge(rows):
+        mins = min(r[0] for r in rows)
+        maxs = max(r[1] for r in rows)
+        n = len(rows)
+        mean = sum(r[2] for r in rows) / n
+        # pooled variance: E[var] + Var[mean]
+        var = sum(r[3] ** 2 for r in rows) / n + (
+            sum((r[2] - mean) ** 2 for r in rows) / n
+        )
+        return FeatureStats(mins, maxs, mean, var ** 0.5)
+
+    return GlobalStats(pitch=_merge(pitches), energy=_merge(energies))

@@ -1,1 +1,2 @@
-"""Port of fscl_tpu/dsp (the audio IO so far)."""
+"""Port of fscl_tpu/dsp: audio IO, TextGrids, host and batched pitch, and the
+preprocessing pipeline."""

@@ -4,8 +4,8 @@ API-compatible with the reference's `text/__init__.py:18-58`
 (text_to_sequence / sequence_to_text with curly-brace phoneme notation and
 per-language symbol tables keyed by symbol_id).
 
-The port's own copy of `fscl_tpu/frontend` (all but the Korean g2p, which
-waits for a later slice); ids match symbol for symbol.
+The port's own copy of `fscl_tpu/frontend` (the Korean g2p in
+`frontend/kog2p.py`); ids match symbol for symbol.
 """
 from __future__ import annotations
 

@@ -26,10 +26,9 @@ Dropout replaced by the identity, the PostNet's at 0), trained at lr 1e-4
 and eps 1e-3 (tests/test_torch_train.py's reasons); the losses are held to
 that file's bars: 1e-5 relative at step 1, 1e-3 after.
 
-`synth --text_file` vocodes a batch whole, where fscl_tpu vocodes each line
-cut to its length: a line's wav equals the line-by-line one except in its
-last frames, which see the batch's padding (ROADMAP.md Queue 3); pinned
-below within the generator's halo.
+`synth --text_file` vocodes each line cut to its length, as fscl_tpu does:
+every sample of a line's wav, its last frames included, equals that line
+vocoded alone within 1e-5.
 """
 import contextlib
 import dataclasses
@@ -144,14 +143,14 @@ def test_synth_text_and_text_file(world, baseline_run, tmp_path):
     from fscl_tpu_torch.audio_out.vocoder import Vocoder
     vocoded = []
 
-    def infer_batch(orig):
+    def infer(orig):
         def call(self, mel):
             wav = orig(self, mel)
-            vocoded.append(wav.numpy())
+            vocoded.append(wav)
             return wav
         return call
 
-    with mock.patch.object(Vocoder, "infer_batch", infer_batch(Vocoder.infer_batch)):
+    with mock.patch.object(Vocoder, "infer", infer(Vocoder.infer)):
         mels = main(common + ["--text_file", str(lines), "--batch_size", "2",
                               "--vocoder_ckpt", voc, "--output", str(tmp_path / "wavs")])
     assert len(mels) == 2
@@ -159,20 +158,15 @@ def test_synth_text_and_text_file(world, baseline_run, tmp_path):
         wav = load_wav(str(tmp_path / "wavs" / f"{i:04d}.wav"), 22050)
         assert wav.shape == (m.shape[0] * 256,) and np.isfinite(wav).all()
         assert np.abs(wav).max() <= 1.0
-    # one generator call for the batch (fscl_tpu vocodes line by line): a
-    # line's wav equals its line-by-line wav up to the generator's halo
-    # before its end; its last frames see the batch's padding instead
-    (batch_wav,) = vocoded
+    # one generator call per line, cut to its length (fscl_tpu's
+    # _run_batch): every sample, the last halo's included, equals the line
+    # vocoded alone
     alone = Vocoder.from_checkpoint(voc, kind="HifiGAN", device="cpu")
-    halo = generator_halo(alone.model)
-    tails = []
-    for i, m in enumerate(mels):
-        got, want = batch_wav[i, :m.shape[0] * 256], alone.infer(m)
-        inner = max(m.shape[0] - halo, 0) * 256
-        np.testing.assert_allclose(got[:inner], want[:inner], atol=1e-5, rtol=0)
-        tails.append(np.abs(got[inner:] - want[inner:]).max())
-    assert max(m.shape[0] for m in mels) > halo + 8     # some samples away from the end
-    assert max(tails) > 1e-4                            # the departure, ROADMAP.md Queue 3
+    assert len(vocoded) == len(mels)
+    assert max(m.shape[0] for m in mels) > generator_halo(alone.model) + 8
+    for got, m in zip(vocoded, mels):
+        assert got.shape == (m.shape[0] * 256,)
+        np.testing.assert_allclose(got, alone.infer(m), atol=1e-5, rtol=0)
 
 
 def test_train_fscl_with_a_tiny_upstream(world):
@@ -228,10 +222,7 @@ def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
 
 
 def test_unported_synth_and_subcommands_name_their_item(world, baseline_run):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 7"):
-        main(["synth", "--ckpt_dir", f"{baseline_run[0]}/ckpt", "--data_config", world["en"],
-              "--text", "hi", "--ref_wav", "x.wav"] + CPU)
-    for cmd in ("preprocess", "evaluate", "make-units", "clean", "pack", "rehearse"):
+    for cmd in ("evaluate", "make-units", "clean", "pack", "rehearse"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 13"):
             main([cmd, "--anything", "x"])
     with pytest.raises(SystemExit):

@@ -511,3 +511,71 @@ def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
         assert torch.equal(fresh.state_dict()[k], v), k
     for a, b in zip(got.opt_state.mu + got.opt_state.nu, state.opt_state.mu + state.opt_state.nu):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F", [(16, 1), (16, 2), (16, 173), (3, 1723), (2, 20000)])
+def test_dio_contour_kernel_equals_plain_version(cuda_device, B, F):
+    """The contour-fix kernel bit for bit against its plain version: random
+    steady runs with jumps, spikes and unvoiced gaps, and zigzag runs of
+    jumps whose parity decides every frame; F = 20000 gives each thread a
+    span of 79 frames."""
+    from fscl_tpu_torch.ops import dio_contour as dc
+    rng = np.random.default_rng(F)
+    base = np.repeat(rng.uniform(80, 300, size=(B, F // 8 + 1)), 8, axis=1)[:, :F]
+    cand = np.where(rng.random((B, F)) < 0.15, 0.0, base)
+    cand = np.where(rng.random((B, F)) < 0.1, cand * 1.25, cand).astype(np.float32)
+    zigzag = rng.choice(np.float32([100, 130, 101, 0]), size=(B, F), p=[0.45, 0.45, 0.05, 0.05])
+    for x in (torch.from_numpy(cand).to(cuda_device), torch.from_numpy(zigzag).to(cuda_device)):
+        before = dc.LAUNCHES
+        got = dc.dio_contour(x)
+        want = dc.dio_contour_reference(x)
+        torch.cuda.synchronize()
+        assert dc.LAUNCHES == before + 1
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="range"):
+        dc.dio_contour_cuda(torch.zeros(0, 8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracker", ["yin", "world"])
+def test_batched_f0_card_matches_cpu(cuda_device, tracker):
+    """Batched YIN and DIO on the card against the CPU at the F0 bars of
+    chip_smoke.py phase 13 (voicing 99 %, relative median 1e-5, max 1e-3),
+    padding frames 0."""
+    from fscl_tpu_torch.dsp.pitch_device import yin_f0_batched
+    from fscl_tpu_torch.dsp.world_device import world_f0_batched
+    fn = yin_f0_batched if tracker == "yin" else world_f0_batched
+    sr, T = 22050, 4 * 22050
+    rng = np.random.default_rng(2)
+    t = np.arange(T) / sr
+    wavs = np.stack([0.4 * np.sin(2 * np.pi * f * t) + 0.1 * np.sin(4 * np.pi * f * t)
+                     + 0.01 * rng.standard_normal(T) for f in (110, 180, 260, 0.0)])
+    wavs = wavs.astype(np.float32)
+    lens = np.array([T, T - 5000, T // 2, 0])
+    got, want = (fn(torch.from_numpy(wavs).to(d), torch.from_numpy(lens).to(d)).cpu().numpy()
+                 for d in (cuda_device, "cpu"))
+    valid = np.arange(got.shape[1])[None, :] < (1 + lens // 256)[:, None]
+    assert (got[~valid] == 0).all()
+    agree = ((got > 0) == (want > 0))[valid].mean()
+    both = (got > 0) & (want > 0)
+    rel = np.abs(got[both] - want[both]) / want[both]
+    assert agree >= 0.99 and np.median(rel) <= 1e-5 and rel.max() <= 1e-3, (agree, rel.max())
+
+
+@pytest.mark.cuda
+def test_cli_preprocess_runs_in_f32_on_the_card(cuda_device, tmp_path):
+    """`preprocess` through the command line with `--device cuda` on a
+    small raw corpus: every utterance ok, and afterwards TF32 is off for
+    cuDNN and cuBLAS although it was on before: the port sets the flags
+    itself."""
+    from fscl_tpu_torch.cli import main
+    from torch_corpus import write_raw_corpus
+    corpus, tg = write_raw_corpus(str(tmp_path / "raw"), 4, 1, seconds=(1.5, 3.0))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    out = main(["preprocess", corpus, str(tmp_path / "store"), "--parse_raw", "--preprocess",
+                "--textgrid_dir", tg, "--pitch_method", "world_device", "--n_workers", "1",
+                "--device", "cuda"])
+    assert out["n_ok"] == out["n_queries"] == 4
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -42,14 +42,19 @@ CLI_AND_DATA_MODULES = (
     "fscl_tpu_torch.core.checkpoint", "fscl_tpu_torch.core.registry",
     "fscl_tpu_torch.data.datamodules", "fscl_tpu_torch.data.datasets",
     "fscl_tpu_torch.data.episodic", "fscl_tpu_torch.data.feature_store",
-    "fscl_tpu_torch.data.samplers", "fscl_tpu_torch.dsp.audio_io", "fscl_tpu_torch.obs.loggers")
+    "fscl_tpu_torch.data.samplers", "fscl_tpu_torch.dsp.audio_io", "fscl_tpu_torch.obs.loggers",
+    "fscl_tpu_torch.cli.preprocess_cmd", "fscl_tpu_torch.data.parsers",
+    "fscl_tpu_torch.data.scripts", "fscl_tpu_torch.dsp.preprocess", "fscl_tpu_torch.dsp.pitch",
+    "fscl_tpu_torch.dsp.pitch_device", "fscl_tpu_torch.dsp.world_device",
+    "fscl_tpu_torch.dsp.cpp_bindings", "fscl_tpu_torch.dsp.textgrid",
+    "fscl_tpu_torch.frontend.kog2p", "fscl_tpu_torch.ops.dio_contour", "fscl_tpu_torch.ops.stft")
 
 
 def test_cli_and_data_modules_load_no_jax():
     """The command line runs as `python -m fscl_tpu_torch.cli` in a fresh
     interpreter (its help, then a call without a card that asks for one)
-    and loads no JAX; the config, data, checkpoint and logger modules with
-    it."""
+    and loads no JAX; the config, data, checkpoint, logger and
+    preprocessing modules with it."""
     code = (
         "import importlib, subprocess, sys\n"
         f"mods = {CLI_AND_DATA_MODULES!r}\n"
@@ -68,9 +73,10 @@ def test_cli_and_data_modules_load_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    proc = subprocess.run([sys.executable, "-m", "fscl_tpu_torch.cli", "synth", "--help"],
-                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0 and "--device" in proc.stdout, proc.stderr
+    for cmd in ("synth", "preprocess"):
+        proc = subprocess.run([sys.executable, "-m", "fscl_tpu_torch.cli", cmd, "--help"],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0 and "--device" in proc.stdout, proc.stderr
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -131,3 +137,19 @@ def test_audio_entry_points_ask_for_cuda_by_default(entry):
     }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()
+
+
+def test_a_cuda_device_comes_with_tf32_off(monkeypatch):
+    """`resolve_device` turns TF32 off for cuDNN and cuBLAS when it hands out
+    a CUDA device (the port's float32 precision, fscl_tpu's on the CPU), and
+    leaves the flags alone for the CPU."""
+    import torch
+    from fscl_tpu_torch.core.device import resolve_device
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device("cuda").type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

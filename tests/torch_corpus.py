@@ -12,10 +12,13 @@ spk_ref_mel_slices of 160 x 40), speakers.json, data_info.json and
 stats.json, the train and val split files and a data config YAML. Targets
 follow a per-phoneme table plus noise, so that training lowers the loss.
 `write_hifigan_checkpoint` writes a HiFi-GAN V1 generator checkpoint.
+`write_raw_corpus` writes a raw corpus in the LJSpeech layout, with MFA-style
+TextGrids, for the preprocessing tests and phase 13 of chip_smoke.py.
 """
 from __future__ import annotations
 
 import os
+from typing import Tuple
 
 import numpy as np
 
@@ -118,3 +121,81 @@ def write_hifigan_checkpoint(path: str, seed: int) -> None:
         else:
             sd[k] = v
     torch.save({"generator": sd}, path)
+
+
+RAW_PHONES = ("HH", "AY1", "W", "ER1", "L", "D", "AH0", "N", "S", "IY1", "T", "R",
+              "K", "AE1", "M", "OW1")
+
+
+def textgrid(intervals, xmax: float) -> str:
+    """A long-format TextGrid with one "phones" tier of (start, end, label)
+    intervals, as MFA writes it."""
+    body = "".join(
+        f"        intervals [{i + 1}]:\n"
+        f"            xmin = {a}\n            xmax = {b}\n"
+        f"            text = \"{p}\"\n"
+        for i, (a, b, p) in enumerate(intervals))
+    return (
+        'File type = "ooTextFile"\nObject class = "TextGrid"\n\n'
+        f"xmin = 0\nxmax = {xmax}\ntiers? <exists>\nsize = 1\nitem []:\n"
+        "    item [1]:\n        class = \"IntervalTier\"\n"
+        "        name = \"phones\"\n"
+        f"        xmin = 0\n        xmax = {xmax}\n"
+        f"        intervals: size = {len(intervals)}\n" + body)
+
+
+def write_raw_corpus(root: str, n_utts: int, seed: int, seconds=(1.5, 10.0),
+                     sr: int = SR) -> Tuple[str, str]:
+    """Write a raw corpus in the LJSpeech layout under `root`: metadata.csv
+    (`name|raw|normalized`), wavs/<name>.wav as 16-bit PCM at `sr`, and an
+    MFA-style TextGrid per utterance under TextGrid/LJSpeech/. Each
+    utterance lasts a uniform draw from `seconds`: a leading silence, phones
+    of 60-200 ms, each a harmonic tone at its phone's F0 (70-400 Hz, jittered
+    per utterance) over noise, with a 100-250 ms pause ("sp", low noise)
+    after about one phone in six, and a trailing silence. Returns (the
+    corpus root, the TextGrid directory to pass as --textgrid_dir)."""
+    from fscl_tpu_torch.dsp.audio_io import save_wav
+
+    rng = np.random.default_rng(seed)
+    f0_of = dict(zip(RAW_PHONES, np.linspace(70.0, 400.0, len(RAW_PHONES))))
+    tg_dir = os.path.join(root, "TextGrid")
+    os.makedirs(os.path.join(root, "wavs"), exist_ok=True)
+    os.makedirs(os.path.join(tg_dir, "LJSpeech"), exist_ok=True)
+    lines = []
+    for i in range(n_utts):
+        name = f"LJ{seed:03d}-{i:04d}"
+        total = float(rng.uniform(*seconds))
+        jitter = float(rng.uniform(0.9, 1.1))
+        t = float(rng.uniform(0.05, 0.2))
+        intervals = [(0.0, t, "")]
+        while t < total - 0.25:
+            if len(intervals) > 2 and rng.random() < 1 / 6:
+                dur, label = float(rng.uniform(0.1, 0.25)), "sp"
+            else:
+                dur, label = float(rng.uniform(0.06, 0.2)), str(rng.choice(RAW_PHONES))
+            intervals.append((t, t + dur, label))
+            t += dur
+        if intervals[-1][2] == "sp":
+            intervals[-1] = (intervals[-1][0], intervals[-1][1], str(rng.choice(RAW_PHONES)))
+        xmax = max(total, t + 0.05)
+        intervals.append((t, xmax, ""))
+        n = int(xmax * sr)
+        wav = 0.003 * rng.standard_normal(n)
+        for a, b, label in intervals:
+            if label in ("", "sp"):
+                continue
+            s0, s1 = int(a * sr), int(b * sr)
+            f0 = f0_of[label] * jitter
+            tt = np.arange(s1 - s0) / sr
+            tone = sum(np.sin(2 * np.pi * f0 * h * tt + h) / h for h in (1, 2, 3))
+            ramp = np.minimum(1.0, np.minimum(tt, tt[::-1]) / 0.01)
+            wav[s0:s1] += 0.3 * tone * ramp + 0.02 * rng.standard_normal(s1 - s0)
+        save_wav(os.path.join(root, "wavs", f"{name}.wav"), (0.9 * wav / np.abs(wav).max())
+                 .astype(np.float32), sr)
+        with open(os.path.join(tg_dir, "LJSpeech", f"{name}.TextGrid"), "w") as f:
+            f.write(textgrid(intervals, xmax))
+        words = " ".join(p.lower().rstrip("012") for _, _, p in intervals if p not in ("", "sp"))
+        lines.append(f"{name}|{words}|{words}")
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return root, tg_dir
