@@ -19,10 +19,10 @@ non-zero exit code when it fails:
    timed. The attention kernel at every L and T bucket the FFT blocks are
    served at, a few edge lengths and HuBERT-large's head layout (at
    L = 1000 and at phase 10's (32, 16, 199, 64) and card-vs-CPU shapes), at
-   phase 11's shapes (tasks folded into the batch included) and at the head
-   dims 40 and 48 it pads, at each key split, held to f32 2e-5 / bf16 1e-2
+   phase 11's shapes (tasks folded into the batch included), at the head
+   dims 40 and 48 it pads and at phase 14's shapes, at each key split, held to f32 2e-5 / bf16 1e-2
    and the all-invalid sample to the mean of V (timed in phase 9); phases
-   4-11 fail if a main path launches it at a shape not held here. The MRF stage
+   4-14 fail if a main path launches it at a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
    B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000 beside its
    route's bound (split TF32 or bf16 tensor cores) and the f32 FMA bound,
@@ -128,12 +128,38 @@ non-zero exit code when it fails:
    loss falls) and `synth --text --ref_wav <a corpus wav> --vocoder_ckpt
    <HiFi-GAN V1>` with a base.yaml `speaker_emb: dvec` copy trained 5 steps
    (a finite wav; the mel card vs CPU within 1e-3).
-9. Attention timing (run last, after phase 13): the kernel at each key
+14. The T2U family at full width, on a corpus of 64 + 8 utterances of
+   1.5-10 s written from --seed: `make-units --source hubert_large_ll60k
+   --n_units 512` through the CLI (HuBERT-large drawn on the card; 24
+   attention launches per batch of 8; utterances/s, upstream and k-means
+   ms); `train --system tacot2u` through the CLI, 20 steps at B = 16 with
+   T2UConfig's full width (encoder 512, RNNs 1024; a falling loss; steps/s;
+   decoder ms and launches per step; card vs CPU teacher-forced logits
+   within 1e-3; with --profile a traced train step); a base.yaml u2s over
+   the unit symbols trained 10 steps from T2U2SDataModule, saved, and read
+   back through its model card; `train --system fscl-t2u` through the CLI
+   (config/model/fscl-t2u.yaml: HuBERT-large + Downstream1 at 256; the
+   generic path's episodes of 4 + 2), then 10 episodes of 32 + 8 on the
+   same system (26 attention launches each, a falling loss, episodes/s) and
+   a small episode card vs CPU (table and loss 1e-4); `t2u_tune_init` of a
+   32-shot split into an E2ETuneSystem from the trained T2U, 10 steps at
+   B = 4 on one batch through the frozen u2s (10 attention launches per
+   step, a falling loss, the u2s unchanged), then on two seeds 40 steps on
+   the stream at config/train/tune-t2s-1500.yaml's optimizer beside 40 at
+   lr 0 on the same batches and masks (the difference of their losses
+   read; steps/s; the held val loss read after each); one step's loss
+   1e-4 and gradient norm 1e-3 card vs CPU; chained serving of the 32
+   lines of phase 4 in batches of 8, text -> units -> mel -> wav
+   (`serve_t2u_batches`, `vocode_batches`: up to 2560 unit positions a
+   batch, 14 attention and 4 stage launches per batch, units/s,
+   audio-s/s). Every attention shape is held in phase 3.
+9. Attention timing (run last, after phase 14): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
-   (32, 16, 199, 64)), beside its route's bound (split TF32 or bf16 tensor cores) and
-   the f32 FMA bound of the earlier design. The kernel also through its
+   (32, 16, 199, 64)), and in float32 at every shape phase 14 launched,
+   beside its route's bound (split TF32 or bf16 tensor cores) and the f32
+   FMA bound of the earlier design. The kernel also through its
    public wrapper with CUDA events over back-to-back calls (how the main
    path calls it, and how earlier versions of this script timed it), and
    the wrapper's host time per call.
@@ -145,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -281,8 +308,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T0:6.1f}s] {msg}", flush=True)
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -472,6 +502,8 @@ def phase_attention(seed: int):
     shapes += [(S, 16, ssl_num_frames(w), 64) for S in (FSCL_S, TUNE_SUP_BATCH)
                for w in WAV_BUCKETS[:2]]
     shapes += [(1, H, line_L, Dh), (1, H, line_T, Dh)]
+    # phase 14: the T2U family (t2u_attention_shapes)
+    shapes += t2u_attention_shapes(H, Dh)
     shapes = list(dict.fromkeys(shapes))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
@@ -491,11 +523,15 @@ def phase_attention(seed: int):
     return max_err, checked
 
 
+LAUNCHED = {}     # what -> the (B, H, L, Dh, dtype) `attention_shapes` recorded
+
+
 @contextlib.contextmanager
 def attention_shapes(attn, checked, what: str):
     """Record the (B, H, L, Dh, dtype) of every `attention_cuda` call made
-    inside (through `attend`, which looks the wrapper up at call time); on
-    leaving, fail if one of them was not held to the plain version."""
+    inside (through `attend`, which looks the wrapper up at call time), in
+    LAUNCHED too; on leaving, fail if one of them was not held to the plain
+    version."""
     launch = attn.attention_cuda
     seen = set()
 
@@ -508,6 +544,7 @@ def attention_shapes(attn, checked, what: str):
         yield seen
     finally:
         attn.attention_cuda = launch
+        LAUNCHED.setdefault(what, set()).update(seen)
     if not seen:
         fail(f"{what}: no attention launch recorded")
     if seen - checked:
@@ -541,10 +578,12 @@ def host_us_per_call(fn, calls: int = 100) -> float:
     return 1e6 * seconds / calls
 
 
-def phase_attention_timing(seed: int):
+def phase_attention_timing(seed: int, extra_f32=()):
     """The attention kernel at each key split, the plain version and SDPA,
     timed at the encoder's and decoder's lengths of the served layout, at
-    HuBERT-large's head layout (16 heads of 64) and at phase 11's shapes.
+    HuBERT-large's head layout (16 heads of 64) and at phase 11's and 14's
+    shapes; and in float32 at the shapes of `extra_f32` (every shape phase
+    14 launched).
     Runs after the main path: the captures' cuBLAS workspace stays allocated
     and would count in its peak memory. The kernel is also timed through
     `attention_cuda` with CUDA events over 50 back-to-back calls, as earlier
@@ -563,11 +602,17 @@ def phase_attention_timing(seed: int):
         # phase 11: a SupInfo batch through HuBERT-large, 8 tasks folded
         # into one launch, and a head dim the wrapper pads (40 -> 64)
         (TUNE_SUP_BATCH, 16, ssl_num_frames(FSCL_WAV), 64),
-        (max(MANY_TASKS) * MANY_B, 2, MANY_T, 128), (8, 2, ssl_num_frames(FSCL_WAV), 40)]
+        (max(MANY_TASKS) * MANY_B, 2, MANY_T, 128), (8, 2, ssl_num_frames(FSCL_WAV), 40),
+        # phase 14: Downstream1 over a 32-shot support set in the 8 s wav
+        # bucket, HuBERT-large in make-units' batches of 8 at 10 s, the
+        # u2s encoder over the 1280 unit positions of a served L = 128 batch
+        (FSCL_T2U_SHOTS, 2, ssl_num_frames(8 * 16000), 128), (8, 16, ssl_num_frames(160000), 64),
+        (8, 2, 1280, 128)]
     timings = []
+    extra = sorted(set(extra_f32) - set(timed))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for B, H, L, Dh in timed:
+        for B, H, L, Dh in timed + (extra if dtype == torch.float32 else []):
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
             mask4 = valid[:, None, None, :]
             iters = 100 if L <= 256 else 20
@@ -3461,6 +3506,703 @@ def preprocess_chain(root: Path, store: Path, corpus: str, seed: int, attn_check
                  "card_vs_cpu_max_abs": err}
 
 
+# -- phase 14: the T2U family ---------------------------------------------------
+
+# A corpus of 64 + 8 utterances of 1.5-10 s (130-860 mel frames at hop 256 /
+# 22.05 kHz), 30-100 phonemes, with the frame-level pitch and energy that
+# unit discovery averages (tests/torch_corpus.py:write_corpus); 512 units, the
+# inventory of the reference's u2s card "512c" (config/model/fscl-t2u-e2e.yaml:
+# 30). Depth, to cut first: the step and episode counts.
+T2U_TRAIN, T2U_VAL, T2U_FRAMES, T2U_PHONES = 64, 8, (130, 860), (30, 100)
+T2U_UNITS, T2U_UNIT_NAME = 512, "hubert-512c"
+T2U_STEPS, U2S_STEPS = 20, 10          # B = 16 (config/train/baseline.yaml:3)
+FSCL_T2U_CLI_EPISODES, FSCL_T2U_EPISODES = 3, 10
+FSCL_T2U_SHOTS, FSCL_T2U_QUERIES = 32, 8    # config/algorithm/t2u/fscl.yaml
+E2E_B, E2E_COUNTED = 4, 10                  # config/train/tune-t2s-1500.yaml:4
+# The E2E tune on its stream at tune-t2s-1500.yaml's optimizer (Adam, betas
+# 0.9 / 0.98, eps 1e-9, clip 1.0, the sqrt schedule to lr 1e-3), cut from
+# the config's 1500 steps to E2E_STREAM and its 4000 warm-up steps with it
+# (to 4000 * E2E_STREAM / 1500, so that the lr climbs over the run to the
+# 3.75e-4 the config's 1500 steps reach), from the same start on two seeds
+# (the stream's draws and the dropout masks). Beside each run, a control at
+# lr 0 on the same seed sees the same batches and masks, so the difference
+# of their losses step by step is what the tune learned: B = 4 batches of
+# 1.5-10 s utterances vary more from one to the next than 40 steps move the
+# loss. The held val batches' loss is read before and after each run, and
+# after it with the T2U's BatchNorm statistics of the start. These are
+# readings: at this schedule the tune beats its control over its first
+# steps but not over the last 10 of 40 (PERF.md section 7), so the check
+# that the chain learns is the one-batch fit at lr 2e-3.
+E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 40, 2, 1500
+# Card vs CPU: the teacher-forced logits of the T2U trained above through
+# its 1024-wide recurrences (cuBLAS and the CPU's BLAS sum in another
+# order, and the recurrence carries the differences step to step); the
+# FSCL-T2U episode's table and eval loss through HuBERT-large's 24 f32
+# layers and Downstream1 (phase 10's bars); one E2E step's loss and the
+# global norm of its gradient (a sum over every T2U parameter of products
+# through the u2s trunk's backward).
+T2U_LOGIT_ATOL, T2U_TABLE_REL, T2U_LOSS_RTOL, T2U_GRAD_NORM_RTOL = 1e-3, 1e-4, 1e-4, 1e-3
+# Serving: the 32 lines the text -> mel phases serve, in batches of 8; the
+# two- and three-sentence lines take the L bucket 256, so the u2s runs over
+# 10 L = 2560 unit positions.
+T2U_LINES = LINES
+
+
+def t2u_attention_shapes(H: int, Dh: int):
+    """The (B, H, L, Dh) the T2U family launches the attention kernel at:
+    HuBERT-large (16 heads of 64) in make-units' batches of 8 at every SSL
+    wav bucket and over the FSCL-T2U support sets (32 shots, the generic
+    path's 4, the tune table's batches of 4) at every episode wav bucket;
+    Downstream1 (2 heads of 128) over the same support sets; the u2s trunk
+    at B = 4 (E2E) at every text and mel bucket, and in chained serving at
+    the 10 L unit positions of each served text bucket."""
+    from fscl_tpu_torch.data.batch import MEL_BUCKETS as DATA_MEL_BUCKETS, TEXT_BUCKETS
+    from fscl_tpu_torch.data.episodic import WAV_BUCKETS
+    from fscl_tpu_torch.data.ssl_units import SSL_WAV_BUCKETS
+    from fscl_tpu_torch.models.hubert import ssl_num_frames
+    from fscl_tpu_torch.serve import L_BUCKETS
+    shapes = [(8, 16, ssl_num_frames(w), 64) for w in SSL_WAV_BUCKETS]
+    for S in (FSCL_T2U_SHOTS, 4):
+        for w in WAV_BUCKETS:
+            shapes += [(S, 16, ssl_num_frames(w), 64), (S, 2, ssl_num_frames(w), 128)]
+    shapes += [(E2E_B, H, L, Dh) for L in (*TEXT_BUCKETS, *DATA_MEL_BUCKETS)]
+    shapes += [(8, H, 10 * L, Dh) for L in L_BUCKETS]
+    return shapes
+
+
+def t2u_corpus(root: Path, seed: int):
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_corpus import write_corpus
+    data = write_corpus(str(root), "en-t2u", "en", 0, seed + 60, n_train=T2U_TRAIN,
+                        n_val=T2U_VAL, frames=T2U_FRAMES, n_phones=T2U_PHONES,
+                        unit_name=T2U_UNIT_NAME)
+    t2u = str(Path(data).with_name("t2u.yaml"))
+    # the unit view for the u2s model card: the unit inventory as symbol set
+    u2s = Path(data).with_name("u2s.yaml")
+    u2s.write_text(Path(t2u).read_text().replace("symbol_id: en", f"symbol_id: {T2U_UNIT_NAME}"))
+    return data, t2u, str(u2s)
+
+
+def t2u_make_units(features: str, seed: int, attn_checked):
+    """`make-units --source hubert_large_ll60k --n_units 512` through the CLI:
+    HuBERT-large drawn on the card from the seed, its last layer over every
+    utterance in wav buckets of 8, k-means on the card, DPDP on the host."""
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.data.ssl_units import make_upstream
+    from fscl_tpu_torch.ops import attention as attn
+
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u make-units"):
+        t0 = time.perf_counter()
+        out = cli(["make-units", features, "--unit_name", T2U_UNIT_NAME, "--n_units",
+                   str(T2U_UNITS), "--source", "hubert_large_ll60k", "--seed", str(seed)])
+        wall = time.perf_counter() - t0
+    store = FeatureStore(features)
+    n = len(store.load_metadata())
+    units = store.get_ssl_unit_store(T2U_UNIT_NAME)
+    counts = [len(units.phoneme.read_from_query(q).split()) for q in store.load_metadata()]
+    if out["utterances"] != n or units.load_attrs().get("n_units") != T2U_UNITS or min(counts) < 1:
+        fail(f"t2u make-units: {out}, attrs {units.load_attrs()}, min units {min(counts)}")
+    with torch.device("meta"):
+        n_layers = make_upstream("hubert_large_ll60k").n_layers
+    if attn.LAUNCHES == 0 or attn.LAUNCHES % n_layers:
+        fail(f"t2u make-units: {attn.LAUNCHES} attention launches, not {n_layers} per batch")
+    sec = out["seconds"]
+    log(f"t2u make-units: {n} utterances in {wall:.2f} s = {n / wall:.2f} utterances/s "
+        f"(upstream {1e3 * sec['upstream']:.0f} ms, k-means {1e3 * sec['kmeans']:.0f} ms, "
+        f"logits + DPDP + store {1e3 * sec['units']:.0f} ms), {attn.LAUNCHES // n_layers} upstream "
+        f"batches; units per utterance {min(counts)}-{max(counts)}")
+    return {"utterances": n, "wall_s": wall, "utterances_per_s": n / wall,
+            "upstream_ms": 1e3 * sec["upstream"], "kmeans_ms": 1e3 * sec["kmeans"],
+            "units_ms": 1e3 * sec["units"], "units_per_utterance": [min(counts), max(counts)],
+            "attention_launches": attn.LAUNCHES}
+
+
+def decoder_step_cost(system, batch):
+    """ms per teacher-forced decoder step (CUDA events over one no-grad
+    forward, eval mode) and kernel launches per step (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    T = batch.units.shape[1]
+    with torch.no_grad():
+        system(batch)
+        ms = cuda_time_ms(lambda: system(batch), iters=2, warmup=1)
+        with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+            system(batch)
+            torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))
+    return {"T": T, "B": int(batch.units.shape[0]), "forward_ms": ms, "ms_per_step": ms / T,
+            "launches_per_step": launches / T}
+
+
+def t2u_train(root: Path, t2u: str, attn_checked, profile: bool, out_dir):
+    """`train --system tacot2u` through the CLI, T2U_STEPS at B = 16
+    (config/train/baseline.yaml + an overlay): T2UConfig's full width (the
+    generic path passes no T2U config), a falling loss; the decoder's cost
+    per step; with --profile a traced train step."""
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.data.datamodules import T2UDataModule
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems import factory
+
+    overlay = cli_train_overlay(root, "t2u-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 5\n  anneal_steps: []\n"
+                                f"step:\n  log_step: 1\n  save_step: {T2U_STEPS}\n")
+    exp = root / "exp-tacot2u"
+    probe = CliProbe()
+    attn.LAUNCHES = 0
+    with probe.active():
+        t0 = time.perf_counter()
+        system, state = cli(["train", "--system", "tacot2u", "--data_config", t2u,
+                             "--train_config", str(REPO / "config" / "train" / "baseline.yaml"),
+                             "--train_config", overlay, "--exp_dir", str(exp),
+                             "--total_step", str(T2U_STEPS)])
+        wall = time.perf_counter() - t0
+    fit, losses = probe.fits[-1], probe.read_losses()
+    c = system.t2u_cfg
+    if c != factory.T2UConfig(n_units=c.n_units) or state.step != T2U_STEPS:
+        fail(f"t2u train: config {c} is not T2UConfig's defaults, or {state.step} steps")
+    if not all(math.isfinite(x) for x in losses) or not falling(losses):
+        fail(f"t2u train: losses {losses}")
+    dm = T2UDataModule([read_data_config(t2u)], system.model_cfg, t2u_train_config(16))
+    dm.setup()
+    batch = to_device(next(dm.train_batches()), CARD)
+    cost = decoder_step_cost(system, batch)
+    log(f"t2u train (tacot2u, encoder {c.encoder_embedding_dim}, RNNs {c.attention_rnn_dim}, "
+        f"{c.n_units} unit symbols): {T2U_STEPS} "
+        f"steps at B=16 in {fit['seconds']:.2f} s = {fit['steps_per_s']:.2f} steps/s; loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; {attn.LAUNCHES} attention launches; decoder "
+        f"{cost['ms_per_step']:.3f} ms and {cost['launches_per_step']:.1f} launches per "
+        f"teacher-forced step (B={cost['B']}, T={cost['T']}, no grad); the CLI call {wall:.1f} s")
+    out = {"steps": T2U_STEPS, "steps_per_s": fit["steps_per_s"], "losses": losses,
+           "decoder": cost, "wall_s": wall, "attention_launches": attn.LAUNCHES}
+    if profile:
+        # no trace file: 34k launches a step make one of hundreds of MB
+        out["profile"] = profile_steps(lambda: system.train_step(state, batch), 1, None,
+                                       "t2u_train")
+    return system, batch, out
+
+
+def t2u_train_config(batch_size: int, **step):
+    """config/train/baseline.yaml with `batch_size`, lr 2e-3, warmup 5, no
+    anneal, and `step` fields set."""
+    import dataclasses
+    from fscl_tpu_torch.core.config import train_config_from_yaml
+    cfg = train_config_from_yaml(str(REPO / "config" / "train" / "baseline.yaml"))
+    optim = dataclasses.replace(cfg.optim, batch_size=batch_size, lr=2e-3, warmup_step=5,
+                                anneal_steps=())
+    return dataclasses.replace(cfg, optim=optim, **step)
+
+
+def id2symbols_of(system):
+    return tuple((k[len("table-"):], v.shape[0]) for k, v in system.embedding_model.tables.items())
+
+
+def t2u_card_vs_cpu_logits(system, batch):
+    """The trained T2U's teacher-forced logits (eval mode, the same prenet
+    masks) on the card and on the CPU."""
+    import torch
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.systems.t2u import TacoT2USystem
+    small = type(batch)(*(x[:4] for x in batch))
+    small_cpu = type(small)(*(x.cpu() for x in small))
+    B, L = small.texts.shape
+    masks = draw_masks(system.t2u_cfg, B, L, small.units.shape[1], False,
+                       torch.Generator().manual_seed(7), "cpu")
+    cpu = TacoT2USystem(system.model_cfg, id2symbols_of(system), system.t2u_cfg, device="cpu")
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    with torch.no_grad():
+        card, _ = system(small, type(masks)(*(None if m is None else m.to(CARD) for m in masks)))
+        ref, _ = cpu(small_cpu, masks)
+    err = float((card.cpu() - ref).abs().max())
+    log(f"t2u card vs CPU: teacher-forced logits (B={B}, T={small.units.shape[1]}) max |d| "
+        f"{err:.3g} (bar {T2U_LOGIT_ATOL}), max |logit| {float(ref.abs().max()):.3g}")
+    if not err <= T2U_LOGIT_ATOL:
+        fail(f"t2u card vs CPU: logits max |d| {err:.3g}")
+    del cpu
+    return {"B": B, "T": int(small.units.shape[1]), "logits_max_abs_err": err}
+
+
+def t2u_u2s(root: Path, t2u: str, u2s_cfg_path: str, attn_checked):
+    """The u2s: a base.yaml BaselineSystem over the unit symbols trained
+    U2S_STEPS steps at B = 16 on T2U2SDataModule's u2s side (as fscl_tpu's
+    run_t2u does), saved, its model card written and read back."""
+    import torch
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    from fscl_tpu_torch.core.config import model_config_from_yaml, read_data_config
+    from fscl_tpu_torch.data.mix_datamodules import T2U2SDataModule
+    from fscl_tpu_torch.frontend import n_symbols
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    from fscl_tpu_torch.systems.model_cards import (load_baseline_from_card, load_model_cards,
+                                                    write_model_card)
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    # base.yaml with a row per speaker of the corpus (it has one)
+    base = root / "u2s-model.yaml"
+    base.write_text((REPO / "config" / "model" / "base.yaml").read_text()
+                    + "\nspeaker:\n  n_speakers: 2\n")
+    base = str(base)
+    model_cfg = model_config_from_yaml(base)
+    train_cfg = t2u_train_config(16, log_step=1, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    dm = T2U2SDataModule([read_data_config(t2u)], model_cfg, train_cfg)
+    dm.setup()
+    torch.manual_seed(11)
+    u2s = BaselineSystem(model_cfg, ((T2U_UNIT_NAME, n_symbols(T2U_UNIT_NAME)),),
+                         optim_cfg=train_cfg.optim)
+    state = u2s.init_state()
+    rec = LossRecorder()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u u2s train"):
+        t0 = time.perf_counter()
+        Trainer(u2s, train_cfg, callbacks=[rec]).fit(
+            state, (b.u2s for b in dm.train_batches()), max_steps=U2S_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+    if not all(math.isfinite(x) for x in losses) or not falling(losses):
+        fail(f"t2u u2s train: losses {losses}")
+    ckpt = root / "exp-u2s" / "ckpt"
+    CheckpointManager(str(ckpt)).save(state.step, u2s, state)
+    cards = str(root / "model.json")
+    write_model_card(cards, "u2s-512c", {"ckpt": str(ckpt), "config_paths": [u2s_cfg_path],
+                                         "model_config": base})
+    loaded = load_baseline_from_card(load_model_cards(cards)["u2s-512c"])
+    same = all(torch.equal(a, b) for a, b in zip(u2s.state_dict().values(),
+                                                 loaded.state_dict().values()))
+    if not same:
+        fail("t2u u2s: the model card's system differs from the trained one")
+    log(f"t2u u2s (base.yaml over {n_symbols(T2U_UNIT_NAME)} unit symbols): {U2S_STEPS} steps "
+        f"at B=16 in {wall:.2f} s, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"{attn.LAUNCHES} attention launches; saved and reloaded through its model card")
+    return loaded, {"steps": U2S_STEPS, "steps_per_s": U2S_STEPS / wall, "losses": losses,
+                    "attention_launches": attn.LAUNCHES}
+
+
+def t2u_fscl(root: Path, t2u: str, attn_checked):
+    """`train --system fscl-t2u` through the CLI (config/model/fscl-t2u.yaml:
+    HuBERT-large drawn on the card, Downstream1 at 256; the generic path's
+    episodes of 4 + 2, ROADMAP Queue 3), then FSCL_T2U_EPISODES episodes of
+    32 + 8 (config/algorithm/t2u/fscl.yaml) from T2UEpisodicDataModule on
+    the same system, counted and timed; then one small episode card vs CPU."""
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.mix_datamodules import T2UEpisodicDataModule
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    overlay = cli_train_overlay(root, "fscl-t2u-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 5\n  anneal_steps: []\n"
+                                f"step:\n  log_step: 1\n  save_step: {FSCL_T2U_CLI_EPISODES}\n")
+    exp = root / "exp-fscl-t2u"
+    probe = CliProbe()
+    attn.LAUNCHES = 0
+    with probe.active(), attention_shapes(attn, attn_checked, "t2u fscl-t2u cli"):
+        system, state = cli([
+            "train", "--system", "fscl-t2u", "--data_config", t2u,
+            "--model_config", str(REPO / "config" / "model" / "fscl-t2u.yaml"),
+            "--algorithm_config", str(REPO / "config" / "algorithm" / "t2u" / "fscl.yaml"),
+            "--train_config", str(REPO / "config" / "train" / "fscl.yaml"),
+            "--train_config", overlay, "--exp_dir", str(exp),
+            "--total_step", str(FSCL_T2U_CLI_EPISODES)])
+    cli_losses, cli_launches = probe.read_losses(), attn.LAUNCHES
+    per_episode = system.upstream.n_layers + len(system.embedding_generator.layers)
+    raw = CheckpointManager(str(exp / "ckpt")).restore()
+    if any(k.startswith("upstream.") for k in raw["params"]) or \
+            not all(math.isfinite(x) for x in cli_losses) or \
+            cli_launches != per_episode * FSCL_T2U_CLI_EPISODES:
+        fail(f"t2u fscl-t2u cli: losses {cli_losses}, {cli_launches} attention launches, "
+             "or upstream tensors in the checkpoint")
+    train_cfg = t2u_train_config(8, log_step=1, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    dm = T2UEpisodicDataModule([read_data_config(t2u)], system.model_cfg, train_cfg,
+                               shots=FSCL_T2U_SHOTS, queries=FSCL_T2U_QUERIES)
+    dm.setup()
+    rec = LossRecorder()
+    gen0 = {k: v.clone() for k, v in system.embedding_generator.state_dict().items()}
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u fscl-t2u episodes"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Trainer(system, train_cfg, callbacks=[rec]).fit(
+            state, dm.train_batches(), max_steps=state.step + FSCL_T2U_EPISODES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+    moved = any(not torch.equal(v, system.embedding_generator.state_dict()[k])
+                for k, v in gen0.items())
+    if not all(math.isfinite(x) for x in losses) or not falling(losses) or not moved or \
+            attn.LAUNCHES != per_episode * FSCL_T2U_EPISODES:
+        fail(f"t2u fscl-t2u episodes: losses {losses}, {attn.LAUNCHES} attention launches, "
+             f"Downstream1 moved {moved}")
+    log(f"t2u fscl-t2u: the CLI's {FSCL_T2U_CLI_EPISODES} episodes of 4 + 2 (loss "
+        f"{cli_losses[0]:.3f} -> {cli_losses[-1]:.3f}, no upstream tensor in the checkpoint); "
+        f"{FSCL_T2U_EPISODES} episodes of {FSCL_T2U_SHOTS} + {FSCL_T2U_QUERIES} in {wall:.2f} s "
+        f"= {FSCL_T2U_EPISODES / wall:.3f} episodes/s, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"{per_episode} attention launches per episode, Downstream1 moved")
+    check = t2u_fscl_card_vs_cpu(system, dm, attn_checked)
+    return system, {"cli_episodes": FSCL_T2U_CLI_EPISODES, "cli_losses": cli_losses,
+                    "cli_attention_launches": cli_launches, "episodes": FSCL_T2U_EPISODES,
+                    "episodes_per_s": FSCL_T2U_EPISODES / wall, "losses": losses,
+                    "attention_launches": attn.LAUNCHES, "card_vs_cpu": check}
+
+
+def t2u_fscl_card_vs_cpu(system, dm, attn_checked):
+    """One episode of 4 + 2 in eval mode on the card and on the CPU (the
+    same weights, the same prenet masks): the table and the loss."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.data.mix_datamodules import T2UEpisodicDataModule
+    from fscl_tpu_torch.models.hubert import make_upstream
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.t2u import TransEmbT2USystem
+
+    small = T2UEpisodicDataModule(dm.data_configs, dm.model_cfg, dm.train_cfg, shots=4, queries=2)
+    small.setup()
+    ep = next(small.train_batches())
+    up = system.model_cfg.upstream
+    with torch.device("meta"):
+        shell = make_upstream(up.name, up)
+    cpu = TransEmbT2USystem(system.model_cfg, system.n_symbols, system.t2u_cfg, device="cpu",
+                            upstream=shell.to_empty(device="cpu"))
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    B, L = ep.qry.texts.shape
+    masks = draw_masks(system.t2u_cfg, B, L, ep.qry.units.shape[1], False,
+                       torch.Generator().manual_seed(8), "cpu")
+    got = {}
+    for name, s, dev in (("card", system, CARD), ("cpu", cpu, "cpu")):
+        e = to_device(ep, dev)
+        m = type(masks)(*(None if x is None else x.to(dev) for x in masks))
+        shapes = (attention_shapes(attn, attn_checked, "t2u fscl card vs CPU") if name == "card"
+                  else contextlib.nullcontext())
+        with shapes, torch.no_grad():
+            s.eval()
+            hidden, _ = s.extract_ssl(e.sup.wavs, e.sup.wav_lens)
+            table = s.build_embedding_table(hidden, e.sup)
+            loss, _ = s.loss_and_metrics(e, masks=m)
+        got[name] = (table.cpu(), float(loss))
+    (t_card, l_card), (t_cpu, l_cpu) = got["card"], got["cpu"]
+    table_rel = float((t_card - t_cpu).abs().max() / t_cpu.abs().max())
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"t2u fscl card vs CPU (4 + 2, eval): table relative max |d| {table_rel:.3g} (bar "
+        f"{T2U_TABLE_REL}), loss {l_card:.6f} / {l_cpu:.6f}, relative {loss_rel:.3g} (bar "
+        f"{T2U_LOSS_RTOL})")
+    if not (table_rel <= T2U_TABLE_REL and loss_rel <= T2U_LOSS_RTOL):
+        fail(f"t2u fscl card vs CPU: table {table_rel:.3g}, loss {loss_rel:.3g}")
+    del cpu
+    return {"table_rel": table_rel, "loss_cuda": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel}
+
+
+def e2e_held_batches(dm, dc):
+    """The val split's utterances as E2E batches of E2E_B (t2u and u2s views
+    of the same utterances, as T2U2SDataModule pairs them)."""
+    from fscl_tpu_torch.data.batch import collate_batch
+    from fscl_tpu_torch.data.datamodules import collate_t2u
+    from fscl_tpu_torch.data.datasets import UnitDataset
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.systems.t2u_tune import E2EBatch
+    ds = UnitDataset(dc.subset_path("val"), FeatureStore(dc.data_dir), dc)
+    samples = [ds[i] for i in range(len(ds))]
+    return [E2EBatch(t2u=collate_t2u(samples[i:i + E2E_B]),
+                     u2s=collate_batch([dm.u2s_sample(dc, x) for x in samples[i:i + E2E_B]],
+                                       **dm._var_kw)[1])
+            for i in range(0, len(samples) - E2E_B + 1, E2E_B)]
+
+
+def e2e_held_loss(system, held, buffers=None) -> dict:
+    """Mean total, T2U and U2S losses of the held batches in eval mode, each
+    with the same prenet masks at every reading (the prenet drops out at
+    inference too); with `buffers`, read with those BatchNorm statistics
+    (the system's own are put back after)."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    own = None
+    if buffers is not None:
+        own = {k: system.state_dict()[k].clone() for k in buffers}
+        system.load_state_dict(buffers, strict=False)
+    out = {"Total Loss": 0.0, "T2U Loss": 0.0, "U2S Loss": 0.0}
+    system.eval()
+    with torch.no_grad():
+        for i, b in enumerate(held):
+            B, L = b.t2u.texts.shape
+            masks = draw_masks(system.t2u_cfg, B, L, b.t2u.units.shape[1], False,
+                               torch.Generator().manual_seed(100 + i), "cpu")
+            masks = type(masks)(*(None if m is None else m.to(system.device) for m in masks))
+            _, metrics = system.loss_and_metrics(to_device(b, system.device), masks=masks)
+            for k in out:
+                out[k] += float(metrics[k]) / len(held)
+    if own is not None:
+        system.load_state_dict(own, strict=False)
+    return out
+
+
+def t2u_e2e(t2u: str, tacot2u, fscl, u2s, seed: int, attn_checked):
+    """`t2u_tune_init` (the 32-shot split's table through the FSCL-T2U
+    system) into an E2ETuneSystem that starts from the trained T2U, chained
+    through the frozen u2s. Then, from that start: E2E_COUNTED steps at
+    B = 4 on one batch at lr 2e-3 (its loss falls: the gradient's sign
+    through the chain; launches counted, the u2s unchanged); for each of
+    E2E_SEEDS seeds, E2E_STREAM steps on the stream at tune-t2s-1500.yaml's
+    optimizer, its warm-up cut with the run, and the same steps at lr 0 on
+    the same batches and masks, the difference of their losses and the held
+    val loss read after each (the second seed's tune timed); one step's
+    loss and gradient norm card vs CPU."""
+    import dataclasses
+    import torch
+    from fscl_tpu_torch.core.config import read_data_config, train_config_from_yaml
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.data.datasets import FSCLDataset
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.data.episodic import collate_sup_info
+    from fscl_tpu_torch.data.mix_datamodules import T2U2SDataModule
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    from fscl_tpu_torch.systems.t2u_tune import E2ETuneSystem, t2u_tune_init
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    dc = read_data_config(t2u)
+    steps = dict(log_step=1, save_step=10**9, val_step=10**9, synth_step=10**9)
+    fit_cfg = t2u_train_config(E2E_B, **steps)
+    ref = train_config_from_yaml(str(REPO / "config" / "train" / "tune-t2s-1500.yaml"))
+    if ref.total_step != E2E_REF_STEPS:
+        fail(f"tune-t2s-1500.yaml runs {ref.total_step} steps, not {E2E_REF_STEPS}")
+    warmup = round(ref.optim.warmup_step * E2E_STREAM / E2E_REF_STEPS)
+    ref_cfg = dataclasses.replace(ref, optim=dataclasses.replace(ref.optim, warmup_step=warmup),
+                                  **steps)
+
+    def build(u2s_system, device):
+        return E2ETuneSystem(u2s.model_cfg, id2symbols_of(tacot2u), tacot2u.t2u_cfg, u2s_system,
+                             device=device, u2s_symbol_id=T2U_UNIT_NAME)
+
+    e2e = build(u2s, CARD)
+    missing, unexpected = e2e.load_state_dict(tacot2u.state_dict(), strict=False)
+    if unexpected or any(not k.startswith("u2s_system.") for k in missing):
+        fail(f"t2u e2e: loading the trained T2U left {missing[:3]} / {unexpected[:3]}")
+    ds = FSCLDataset(dc.subset_path("train"), FeatureStore(dc.data_dir), dc, fscl.model_cfg)
+    shots = [ds[i] for i in range(FSCL_T2U_SHOTS)]
+    sups = [collate_sup_info(shots[i:i + 4]) for i in range(0, FSCL_T2U_SHOTS, 4)]
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u tune_init"):
+        t0 = time.perf_counter()
+        table = t2u_tune_init(fscl, e2e, sups, dc.symbol_id)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    init_launches = attn.LAUNCHES
+    if not torch.isfinite(table).all():
+        fail("t2u tune_init: non-finite table")
+    start = {k: v.clone() for k, v in e2e.state_dict().items()
+             if not k.startswith("u2s_system.")}
+    u2s0 = {k: v.clone() for k, v in e2e.u2s_system.state_dict().items()}
+    per_step = u2s.model_cfg.transformer.encoder_layer + u2s.model_cfg.transformer.decoder_layer
+
+    def fit(train_cfg, batches, n_steps, run_seed):
+        e2e.load_state_dict(start, strict=False)
+        e2e.optim_cfg = train_cfg.optim
+        e2e.generator.manual_seed(run_seed)
+        rec = LossRecorder()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Trainer(e2e, train_cfg, callbacks=[rec]).fit(e2e.init_state(), batches,
+                                                     max_steps=n_steps)
+        torch.cuda.synchronize()
+        return [float(m["Total Loss"]) for _, m, _ in rec.logs], time.perf_counter() - t0
+
+    # the gradient's sign through the chain: one batch, lr 2e-3
+    dm = T2U2SDataModule([dc], u2s.model_cfg, fit_cfg)
+    dm.setup()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u e2e tune"):
+        fit_losses, _ = fit(fit_cfg, itertools.repeat(next(dm.train_batches())), E2E_COUNTED,
+                            seed)
+        counted_launches = attn.LAUNCHES
+        # the tune on its stream at the reference's optimizer, each run
+        # beside its lr-0 control
+        held = e2e_held_batches(dm, dc)
+        bn0 = {k: v for k, v in start.items() if "running_" in k or "num_batches" in k}
+        e2e.load_state_dict(start, strict=False)
+        held0 = e2e_held_loss(e2e, held)
+        control_cfg = dataclasses.replace(
+            ref_cfg, optim=dataclasses.replace(ref_cfg.optim, lr=0.0))
+        runs = []
+        for run_seed in range(seed, seed + E2E_SEEDS):
+            run = {"seed": run_seed}
+            for name, cfg in (("tune", ref_cfg), ("control", control_cfg)):
+                cfg = dataclasses.replace(cfg, seed=run_seed)
+                stream = T2U2SDataModule([dc], u2s.model_cfg, cfg)
+                stream.setup()
+                losses, wall = fit(cfg, stream.train_batches(), E2E_STREAM, run_seed)
+                run[name] = {"stream_losses": losses, "wall_s": wall,
+                             "steps_per_s": E2E_STREAM / wall, "held": e2e_held_loss(e2e, held),
+                             "held_start_bn": e2e_held_loss(e2e, held, bn0)}
+            gain = [a - b for a, b in zip(run["tune"]["stream_losses"],
+                                          run["control"]["stream_losses"])]
+            run["gain_first10"], run["gain_last10"] = sum(gain[:10]) / 10, sum(gain[-10:]) / 10
+            runs.append(run)
+    unchanged = all(torch.equal(v, e2e.u2s_system.state_dict()[k]) for k, v in u2s0.items())
+    finite = all(math.isfinite(x) for r in runs for k in ("tune", "control")
+                 for x in r[k]["stream_losses"])
+    if not all(math.isfinite(x) for x in fit_losses) or not falling(fit_losses) or \
+            not unchanged or counted_launches != per_step * E2E_COUNTED or not finite:
+        fail(f"t2u e2e: one-batch losses {fit_losses}, u2s unchanged {unchanged}, "
+             f"{counted_launches} attention launches (expected {per_step} per step: the u2s "
+             f"trunk's forward); stream runs {runs}")
+    # one step card vs CPU: the loss and the gradient's global norm
+    batch = next(stream.train_batches())
+    B, L = batch.t2u.texts.shape
+    masks = draw_masks(e2e.t2u_cfg, B, L, batch.t2u.units.shape[1], True,
+                       torch.Generator().manual_seed(9), "cpu")
+    cpu = build(BaselineSystem(u2s.model_cfg, id2symbols_of(u2s), device="cpu"), "cpu")
+    cpu.load_state_dict(e2e.state_dict(), strict=True)
+    got = {}
+    for name, s in (("card", e2e), ("cpu", cpu)):
+        m = type(masks)(*(None if x is None else x.to(s.device) for x in masks))
+        s.train()
+        loss, _ = s.loss_and_metrics(to_device(batch, s.device), masks=m)
+        params = [p for n, p in s.named_parameters() if s.trainable_mask()[n]]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        s.eval()
+        got[name] = (float(loss.detach()), float(torch.sqrt(sum((g.double() ** 2).sum()
+                                                       for g in grads if g is not None))))
+    (l_card, g_card), (l_cpu, g_cpu) = got["card"], got["cpu"]
+    loss_rel, grad_rel = abs(l_card - l_cpu) / abs(l_cpu), abs(g_card - g_cpu) / g_cpu
+    del cpu
+    steps_per_s = runs[-1]["tune"]["steps_per_s"]
+    log(f"t2u e2e: tune_init of a {FSCL_T2U_SHOTS}-shot split in {1e3 * init_s:.0f} ms "
+        f"({init_launches} attention launches); {E2E_COUNTED} steps at B={E2E_B} on one batch "
+        f"(lr 2e-3) through the frozen u2s, loss {fit_losses[0]:.3f} -> {fit_losses[-1]:.3f}, "
+        f"u2s unchanged, {per_step} attention launches per step")
+    fmt = "total {Total Loss:.5f} (T2U {T2U Loss:.5f}, U2S {U2S Loss:.7f})".format
+    log(f"t2u e2e held val loss ({len(held)} batches) at the start: {fmt(**held0)}")
+    for r in runs:
+        t, c = r["tune"], r["control"]
+        log(f"t2u e2e (tune-t2s-1500.yaml's optimizer, warm-up {ref_cfg.optim.warmup_step}, "
+            f"seed {r['seed']}): {E2E_STREAM} stream steps at B={E2E_B} in {t['wall_s']:.2f} s "
+            f"= {t['steps_per_s']:.2f} steps/s; stream loss mean of the first / last 10 steps "
+            f"{sum(t['stream_losses'][:10]) / 10:.5f} / {sum(t['stream_losses'][-10:]) / 10:.5f}, "
+            f"the lr-0 control's {sum(c['stream_losses'][:10]) / 10:.5f} / "
+            f"{sum(c['stream_losses'][-10:]) / 10:.5f}: tune - control over the first / last "
+            f"10 {r['gain_first10']:+.5f} / {r['gain_last10']:+.5f} (read, not held to a fall: "
+            f"PERF.md section 7)")
+        for name in ("tune", "control"):
+            log(f"t2u e2e held val loss after the {name} run (seed {r['seed']}): "
+                f"{fmt(**r[name]['held'])}; with the start's BatchNorm statistics "
+                f"{fmt(**r[name]['held_start_bn'])}")
+    log(f"t2u e2e card vs CPU: loss {l_card:.6f} / {l_cpu:.6f} ({loss_rel:.3g}, bar "
+        f"{T2U_LOSS_RTOL}), gradient norm {g_card:.6g} / {g_cpu:.6g} ({grad_rel:.3g}, bar "
+        f"{T2U_GRAD_NORM_RTOL})")
+    if not (loss_rel <= T2U_LOSS_RTOL and grad_rel <= T2U_GRAD_NORM_RTOL):
+        fail(f"t2u e2e card vs CPU: loss {loss_rel:.3g}, gradient norm {grad_rel:.3g}")
+    return e2e, {"tune_init_ms": 1e3 * init_s, "tune_init_attention_launches": init_launches,
+                 "steps": E2E_COUNTED, "losses": fit_losses, "steps_per_s": steps_per_s,
+                 "held_start": held0, "stream_runs": runs, "attention_launches": counted_launches,
+                 "card_vs_cpu": {"loss_cuda": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+                                 "grad_norm_cuda": g_card, "grad_norm_cpu": g_cpu,
+                                 "grad_norm_rel": grad_rel}}
+
+
+def t2u_chained(e2e, seed: int, sr: int, attn_checked, stage_checked):
+    """Text -> units -> mel -> wav: `serve_t2u_batches` (the tuned T2U's
+    `infer`, all 10 L steps, then the u2s' two-pass synthesis) and
+    `vocode_batches` (HiFi-GAN V1 with random weights from the seed) over
+    T2U_LINES in batches of 8; a warm-up run, then one timed and counted."""
+    import torch
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.serve import serve_t2u_batches, vocode_batches
+
+    vocoder = Vocoder(build_vocoder(seed, CARD), device=CARD)
+    hop = vocoder.model.hop
+    u2s = e2e.u2s_system
+
+    def run(lines):
+        return [(b, w) for b, w in vocode_batches(
+            vocoder, serve_t2u_batches(e2e, u2s, lines, T2U_UNIT_NAME))]
+
+    run(T2U_LINES[:8])
+    attn.LAUNCHES = mrf.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with attention_shapes(attn, attn_checked, "t2u chained serving"):
+        t0 = time.perf_counter()
+        out = run(T2U_LINES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t = u2s.model_cfg.transformer
+    n_batches = math.ceil(len(T2U_LINES) / 8)
+    per_batch = 2 * t.encoder_layer + t.decoder_layer
+    launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
+    if launches != {"attention_fwd": per_batch * n_batches, "mrf_stage": 4 * n_batches}:
+        fail(f"t2u chained: launches {launches}, expected {per_batch} and 4 per batch")
+    samples = units = steps = 0
+    for b, wav in out:
+        B, T = b.postnet_mel.shape[:2]
+        if tuple(wav.shape) != (B, T * hop) or not torch.isfinite(wav).all() \
+                or float(wav.abs().max()) > 1.0:
+            fail(f"t2u chained: wav {tuple(wav.shape)} for mel {tuple(b.postnet_mel.shape)}, or "
+                 "not finite in [-1, 1]")
+        unchecked = [(B, C, T * up) for C, up, _ in V1_STAGES
+                     if (B, C, T * up) not in stage_checked]
+        if unchecked:
+            fail(f"t2u chained: stage shapes {unchecked} were not held to the plain version")
+        n = b.n_units.cpu()
+        if ((b.units.cpu() != 0).sum(dim=1) > n).any():
+            fail("t2u chained: unit ids past a sample's <eos>")
+        units += int(n.sum())
+        steps += int(b.units.shape[1])
+        samples += int(b.mel_len.clamp(min=1).sum()) * hop
+    log(f"t2u chained: {len(T2U_LINES)} lines in {n_batches} batches, {steps // n_batches} "
+        f"decoder steps per batch, {units} units ({units / wall:.1f} units/s), "
+        f"{samples / sr:.2f} s of audio in {wall:.3f} s = {samples / sr / wall:.2f} audio-s/s; "
+        f"{per_batch} attention + 4 stage launches per batch")
+    return {"lines": len(T2U_LINES), "batches": n_batches, "decoder_steps_per_batch":
+            steps / n_batches, "units": units, "units_per_s": units / wall,
+            "audio_s": samples / sr, "audio_s_per_s": samples / sr / wall, "wall_s": wall,
+            "launches": launches}
+
+
+def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, out_dir):
+    """Main path, the T2U family at full width on a corpus written from the
+    seed: make-units (HuBERT-large, 512 units), train tacot2u, a u2s and its
+    model card, FSCL-T2U episodes, the E2E tune, chained serving."""
+    import shutil
+    import tempfile
+    import torch
+
+    root = Path(tempfile.mkdtemp(prefix="fscl_t2u_"))
+    summary = {}
+    try:
+        t0 = time.perf_counter()
+        data, t2u, u2s_cfg = t2u_corpus(root, seed)
+        log(f"t2u: wrote a corpus of {T2U_TRAIN} + {T2U_VAL} utterances of "
+            f"{T2U_FRAMES[0]}-{T2U_FRAMES[1]} mel frames in {time.perf_counter() - t0:.2f} s")
+        features = str(Path(data).parent / "features")
+        summary["make_units"] = t2u_make_units(features, seed, attn_checked)
+        tacot2u, batch, summary["train"] = t2u_train(root, t2u, attn_checked, profile, out_dir)
+        summary["train"]["card_vs_cpu"] = t2u_card_vs_cpu_logits(tacot2u, batch)
+        u2s, summary["u2s"] = t2u_u2s(root, t2u, u2s_cfg, attn_checked)
+        fscl, summary["fscl"] = t2u_fscl(root, t2u, attn_checked)
+        e2e, summary["e2e"] = t2u_e2e(t2u, tacot2u, fscl, u2s, seed, attn_checked)
+        del fscl
+        torch.cuda.empty_cache()
+        summary["chained"] = t2u_chained(e2e, seed, 22050, attn_checked, stage_checked)
+        del tacot2u, e2e, u2s
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3492,7 +4234,11 @@ def main(argv=None) -> int:
     check_f32_precision("phase 12")
     pre = phase_preprocess(args.seed, card, attn_checked, stage_checked, args.profile, args.out)
     check_f32_precision("phase 13")
-    timings = phase_attention_timing(args.seed)
+    t2u = phase_t2u(args.seed, card, attn_checked, stage_checked, args.profile, args.out)
+    check_f32_precision("phase 14")
+    timings = phase_attention_timing(args.seed, {
+        shape[:4] for what, seen in LAUNCHED.items() if what.startswith("t2u")
+        for shape in seen if shape[4] == "float32"})
 
     main_row = next(r for r in timings
                     if r["dtype"] == "float32" and r["L"] == 1000 and r["H"] == 2)
@@ -3524,7 +4270,14 @@ def main(argv=None) -> int:
                              "preprocess_train": pre["train"]["base"]["attention_launches"],
                              "preprocess_train_dvec": pre["train"]["dvec"]["attention_launches"],
                              "preprocess_synth_ref_wav": pre["synth"]["launches"][
-                                 "attention_fwd"]},
+                                 "attention_fwd"],
+                             "t2u_make_units": t2u["make_units"]["attention_launches"],
+                             "t2u_u2s_train": t2u["u2s"]["attention_launches"],
+                             "t2u_fscl_cli": t2u["fscl"]["cli_attention_launches"],
+                             "t2u_fscl_episodes": t2u["fscl"]["attention_launches"],
+                             "t2u_tune_init": t2u["e2e"]["tune_init_attention_launches"],
+                             "t2u_e2e_tune": t2u["e2e"]["attention_launches"],
+                             "t2u_chained": t2u["chained"]["launches"]["attention_fwd"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3551,7 +4304,8 @@ def main(argv=None) -> int:
                              "train": train["mrf_stage_launches"],
                              "tune": tune["mrf_stage_launches"],
                              "cli_synth": cli["synth"]["launches"]["mrf_stage"],
-                             "preprocess_synth_ref_wav": pre["synth"]["launches"]["mrf_stage"]},
+                             "preprocess_synth_ref_wav": pre["synth"]["launches"]["mrf_stage"],
+                             "t2u_chained": t2u["chained"]["launches"]["mrf_stage"]},
         "max_abs_err": stage_err["float32"],
         # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
         "ms": sum(r["ms"] for r in f32_stages),
@@ -3592,7 +4346,7 @@ def main(argv=None) -> int:
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
-              "cli": cli, "preprocess": pre,
+              "cli": cli, "preprocess": pre, "t2u": t2u,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

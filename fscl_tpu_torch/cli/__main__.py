@@ -1,7 +1,7 @@
-"""`python -m fscl_tpu_torch.cli preprocess|train|tune|synth ...` (port of
-`fscl_tpu/cli/__main__.py`).
+"""`python -m fscl_tpu_torch.cli preprocess|make-units|train|tune|synth ...`
+(port of `fscl_tpu/cli/__main__.py`).
 
-The `preprocess`, `train`, `tune` and `synth` subparsers take fscl_tpu's
+The `preprocess`, `make-units`, `train`, `tune` and `synth` subparsers take fscl_tpu's
 flags with its defaults (`:13-127`), plus `--device` (default `cuda`, through
 `core.device.resolve_device`: without a card it raises unless `--device cpu`
 is passed). A flag the port does not run yet raises when it is set to
@@ -14,7 +14,7 @@ import argparse
 import sys
 
 # fscl_tpu's other subcommands; they wait for ROADMAP.md Queue 1, item 13
-WAITING_COMMANDS = ("evaluate", "make-units", "clean", "pack", "rehearse")
+WAITING_COMMANDS = ("evaluate", "clean", "pack", "rehearse")
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -55,9 +55,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="limit to 128 utterances (reference --debug)")
     _add_device(p)
 
+    mu = sub.add_parser("make-units",
+                        help="pseudo-unit discovery (k-means + DPDP) into ssl_units/<name>")
+    mu.add_argument("features_dir")
+    mu.add_argument("--unit_name", required=True)
+    mu.add_argument("--n_units", type=int, default=64)
+    mu.add_argument("--source", default="mel", help="mel (default) or an SSL upstream name")
+    mu.add_argument("--seed", type=int, default=0)
+    mu.add_argument("--limit", type=int, default=None)
+    mu.add_argument("--layer", type=int, default=-1,
+                    help="SSL hidden layer to cluster (hubert sources)")
+    mu.add_argument("--upstream_ckpt", default=None,
+                    help="upstream state dict (HF HubertModel keys) for the SSL source "
+                         "(random weights from --seed without)")
+    _add_device(mu)
+
     t = sub.add_parser("train", help="train a system")
     t.add_argument("--system", default="baseline",
-                   help="registry key (baseline, baseline-tune, fscl, fscl-orig)")
+                   help="registry key (baseline, baseline-tune, fscl, fscl-orig, tacot2u, "
+                        "fscl-t2u, ...: the generic path builds any ported key)")
     t.add_argument("--data_config", action="append", required=True)
     t.add_argument("--model_config", default=None)
     t.add_argument("--train_config", action="append", default=None,
@@ -145,6 +161,8 @@ def main(argv=None):
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.command == "preprocess":
         from fscl_tpu_torch.cli.preprocess_cmd import run
+    elif args.command == "make-units":
+        from fscl_tpu_torch.cli.make_units_cmd import run
     elif args.command == "train":
         from fscl_tpu_torch.cli.train_cmd import run
     elif args.command == "tune":

@@ -2,10 +2,14 @@
 `fscl_tpu/cli/train_cmd.py`, main.py:43-208).
 
 Ported: the `baseline`/`baseline-tune` and `fscl`/`fscl-orig` paths
-(`:90-125`), `--pretrain_ckpt` (warm start), `--resume` (full restore),
-`--debug`, `--total_step` and `--steps_per_dispatch`. The generic path
-through `systems/factory.py` waits for ROADMAP Queue 1, item 6; the
-multi-device and tracking flags for items 11 and 12, and raise when set.
+(`:90-125`), the generic path (`:121-133`: `systems/factory.py:build_system`
+and the key's registered datamodule, which the T2U family's keys take),
+`--pretrain_ckpt` (warm start), `--resume` (full restore), `--debug`,
+`--total_step` and `--steps_per_dispatch`. The multi-device and tracking
+flags wait for items 11 and 12, and raise when set. The generic path keeps
+fscl_tpu's faults (ROADMAP Queue 3): it passes the factory no T2U config (a
+model YAML's `tacotron2:` block is not read) and no u2s (the E2E keys
+raise).
 
 One repair against fscl_tpu: with a d-vector model (`speaker_emb: dvec`,
 config/model/fscl-fastspeech2.yaml) fscl_tpu's episodes carry speaker ids
@@ -28,12 +32,14 @@ from fscl_tpu_torch.core.config import (
 )
 from fscl_tpu_torch.core.device import resolve_device
 from fscl_tpu_torch.data.batch import collate_batch
+from fscl_tpu_torch.data.datamodules import datamodule_kwargs_for, get_datamodule
 from fscl_tpu_torch.data.datasets import ConcatDataset, FastSpeech2Dataset, FSCLDataset
 from fscl_tpu_torch.data.episodic import EpisodicSampler, InfiniteEpisodes
 from fscl_tpu_torch.data.feature_store import FeatureStore
 from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, register_unit_symbols
 from fscl_tpu_torch.obs.loggers import CheckpointCallback, LossTableLogger, TensorBoardLogger
 from fscl_tpu_torch.systems import get_system
+from fscl_tpu_torch.systems.factory import build_system
 from fscl_tpu_torch.train.trainer import Trainer
 
 UNPORTED_FLAGS = (  # flag, its default, the ROADMAP.md Queue 1 item that ports it
@@ -83,6 +89,57 @@ def baseline_batches(dataset, train_cfg: TrainConfig, model_cfg: ModelConfig, dv
         yield batch
 
 
+def _main_path(name, data_configs, model_cfg, train_cfg, algo_cfg, id2symbols, device):
+    """The baseline and FSCL systems with fscl_tpu's own collates: (system,
+    batch-stream factory)."""
+    sys_cls = get_system(name)
+    stores = {dc.name: FeatureStore(dc.data_dir) for dc in data_configs}
+    need_ssl = name.startswith("fscl")
+    # d-vector speaker paths need per-utterance reference mel slices
+    # (speaker_encoder.py:115-136); datasets load them, collate pads them
+    dvec_slices = model_cfg.speaker.n_ref_slices if model_cfg.speaker.uses_dvec else None
+    ds_kw = {"spk_refer_wav": True} if dvec_slices else {}
+    ds_cls = FSCLDataset if need_ssl else FastSpeech2Dataset
+    datasets = [ds_cls(dc.subset_path("train"), stores[dc.name], dc, model_cfg, **ds_kw)
+                for dc in data_configs]
+    dataset = ConcatDataset(datasets)
+    check_speaker_table(datasets, model_cfg)
+    if not need_ssl:
+        system = sys_cls(model_cfg, id2symbols, device=device, optim_cfg=train_cfg.optim)
+        return system, lambda: baseline_batches(dataset, train_cfg, model_cfg, dvec_slices)
+    # episodes carry raw per-language ids; the generated table only needs
+    # to cover the largest per-language inventory (static shape)
+    n_symbols = max(n for _, n in id2symbols)
+    system = sys_cls(model_cfg, n_symbols, device=device, optim_cfg=train_cfg.optim,
+                     upstream_seed=train_cfg.seed)
+    labels = []
+    for d in datasets:
+        labels.extend([d.config.lang_id] * len(d))
+    shots, queries = algo_cfg.adapt.shots, algo_cfg.adapt.queries
+    sampler = EpisodicSampler(labels, shots=shots, queries=queries, seed=train_cfg.seed)
+    # fscl_tpu draws one episode to initialise its state before training;
+    # drawing its task here keeps both on the same episodes
+    sampler.sample_task()
+    stream = InfiniteEpisodes(dataset, sampler, shots, queries,
+                              var_kw={"dvec_slices": dvec_slices} if dvec_slices else None)
+    return system, lambda: iter(stream)
+
+
+def _generic_path(args, data_configs, model_cfg, train_cfg, algo_cfg, device):
+    """Any other registered key: the factory's system and the key's
+    datamodule (fscl_tpu's `:121-133`); the T2U systems' dropout generator
+    and an FSCL-T2U upstream are seeded from the train config's seed."""
+    seeds = {"seed": train_cfg.seed}
+    if args.system.startswith("fscl-t2u") and "tune" not in args.system:
+        seeds["upstream_seed"] = train_cfg.seed
+    system = build_system(args.system, model_cfg, train_cfg.optim, data_configs, algo_cfg,
+                          device=device, **seeds)
+    dm = get_datamodule(args.system)(data_configs, model_cfg, train_cfg, exp_dir=args.exp_dir,
+                                     **datamodule_kwargs_for(args.system, algo_cfg))
+    dm.setup()
+    return system, dm.train_batches
+
+
 def run(args):
     """Returns (system, final TrainState)."""
     device = resolve_device(args.device)
@@ -114,56 +171,19 @@ def run(args):
     id2symbols = tuple((dc.symbol_id, len(LANG_ID2SYMBOLS[dc.symbol_id]))
                        for dc in data_configs)
 
-    sys_cls = get_system(args.system)
-    if args.system not in ("baseline", "baseline-tune", "fscl", "fscl-orig"):
-        raise NotImplementedError(
-            f"system '{args.system}' goes through the generic path of systems/factory.py, "
-            "not ported yet: ROADMAP.md Queue 1, item 6")
-
-    # datasets
-    stores = {dc.name: FeatureStore(dc.data_dir) for dc in data_configs}
-    need_ssl = args.system.startswith("fscl")
-    # d-vector speaker paths need per-utterance reference mel slices
-    # (speaker_encoder.py:115-136); datasets load them, collate pads them
-    dvec_slices = model_cfg.speaker.n_ref_slices if model_cfg.speaker.uses_dvec else None
-    ds_kw = {"spk_refer_wav": True} if dvec_slices else {}
-    ds_cls = FSCLDataset if need_ssl else FastSpeech2Dataset
-    datasets = []
     for dc in data_configs:
-        train_txt = dc.subset_path("train")
-        if not train_txt:
+        if not dc.subset_path("train"):
             raise ValueError(f"data config {dc.name} has no train subset")
-        datasets.append(ds_cls(train_txt, stores[dc.name], dc, model_cfg, **ds_kw))
-    dataset = ConcatDataset(datasets)
-    check_speaker_table(datasets, model_cfg)
-
-    # system: the trunk from torch's init under the seed (and the FSCL
-    # upstream drawn on the device from it)
+    need_ssl = args.system.startswith("fscl")
+    # the trunk from torch's init under the seed (and an FSCL upstream drawn
+    # on the device from it)
     torch.manual_seed(train_cfg.seed)
-    if not need_ssl:
-        system = sys_cls(model_cfg, id2symbols, device=device, optim_cfg=train_cfg.optim)
-
-        def batches():
-            return baseline_batches(dataset, train_cfg, model_cfg, dvec_slices)
+    if args.system in ("baseline", "baseline-tune", "fscl", "fscl-orig"):
+        system, batches = _main_path(args.system, data_configs, model_cfg, train_cfg, algo_cfg,
+                                     id2symbols, device)
     else:
-        # episodes carry raw per-language ids; the generated table only
-        # needs to cover the largest per-language inventory (static shape)
-        n_symbols = max(n for _, n in id2symbols)
-        system = sys_cls(model_cfg, n_symbols, device=device, optim_cfg=train_cfg.optim,
-                         upstream_seed=train_cfg.seed)
-        labels = []
-        for d in datasets:
-            labels.extend([d.config.lang_id] * len(d))
-        shots, queries = algo_cfg.adapt.shots, algo_cfg.adapt.queries
-        sampler = EpisodicSampler(labels, shots=shots, queries=queries, seed=train_cfg.seed)
-        # fscl_tpu draws one episode to initialise its state before
-        # training; drawing its task here keeps both on the same episodes
-        sampler.sample_task()
-        stream = InfiniteEpisodes(dataset, sampler, shots, queries,
-                                  var_kw={"dvec_slices": dvec_slices} if dvec_slices else None)
-
-        def batches():
-            return iter(stream)
+        system, batches = _generic_path(args, data_configs, model_cfg, train_cfg, algo_cfg,
+                                        device)
     state = system.init_state()
 
     if args.debug:

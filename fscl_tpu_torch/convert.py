@@ -27,10 +27,16 @@ LSTM keys, which `convert_resemblyzer_checkpoint` reads back (flax keeps one
 bias per gate on the hidden side: it goes to `bias_hh`, `bias_ih` is 0);
 `codebook_state_dict` the codebook's; `transemb_state_dict` the whole
 TransEmbSystem, the frozen upstream included when the variables hold it.
+
+The T2U family (`tacot2u_entries`, `downstream_entries`, `da_entries`,
+`t2u_entries`) is written as tables of (torch key, flax path, layout) read in
+both directions: `state_dict_from` / `t2u_state_dict` carry fscl_tpu's
+variables to the port, `variables_from` / `t2u_variables` carry the port's
+state dict back to fscl_tpu's params and batch_stats.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -246,3 +252,227 @@ def melgan_state_dict(variables: Mapping) -> StateDict:
             _conv1d(sd, f"{key}.shortcut", rb["shortcut"])
     _conv1d(sd, f"model.{2 + n_ups * (2 + n_res) + 2}", p["conv_post"])
     return sd
+
+
+# --- the T2U family: one table of (torch key, flax path, layout) per module,
+# read in both directions -----------------------------------------------------
+# A flax path starts at the variables' collection ("params" or
+# "batch_stats"). Layouts: "dense" (flax (in, out) <-> torch (out, in)),
+# "conv" ((k, in, out) <-> (out, in, k)), "plain" (same array), "gates_i" /
+# "gates_h" (a flax LSTM cell's four per-gate kernels <-> torch's stacked
+# weight_ih / weight_hh), "gates_b" (the hidden-side biases <-> bias_hh),
+# "zero" (torch's bias_ih, 0 and frozen: no flax leaf), "count" (BatchNorm's
+# num_batches_tracked: no flax leaf).
+Entry = Tuple[str, Tuple[str, ...], str]
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree: dict, path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _to_torch(layout: str, x) -> torch.Tensor:
+    if layout == "dense":
+        return _t(x).T.contiguous()
+    if layout == "conv":
+        return _t(x).permute(2, 1, 0).contiguous()
+    if layout in ("gates_i", "gates_h", "gates_b"):
+        return _gates(x, layout[-1] if layout != "gates_b" else "h",
+                      "bias" if layout == "gates_b" else "kernel")
+    return _t(x)
+
+
+def _to_flax(layout: str, w: torch.Tensor, tree: dict, path: Tuple[str, ...]) -> None:
+    a = w.detach().cpu().float().numpy()
+    if layout == "dense":
+        _set(tree, path, np.ascontiguousarray(a.T))
+    elif layout == "conv":
+        _set(tree, path, np.ascontiguousarray(a.transpose(2, 1, 0)))
+    elif layout in ("gates_i", "gates_h", "gates_b"):
+        side = "h" if layout == "gates_b" else layout[-1]
+        leaf = "bias" if layout == "gates_b" else "kernel"
+        for g, part in zip(LSTM_GATES, np.split(a, 4, axis=0)):
+            _set(tree, path + (f"{side}{g}", leaf),
+                 np.ascontiguousarray(part.T if leaf == "kernel" else part))
+    elif layout == "plain":
+        _set(tree, path, a)
+
+
+def _lstm_entries(torch_prefix: str, path: Tuple[str, ...], suffix: str = "") -> List[Entry]:
+    return [(f"{torch_prefix}.weight_ih{suffix}", path, "gates_i"),
+            (f"{torch_prefix}.weight_hh{suffix}", path, "gates_h"),
+            (f"{torch_prefix}.bias_hh{suffix}", path, "gates_b"),
+            (f"{torch_prefix}.bias_ih{suffix}", path, "zero")]
+
+
+def _linear_entries(torch_prefix: str, path: Tuple[str, ...], bias: bool = True) -> List[Entry]:
+    out = [(f"{torch_prefix}.weight", path + ("kernel",), "dense")]
+    if bias:
+        out.append((f"{torch_prefix}.bias", path + ("bias",), "plain"))
+    return out
+
+
+def _norm_entries(torch_prefix: str, path: Tuple[str, ...]) -> List[Entry]:
+    return [(f"{torch_prefix}.weight", path + ("scale",), "plain"),
+            (f"{torch_prefix}.bias", path + ("bias",), "plain")]
+
+
+def tacot2u_entries(n_conv: int = 3) -> List[Entry]:
+    """flax TacoT2U (`params`, `batch_stats`) <-> the port's TacoT2U."""
+    P, S = ("params",), ("batch_stats",)
+    e: List[Entry] = []
+    for i in range(n_conv):
+        e += [(f"encoder.convs.{i}.weight", P + ("encoder", f"conv_{i}", "kernel"), "conv"),
+              (f"encoder.convs.{i}.bias", P + ("encoder", f"conv_{i}", "bias"), "plain")]
+        e += _norm_entries(f"encoder.norms.{i}", P + ("encoder", f"bn_{i}"))
+        e += [(f"encoder.norms.{i}.running_mean", S + ("encoder", f"bn_{i}", "mean"), "plain"),
+              (f"encoder.norms.{i}.running_var", S + ("encoder", f"bn_{i}", "var"), "plain"),
+              (f"encoder.norms.{i}.num_batches_tracked", (), "count")]
+    # flax names the BiLSTM's cells by creation order: forward first
+    e += _lstm_entries("encoder.lstm_fwd", P + ("encoder", "OptimizedLSTMCell_0"), "_l0")
+    e += _lstm_entries("encoder.lstm_bwd", P + ("encoder", "OptimizedLSTMCell_1"), "_l0")
+    e.append(("unit_embedding.weight", P + ("unit_embedding", "embedding"), "plain"))
+    for i in range(2):
+        e += _linear_entries(f"prenet.layers.{i}", P + ("prenet", f"fc_{i}"), bias=False)
+    cell = P + ("decoder_cell",)
+    e += _lstm_entries("decoder_cell.attention_rnn", cell + ("attention_rnn",))
+    att = cell + ("attention_layer",)
+    e += _linear_entries("decoder_cell.attention_layer.query_layer", att + ("query_layer",),
+                         bias=False)
+    e.append(("decoder_cell.attention_layer.location_conv.weight",
+              att + ("location_conv", "kernel"), "conv"))
+    e += _linear_entries("decoder_cell.attention_layer.location_dense",
+                         att + ("location_dense",), bias=False)
+    e += _linear_entries("decoder_cell.attention_layer.v", att + ("v",), bias=False)
+    e += _lstm_entries("decoder_cell.decoder_rnn", cell + ("decoder_rnn",))
+    e += _linear_entries("decoder_cell.linear_projection", cell + ("linear_projection",))
+    e += _linear_entries("decoder_cell.final_proj", cell + ("final_proj",))
+    e += _linear_entries("memory_layer", P + ("memory_layer",), bias=False)
+    return e
+
+
+def _block_entries(prefix: str, path: Tuple[str, ...], names) -> List[Entry]:
+    e: List[Entry] = []
+    for name in names:
+        e += _linear_entries(f"{prefix}.{name}", path + (name,))
+    return e + _norm_entries(f"{prefix}.ln1", path + ("ln1",)) \
+        + _norm_entries(f"{prefix}.ln2", path + ("ln2",))
+
+
+def downstream_entries(n_blocks: int, codeformer: bool) -> List[Entry]:
+    """flax Downstream1 (n_blocks EncoderBlocks) or Downstream2 (n_blocks
+    EncoderBlocks + the codeformer) <-> the port's."""
+    P = ("params",)
+    e: List[Entry] = [("weighted_sum.weight_raw", P + ("weighted_sum", "weight_raw"), "plain")]
+    e += _linear_entries("proj", P + ("proj",))
+    for i in range(n_blocks):
+        e += _block_entries(f"layers.{i}", P + (f"layer_{i}",),
+                            ("q", "k", "v", "out", "ff1", "ff2"))
+    if codeformer:
+        e.append(("codeformer.codebook", P + ("codeformer", "codebook"), "plain"))
+        e += _block_entries("codeformer", P + ("codeformer",), ("q", "out", "ff1", "ff2"))
+    return e
+
+
+def da_entries(n_layers: int = 3) -> List[Entry]:
+    """flax DA (gradient reversal + UnitDiscriminator) <-> the port's."""
+    P = ("params", "discriminator")
+    e: List[Entry] = []
+    for i in range(n_layers - 1):
+        e += [(f"discriminator.convs.{i}.weight", P + (f"conv_{i}", "kernel"), "conv"),
+              (f"discriminator.convs.{i}.bias", P + (f"conv_{i}", "bias"), "plain")]
+    return e + [("discriminator.conv_out.weight", P + ("conv_out", "kernel"), "conv"),
+                ("discriminator.conv_out.bias", P + ("conv_out", "bias"), "plain")]
+
+
+def _sub(entries: List[Entry], torch_prefix: str, flax_sub: str) -> List[Entry]:
+    """Entries of a submodule: torch keys under `torch_prefix.`, flax paths
+    under each collection's `flax_sub`."""
+    return [(f"{torch_prefix}.{k}", (p[0], flax_sub) + p[1:] if p else p, layout)
+            for k, p, layout in entries]
+
+
+def state_dict_from(entries: List[Entry], variables: Mapping) -> StateDict:
+    """flax variables -> torch state dict, by `entries`."""
+    sd: StateDict = {}
+    for key, path, layout in entries:
+        if layout == "count":
+            sd[key] = torch.tensor(0, dtype=torch.long)
+        elif layout == "zero":
+            sd[key] = torch.zeros_like(sd[key.replace("bias_ih", "bias_hh")])
+        else:
+            sd[key] = _to_torch(layout, _get(variables, path))
+    return sd
+
+
+def variables_from(entries: List[Entry], sd: Mapping[str, torch.Tensor]) -> dict:
+    """torch state dict -> flax variables (numpy leaves), by `entries`."""
+    tree: dict = {}
+    for key, path, layout in entries:
+        if layout not in ("count", "zero"):
+            _to_flax(layout, sd[key], tree, path)
+    return tree
+
+
+def t2u_entries(variables_or_keys) -> List[Entry]:
+    """The entries of a T2U system's parameter tree (TacoT2USystem and its
+    tune/E2E/DA subclasses: `embedding` + `model` [+ `da`]; the FSCL-T2U
+    systems: `embedding_generator` + `model` [+ `codebook_attention`]),
+    read from flax variables or from the keys of a torch state dict. The
+    frozen upstream and u2s are not part of it (`hubert_state_dict` and
+    `baseline_state_dict` carry them)."""
+    if isinstance(variables_or_keys, Mapping) and "params" in variables_or_keys:
+        p = variables_or_keys["params"]
+        n_conv = sum(1 for k in p["model"]["encoder"] if k.startswith("conv_"))
+        tables = list(p.get("embedding", {}))
+        gen = p.get("embedding_generator")
+        n_blocks = 0 if gen is None else sum(1 for k in gen if k.startswith("layer_"))
+        codeformer = gen is not None and "codeformer" in gen
+        has = lambda name: name in p
+    else:
+        keys = list(variables_or_keys)
+        n_conv = len({k for k in keys if k.startswith("model.encoder.convs.")
+                      and k.endswith(".weight")})
+        tables = [k.split(".", 2)[2] for k in keys if k.startswith("embedding_model.tables.")]
+        n_blocks = len({k.split(".")[2] for k in keys
+                        if k.startswith("embedding_generator.layers.")})
+        codeformer = any(k.startswith("embedding_generator.codeformer.") for k in keys)
+        prefixes = {k.split(".")[0] for k in keys}
+        has = prefixes.__contains__
+    e = _sub(tacot2u_entries(n_conv), "model", "model")
+    e += [(f"embedding_model.tables.{name}", ("params", "embedding", name), "plain")
+          for name in tables]
+    if has("embedding_generator"):
+        e += _sub(downstream_entries(n_blocks, codeformer), "embedding_generator",
+                  "embedding_generator")
+    if has("codebook_attention"):
+        e += [(f"codebook_attention.{name}", ("params", "codebook_attention", name), "plain")
+              for name in ("emb_banks", "att_banks")]
+    if has("da"):
+        e += _sub(da_entries(), "da", "da")
+    return e
+
+
+def t2u_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu T2U system variables -> the port's system (strict keys but
+    for the frozen upstream: `transemb_state_dict`'s `upstream.` keys come
+    from `hubert_state_dict` when `frozen` holds it)."""
+    sd = state_dict_from(t2u_entries(variables), variables)
+    if (variables.get("frozen") or {}).get("upstream") is not None:
+        up = hubert_state_dict(variables["frozen"]["upstream"])
+        sd.update({f"upstream.{k}": v for k, v in up.items()})
+    return sd
+
+
+def t2u_variables(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's T2U system state dict -> fscl_tpu variables
+    (`params` and `batch_stats`; the frozen upstream is left out)."""
+    sd = {k: v for k, v in sd.items() if not k.startswith(("upstream.", "u2s_system."))}
+    return variables_from(t2u_entries(sd.keys()), sd)

@@ -8,7 +8,7 @@ file gives the same config in both packages; and the data, algorithm and
 preprocess halves (`:203-379`, `:548-631`): `DataConfig`, `AlgorithmConfig`,
 `PreprocessConfig`, their readers, `to_dict` and `to_json`. Every YAML under
 `config/` gives equal `to_dict` in both packages (tests/test_torch_config_tree.py).
-`t2u_config_from_yaml` waits for the T2U family (ROADMAP Queue 1, item 9).
+`t2u_config_from_yaml` (`:525`) reads the T2U family's `tacotron2:` block.
 """
 from __future__ import annotations
 
@@ -521,6 +521,18 @@ def model_config_from_yaml(path: str) -> ModelConfig:
             model=voc.get("model", "HifiGAN"),
             speaker=voc.get("speaker", "universal")))
     return cfg
+
+
+def t2u_config_from_yaml(path: str, n_units: int = 512):
+    """The `tacotron2:` block of a reference-style model YAML as a
+    T2UConfig (config/model/tacot2u.yaml, fscl-t2u.yaml; fscl-t2u-e2e.yaml
+    nests it under `t2u:`); keys it does not set keep their defaults."""
+    from fscl_tpu_torch.models.tacotron2_t2u import T2UConfig
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    tc = raw.get("tacotron2") or (raw.get("t2u", {}) or {}).get("tacotron2", {}) or {}
+    return T2UConfig(n_units=n_units, **{k: tc[k] for k in T2UConfig._fields
+                                         if k in tc and k != "n_units"})
 
 
 @dataclass(frozen=True)

@@ -14,15 +14,8 @@ T = TypeVar("T")
 # ROADMAP.md Queue 1 items, by the fscl_tpu registry keys they port
 _ITEMS = {
     8: "item 8, meta-learning variants",
-    9: "item 9, T2U family",
     10: "item 10, PR family and evaluation",
 }
-_T2U_SYSTEMS = (
-    "tacot2u", "fscl-t2u", "fscl-t2u-orig", "fscl-t2u-c", "fscl-t2u-codebook",
-    "fscl-t2u-c2", "fscl-t2u-codebook2", "fscl-t2u-tune", "fscl-t2u-orig-tune",
-    "fscl-t2u-e2e-tune", "fscl-t2u-orig-e2e-tune", "fscl-t2u-c-e2e-tune",
-    "fscl-t2u-c2-e2e-tune", "fscl-t2u-dae2e-tune", "fscl-t2u-da-e2e-tune",
-    "fscl-t2u-c-da-e2e-tune", "fscl-t2u-c2-da-e2e-tune", "fscl-t2u-da-tune")
 _META_SYSTEMS = (
     "fscl-orig2", "maml", "meta", "imaml", "fscl-ada", "fscl-ada1", "fscl-ada2",
     "fscl-ssl_ada", "fscl-ssl_ada1", "fscl-ssl_ada2", "conti-ae", "semi-fscl",
@@ -75,13 +68,9 @@ class Registry(Generic[T]):
         return self._items.keys()
 
 
-SYSTEMS: Registry = Registry("system", _waiting(
-    {8: _META_SYSTEMS, 9: _T2U_SYSTEMS, 10: _PR_SYSTEMS}))
+SYSTEMS: Registry = Registry("system", _waiting({8: _META_SYSTEMS, 10: _PR_SYSTEMS}))
 # fscl_tpu registers its FSCLDataModule under the meta-learning keys too
 # (the port's under the same keys); their episodes wait with item 8
-DATAMODULES: Registry = Registry("datamodule", _waiting({
-    8: ("conti-ae",),
-    9: _T2U_SYSTEMS + ("fscl-t2u-episodic", "fscl-t2u-orig-episodic"),
-    10: _PR_SYSTEMS}))
+DATAMODULES: Registry = Registry("datamodule", _waiting({8: ("conti-ae",), 10: _PR_SYSTEMS}))
 # the corpus walkers of data/parsers.py, filled when that module is imported
 RAW_PARSERS: Registry = Registry("raw parser")

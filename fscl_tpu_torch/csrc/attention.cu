@@ -75,7 +75,8 @@
 namespace {
 
 constexpr int STAGES = 3;            // K/V ring depth
-constexpr int MAX_LEN = 2048;        // the key_valid bytes of one sample
+constexpr int MAX_LEN = 16384;       // the key_valid bytes of one sample
+constexpr int MAX_SMEM = 227 * 1024; // sm_90's dynamic shared memory per block
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASK_FILL_LOG2 = -1e9f * LOG2E;
 
@@ -110,6 +111,7 @@ struct Cfg {
   static_assert((K_ELEMS * (int)sizeof(T)) % 16 == 0 && (STAGE_ELEMS * (int)sizeof(T)) % 16 == 0,
                 "ring stages stay 16-byte aligned");
   static_assert(WARPS * 32 * MERGE_FLOATS * 4 <= RING_BYTES, "merge fits in the ring");
+  static_assert(RING_BYTES + MAX_LEN <= MAX_SMEM, "the ring and MAX_LEN key flags fit");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -10,18 +10,24 @@ algorithm types as the systems (lightning/datamodules/__init__.py:6-50).
 Batches and episodes are numpy, equal to fscl_tpu's; the trainer copies them
 to the card. The port collates in Python (fscl_tpu's `native_io=False`
 path): the native C++ batch reader and the packed shards wait (ROADMAP
-Queue 1, item 5), as do the T2U, PR and ContiAE datamodules (items 8-10).
+Queue 1, item 5), as do the PR and ContiAE datamodules (items 8 and 10).
+The T2U family's are `T2UDataModule` here and the four of
+`data/mix_datamodules.py`, which this module imports so that every
+registered key resolves.
 """
 from __future__ import annotations
 
 import os
 from typing import Iterator, List, Optional, Sequence
 
+import numpy as np
 
 from fscl_tpu_torch.core.config import DataConfig, ModelConfig, TrainConfig
 from fscl_tpu_torch.core.registry import DATAMODULES
-from fscl_tpu_torch.data.batch import Batch, collate_batch
-from fscl_tpu_torch.data.datasets import ConcatDataset, FSCLDataset, FastSpeech2Dataset
+from fscl_tpu_torch.data.batch import TEXT_BUCKETS, Batch, bucket_len, collate_batch, pad_1d
+from fscl_tpu_torch.data.datasets import (
+    ConcatDataset, FSCLDataset, FastSpeech2Dataset, UnitDataset,
+)
 from fscl_tpu_torch.data.episodic import (
     EpisodicSampler, collate_episode, get_or_create_tasks,
 )
@@ -245,6 +251,42 @@ class FSCLDataModule(BaseDataModule):
         return out
 
 
+def collate_t2u(samples):
+    """T2UBatch of UnitDataset samples: texts and units padded to their
+    text buckets (fscl_tpu's `_collate_t2u` and T2UDataModule's collate)."""
+    from fscl_tpu_torch.systems.t2u import T2UBatch
+    L = bucket_len(max(len(s["phonemes"]) for s in samples), TEXT_BUCKETS)
+    TU = bucket_len(max(len(s["units"]) for s in samples), TEXT_BUCKETS)
+    return T2UBatch(
+        speaker_args=np.array([s["speaker"] for s in samples], np.int32),
+        texts=pad_1d([s["phonemes"] for s in samples], L, dtype=np.int32),
+        src_lens=np.array([min(len(s["phonemes"]), L) for s in samples], np.int32),
+        units=pad_1d([s["units"] for s in samples], TU, dtype=np.int32),
+        unit_lens=np.array([min(len(s["units"]), TU) for s in samples], np.int32),
+        lang_ids=np.array([s["lang_id"] for s in samples], np.int32))
+
+
+@DATAMODULES.register("tacot2u", "fscl-t2u-tune", "fscl-t2u-orig-tune")
+class T2UDataModule(BaseDataModule):
+    """Text -> unit loader (t2u/T2UDataModule.py:13-126): batch_size
+    utterances drawn uniformly with replacement from `seed`."""
+
+    def setup(self):
+        datasets = []
+        for dc in self.data_configs:
+            path = dc.subset_path("train")
+            if path and os.path.isfile(path):
+                datasets.append(UnitDataset(path, self.stores[dc.name], dc))
+        self.train_set = ConcatDataset(datasets)
+
+    def train_batches(self):
+        rng = np.random.default_rng(self.train_cfg.seed)
+        bs = self.train_cfg.optim.batch_size
+        n = len(self.train_set)
+        while True:
+            yield collate_t2u([self.train_set[int(i)] for i in rng.integers(0, n, bs)])
+
+
 def get_datamodule(algorithm_type: str):
     """(lightning/datamodules/__init__.py:49-50)."""
     return DATAMODULES.get(algorithm_type)
@@ -274,3 +316,6 @@ def datamodule_kwargs_for(algorithm: str, algo_cfg=None) -> dict:
         kw["shots"] = algo_cfg.adapt.shots
         kw["queries"] = algo_cfg.adapt.queries
     return kw
+
+
+from fscl_tpu_torch.data import mix_datamodules  # noqa: E402,F401 (registers the T2U keys)

@@ -5,8 +5,10 @@ Re-provides lightning/datasets/: FastSpeech2Dataset (language/
 FastSpeech2Dataset.py), FSCLDataset (language/FSCLDataset.py:14-121 — adds
 raw 16 kHz wav + avg_frames for SSL), TextDataset (inference). Normalization
 uses the global stats exactly like Define.ALLSTATS["global"] consumption.
-Items are numpy, equal to fscl_tpu's item for item. The unit, ContiAE and PR
-datasets wait for their families (ROADMAP Queue 1, items 8-10).
+Items are numpy, equal to fscl_tpu's item for item. The T2U family's
+`UnitFSCLDataset` and `UnitDataset` (`:151`, `:214`) read the pseudo-unit
+sub-store `ssl_units/<name>` (`phoneme`, `duration`). The ContiAE and PR
+datasets wait for their families (ROADMAP Queue 1, items 8 and 10).
 
 The features an item reads from a store (`data/feature_store.py`):
 `mfa_duration`, `mel`, `mfa_duration_avg_pitch` / `interpolate_pitch`,
@@ -17,14 +19,14 @@ ids.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from fscl_tpu_torch.core.config import DataConfig, ModelConfig
 from fscl_tpu_torch.core.stats import DEFAULT_STATS, GlobalStats
 from fscl_tpu_torch.data.feature_store import FeatureStore, read_queries_from_txt
-from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, text_to_sequence
+from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, n_symbols, text_to_sequence, units_to_sequence
 
 
 def segment_to_duration(segment, fp: float = 0.02) -> List[int]:
@@ -153,6 +155,76 @@ class FSCLDataset(FastSpeech2Dataset):
             sample["avg_frames"] = np.asarray(
                 segment_to_duration(segment, fp=0.02), dtype=np.int64)
         return sample
+
+
+class UnitFSCLDataset(FSCLDataset):
+    """FSCLDataset with the support's "phonemes" and avg_frames from the
+    pseudo-unit segmentation in ssl_units/<unit_name> instead of MFA's, so
+    the episode table is built over the unit inventory."""
+
+    def __init__(self, *args, unit_name: str, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.unit_name = unit_name
+        self.unit_store = self.store.get_ssl_unit_store(unit_name)
+        self.n_unit_symbols = n_symbols(unit_name)
+
+    def __getitem__(self, idx: int) -> Dict:
+        sample = super().__getitem__(idx)
+        q = self.queries[idx]
+        query = {"spk": q["spk"], "basename": q["basename"]}
+        units = np.asarray(units_to_sequence(self.unit_store.phoneme.read_from_query(query),
+                                             self.unit_name))
+        sample.update({
+            "phonemes": units,
+            "avg_frames": np.asarray(self.unit_store.duration.read_from_query(query),
+                                     dtype=np.int64),
+            "symbol_id": self.unit_name,
+            "n_symbols": self.n_unit_symbols,
+        })
+        return sample
+
+
+class UnitDataset:
+    """Text -> pseudo-unit targets for T2U (t2u/T2UDataset.py): phoneme ids
+    from the text frontend, unit ids from ssl_units/<name> with <eos> = 8
+    appended."""
+
+    EOS = 8
+
+    def __init__(self, split_txt: str, store: FeatureStore, config: DataConfig,
+                 unit_name: Optional[str] = None):
+        self.store = store
+        self.config = config
+        self.unit_name = unit_name or config.unit_name
+        if not self.unit_name:
+            raise ValueError("UnitDataset needs a unit_name")
+        self.unit_store = store.get_ssl_unit_store(self.unit_name)
+        self.queries = read_queries_from_txt(split_txt)
+        self.speakers = store.load_speakers()
+        self.speaker_map = {s: i for i, s in enumerate(self.speakers)}
+        self.n_units = n_symbols(self.unit_name)
+
+    def __len__(self):
+        return len(self.queries)
+
+    def __getitem__(self, idx: int) -> Dict:
+        q = self.queries[idx]
+        query = {"spk": q["spk"], "basename": q["basename"]}
+        text = np.asarray(text_to_sequence(
+            f"{{{self.store.phoneme.read_from_query(query)}}}", self.config.text_cleaners,
+            self.config.symbol_id))
+        units = np.asarray(units_to_sequence(self.unit_store.phoneme.read_from_query(query),
+                                             self.unit_name))
+        return {
+            "id": q["basename"],
+            "speaker": self.speaker_map[q["spk"]],
+            "speaker_name": q["spk"],
+            "text": q["text"],
+            "phonemes": text,
+            "units": np.concatenate([units, [self.EOS]]).astype(np.int64),
+            "lang_id": self.config.lang_id,
+            "symbol_id": self.config.symbol_id,
+        }
 
 
 class TextDataset:

@@ -1,0 +1,312 @@
+"""Tacotron2-style text-to-unit (T2U) model (port of
+`fscl_tpu/models/tacotron2_t2u.py`).
+
+Text embeddings in, unit logits out: a conv + BatchNorm + BiLSTM encoder, a
+location-sensitive attention decoder stepped by an explicit loop where the
+JAX package runs `nn.scan` (`T2UConfig` `:29`, `Prenet` `:47`,
+`LocationAttention` `:61`, `T2UEncoder` `:86`, `DecoderCell` `:114`,
+`TacoT2U.__call__` `:175`, `TacoT2U.infer` `:222`). fscl_tpu computes the
+decoder in XLA, with no Pallas kernel, so the port's counterpart is plain
+torch: `nn.LSTMCell` / `nn.LSTM` for the recurrences, `torch.matmul` for the
+products.
+
+Random streams. The prenet's dropout (rate 0.5) is on at inference too, as in
+the reference; in train mode the encoder's Dropout(0.5) and the attention-
+and decoder-RNN dropouts join it. Every mask is drawn up front, for all steps
+at once, from an explicit `torch.Generator` (`draw_masks`), or comes in as a
+`T2UMasks` (the parity tests rebuild fscl_tpu's masks from its key schedule).
+The loop itself draws nothing and never waits for the device: `infer` runs
+all `max_decoder_ratio * L` steps as fscl_tpu does, with a per-sample
+finished flag on the device.
+
+Layouts against flax: an LSTM cell has one bias per gate (flax's hidden-side
+Dense); torch's `bias_ih` stays 0 and does not require grad, so only
+`bias_hh` trains. The encoder's backward LSTM starts at each row's last valid
+frame (flax's `seq_lengths` with `reverse=True, keep_order=True`): its input
+is each row reversed within its length, gathered on the device, so the
+forward needs no host wait for the lengths. Its BatchNorm is flax's (`nn.fft_block.BatchNorm`:
+momentum 0.9, biased batch variance).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fscl_tpu_torch.nn.fft_block import BatchNorm
+from fscl_tpu_torch.ops.masking import length_mask
+
+EOS_ID = 8   # reference: <eos> unit id (tacot2u_model.py:344, T2UDataset)
+PRENET_KEEP = 0.5
+ENCODER_KEEP = 0.5
+
+
+class T2UConfig(NamedTuple):
+    n_units: int = 512
+    d_unit: int = 256
+    symbols_embedding_dim: int = 256
+    encoder_embedding_dim: int = 512
+    encoder_n_convolutions: int = 3
+    encoder_kernel_size: int = 5
+    prenet_dim: int = 256
+    attention_rnn_dim: int = 1024
+    decoder_rnn_dim: int = 1024
+    attention_dim: int = 128
+    attention_location_n_filters: int = 32
+    attention_location_kernel_size: int = 31
+    p_attention_dropout: float = 0.1
+    p_decoder_dropout: float = 0.1
+    max_decoder_ratio: int = 10
+
+
+class T2UMasks(NamedTuple):
+    """Keep masks (bool) for one forward; None where a dropout is off.
+
+    prenet: (T, 2, B, prenet_dim); encoder: (n_conv, B, L, enc_dim);
+    attention: (T, B, attention_rnn_dim); decoder: (T, B, decoder_rnn_dim)."""
+    prenet: torch.Tensor
+    encoder: Optional[torch.Tensor] = None
+    attention: Optional[torch.Tensor] = None
+    decoder: Optional[torch.Tensor] = None
+
+
+def _keep(shape, p_keep: float, generator, device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=device) < p_keep
+
+
+def draw_masks(cfg: T2UConfig, B: int, L: int, T: int, train: bool,
+               generator: Optional[torch.Generator], device) -> T2UMasks:
+    """Every mask of one forward of T decoder steps, drawn in one call per
+    kind from `generator` (the device's default generator when None)."""
+    c = cfg
+    prenet = _keep((T, 2, B, c.prenet_dim), PRENET_KEEP, generator, device)
+    if not train:
+        return T2UMasks(prenet=prenet)
+    return T2UMasks(
+        prenet=prenet,
+        encoder=_keep((c.encoder_n_convolutions, B, L, c.encoder_embedding_dim),
+                      ENCODER_KEEP, generator, device),
+        attention=_keep((T, B, c.attention_rnn_dim), 1.0 - c.p_attention_dropout,
+                        generator, device),
+        decoder=_keep((T, B, c.decoder_rnn_dim), 1.0 - c.p_decoder_dropout,
+                      generator, device))
+
+
+def _drop(x: torch.Tensor, keep: Optional[torch.Tensor], p_keep: float) -> torch.Tensor:
+    return x if keep is None else torch.where(keep, x / p_keep, 0.0)
+
+
+def _one_bias(module: nn.Module) -> nn.Module:
+    """flax's LSTM cells have one bias per gate: torch's `bias_ih*` stay 0
+    and out of training."""
+    for name, p in module.named_parameters():
+        if name.startswith("bias_ih"):
+            with torch.no_grad():
+                p.zero_()
+            p.requires_grad_(False)
+    return module
+
+
+def _lstm_cell(n_in: int, n_hidden: int) -> nn.LSTMCell:
+    return _one_bias(nn.LSTMCell(n_in, n_hidden))
+
+
+def _lstm(n_in: int, n_hidden: int) -> nn.LSTM:
+    return _one_bias(nn.LSTM(n_in, n_hidden, batch_first=True))
+
+
+class Prenet(nn.Module):
+    """2-layer bias-free ReLU prenet; its dropout is always on."""
+
+    def __init__(self, n_in: int, sizes=(256, 256)):
+        super().__init__()
+        dims = (n_in,) + tuple(sizes)
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1], bias=False) for i in range(len(sizes)))
+
+    def forward(self, x, keep):                      # keep: (2, B, d)
+        for i, layer in enumerate(self.layers):
+            x = _drop(F.relu(layer(x)), keep[i], PRENET_KEEP)
+        return x
+
+
+class LocationAttention(nn.Module):
+    def __init__(self, cfg: T2UConfig):
+        super().__init__()
+        c = cfg
+        self.query_layer = nn.Linear(c.attention_rnn_dim, c.attention_dim, bias=False)
+        k = c.attention_location_kernel_size
+        self.location_conv = nn.Conv1d(2, c.attention_location_n_filters, k,
+                                       padding=k // 2, bias=False)
+        self.location_dense = nn.Linear(c.attention_location_n_filters, c.attention_dim,
+                                        bias=False)
+        self.v = nn.Linear(c.attention_dim, 1, bias=False)
+
+    def forward(self, query, memory, processed_memory, attn_weights_cat, memory_valid):
+        processed_query = self.query_layer(query)[:, None]
+        loc = self.location_dense(self.location_conv(attn_weights_cat).transpose(1, 2))
+        energies = self.v(torch.tanh(processed_query + loc + processed_memory))[..., 0]
+        weights = torch.softmax(torch.where(memory_valid, energies, -1e9), dim=1)
+        context = torch.bmm(weights[:, None], memory)[:, 0]
+        return context, weights
+
+
+class T2UEncoder(nn.Module):
+    """3 x (conv5 + BatchNorm + ReLU + dropout, padding zeroed) + BiLSTM."""
+
+    def __init__(self, cfg: T2UConfig):
+        super().__init__()
+        c = cfg
+        dims = [c.symbols_embedding_dim] + [c.encoder_embedding_dim] * c.encoder_n_convolutions
+        k = c.encoder_kernel_size
+        self.convs = nn.ModuleList(
+            nn.Conv1d(dims[i], dims[i + 1], k, padding=k // 2)
+            for i in range(c.encoder_n_convolutions))
+        self.norms = nn.ModuleList(BatchNorm(dims[i + 1])
+                                   for i in range(c.encoder_n_convolutions))
+        half = c.encoder_embedding_dim // 2
+        self.lstm_fwd = _lstm(c.encoder_embedding_dim, half)
+        self.lstm_bwd = _lstm(c.encoder_embedding_dim, half)
+
+    def forward(self, emb_text, src_valid, keep: Optional[torch.Tensor] = None):
+        x = emb_text.transpose(1, 2)
+        valid = src_valid[:, None, :]
+        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
+            x = F.relu(norm(conv(x)))
+            if keep is not None:
+                x = _drop(x, keep[i].transpose(1, 2), ENCODER_KEEP)
+            x = torch.where(valid, x, 0.0)
+        x = x.transpose(1, 2)
+        # the backward direction reads each row reversed within its length
+        # (pad frames after), so that it starts at the last valid frame;
+        # the same gather puts its outputs back in order
+        L = x.shape[1]
+        t = torch.arange(L, device=x.device)[None, :]
+        lens = src_valid.sum(dim=-1, keepdim=True)
+        rev = torch.where(t < lens, lens - 1 - t, t)[..., None].expand(-1, -1, x.shape[2])
+        fwd, _ = self.lstm_fwd(x)
+        bwd, _ = self.lstm_bwd(x.gather(1, rev))
+        bwd = bwd.gather(1, rev[..., :bwd.shape[2]])
+        return torch.where(src_valid[..., None], torch.cat([fwd, bwd], -1), 0.0)
+
+
+class DecoderCell(nn.Module):
+    """One decoder step: attention LSTM, location attention, decoder LSTM,
+    projections to unit logits."""
+
+    def __init__(self, cfg: T2UConfig):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        self.attention_rnn = _lstm_cell(c.prenet_dim + c.encoder_embedding_dim,
+                                        c.attention_rnn_dim)
+        self.attention_layer = LocationAttention(cfg)
+        self.decoder_rnn = _lstm_cell(c.attention_rnn_dim + c.encoder_embedding_dim,
+                                      c.decoder_rnn_dim)
+        self.linear_projection = nn.Linear(c.decoder_rnn_dim + c.encoder_embedding_dim,
+                                           c.encoder_embedding_dim)
+        self.final_proj = nn.Linear(c.encoder_embedding_dim, c.n_units)
+
+    def forward(self, carry, decoder_input, memory, processed_memory, memory_valid,
+                keep_attn=None, keep_dec=None):
+        c = self.cfg
+        attn_h, attn_c, dec_h, dec_c, attn_w, attn_w_cum, attn_ctx = carry
+        attn_h, attn_c = self.attention_rnn(torch.cat([decoder_input, attn_ctx], -1),
+                                            (attn_h, attn_c))
+        attn_h = _drop(attn_h, keep_attn, 1.0 - c.p_attention_dropout)
+        attn_ctx, attn_w = self.attention_layer(
+            attn_h, memory, processed_memory, torch.stack([attn_w, attn_w_cum], 1),
+            memory_valid)
+        attn_w_cum = attn_w_cum + attn_w
+        dec_h, dec_c = self.decoder_rnn(torch.cat([attn_h, attn_ctx], -1), (dec_h, dec_c))
+        dec_h = _drop(dec_h, keep_dec, 1.0 - c.p_decoder_dropout)
+        logits = self.final_proj(self.linear_projection(torch.cat([dec_h, attn_ctx], -1)))
+        return (attn_h, attn_c, dec_h, dec_c, attn_w, attn_w_cum, attn_ctx), logits, attn_w
+
+
+class TacoT2U(nn.Module):
+    """Encoder + step-loop decoder over pre-embedded text (the multilingual
+    or FSCL embedding lives outside, as for the FastSpeech2 trunk)."""
+
+    def __init__(self, cfg: T2UConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = T2UEncoder(cfg)
+        self.unit_embedding = nn.Embedding(cfg.n_units, cfg.d_unit)
+        nn.init.normal_(self.unit_embedding.weight, std=1.0)     # flax Embed's init
+        self.prenet = Prenet(cfg.d_unit, (cfg.prenet_dim, cfg.prenet_dim))
+        self.decoder_cell = DecoderCell(cfg)
+        self.memory_layer = nn.Linear(cfg.encoder_embedding_dim, cfg.attention_dim, bias=False)
+
+    def _init_carry(self, memory):
+        c = self.cfg
+        B, T_mem = memory.shape[:2]
+        z = lambda d: memory.new_zeros(B, d)
+        return (z(c.attention_rnn_dim), z(c.attention_rnn_dim), z(c.decoder_rnn_dim),
+                z(c.decoder_rnn_dim), z(T_mem), z(T_mem), z(c.encoder_embedding_dim))
+
+    def _encode(self, emb_text, src_lens, keep):
+        src_valid = length_mask(src_lens, emb_text.shape[1])
+        memory = self.encoder(emb_text, src_valid, keep)
+        return src_valid, memory, self.memory_layer(memory)
+
+    def forward(self, emb_text, src_lens, units, masks: Optional[T2UMasks] = None,
+                generator: Optional[torch.Generator] = None):
+        """Teacher-forced forward over T_out = units.shape[1] steps, in the
+        module's mode (train: every dropout; eval: the prenet's alone). The
+        teacher-forcing ratio is fscl_tpu's only schedule value, 1
+        (`systems/t2u.py:schedule_f`): every step reads the previous target.
+        Returns (logits (B, T_out, n_units), alignments (B, T_out, L))."""
+        B, L, _ = emb_text.shape
+        T_out = units.shape[1]
+        if masks is None:
+            masks = draw_masks(self.cfg, B, L, T_out, self.training, generator,
+                               emb_text.device)
+        src_valid, memory, processed = self._encode(emb_text, src_lens, masks.encoder)
+        carry = self._init_carry(memory)
+        teacher_emb = self.unit_embedding(units)
+        teacher_in = torch.cat([teacher_emb.new_zeros(B, 1, self.cfg.d_unit),
+                                teacher_emb[:, :-1]], 1)
+        logits_all, aligns = [], []
+        for t in range(T_out):
+            carry, logits, attn_w = self.decoder_cell(
+                carry, self.prenet(teacher_in[:, t], masks.prenet[t]), memory, processed,
+                src_valid,
+                None if masks.attention is None else masks.attention[t],
+                None if masks.decoder is None else masks.decoder[t])
+            logits_all.append(logits)
+            aligns.append(attn_w)
+        return torch.stack(logits_all, 1), torch.stack(aligns, 1)
+
+    def infer(self, emb_text, src_lens, max_steps: Optional[int] = None,
+              masks: Optional[T2UMasks] = None,
+              generator: Optional[torch.Generator] = None):
+        """Batched argmax decoding until <eos> (id 8), for max_decoder_ratio
+        * L steps (all of them, with no host wait: a sample's positions from
+        its <eos> on are set to 0). Returns (logits (B, S, n_units), unit ids
+        (B, S), lengths (B,), alignments (B, S, L))."""
+        B, L, _ = emb_text.shape
+        max_steps = max_steps or self.cfg.max_decoder_ratio * L
+        if masks is None:
+            masks = draw_masks(self.cfg, B, L, max_steps, False, generator, emb_text.device)
+        src_valid, memory, processed = self._encode(emb_text, src_lens, None)
+        carry = self._init_carry(memory)
+        prev_in = memory.new_zeros(B, self.cfg.d_unit)
+        finished = torch.zeros(B, dtype=torch.bool, device=memory.device)
+        logits_all, preds, active, aligns = [], [], [], []
+        for t in range(max_steps):
+            carry, logits, attn_w = self.decoder_cell(
+                carry, self.prenet(prev_in, masks.prenet[t]), memory, processed, src_valid)
+            pred = logits.argmax(dim=-1)
+            finished = finished | (pred == EOS_ID)
+            prev_in = self.unit_embedding(pred)
+            logits_all.append(logits)
+            preds.append(pred)
+            active.append(~finished)
+            aligns.append(attn_w)
+        active = torch.stack(active, 1)
+        preds = torch.where(active, torch.stack(preds, 1), 0)
+        n_steps = active.sum(dim=1, dtype=torch.int32)
+        return torch.stack(logits_all, 1), preds, n_steps, torch.stack(aligns, 1)

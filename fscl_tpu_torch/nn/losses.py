@@ -2,8 +2,9 @@
 
 Masked means over valid positions, as the reference's masked_select(...)
 .mean() reductions (lightning/model/loss.py); `masked_mean` counts at least
-one position. The frame-wise cross-entropy losses come with the phoneme
-recognition family.
+one position. `framewise_ce_loss` and `framewise_accuracy` (`:66-80`) are
+the T2U family's: cross-entropy and accuracy over the frames whose target
+is not PAD.
 """
 from __future__ import annotations
 
@@ -61,3 +62,18 @@ def fastspeech2_ada_loss(mel_pred, postnet_mel_pred, mel_target, mel_valid):
     mel_l = masked_mean((mel_pred - mel_target).abs(), mel_valid)
     post_l = masked_mean((postnet_mel_pred - mel_target).abs(), mel_valid)
     return mel_l + post_l, mel_l, post_l
+
+
+def framewise_ce_loss(logits, targets, ignore_index: int = 0):
+    """Mean cross-entropy over the frames whose target is not
+    `ignore_index` (at least one frame in the count)."""
+    valid = targets != ignore_index
+    ce = -torch.log_softmax(logits.float(), dim=-1).gather(
+        -1, targets.clamp(min=0).long()[..., None])[..., 0]
+    return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def framewise_accuracy(logits, targets, ignore_index: int = 0):
+    valid = targets != ignore_index
+    correct = (logits.argmax(dim=-1) == targets) & valid
+    return correct.sum() / valid.sum().clamp(min=1)

@@ -34,7 +34,7 @@ from fscl_tpu_torch.ops import cuda_lib
 
 NEG_INF = -1e9
 HEAD_DIMS = (64, 128)
-MAX_LEN = 2048
+MAX_LEN = 16384        # csrc/attention.cu: the key flags in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_SPLITS = (1, 2, 4)
 QUERY_ROWS = {torch.float32: 128, torch.bfloat16: 64}   # per block at key_split 1
@@ -103,7 +103,7 @@ def attention_cuda(
     """Launch the Hopper kernel. q, k, v: contiguous (B, H, L, Dh) CUDA
     tensors of one dtype (float32 or bfloat16), Dh <= 128 (the kernel's
     instances take 64 and 128; other head dims are padded, see `_launch`),
-    1 <= L <= 2048; key_valid: contiguous (B, L) bool on the same device."""
+    1 <= L <= MAX_LEN; key_valid: contiguous (B, L) bool on the same device."""
     return _launch(q, k, v, key_valid, temperature, None)
 
 

@@ -14,6 +14,13 @@ later slice.
     mels = serve(["Hello world."], state_dict)   # [(postnet_mel (n, 80), n)]
     wavs = serve_wav(["Hello world."], state_dict, vocoder_state_dict)
     # [(wav (max(n, 1) * 256,), n)]
+
+The T2U family's chain, text -> units -> mel (-> wav through
+`vocode_batches`): `serve_t2u_batches` runs each batch through a TacoT2U
+system's batched `infer` and then a u2s BaselineSystem's two-pass synthesis
+with the unit ids as its text, as fscl_tpu chains them (`cli/rehearse_cmd.py:
+run_t2u`): all `max_decoder_ratio * L` unit positions, each sample's length
+its steps before <eos> (at least 1).
 """
 from __future__ import annotations
 
@@ -98,6 +105,35 @@ def serve(
             n = int(lens[i])
             results.append((mels[i, :max(n, 1)], n))
     return results
+
+
+class ChainedBatch(NamedTuple):
+    lines: List[int]              # indices of the batch's lines in the input
+    units: torch.Tensor           # (B, S) unit ids, 0 from <eos> on
+    n_units: torch.Tensor         # (B,) units before <eos>
+    postnet_mel: torch.Tensor     # (B, T_bucket, n_mels)
+    mel_len: torch.Tensor         # (B,)
+
+
+def serve_t2u_batches(t2u, u2s: BaselineSystem, lines: Sequence[str], unit_symbol_id: str,
+                      symbol_id: str = "en", max_steps: Optional[int] = None
+                      ) -> Iterator[ChainedBatch]:
+    """Text -> units -> mel, batch by batch (`serve_batches`' batches and
+    buckets, speaker 0): `t2u` (a TacoT2USystem) decodes each batch's units
+    (`max_steps`, default 10 L), `u2s` synthesizes from them (its
+    `unit_symbol_id` table); yields each batch on the systems' device."""
+    lang_id = LANG_NAME2ID[symbol_id]
+    seqs = [text_to_sequence(line, list(CLEANERS), symbol_id) for line in lines]
+    for start in range(0, len(seqs), BATCH_SIZE):
+        group = seqs[start:start + BATCH_SIZE]
+        texts, src_lens = pack_batch(group)
+        B = len(group)
+        _, units, n_units, _ = t2u.infer(texts, src_lens, symbol_id, max_steps)
+        out = u2s.synthesize_bucketed(
+            units, n_units.clamp(min=1), np.zeros((B,), np.int64),
+            np.full((B,), lang_id, np.int64), symbol_id=unit_symbol_id)
+        yield ChainedBatch(list(range(start, start + B)), units, n_units, out.postnet_mel,
+                           out.mel_len)
 
 
 def vocode_batches(vocoder: Vocoder, batches: Iterator[ServedBatch]

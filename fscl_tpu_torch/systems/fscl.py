@@ -53,51 +53,25 @@ class Episode(NamedTuple):
     sup_batch: Optional[Batch] = None
 
 
-@SYSTEMS.register("fscl", "fscl-orig")
-class TransEmbSystem(System):
-    """Parameters live under `upstream.` (frozen; HF HubertModel keys),
-    `codebook.` and `model.` (the reference torch FastSpeech2 keys). Built on
-    `device` (default `cuda`) in eval mode. The upstream is made on the
-    device with random weights drawn from `upstream_seed`
-    (`models.hubert.init_random_`) and stored in
-    `model_cfg.upstream.compute_dtype`; `init_upstream` draws new ones and
-    `load_upstream` installs given ones."""
+class FrozenUpstream:
+    """The frozen SSL upstream of an FSCL system (`System` subclasses with
+    `device` and `model_cfg`): its parameters do not require grad and stay
+    out of `trainable_mask`, it stays in eval mode in train mode and runs
+    under `no_grad`, stored in `model_cfg.upstream.compute_dtype`."""
 
-    def __init__(
-        self,
-        model_cfg: ModelConfig,
-        n_symbols: int,
-        stats: GlobalStats = DEFAULT_STATS,
-        device: Optional[Union[str, torch.device]] = None,
-        optim_cfg: Optional[OptimConfig] = None,
-        upstream: Optional[SSLUpstream] = None,
-        upstream_seed: int = 0,
-    ):
-        super().__init__(optim_cfg)
-        self.device = resolve_device(device)
-        self.model_cfg = model_cfg
-        self.n_symbols = n_symbols
-        up = model_cfg.upstream
-        self.codebook = SoftMultiAttCodebook2(
-            codebook_size=model_cfg.codebook.size,
-            dim=model_cfg.transformer.encoder_hidden,
-            num_heads=model_cfg.codebook.num_heads,
-            upstream_dim=up.dim, n_layers=up.n_layers, layer_idx=up.layer_idx,
-            use_layer_weights=up.name != "mel")
-        self.model = FastSpeech2(model_cfg, stats)
-        self.to(self.device)
+    def attach_upstream(self, upstream: Optional[SSLUpstream], seed: int) -> None:
+        """`upstream` moved to the device, or, when None, one made without
+        storage and drawn on the device from `seed`."""
         if upstream is None:
-            # made without storage, then drawn on the device
+            up = self.model_cfg.upstream
             with torch.device("meta"):
                 upstream = make_upstream(up.name, up)
             self.upstream = upstream.to_empty(device=self.device)
-            self.init_upstream(upstream_seed)
+            self.init_upstream(seed)
         else:
             self.upstream = upstream.to(self.device)
             self._store_upstream()
-        self.eval()
 
-    # -- upstream ------------------------------------------------------------
     def _store_upstream(self) -> None:
         """Frozen, and cast once to the compute dtype (`storage_cast`)."""
         self.upstream.requires_grad_(False)
@@ -123,8 +97,7 @@ class TransEmbSystem(System):
 
     def trainable_mask(self) -> Dict[str, bool]:
         """Everything but the upstream, as the JAX system's default mask over
-        its params (the upstream lives outside them, in `frozen`); GE2E
-        trains (but its constant `bias_ih`, see `GE2EEncoder`)."""
+        its params (the upstream lives outside them, in `frozen`)."""
         return {name: p.requires_grad and not name.startswith("upstream.")
                 for name, p in self.named_parameters()}
 
@@ -133,6 +106,44 @@ class TransEmbSystem(System):
         and the valid frames (S, T')."""
         return frozen_upstream_features(self.upstream, wavs,
                                         length_mask(wav_lens, wavs.shape[-1]))
+
+
+@SYSTEMS.register("fscl", "fscl-orig")
+class TransEmbSystem(FrozenUpstream, System):
+    """Parameters live under `upstream.` (frozen; HF HubertModel keys),
+    `codebook.` and `model.` (the reference torch FastSpeech2 keys). Built on
+    `device` (default `cuda`) in eval mode. The upstream is made on the
+    device with random weights drawn from `upstream_seed`
+    (`models.hubert.init_random_`) and stored in
+    `model_cfg.upstream.compute_dtype`; `init_upstream` draws new ones and
+    `load_upstream` installs given ones (`FrozenUpstream`); GE2E trains (but
+    its constant `bias_ih`, see `GE2EEncoder`)."""
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        n_symbols: int,
+        stats: GlobalStats = DEFAULT_STATS,
+        device: Optional[Union[str, torch.device]] = None,
+        optim_cfg: Optional[OptimConfig] = None,
+        upstream: Optional[SSLUpstream] = None,
+        upstream_seed: int = 0,
+    ):
+        super().__init__(optim_cfg)
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.n_symbols = n_symbols
+        up = model_cfg.upstream
+        self.codebook = SoftMultiAttCodebook2(
+            codebook_size=model_cfg.codebook.size,
+            dim=model_cfg.transformer.encoder_hidden,
+            num_heads=model_cfg.codebook.num_heads,
+            upstream_dim=up.dim, n_layers=up.n_layers, layer_idx=up.layer_idx,
+            use_layer_weights=up.name != "mel")
+        self.model = FastSpeech2(model_cfg, stats)
+        self.to(self.device)
+        self.attach_upstream(upstream, upstream_seed)
+        self.eval()
 
     # -- episode embedding table ----------------------------------------------
     def build_embedding_table(self, ssl_hidden: torch.Tensor, sup: SupInfo,

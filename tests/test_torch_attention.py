@@ -109,8 +109,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad, reason):
     elif bad == "dh":           # above 128: no instance to pad to (smaller ones are padded)
         q, k, v = (torch.cat((t, t, t), dim=-1)[..., :160].contiguous() for t in (q, k, v))
     elif bad == "length":
-        q, k, v = (torch.zeros(1, 1, 2049, 64) for _ in range(3))
-        valid = torch.ones(1, 2049, dtype=torch.bool)
+        q, k, v = (torch.zeros(1, 1, tattn.MAX_LEN + 1, 64) for _ in range(3))
+        valid = torch.ones(1, tattn.MAX_LEN + 1, dtype=torch.bool)
     elif bad == "mask":
         valid = valid.int()
     elif bad == "layout":

@@ -4,7 +4,7 @@ Every YAML under config/ loads in both packages through the reader that
 reads it, and the two `to_dict` results are equal (exactly: the same YAML
 values in the same frozen dataclasses). The model YAMLs of the T2U family
 load through `model_config_from_yaml` here; their `tacotron2:` block, read by
-`t2u_config_from_yaml` alone, waits for ROADMAP Queue 1, item 9. The registry
+`t2u_config_from_yaml` alone, is held in tests/test_torch_t2u_data.py. The registry
 keys of every algorithm YAML resolve in the port, or raise naming the
 ROADMAP item that ports their system.
 """

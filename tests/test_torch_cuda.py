@@ -68,14 +68,16 @@ def _inputs(seed, B, H, L, Dh, dtype, device):
 
 # The kernel's tiling edges: 16-row warp tiles and 32- (f32) or 64-key (bf16)
 # ring stages, each split across 1, 2 or 4 warps; B * H = 32 at L = 256; and
-# the served L bucket 32 (one full f32 ring stage) at the served B = 8.
+# the served L bucket 32 (one full f32 ring stage) at the served B = 8; the
+# 10 L = 2560 unit positions chained serving decodes for the L bucket 256;
+# the longest L, whose key flags fill the f32 instance's shared memory.
 @pytest.mark.cuda
 @pytest.mark.parametrize("key_split", [None, 1, 2, 4], ids=["auto", "ks1", "ks2", "ks4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dh,L,B,H", [
     (128, 16, 3, 2), (128, 1000, 3, 2), (64, 2048, 3, 2), (128, 77, 3, 2), (128, 1, 3, 2),
     (128, 63, 3, 2), (128, 65, 3, 2), (128, 129, 3, 2), (64, 2047, 3, 2), (128, 256, 4, 8),
-    (128, 32, 8, 2)])
+    (128, 32, 8, 2), (128, 2560, 3, 2), (128, tattn.MAX_LEN, 3, 1)])
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, Dh, L, B, H, key_split):
     q, k, v, valid = _inputs(5, B, H, L, Dh, dtype, cuda_device)
     before = tattn.LAUNCHES
@@ -579,3 +581,146 @@ def test_cli_preprocess_runs_in_f32_on_the_card(cuda_device, tmp_path):
     assert out["n_ok"] == out["n_queries"] == 4
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# -- the T2U family -------------------------------------------------------------
+
+T2U_LOGIT_ATOL, T2U_INFER_MARGIN = 1e-4, 1e-4
+
+
+def _tiny_cfg(d, heads):
+    return C.ModelConfig(
+        transformer=C.TransformerConfig(
+            encoder_layer=1, decoder_layer=1, encoder_hidden=d, decoder_hidden=d,
+            encoder_head=heads, decoder_head=heads, conv_filter_size=2 * d),
+        max_seq_len=256)
+
+
+def _small_t2u_cfg(n_units=40):
+    from fscl_tpu_torch.models.tacotron2_t2u import T2UConfig
+    return T2UConfig(n_units=n_units, d_unit=32, symbols_embedding_dim=32,
+                     encoder_embedding_dim=64, prenet_dim=32, attention_rnn_dim=64,
+                     decoder_rnn_dim=64, attention_dim=32)
+
+
+@pytest.mark.cuda
+def test_tacot2u_card_matches_cpu(cuda_device):
+    """Teacher-forced logits in train mode (every dropout, on the same
+    masks) within 1e-4, and `infer`'s unit ids equal up to the first step
+    where the CPU's top-2 margin falls below 1e-4 (an argmax near-tie may
+    go either way under another summation order)."""
+    from fscl_tpu_torch.models.tacotron2_t2u import TacoT2U, draw_masks
+    cfg = _small_t2u_cfg()
+    torch.manual_seed(0)
+    cpu = TacoT2U(cfg)
+    card = TacoT2U(cfg).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    B, L, T = 4, 24, 32
+    lens = torch.tensor([24, 17, 9, 3])
+    emb = torch.from_numpy(rng.normal(size=(B, L, 32)).astype(np.float32))
+    emb[torch.arange(L)[None] >= lens[:, None]] = 0
+    units = torch.from_numpy(rng.integers(1, 40, (B, T)))
+    masks = draw_masks(cfg, B, L, T, True, torch.Generator().manual_seed(1), "cpu")
+    on = lambda m: type(m)(*(None if x is None else x.to(cuda_device) for x in m))
+    want, _ = cpu.train()(emb, lens, units, masks=masks)
+    got, _ = card.train()(emb.to(cuda_device), lens.to(cuda_device), units.to(cuda_device),
+                          masks=on(masks))
+    np.testing.assert_allclose(got.detach().cpu().numpy(), want.detach().numpy(),
+                               atol=T2U_LOGIT_ATOL, rtol=0)
+    card.load_state_dict(cpu.state_dict())       # train mode moved the BatchNorm statistics
+    masks = draw_masks(cfg, B, L, 10 * L, False, torch.Generator().manual_seed(2), "cpu")
+    with torch.no_grad():
+        wl, wp, _, _ = cpu.eval().infer(emb, lens, masks=masks)
+        gl, gp, _, _ = card.eval().infer(emb.to(cuda_device), lens.to(cuda_device),
+                                         masks=on(masks))
+    top2 = wl.topk(2, dim=-1).values
+    ties = ((top2[..., 0] - top2[..., 1]).min(dim=0).values < T2U_INFER_MARGIN).nonzero()
+    upto = int(ties[0]) if len(ties) else wl.shape[1]
+    assert upto > 8
+    assert torch.equal(gp.cpu()[:, :upto], wp[:, :upto])
+
+
+@pytest.mark.cuda
+def test_downstream1_through_the_kernel_matches_plain(cuda_device, monkeypatch):
+    """Downstream1 at the FSCL-T2U width (d_model 256 in 2 heads of 128, the
+    25 HuBERT layers) under autograd: the attention kernel through
+    `AttentionFunction` against the same module on the plain version, on
+    the card; output and every gradient within 1e-4."""
+    from fscl_tpu_torch.nn import downstreams
+    torch.manual_seed(0)
+    m = downstreams.Downstream1(n_in_layers=25, d_in=1024).to(cuda_device).eval()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(4, 199, 25, 1024)).astype(np.float32)).to(cuda_device)
+    valid = torch.arange(199, device=cuda_device)[None] < torch.tensor(
+        [[199], [150], [77], [10]], device=cuda_device)
+
+    def run():
+        out = m(x, valid)
+        loss = (out * out).mean()
+        return out.detach(), torch.autograd.grad(loss, list(m.parameters()))
+
+    before = tattn.LAUNCHES
+    got_out, got_grads = run()
+    assert tattn.LAUNCHES - before == 2
+    monkeypatch.setattr(downstreams, "attend", lambda q, k, v, key_valid=None, temperature=None:
+                        tattn.attention_reference(q, k, v, key_valid, temperature))
+    want_out, want_grads = run()
+    torch.testing.assert_close(got_out, want_out, atol=1e-4, rtol=0)
+    for g, w in zip(got_grads, want_grads):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_e2e_gradient_through_frozen_u2s_card_matches_cpu(cuda_device):
+    """One E2E loss and its gradient to the T2U through a frozen u2s trunk
+    (d_model 128 in 2 heads: the kernel's head dim 64) on the card and on
+    the CPU: loss 1e-5 relative, gradients 1e-4 absolute; none reaches the
+    u2s, which stays in eval mode."""
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.systems.t2u import T2UBatch
+    from fscl_tpu_torch.systems.t2u_tune import E2EBatch, E2ETuneSystem
+    cfg = _tiny_cfg(128, 2)
+    n_units = 40
+    rng = np.random.default_rng(3)
+    systems = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda_device)):
+        torch.manual_seed(0)
+        u2s = BaselineSystem(cfg, (("u", n_units),), device=dev)
+        systems[name] = E2ETuneSystem(cfg, (("xx", 30),), _small_t2u_cfg(n_units), u2s,
+                                      device=dev, u2s_symbol_id="u")
+    systems["card"].load_state_dict(systems["cpu"].state_dict())
+    B, L, TU = 3, 16, 32
+    texts = rng.integers(1, 30, (B, L)).astype(np.int32)
+    units = rng.integers(9, n_units, (B, TU)).astype(np.int32)
+    units[1, 20:] = 0
+    t2u = T2UBatch(np.zeros(B, np.int32), texts, np.full(B, L, np.int32), units,
+                   np.array([TU, 20, TU], np.int32), np.zeros(B, np.int32))
+    samples = []
+    for i in range(B):
+        dur = rng.integers(1, 4, TU - 1)
+        samples.append(dict(id=str(i), text="", phonemes=units[i, :-1], duration=dur, speaker=0,
+                            lang_id=0, mel=rng.normal(size=(int(dur.sum()), 80)),
+                            pitch=rng.normal(size=TU - 1), energy=rng.normal(size=TU - 1)))
+    _, u2s_batch = collate_batch(samples, pitch_feature="phoneme_level",
+                                 energy_feature="phoneme_level")
+    batch = E2EBatch(t2u, u2s_batch)
+    masks = None
+    out = {}
+    for name, system in systems.items():
+        if masks is None:
+            masks = draw_masks(system.t2u_cfg, B, L, TU, True, torch.Generator().manual_seed(4),
+                               "cpu")
+        on = type(masks)(*(None if x is None else x.to(system.device) for x in masks))
+        system.train()
+        assert not system.u2s_system.training
+        loss, _ = system.loss_and_metrics(to_device(batch, system.device), masks=on)
+        names = [n for n, p in system.named_parameters() if system.trainable_mask()[n]]
+        params = dict(system.named_parameters())
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        assert not any(n.startswith("u2s_system.") for n in names)
+        out[name] = (float(loss.detach()), {n: None if g is None else g.cpu() for n, g in zip(names, grads)})
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-5)
+    for n, w in out["cpu"][1].items():
+        if w is not None:
+            torch.testing.assert_close(out["card"][1][n], w, atol=1e-4, rtol=0, msg=n)

@@ -49,12 +49,16 @@ def phones(symbol_id: str):
 
 def write_corpus(root: str, name: str, symbol_id: str, lang_id: int, seed: int,
                  n_train: int = 8, n_val: int = 4, speakers=("spkA", "spkB"),
-                 frames=(24, 80), n_phones=(6, 14), n_slices=(2, 4), tune: int = 0) -> str:
+                 frames=(24, 80), n_phones=(6, 14), n_slices=(2, 4), tune: int = 0,
+                 unit_name: str = "") -> str:
     """Write corpus `name` under `root`: n_train + n_val utterances of
     `frames` mel frames and `n_phones` phonemes (inclusive ranges), the
     speakers in turn. Returns its data config path; with `tune` > 0 also a
     split of the first `tune` train utterances and its data config,
-    `tune.yaml` beside it."""
+    `tune.yaml` beside it. With `unit_name`, also the frame-level
+    `interpolate_pitch` and `energy` that pseudo-unit discovery averages
+    (data/ssl_units.py) and `t2u.yaml`, the data config with a
+    `target: unit_name` (the T2U family's)."""
     rng = np.random.default_rng(seed)
     inventory = phones(symbol_id)
     table = np.random.default_rng(seed + 1).normal(size=(len(inventory), 82))
@@ -74,6 +78,10 @@ def write_corpus(root: str, name: str, symbol_id: str, lang_id: int, seed: int,
             (180 + 40 * table[ph, 80] + 5 * rng.normal(size=n)).astype(np.float32), q)
         store.mfa_duration_avg_energy.save(
             (50 + 20 * table[ph, 81] + 2 * rng.normal(size=n)).astype(np.float32), q)
+        if unit_name:
+            store.interpolate_pitch.save(np.repeat(180 + 40 * table[ph, 80], dur)
+                                         .astype(np.float32), q)
+            store.energy.save(np.repeat(50 + 20 * table[ph, 81], dur).astype(np.float32), q)
         ends = np.cumsum(dur) * HOP / SR
         store.mfa_segment.save([[float(a), float(b)] for a, b in
                                 zip(np.concatenate([[0.0], ends[:-1]]), ends)], q)
@@ -93,6 +101,9 @@ def write_corpus(root: str, name: str, symbol_id: str, lang_id: int, seed: int,
     write_queries_to_txt(store, queries[:n_train], os.path.join(split_dir, "train.txt"))
     write_queries_to_txt(store, queries[n_train:], os.path.join(split_dir, "val.txt"))
     configs = {"data.yaml": "  train: splits/train.txt\n  val: splits/val.txt\n"}
+    if unit_name:
+        configs["t2u.yaml"] = (configs["data.yaml"]
+                               + f"target:\n  unit_name: {unit_name}\n")
     if tune:
         write_queries_to_txt(store, queries[:tune], os.path.join(split_dir, "tune.txt"))
         configs["tune.yaml"] = "  train: splits/tune.txt\n"

@@ -164,3 +164,65 @@ def same(got, want, where="item"):
         assert np.array_equal(a, b), where
         return
     assert type(got) is type(want) and got == want, (where, got, want)
+
+
+# -- the T2U family: fscl_tpu's dropout masks, rebuilt for the port ------------
+
+def t2u_scan_masks(cfg, r_scan, B: int, T: int, train: bool, infer: bool = False,
+                   encoder=None):
+    """The port's `T2UMasks` equal to the masks fscl_tpu's TacoT2U draws from
+    `r_scan` over T steps: each step folds t into the key, splits it (three
+    ways in the teacher-forced scan, two in `infer`), and the prenet and
+    (in train mode) the cell split their key once per draw. `encoder`: the
+    encoder's Dropout masks, captured with `capture_dropout`."""
+    import torch
+    from fscl_tpu_torch.models.tacotron2_t2u import T2UMasks
+
+    pre, att, dec = [], [], []
+    for t in range(T):
+        step = jax.random.fold_in(r_scan, t)
+        if infer:
+            r_pre, r_cell = jax.random.split(step)
+        else:
+            _, r_pre, r_cell = jax.random.split(step, 3)
+        keys = []
+        for _ in range(2):
+            r_pre, sub = jax.random.split(r_pre)
+            keys.append(np.asarray(jax.random.bernoulli(sub, 0.5, (B, cfg.prenet_dim))))
+        pre.append(np.stack(keys))
+        if train:
+            r_cell, sub = jax.random.split(r_cell)
+            att.append(np.asarray(jax.random.bernoulli(
+                sub, 1 - cfg.p_attention_dropout, (B, cfg.attention_rnn_dim))))
+            r_cell, sub = jax.random.split(r_cell)
+            dec.append(np.asarray(jax.random.bernoulli(
+                sub, 1 - cfg.p_decoder_dropout, (B, cfg.decoder_rnn_dim))))
+    as_t = lambda xs: torch.from_numpy(np.stack(xs)) if xs else None
+    return T2UMasks(prenet=as_t(pre), attention=as_t(att), decoder=as_t(dec),
+                    encoder=None if encoder is None else torch.from_numpy(encoder))
+
+
+def capture_dropout(fn):
+    """Run fn() eagerly and return (its result, the keep masks of every
+    flax Dropout it called that was not deterministic, stacked). Each such
+    call draws its mask once, on an input of ones (so the mask is where the
+    output is not 0), and applies it to the real input."""
+    captured = []
+
+    def interceptor(next_fun, args, kwargs, context):
+        module = context.module
+        if not (isinstance(module, flax.linen.Dropout) and context.method_name == "__call__"):
+            return next_fun(*args, **kwargs)
+        det = kwargs.get("deterministic", args[1] if len(args) > 1 else None)
+        if det is None:
+            det = module.deterministic
+        if det or module.rate == 0:
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        keep = next_fun(jnp.ones_like(x), *args[1:], **kwargs) != 0
+        captured.append(np.asarray(keep))
+        return jnp.where(keep, x / (1.0 - module.rate), 0.0)
+
+    with flax.linen.intercept_methods(interceptor):
+        out = fn()
+    return out, (np.stack(captured) if captured else None)
