@@ -144,7 +144,7 @@ non-zero exit code when it fails:
    a small episode card vs CPU (table and loss 1e-4); `t2u_tune_init` of a
    32-shot split into an E2ETuneSystem from the trained T2U, 10 steps at
    B = 4 on one batch through the frozen u2s (10 attention launches per
-   step, a falling loss, the u2s unchanged), then on two seeds 40 steps on
+   step, a falling loss, the u2s unchanged), then on one seed 40 steps on
    the stream at config/train/tune-t2s-1500.yaml's optimizer beside 40 at
    lr 0 on the same batches and masks (the difference of their losses
    read; steps/s; the held val loss read after each); one step's loss
@@ -153,11 +153,34 @@ non-zero exit code when it fails:
    (`serve_t2u_batches`, `vocode_batches`: up to 2560 unit positions a
    batch, 14 attention and 4 stage launches per batch, units/s,
    audio-s/s). Every attention shape is held in phase 3.
-9. Attention timing (run last, after phase 14): the kernel at each key
+15. The phoneme-recognition family at full width: a meta corpus as phase
+   14's (64 + 8 utterances of 1.5-10 s) and a target corpus of 40, written
+   from --seed. `pack --fscl` and `pack` of the meta corpus, each through
+   `python -m fscl_tpu_torch.cli` in a subprocess (seconds, bytes), `clean`
+   once; host ms per episode of 32 + 8 from the `.fscl.shard`
+   (`collate_pr_episode`, C++ and numpy readers) beside the same episodes
+   through PRDataset and the Python collate, and per supervised batch of 16
+   from the `.shard`, NativeCollate and the Python path; base.yaml trained
+   at B = 16 from the shard beside the store (steps/s); `train --system
+   pr-ssl-protonet` through the CLI (config/model/fscl-fastspeech2.yaml:
+   HuBERT-large drawn on the card, Downstream1 at 256 with 2 heads; the
+   generic path's episodes of 4 + 2 from the shard; no upstream tensor in
+   the checkpoint); SSLProtoNetSystem and TransHeadPRSystem 10 episodes of
+   32 + 8 each through `Trainer.fit` (episodes/s, upstream / downstream /
+   optimizer ms of one episode, a falling loss on one episode repeated);
+   pr-ssl-linear, -baseline and -cluster 10 steps each at B = 8 through
+   PRDataModule (steps/s; losses recorded); `TaskGenerator` over the target
+   corpus, `run_protonet_eval` and `run_trans_head_eval`, then `python -m
+   fscl_tpu_torch.cli evaluate` (PER, FER; query utterances/s split into
+   the card and the host's DPDP); card vs CPU on the same weights (logits
+   atol 1e-3, loss 1e-4 and one step's gradient norm 1e-3 relative, one
+   task's eval frame logits atol 1e-3). Every attention shape is held in
+   phase 3.
+9. Attention timing (run last, after phase 15): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
-   (32, 16, 199, 64)), and in float32 at every shape phase 14 launched,
+   (32, 16, 199, 64)), and in float32 at every shape phases 14 and 15 launched,
    beside its route's bound (split TF32 or bf16 tensor cores) and the f32
    FMA bound of the earlier design. The kernel also through its
    public wrapper with CUDA events over back-to-back calls (how the main
@@ -502,8 +525,9 @@ def phase_attention(seed: int):
     shapes += [(S, 16, ssl_num_frames(w), 64) for S in (FSCL_S, TUNE_SUP_BATCH)
                for w in WAV_BUCKETS[:2]]
     shapes += [(1, H, line_L, Dh), (1, H, line_T, Dh)]
-    # phase 14: the T2U family (t2u_attention_shapes)
+    # phase 14: the T2U family (t2u_attention_shapes); phase 15: the PR family
     shapes += t2u_attention_shapes(H, Dh)
+    shapes += pr_attention_shapes()
     shapes = list(dict.fromkeys(shapes))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
@@ -3523,17 +3547,19 @@ E2E_B, E2E_COUNTED = 4, 10                  # config/train/tune-t2s-1500.yaml:4
 # 0.9 / 0.98, eps 1e-9, clip 1.0, the sqrt schedule to lr 1e-3), cut from
 # the config's 1500 steps to E2E_STREAM and its 4000 warm-up steps with it
 # (to 4000 * E2E_STREAM / 1500, so that the lr climbs over the run to the
-# 3.75e-4 the config's 1500 steps reach), from the same start on two seeds
-# (the stream's draws and the dropout masks). Beside each run, a control at
+# 3.75e-4 the config's 1500 steps reach), from the same start on one seed
+# (the stream's draws and the dropout masks; two until PR 11, cut to keep
+# the script near half its time limit once phase 15 came). Beside each run, a control at
 # lr 0 on the same seed sees the same batches and masks, so the difference
 # of their losses step by step is what the tune learned: B = 4 batches of
 # 1.5-10 s utterances vary more from one to the next than 40 steps move the
 # loss. The held val batches' loss is read before and after each run, and
 # after it with the T2U's BatchNorm statistics of the start. These are
 # readings: at this schedule the tune beats its control over its first
-# steps but not over the last 10 of 40 (PERF.md section 7), so the check
-# that the chain learns is the one-batch fit at lr 2e-3.
-E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 40, 2, 1500
+# steps but not over the last 10 of 40, as fscl_tpu's does
+# (tests/test_torch_t2u.py holds the trajectory to it; PERF.md section 7),
+# so the check that the chain learns is the one-batch fit at lr 2e-3.
+E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 40, 1, 1500
 # Card vs CPU: the teacher-forced logits of the T2U trained above through
 # its 1024-wide recurrences (cuBLAS and the CPU's BLAS sum in another
 # order, and the recurrence carries the differences step to step); the
@@ -4203,6 +4229,570 @@ def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, 
     return summary
 
 
+# -- phase 15: the phoneme-recognition (PR) family ----------------------------
+
+# A meta corpus as phase 14's (64 + 8 utterances of 1.5-10 s, 30-100
+# phonemes; 16 kHz wavs and MFA segments) and a target corpus of 40
+# utterances of 30-60 phonemes for task generation, both written from the
+# seed (tests/torch_corpus.py:write_corpus; the store also gets the 22.05 kHz
+# trims and frame pitch that `clean` reads). The model is
+# config/model/fscl-fastspeech2.yaml's: HuBERT-large in f32 drawn on the card,
+# Downstream1 and the heads at 256 with 2 heads (Dh 128), a 128-row codebook.
+# Depth, to cut first: the step, episode and task counts.
+PR_TRAIN, PR_VAL, PR_FRAMES, PR_PHONES = 64, 8, (130, 860), (30, 100)
+PR_TARGET_UTTS, PR_TARGET_PHONES = 40, (30, 60)
+PR_SHOTS, PR_QUERIES = 32, 8        # config/algorithm/phoneme_recognition/pr-fscl.yaml
+PR_CLI_STEPS, PR_EPISODES, PR_FIT_STEPS = 20, 10, 10
+PR_SUP_B, PR_SUP_STEPS = 8, 10      # the supervised systems through PRDataModule
+PR_TASK_SHOTS, PR_TASK_QUERIES, PR_TASKS, PR_EVAL_BATCH = 8, 8, 2, 8
+PR_READ_BATCHES, PR_SHARD_STEPS = 10, 20
+# Card vs CPU on one small episode (the 4 + 2 shortest utterances, one wav
+# bucket): the protonet's and TransHead's logits (phase 14's logits bar),
+# the loss, one train step's gradient norm, one task's eval frame logits.
+PR_LOGIT_ATOL, PR_LOSS_RTOL, PR_GRAD_NORM_RTOL = 1e-3, 1e-4, 1e-3
+PR_ALGO = REPO / "config" / "algorithm" / "phoneme_recognition"
+
+
+def pr_attention_shapes():
+    """The (B, H, L, Dh) the PR family launches the attention kernel at:
+    HuBERT-large (16 heads of 64) and Downstream1 (2 heads of 128) over the
+    episodes' support and query sets (32 + 8 in process, the CLI's 4 + 2),
+    the supervised batches and eval chunks of 8, and the card-vs-CPU
+    episode's 4 + 2, at each episode wav bucket the corpora reach (4-12 s)."""
+    from fscl_tpu_torch.data.episodic import WAV_BUCKETS
+    from fscl_tpu_torch.models.hubert import ssl_num_frames
+    shapes = []
+    for B in sorted({PR_SHOTS, PR_QUERIES, PR_SUP_B, PR_EVAL_BATCH, 4, 2}):
+        for w in WAV_BUCKETS[:3]:
+            shapes += [(B, 16, ssl_num_frames(w), 64), (B, 2, ssl_num_frames(w), 128)]
+    return shapes
+
+
+def pr_corpora(root: Path, seed: int):
+    """The meta and target corpora; returns their data config paths."""
+    import numpy as np
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_corpus import write_corpus
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    meta = write_corpus(str(root), "en-pr", "en", 0, seed + 70, n_train=PR_TRAIN, n_val=PR_VAL,
+                        frames=PR_FRAMES, n_phones=PR_PHONES, unit_name="pr-frames")
+    target = write_corpus(str(root), "en-target", "en", 0, seed + 71, n_train=PR_TARGET_UTTS,
+                          n_val=0, frames=PR_FRAMES, n_phones=PR_TARGET_PHONES)
+    store = FeatureStore(str(Path(meta).parent / "features"))
+    for q in store.load_metadata():
+        n = store.wav_trim_16000.read_from_query(q).shape[0]
+        store.wav_trim_22050.save(np.zeros(round(n * 22050 / 16000), np.float32), q)
+        store.pitch.save(store.interpolate_pitch.read_from_query(q), q)
+    return meta, target
+
+
+def pr_subprocess(args, what: str):
+    """`python -m fscl_tpu_torch.cli <args>` in a fresh process: (stdout, s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fscl_tpu_torch.cli", *args], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"pr {what}: exit {proc.returncode}\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+def pr_pack_and_clean(meta: str):
+    """`pack --fscl` and `pack` of the meta corpus's train split, each in a
+    subprocess (seconds, bytes); `clean` once, in process."""
+    from fscl_tpu_torch.cli import main as cli
+    split = Path(meta).parent / "splits" / "train.txt"
+    out = {}
+    for name, extra in (("fscl", ["--fscl"]), ("supervised", [])):
+        _, wall = pr_subprocess(["pack", "--data_config", meta, *extra], f"pack {name}")
+        path = Path(str(split) + (".fscl.shard" if extra else ".shard"))
+        out[name] = {"seconds": wall, "bytes": path.stat().st_size}
+    t0 = time.perf_counter()
+    cleaned = cli(["clean", str(Path(meta).parent / "features")])
+    out["clean"] = dict(cleaned, seconds=time.perf_counter() - t0)
+    if cleaned["kept"] != PR_TRAIN + PR_VAL:
+        fail(f"pr clean: kept {cleaned}")
+    log(f"pr pack: --fscl {out['fscl']['bytes'] / 2**20:.1f} MiB in {out['fscl']['seconds']:.2f} "
+        f"s, supervised {out['supervised']['bytes'] / 2**20:.1f} MiB in "
+        f"{out['supervised']['seconds']:.2f} s (subprocesses, interpreter start included); "
+        f"clean kept {cleaned['kept']}/{cleaned['total']} in {out['clean']['seconds']:.2f} s")
+    return out
+
+
+def pr_host_reads(meta: str):
+    """Host ms per episode of 32 + 8 from the shard (C++ and numpy readers)
+    beside the same episodes through PRDataset and the Python collate, and
+    per supervised batch of 16 from the `.shard`, NativeCollate and the
+    Python path; each reader the same draws, after one untimed call (the C++
+    libraries are built with g++ at their first call)."""
+    import numpy as np
+    from fscl_tpu_torch.core.config import ModelConfig, read_data_config
+    from fscl_tpu_torch.data.batch import collate_batch
+    from fscl_tpu_torch.data.datamodules import collate_pr
+    from fscl_tpu_torch.data.datasets import FastSpeech2Dataset, PRDataset
+    from fscl_tpu_torch.data.episodic import split_sup_qry
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.data.native_loader import NativeCollate
+    from fscl_tpu_torch.data.shards import PackedShard
+    from fscl_tpu_torch.frontend import n_symbols
+    from fscl_tpu_torch.systems.pr import PREpisode
+
+    dc = read_data_config(meta)
+    store, split = FeatureStore(dc.data_dir), dc.subset_path("train")
+    rng = np.random.default_rng(0)
+    draws = [rng.integers(0, PR_TRAIN, PR_SHOTS + PR_QUERIES) for _ in range(PR_READ_BATCHES)]
+    ds = PRDataset(split, store, dc)
+    n_sym = n_symbols(dc.symbol_id)
+
+    def python_episode(idxs):
+        samples = [ds[int(i)] for i in idxs]
+        sup, qry = split_sup_qry(samples, PR_SHOTS, PR_QUERIES)
+        return PREpisode(collate_pr([samples[i] for i in sup], dc.symbol_id, n_sym),
+                         collate_pr([samples[i] for i in qry], dc.symbol_id, n_sym))
+
+    def timed(fn, items):
+        fn(items[0])            # builds the C++ reader at its first call
+        t0 = time.perf_counter()
+        outs = [fn(x) for x in items]
+        return 1e3 * (time.perf_counter() - t0) / len(items), outs
+
+    readers = {"shard_cpp": PackedShard(split + ".fscl.shard"),
+               "shard_numpy": PackedShard(split + ".fscl.shard", native=False)}
+    episodes = {name: timed(lambda i, s=sh: s.collate_pr_episode(
+        i, PR_SHOTS, PR_QUERIES, dc.symbol_id, n_sym), draws) for name, sh in readers.items()}
+    episodes["python"] = timed(python_episode, draws)
+    ref = episodes["python"][1]
+    for name, (_, outs) in episodes.items():
+        for a, b in zip(outs, ref):
+            for side in ("sup", "qry"):
+                x, y = getattr(a, side), getattr(b, side)
+                if not all(np.array_equal(u, v) for u, v in zip(x[:5], y[:5])):
+                    fail(f"pr host reads: the {name} episode differs from the Python one")
+    mc = ModelConfig()
+    fs_ds = FastSpeech2Dataset(split, store, dc, mc)
+    batches = [rng.integers(0, PR_TRAIN, 16) for _ in range(PR_READ_BATCHES)]
+    native = NativeCollate(store, dc, mc)
+    shard = PackedShard(split + ".shard")
+    sup = {"shard_cpp": timed(lambda i: shard.collate(i)[1], batches),
+           "native": timed(lambda i: native.collate([fs_ds.queries[int(j)] for j in i])[1],
+                           batches),
+           "python": timed(lambda i: collate_batch([fs_ds[int(j)] for j in i])[1], batches)}
+    out = {"episode_ms": {k: v[0] for k, v in episodes.items()},
+           "supervised_ms": {k: v[0] for k, v in sup.items()}}
+    e, s = out["episode_ms"], out["supervised_ms"]
+    log(f"pr host reads: an episode of {PR_SHOTS} + {PR_QUERIES} {e['shard_cpp']:.2f} ms from the "
+        f"shard (C++), {e['shard_numpy']:.2f} (numpy), {e['python']:.2f} through PRDataset "
+        f"({e['python'] / e['shard_cpp']:.1f}x); a supervised batch of 16 {s['shard_cpp']:.2f} ms "
+        f"from the .shard, {s['native']:.2f} NativeCollate, {s['python']:.2f} Python "
+        f"({s['python'] / s['shard_cpp']:.1f}x); the same episodes from each reader")
+    return out
+
+
+def pr_shard_steps(meta: str, seed: int):
+    """config/model/base.yaml trained at B = 16 from FastSpeech2DataModule's
+    shard path and from its Python path (native_io=False), PR_SHARD_STEPS
+    each after a warm-up, on one system: steps/s beside each other."""
+    import dataclasses
+    import torch
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.datamodules import FastSpeech2DataModule
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    dc = read_data_config(meta)
+    cfg = train_model_config(True)
+    cfg = dataclasses.replace(cfg, speaker=dataclasses.replace(cfg.speaker, n_speakers=2))
+    train_cfg = t2u_train_config(16, log_step=10**9, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    torch.manual_seed(seed)
+    system = BaselineSystem(cfg, (("en", 152),), device=CARD, optim_cfg=train_cfg.optim)
+    state = system.init_state()
+    out = {}
+    for name, native_io in (("warm-up", True), ("shard", True), ("python", False),
+                            ("shard_again", True)):
+        dm = FastSpeech2DataModule([dc], cfg, train_cfg, native_io=native_io, re_id=False)
+        dm.setup()
+        if native_io and dm._shard is None:
+            fail("pr shard steps: the datamodule did not take the shard")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = Trainer(system, train_cfg).fit(state, dm.train_batches(),
+                                               max_steps=state.step + PR_SHARD_STEPS)
+        torch.cuda.synchronize()
+        out[name] = PR_SHARD_STEPS / (time.perf_counter() - t0)
+    del out["warm-up"]
+    log(f"pr train from the shard: {out['shard']:.2f} / {out['shard_again']:.2f} steps/s "
+        f"(base.yaml, B=16) against {out['python']:.2f} from the store in Python")
+    del system
+    torch.cuda.empty_cache()
+    return out
+
+
+def pr_cli_train(root: Path, meta: str, attn_checked):
+    """`train --system pr-ssl-protonet` through the CLI on the packed corpus:
+    the generic path's episodes of 4 + 2 from the `.fscl.shard`, HuBERT-large
+    drawn from the seed; finite losses; no upstream tensor in the
+    checkpoint."""
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+    from fscl_tpu_torch.ops import attention as attn
+
+    overlay = cli_train_overlay(root, "pr-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 5\n  anneal_steps: []\n"
+                                f"step:\n  log_step: 1\n  save_step: {PR_CLI_STEPS}\n")
+    exp = root / "exp-pr"
+    probe = CliProbe()
+    attn.LAUNCHES = 0
+    with probe.active(), attention_shapes(attn, attn_checked, "pr cli train"):
+        system, state = cli([
+            "train", "--system", "pr-ssl-protonet", "--data_config", meta,
+            "--model_config", str(REPO / "config" / "model" / "fscl-fastspeech2.yaml"),
+            "--algorithm_config", str(PR_ALGO / "ssl-protonet.yaml"),
+            "--train_config", overlay, "--exp_dir", str(exp), "--total_step", str(PR_CLI_STEPS)])
+    losses, launches, fit = probe.read_losses(), attn.LAUNCHES, probe.fits[-1]
+    per_episode = 2 * (system.upstream.n_layers + len(system.downstream.layers))
+    raw = CheckpointManager(str(exp / "ckpt")).restore()
+    if any(k.startswith("upstream.") for k in raw["params"]) or state.step != PR_CLI_STEPS or \
+            not all(math.isfinite(x) for x in losses) or launches != per_episode * PR_CLI_STEPS:
+        fail(f"pr cli train: losses {losses}, {launches} attention launches, step {state.step}, "
+             "or upstream tensors in the checkpoint")
+    log(f"pr cli train (pr-ssl-protonet, episodes of 4 + 2): {PR_CLI_STEPS} episodes in "
+        f"{fit['seconds']:.2f} s = {fit['steps_per_s']:.2f} episodes/s (saves excluded); loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; {per_episode} attention launches per episode")
+    return system, {"episodes": PR_CLI_STEPS, "episodes_per_s": fit["steps_per_s"],
+                    "losses": losses, "attention_launches": launches,
+                    "checkpoint_bytes": probe.saves[-1]["bytes"]}
+
+
+def pr_split(system, state, ep):
+    """One episode split by synchronizes: the frozen upstream over support
+    and query, the rest of the forward and the backward, the optimizer."""
+    import torch
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = now()
+    with torch.no_grad():
+        system.extract_ssl(ep.sup.wavs, ep.sup.wav_lens)
+        system.extract_ssl(ep.qry.wavs, ep.qry.wav_lens)
+    t1 = now()
+    system.train()
+    loss, _ = system.loss_and_metrics(ep)
+    grads = torch.autograd.grad(loss, system.optimizer.params, allow_unused=True)
+    system.eval()
+    t2 = now()
+    system.optimizer.update(state.opt_state, grads)
+    t3 = now()
+    return {"upstream_ms": 1e3 * (t1 - t0), "downstream_ms": 1e3 * (t2 - t1 - (t1 - t0)),
+            "optimizer_ms": 1e3 * (t3 - t2), "episode_ms": 1e3 * (t3 - t0)}
+
+
+def pr_episodic(kind: str, dc, upstream, seed: int, attn_checked):
+    """PR_EPISODES episodes of 32 + 8 from PREpisodicDataModule (the shard)
+    through Trainer.fit: every loss finite, episodes/s, one episode split;
+    then PR_FIT_STEPS steps on one episode repeated: the loss falls."""
+    import itertools
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.data.datamodules import PREpisodicDataModule
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.pr import SSLProtoNetSystem, TransHeadPRSystem
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    cls = SSLProtoNetSystem if kind == "protonet" else TransHeadPRSystem
+    cfg = train_model_config(True, "fscl-fastspeech2.yaml")
+    train_cfg = t2u_train_config(PR_SHOTS, log_step=1, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    torch.manual_seed(seed)
+    system = cls(cfg, (("en", 152),), device=CARD, optim_cfg=train_cfg.optim,
+                 upstream=upstream, upstream_seed=seed)
+    dm = PREpisodicDataModule([dc], cfg, train_cfg, shots=PR_SHOTS, queries=PR_QUERIES)
+    dm.setup()
+    if dm.datasets[0][2] is None:
+        fail("pr episodes: PREpisodicDataModule did not take the shard")
+    start = {k: v.clone() for k, v in system.state_dict().items() if not k.startswith("upstream.")}
+    rec = LossRecorder()
+    n_attn = len(getattr(system.downstream, "layers", ()))
+    per_episode = 2 * (system.upstream.n_layers + n_attn)
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, f"pr {kind} episodes"):
+        state = system.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = Trainer(system, train_cfg, callbacks=[rec]).fit(state, dm.train_batches(),
+                                                                max_steps=PR_EPISODES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = attn.LAUNCHES
+        host_ep = next(dm.train_batches())
+        split = pr_split(system, state, to_device(host_ep, CARD))
+    losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+    if not all(math.isfinite(x) for x in losses) or launches != per_episode * PR_EPISODES:
+        fail(f"pr {kind} episodes: losses {losses}, {launches} attention launches")
+    # one episode repeated: the episodic loss must fall
+    system.load_state_dict(start, strict=False)
+    rec = LossRecorder()
+    with attention_shapes(attn, attn_checked, f"pr {kind} fit"):
+        Trainer(system, train_cfg, callbacks=[rec]).fit(system.init_state(),
+                                                        itertools.repeat(host_ep),
+                                                        max_steps=PR_FIT_STEPS)
+    fit_losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+    if not all(math.isfinite(x) for x in fit_losses) or not falling(fit_losses):
+        fail(f"pr {kind} one-episode fit: losses {fit_losses}")
+    log(f"pr {kind}: {PR_EPISODES} episodes of {PR_SHOTS} + {PR_QUERIES} in {wall:.2f} s = "
+        f"{PR_EPISODES / wall:.3f} episodes/s (loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"{per_episode} attention launches each); one episode: upstream "
+        f"{split['upstream_ms']:.1f} ms, downstream fwd + bwd {split['downstream_ms']:.1f}, "
+        f"optimizer {split['optimizer_ms']:.1f}; one episode repeated: {fit_losses[0]:.3f} -> "
+        f"{fit_losses[-1]:.3f}")
+    return system, {"episodes": PR_EPISODES, "episodes_per_s": PR_EPISODES / wall,
+                        "losses": losses, "attention_launches": launches, "split": split,
+                        "fit_losses": fit_losses}
+
+
+def pr_supervised(dc, upstream, seed: int, attn_checked):
+    """pr-ssl-linear, -baseline and -cluster: PR_SUP_STEPS steps each at
+    B = PR_SUP_B through PRDataModule; steps/s; every loss finite (the
+    losses are recorded, not gated: a random upstream gives them nothing to
+    learn in so few steps)."""
+    import torch
+    from fscl_tpu_torch.data.datamodules import PRDataModule
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.pr import SSLBaselineSystem, SSLClusterSystem, SSLLinearSystem
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    cfg = train_model_config(True, "fscl-fastspeech2.yaml")
+    train_cfg = t2u_train_config(PR_SUP_B, log_step=1, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    out = {}
+    for name, cls in (("linear", SSLLinearSystem), ("baseline", SSLBaselineSystem),
+                      ("cluster", SSLClusterSystem)):
+        torch.manual_seed(seed)
+        system = cls(cfg, (("en", 152),), device=CARD, optim_cfg=train_cfg.optim,
+                     upstream=upstream)
+        dm = PRDataModule([dc], cfg, train_cfg)
+        dm.setup()
+        rec = LossRecorder()
+        attn.LAUNCHES = 0
+        with attention_shapes(attn, attn_checked, f"pr {name}"):
+            state = system.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Trainer(system, train_cfg, callbacks=[rec]).fit(state, dm.train_batches(),
+                                                            max_steps=PR_SUP_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"pr {name}: losses {losses}")
+        out[name] = {"steps_per_s": PR_SUP_STEPS / wall, "losses": losses,
+                     "attention_launches": attn.LAUNCHES}
+        del system
+    log("pr supervised at B=8 through PRDataModule: " + "; ".join(
+        f"{k} {v['steps_per_s']:.2f} steps/s, loss {v['losses'][0]:.3f} -> {v['losses'][-1]:.3f}"
+        for k, v in out.items()))
+    return out
+
+
+def pr_eval(root: Path, target: str, systems, attn_checked):
+    """TaskGenerator over the target corpus, then zero-shot transcription
+    of every task's queries by the protonet and the TransHead system, then
+    `python -m fscl_tpu_torch.cli evaluate` on each output: PER and FER,
+    query utterances/s split into the card (with the host's collates) and
+    the host's DPDP."""
+    import torch
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.eval import protonet_eval
+    from fscl_tpu_torch.eval.task_generation import TaskGenerator
+    from fscl_tpu_torch.ops import attention as attn
+
+    dc = read_data_config(target)
+    tasks = root / "tasks"
+    t0 = time.perf_counter()
+    TaskGenerator(dc.name, FeatureStore(dc.data_dir), dc.lang_id, dc.symbol_id, seed=4).generate(
+        dc.subset_path("train"), str(tasks), shots=(PR_TASK_SHOTS,), n_qry=PR_TASK_QUERIES,
+        n_tasks=PR_TASKS)
+    gen_s = time.perf_counter() - t0
+    out = {"task_generation_s": gen_s}
+    decode = protonet_eval.evaluate_pr_task
+    for name, system in systems.items():
+        dpdp = [0.0]
+
+        def timed_decode(*args, **kw):
+            t = time.perf_counter()
+            res = decode(*args, **kw)
+            dpdp[0] += time.perf_counter() - t
+            return res
+
+        run = (protonet_eval.run_protonet_eval if name == "protonet"
+               else protonet_eval.run_trans_head_eval)
+        attn.LAUNCHES = 0
+        with mock.patch.object(protonet_eval, "evaluate_pr_task", timed_decode), \
+                attention_shapes(attn, attn_checked, f"pr eval {name}"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = run(system, str(tasks / f"{PR_TASK_SHOTS}-shot"), str(root / f"eval-{name}"),
+                        batch_size=PR_EVAL_BATCH)
+            wall = time.perf_counter() - t0
+        n = PR_TASKS * PR_TASK_QUERIES
+        stdout, ev_s = pr_subprocess(["evaluate", str(root / f"eval-{name}")], f"evaluate {name}")
+        rates = {}
+        for line in stdout.splitlines():
+            for metric in ("PER", "FER"):
+                if f"] {metric}: " in line:
+                    rates[metric] = float(line.split(f"{metric}: ")[1].split("%")[0])
+        if len(paths) != PR_TASKS or set(rates) != {"PER", "FER"} or \
+                not all(0.0 <= x and math.isfinite(x) for x in rates.values()):
+            fail(f"pr eval {name}: {paths}, evaluate printed {stdout!r}")
+        out[name] = {"queries": n, "wall_s": wall, "dpdp_s": dpdp[0],
+                     "queries_per_s": n / wall, "card_queries_per_s": n / (wall - dpdp[0]),
+                     "per": rates["PER"], "fer": rates["FER"], "evaluate_s": ev_s,
+                     "attention_launches": attn.LAUNCHES}
+        log(f"pr eval {name}: {PR_TASKS} tasks of {PR_TASK_SHOTS} shots, {n} queries in "
+            f"{wall:.2f} s = {n / wall:.2f} utterances/s (card and collates "
+            f"{wall - dpdp[0]:.2f} s, DPDP on the host {dpdp[0]:.2f} s); evaluate: PER "
+            f"{rates['PER']:.2f} %, FER {rates['FER']:.2f} % (random weights)")
+    return out, tasks
+
+
+def pr_check_task(root: Path, tasks: Path) -> Path:
+    """A task of the generated tree's config with the 4 + 2 shortest target
+    utterances (one wav bucket), so that its eval also runs on the CPU."""
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.feature_store import FeatureStore, write_queries_to_txt
+    first = sorted((tasks / f"{PR_TASK_SHOTS}-shot").glob("task-*"))[0]
+    dc = read_data_config(str(first / "config.yaml"))
+    store = FeatureStore(dc.data_dir)
+    qs = sorted(store.load_metadata(),
+                key=lambda q: store.wav_trim_16000.read_from_query(q).shape[0])[:6]
+    task = root / "check-task" / "task-0"
+    task.mkdir(parents=True)
+    (task / "config.yaml").write_text((first / "config.yaml").read_text())
+    write_queries_to_txt(store, qs[:4], str(task / "train.txt"))
+    write_queries_to_txt(store, qs[4:], str(task / "val.txt"))
+    return task.parent
+
+
+def pr_card_vs_cpu(systems, check_ep, check_task: Path, attn_checked):
+    """The protonet and TransHead systems on the card and on the CPU with the
+    same weights (dropout off) on one small episode: logits, loss, one train
+    step's gradient norm; then one task's eval frame logits."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.eval import protonet_eval
+    from fscl_tpu_torch.models.hubert import make_upstream
+    from fscl_tpu_torch.ops import attention as attn
+
+    up = next(iter(systems.values())).model_cfg.upstream
+    with torch.device("meta"):
+        shell = make_upstream(up.name, up)
+    cpu_up = shell.to_empty(device="cpu")
+    out = {}
+    for name, system in systems.items():
+        cpu = type(system)(system.model_cfg, system.id2symbols, device="cpu",
+                           optim_cfg=system.optim_cfg, upstream=cpu_up)
+        cpu.load_state_dict(system.state_dict(), strict=True)
+        run = (protonet_eval.run_protonet_eval if name == "protonet"
+               else protonet_eval.run_trans_head_eval)
+        got = {}
+        for where, s, dev in (("card", system, CARD), ("cpu", cpu, "cpu")):
+            for m in s.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+            ep = to_device(check_ep, dev)
+            frames = []
+
+            def tap(predict, samples, *args, **kw):
+                frames.extend(predict(x) for x in samples)
+                return []
+            shapes = (attention_shapes(attn, attn_checked, f"pr {name} card vs CPU")
+                      if where == "card" else contextlib.nullcontext())
+            with shapes:
+                with torch.no_grad():
+                    logits = (s.classify(s.build_prototypes(ep.sup), ep.qry)
+                              if name == "protonet" else s.logits(ep))
+                mask = s.trainable_mask()
+                params = [p for n, p in s.named_parameters() if mask[n]]
+                s.train()
+                loss, _ = s.loss_and_metrics(ep)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                s.eval()
+                norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads if g is not None))
+                with mock.patch.object(protonet_eval, "evaluate_pr_task", tap), \
+                        mock.patch.object(protonet_eval, "dump_task_results", lambda *a: ""):
+                    run(s, str(check_task), "unused", batch_size=PR_EVAL_BATCH)
+            got[where] = (logits.cpu(), float(loss.detach()), float(norm), frames)
+        (lc, lsc, nc, fc), (lp, lsp, np_, fp) = got["card"], got["cpu"]
+        rec = {"logits_max_abs": float((lc - lp).abs().max()),
+               "logits_max_magnitude": float(lp.abs().max()),
+               "loss_rel": abs(lsc - lsp) / abs(lsp), "grad_norm_rel": abs(nc - np_) / np_,
+               "loss_cuda": lsc, "loss_cpu": lsp,
+               "eval_logits_max_abs": max(float(abs(a - b).max()) for a, b in zip(fc, fp))}
+        log(f"pr {name} card vs CPU (4 + 2, one wav bucket): logits max |d| "
+            f"{rec['logits_max_abs']:.3g} of |logits| up to {rec['logits_max_magnitude']:.4g} "
+            f"(atol {PR_LOGIT_ATOL}); loss {lsc:.6f} / {lsp:.6f}, relative {rec['loss_rel']:.3g} "
+            f"(bar {PR_LOSS_RTOL}); gradient norm relative {rec['grad_norm_rel']:.3g} (bar "
+            f"{PR_GRAD_NORM_RTOL}); one task's eval frame logits max |d| "
+            f"{rec['eval_logits_max_abs']:.3g} (atol {PR_LOGIT_ATOL})")
+        if not (rec["logits_max_abs"] <= PR_LOGIT_ATOL and rec["loss_rel"] <= PR_LOSS_RTOL
+                and rec["grad_norm_rel"] <= PR_GRAD_NORM_RTOL
+                and rec["eval_logits_max_abs"] <= PR_LOGIT_ATOL and len(fc) == len(fp) == 2):
+            fail(f"pr {name} card vs CPU: {rec}")
+        out[name] = rec
+        del cpu
+    return out
+
+
+def phase_pr(seed: int, card: str, attn_checked):
+    """Main path, the PR family at full width: corpora from the seed,
+    `pack` / `clean`, the readers' host times, training from the shard,
+    `train --system pr-ssl-protonet` through the CLI, 32 + 8 episodes of the
+    protonet and TransHead systems, the three supervised systems, task
+    generation, zero-shot transcription and `evaluate`, card vs CPU."""
+    import shutil
+    import tempfile
+    import torch
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.shards import PackedShard
+    from fscl_tpu_torch.frontend import n_symbols
+
+    root = Path(tempfile.mkdtemp(prefix="fscl_pr_"))
+    summary = {}
+    try:
+        t0 = time.perf_counter()
+        meta, target = pr_corpora(root, seed)
+        log(f"pr: wrote a meta corpus of {PR_TRAIN} + {PR_VAL} and a target corpus of "
+            f"{PR_TARGET_UTTS} utterances of {PR_FRAMES[0]}-{PR_FRAMES[1]} mel frames in "
+            f"{time.perf_counter() - t0:.2f} s")
+        summary["pack"] = pr_pack_and_clean(meta)
+        summary["host_reads"] = pr_host_reads(meta)
+        summary["shard_steps"] = pr_shard_steps(meta, seed)
+        cli_system, summary["cli"] = pr_cli_train(root, meta, attn_checked)
+        upstream = cli_system.upstream
+        del cli_system
+        torch.cuda.empty_cache()
+        dc = read_data_config(meta)
+        systems = {}
+        for kind in ("protonet", "trans_head"):
+            systems[kind], summary[kind] = pr_episodic(kind, dc, upstream, seed, attn_checked)
+        summary["supervised"] = pr_supervised(dc, upstream, seed, attn_checked)
+        summary["eval"], tasks = pr_eval(root, target, systems, attn_checked)
+        shard = PackedShard(dc.subset_path("train") + ".fscl.shard")
+        shortest = sorted(range(len(shard)),
+                          key=lambda i: shard.records[i]["offsets"]["raw_feat"][1][0])[:6]
+        check_ep = shard.collate_pr_episode(shortest, 4, 2, dc.symbol_id, n_symbols(dc.symbol_id))
+        summary["card_vs_cpu"] = pr_card_vs_cpu(systems, check_ep, pr_check_task(root, tasks),
+                                                attn_checked)
+        del systems, upstream
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4236,8 +4826,10 @@ def main(argv=None) -> int:
     check_f32_precision("phase 13")
     t2u = phase_t2u(args.seed, card, attn_checked, stage_checked, args.profile, args.out)
     check_f32_precision("phase 14")
+    pr = phase_pr(args.seed, card, attn_checked)
+    check_f32_precision("phase 15")
     timings = phase_attention_timing(args.seed, {
-        shape[:4] for what, seen in LAUNCHED.items() if what.startswith("t2u")
+        shape[:4] for what, seen in LAUNCHED.items() if what.startswith(("t2u", "pr "))
         for shape in seen if shape[4] == "float32"})
 
     main_row = next(r for r in timings
@@ -4277,7 +4869,15 @@ def main(argv=None) -> int:
                              "t2u_fscl_episodes": t2u["fscl"]["attention_launches"],
                              "t2u_tune_init": t2u["e2e"]["tune_init_attention_launches"],
                              "t2u_e2e_tune": t2u["e2e"]["attention_launches"],
-                             "t2u_chained": t2u["chained"]["launches"]["attention_fwd"]},
+                             "t2u_chained": t2u["chained"]["launches"]["attention_fwd"],
+                             "pr_cli_train": pr["cli"]["attention_launches"],
+                             "pr_protonet_episodes": pr["protonet"]["attention_launches"],
+                             "pr_trans_head_episodes": pr["trans_head"]["attention_launches"],
+                             **{f"pr_{k}": v["attention_launches"]
+                                for k, v in pr["supervised"].items()},
+                             "pr_eval_protonet": pr["eval"]["protonet"]["attention_launches"],
+                             "pr_eval_trans_head": pr["eval"]["trans_head"][
+                                 "attention_launches"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4346,7 +4946,7 @@ def main(argv=None) -> int:
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
-              "cli": cli, "preprocess": pre, "t2u": t2u,
+              "cli": cli, "preprocess": pre, "t2u": t2u, "pr": pr,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -1,20 +1,20 @@
-"""`python -m fscl_tpu_torch.cli preprocess|make-units|train|tune|synth ...`
+"""`python -m fscl_tpu_torch.cli preprocess|make-units|train|tune|synth|evaluate|clean|pack ...`
 (port of `fscl_tpu/cli/__main__.py`).
 
-The `preprocess`, `make-units`, `train`, `tune` and `synth` subparsers take fscl_tpu's
-flags with its defaults (`:13-127`), plus `--device` (default `cuda`, through
+The subparsers take fscl_tpu's flags with its defaults (`:13-177`); those
+that run a model add `--device` (default `cuda`, through
 `core.device.resolve_device`: without a card it raises unless `--device cpu`
-is passed). A flag the port does not run yet raises when it is set to
-anything but its default, naming the ROADMAP item that ports it; so do the
-other subcommands of fscl_tpu.
+is passed). `evaluate`, `clean` and `pack` run on the host only. A flag the
+port does not run yet raises when it is set to anything but its default,
+naming the ROADMAP item that ports it; so does `rehearse`.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-# fscl_tpu's other subcommands; they wait for ROADMAP.md Queue 1, item 13
-WAITING_COMMANDS = ("evaluate", "clean", "pack", "rehearse")
+# fscl_tpu's other subcommand; it waits for ROADMAP.md Queue 1, item 13
+WAITING_COMMANDS = ("rehearse",)
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -143,6 +143,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mel frames per streamed chunk (--stream)")
     _add_device(s)
 
+    e = sub.add_parser("evaluate", help="PER/FER over task output dirs")
+    e.add_argument("dir")
+    e.add_argument("--metric", choices=["per", "fer", "both"], default="both")
+    e.add_argument("--pl_filter", action="store_true",
+                   help="pseudo-label confidence threshold sweep: `dir` is a feature-store "
+                        "root; reads ssl_units/<unit_name>/{lp,alignment}_matrix")
+    e.add_argument("--unit_name", default=None)
+    e.add_argument("--thresholds", default="0.01,0.2,0.9,0.95")
+    e.add_argument("--matrix", choices=["lp_matrix", "alignment_matrix"], default="lp_matrix")
+    e.add_argument("--unify_map", default=None,
+                   help="json with ref2unify/pred2unify symbol maps (shared-inventory "
+                        "comparison)")
+
+    c = sub.add_parser("clean", help="data validation / filtering")
+    c.add_argument("data_dir")
+    c.add_argument("--output", default=None)
+
+    pk = sub.add_parser("pack", help="write packed training shards for a data config's "
+                                     "splits (single-file native batch reads)")
+    pk.add_argument("--data_config", required=True)
+    pk.add_argument("--model_config", default=None)
+    pk.add_argument("--splits", default="train")
+    pk.add_argument("--fscl", action="store_true",
+                    help="pack FSCL episodic shards (TTS features + raw 16 kHz wavs + "
+                         "alignment) instead of supervised TTS shards")
+    pk.add_argument("--stats", default=None,
+                    help="global stats json for pitch/energy normalization (default: "
+                         "built-in global stats, matching the training datamodule)")
+
     for name in WAITING_COMMANDS:
         sub.add_parser(name, help="not ported yet (ROADMAP item 13)", add_help=False)
     return parser
@@ -167,6 +196,12 @@ def main(argv=None):
         from fscl_tpu_torch.cli.train_cmd import run
     elif args.command == "tune":
         from fscl_tpu_torch.cli.tune_cmd import run
+    elif args.command == "evaluate":
+        from fscl_tpu_torch.cli.evaluate_cmd import run
+    elif args.command == "clean":
+        from fscl_tpu_torch.cli.clean_cmd import run
+    elif args.command == "pack":
+        from fscl_tpu_torch.cli.pack_cmd import run
     else:
         from fscl_tpu_torch.cli.synth_cmd import run
     return run(args)

@@ -9,7 +9,12 @@ and the key's registered datamodule, which the T2U family's keys take),
 flags wait for items 11 and 12, and raise when set. The generic path keeps
 fscl_tpu's faults (ROADMAP Queue 3): it passes the factory no T2U config (a
 model YAML's `tacotron2:` block is not read) and no u2s (the E2E keys
-raise).
+raise); the episodic PR keys take episodes of 4 + 2 (the algorithm YAML's
+shots are not passed); and every corpus is opened as a FastSpeech2Dataset
+first (fscl_tpu's `:80-86`), so a PR corpus needs a speakers.json too.
+A frozen upstream never reaches a checkpoint: fscl_tpu keeps it outside the
+saved state (`TrainState.frozen`), the port strips `upstream.` for every
+system that has one (the PR systems included).
 
 One repair against fscl_tpu: with a d-vector model (`speaker_emb: dvec`,
 config/model/fscl-fastspeech2.yaml) fscl_tpu's episodes carry speaker ids
@@ -40,6 +45,7 @@ from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, register_unit_symbols
 from fscl_tpu_torch.obs.loggers import CheckpointCallback, LossTableLogger, TensorBoardLogger
 from fscl_tpu_torch.systems import get_system
 from fscl_tpu_torch.systems.factory import build_system
+from fscl_tpu_torch.systems.fscl import FrozenUpstream
 from fscl_tpu_torch.train.trainer import Trainer
 
 UNPORTED_FLAGS = (  # flag, its default, the ROADMAP.md Queue 1 item that ports it
@@ -128,8 +134,12 @@ def _main_path(name, data_configs, model_cfg, train_cfg, algo_cfg, id2symbols, d
 def _generic_path(args, data_configs, model_cfg, train_cfg, algo_cfg, device):
     """Any other registered key: the factory's system and the key's
     datamodule (fscl_tpu's `:121-133`); the T2U systems' dropout generator
-    and an FSCL-T2U upstream are seeded from the train config's seed."""
-    seeds = {"seed": train_cfg.seed}
+    and an FSCL-T2U or PR upstream are seeded from the train config's
+    seed."""
+    if args.system.startswith("pr-"):
+        seeds = {"upstream_seed": train_cfg.seed}
+    else:
+        seeds = {"seed": train_cfg.seed}
     if args.system.startswith("fscl-t2u") and "tune" not in args.system:
         seeds["upstream_seed"] = train_cfg.seed
     system = build_system(args.system, model_cfg, train_cfg.optim, data_configs, algo_cfg,
@@ -174,7 +184,9 @@ def run(args):
     for dc in data_configs:
         if not dc.subset_path("train"):
             raise ValueError(f"data config {dc.name} has no train subset")
-    need_ssl = args.system.startswith("fscl")
+        # fscl_tpu opens every corpus as a FastSpeech2Dataset before choosing
+        # a path (its split and speakers.json), whatever the system
+        FastSpeech2Dataset(dc.subset_path("train"), FeatureStore(dc.data_dir), dc, model_cfg)
     # the trunk from torch's init under the seed (and an FSCL upstream drawn
     # on the device from it)
     torch.manual_seed(train_cfg.seed)
@@ -199,7 +211,7 @@ def run(args):
         print(f"[debug] total_step capped to {train_cfg.total_step}")
 
     ckpt_dir = os.path.join(args.exp_dir, "ckpt")
-    strip = ("upstream",) if need_ssl else ()
+    strip = ("upstream",) if isinstance(system, FrozenUpstream) else ()
     mgr = CheckpointManager(ckpt_dir, strip_prefixes=strip, max_to_keep=5)
     if args.pretrain_ckpt:
         CheckpointManager(args.pretrain_ckpt).restore_into(system, state)

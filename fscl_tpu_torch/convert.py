@@ -32,7 +32,11 @@ The T2U family (`tacot2u_entries`, `downstream_entries`, `da_entries`,
 `t2u_entries`) is written as tables of (torch key, flax path, layout) read in
 both directions: `state_dict_from` / `t2u_state_dict` carry fscl_tpu's
 variables to the port, `variables_from` / `t2u_variables` carry the port's
-state dict back to fscl_tpu's params and batch_stats.
+state dict back to fscl_tpu's params and batch_stats. The PR family
+(`pr_entries`, `pr_state_dict`, `pr_variables`) uses the same tables: its
+heads are `head-<symbol_id>` on both sides (a Dense, or a cluster-centre
+array), and `BiLSTMDownstream`'s four flax cells, named by creation order,
+map to the port's `lstm_fwd.{0,1}` / `lstm_bwd.{0,1}`.
 """
 from __future__ import annotations
 
@@ -476,3 +480,83 @@ def t2u_variables(sd: Mapping[str, torch.Tensor]) -> dict:
     (`params` and `batch_stats`; the frozen upstream is left out)."""
     sd = {k: v for k, v in sd.items() if not k.startswith(("upstream.", "u2s_system."))}
     return variables_from(t2u_entries(sd.keys()), sd)
+
+
+def bilstm_downstream_entries() -> List[Entry]:
+    """flax BiLSTMDownstream <-> the port's: the cells in creation order
+    (layer 0 forward, layer 0 backward, layer 1 forward, layer 1 backward)."""
+    P = ("params",)
+    e: List[Entry] = [("weighted_sum.weight_raw", P + ("weighted_sum", "weight_raw"), "plain")]
+    e += _linear_entries("proj", P + ("proj",))
+    for layer in range(2):
+        for j, side in enumerate(("fwd", "bwd")):
+            e += _lstm_entries(f"lstm_{side}.{layer}",
+                               P + (f"OptimizedLSTMCell_{2 * layer + j}",), "_l0")
+    return e
+
+
+def pr_entries(variables_or_keys) -> List[Entry]:
+    """The entries of a PR system's parameter tree (`downstream` + `head`, or
+    `downstream` + `head_generator` + `trans_head_bias` for TransHead), read
+    off flax variables or the keys of a torch state dict. The frozen upstream
+    is not part of it (`hubert_state_dict` carries it)."""
+    if isinstance(variables_or_keys, Mapping) and "params" in variables_or_keys:
+        p = variables_or_keys["params"]
+        ds = p["downstream"]
+        kind = ("bilstm" if "OptimizedLSTMCell_0" in ds
+                else "d1" if "layer_0" in ds else "linear")
+        n_blocks = sum(1 for k in ds if k.startswith("layer_"))
+        heads = {sid: ("cluster" if not isinstance(h, Mapping) else "dense")
+                 for sid, h in ((k[len("head-"):], v) for k, v in p.get("head", {}).items())}
+        has = p.__contains__
+    else:
+        keys = list(variables_or_keys)
+        kind = ("bilstm" if any(k.startswith("downstream.lstm_fwd.") for k in keys)
+                else "d1" if any(k.startswith("downstream.layers.") for k in keys)
+                else "linear")
+        n_blocks = len({k.split(".")[2] for k in keys if k.startswith("downstream.layers.")})
+        heads = {}
+        for k in keys:
+            if k.startswith("head.heads.head-"):
+                heads[k.split(".")[2][len("head-"):]] = "dense"
+            elif k.startswith("head.centers.head-"):
+                heads[k.split(".")[2][len("head-"):]] = "cluster"
+        has = {k.split(".")[0] for k in keys}.__contains__
+    if kind == "bilstm":
+        ds_entries = bilstm_downstream_entries()
+    elif kind == "d1":
+        ds_entries = downstream_entries(n_blocks, False)
+    else:
+        ds_entries = [("weighted_sum.weight_raw", ("params", "weighted_sum", "weight_raw"),
+                       "plain")] + _linear_entries("proj", ("params", "proj"))
+    e = _sub(ds_entries, "downstream", "downstream")
+    for sid, head in heads.items():
+        if head == "dense":
+            e += _linear_entries(f"head.heads.head-{sid}", ("params", "head", f"head-{sid}"))
+        else:
+            e.append((f"head.centers.head-{sid}", ("params", "head", f"head-{sid}"), "plain"))
+    if has("head_generator"):
+        g = ("params", "head_generator")
+        e += [("head_generator.weighted_sum.weight_raw", g + ("weighted_sum", "weight_raw"),
+               "plain")]
+        e += [(f"head_generator.codebook.{name}", g + ("codebook", name), "plain")
+              for name in ("emb_banks", "att_banks")]
+        e.append(("trans_head_bias", ("params", "trans_head_bias"), "plain"))
+    return e
+
+
+def pr_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu PR system variables -> the port's system state dict (the
+    frozen upstream's `upstream.` keys too when `frozen` holds it)."""
+    sd = state_dict_from(pr_entries(variables), variables)
+    if (variables.get("frozen") or {}).get("upstream") is not None:
+        up = hubert_state_dict(variables["frozen"]["upstream"])
+        sd.update({f"upstream.{k}": v for k, v in up.items()})
+    return sd
+
+
+def pr_variables(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's PR system state dict -> fscl_tpu `params` (the frozen
+    upstream is left out)."""
+    sd = {k: v for k, v in sd.items() if not k.startswith("upstream.")}
+    return variables_from(pr_entries(sd.keys()), sd)

@@ -14,16 +14,11 @@ T = TypeVar("T")
 # ROADMAP.md Queue 1 items, by the fscl_tpu registry keys they port
 _ITEMS = {
     8: "item 8, meta-learning variants",
-    10: "item 10, PR family and evaluation",
 }
 _META_SYSTEMS = (
     "fscl-orig2", "maml", "meta", "imaml", "fscl-ada", "fscl-ada1", "fscl-ada2",
     "fscl-ssl_ada", "fscl-ssl_ada1", "fscl-ssl_ada2", "conti-ae", "semi-fscl",
     "semi-fscl-tune")
-_PR_SYSTEMS = (
-    "pr-ssl-linear", "pr-ssl-linear-tune", "pr-ssl-baseline", "pr-ssl-baseline-tune",
-    "pr-ssl-cluster", "pr-ssl-cluster-tune", "pr-trans-head", "pr-trans-head-tune",
-    "pr-fscl", "pr-fscl-tune", "pr-ssl-protonet")
 
 
 def _waiting(groups: Mapping[int, Iterable[str]]) -> Dict[str, str]:
@@ -68,9 +63,9 @@ class Registry(Generic[T]):
         return self._items.keys()
 
 
-SYSTEMS: Registry = Registry("system", _waiting({8: _META_SYSTEMS, 10: _PR_SYSTEMS}))
+SYSTEMS: Registry = Registry("system", _waiting({8: _META_SYSTEMS}))
 # fscl_tpu registers its FSCLDataModule under the meta-learning keys too
 # (the port's under the same keys); their episodes wait with item 8
-DATAMODULES: Registry = Registry("datamodule", _waiting({8: ("conti-ae",), 10: _PR_SYSTEMS}))
+DATAMODULES: Registry = Registry("datamodule", _waiting({8: ("conti-ae",)}))
 # the corpus walkers of data/parsers.py, filled when that module is imported
 RAW_PARSERS: Registry = Registry("raw parser")

@@ -171,15 +171,15 @@ def to_device(batch: Union[Batch, DvecRefs, SupInfo, tuple],
               device: Union[str, torch.device]):
     """The same NamedTuple (nested ones included: a `DvecRefs` as
     `speaker_args`, an `Episode`'s `SupInfo` and `Batch`es) with each numpy
-    array as a tensor on `device` (dtypes kept); None and Python numbers
-    (`SupInfo.n_symbols`) pass through. For a CUDA device each array is
+    array as a tensor on `device` (dtypes kept); None, Python numbers and
+    strings (`SupInfo.n_symbols`, `PRBatch.symbol_id`) pass through. For a CUDA device each array is
     copied into pinned host memory and on to the card with `non_blocking`,
     on the calling thread's current stream, so a background thread can run
     ahead of the step."""
     device = torch.device(device)
 
     def put(x):
-        if x is None or isinstance(x, (int, float)):
+        if x is None or isinstance(x, (int, float, str)):
             return x
         if isinstance(x, tuple):
             return type(x)(*(put(f) for f in x))

@@ -8,12 +8,17 @@ for episodic modules). Registered in DATAMODULES keyed by the same
 algorithm types as the systems (lightning/datamodules/__init__.py:6-50).
 
 Batches and episodes are numpy, equal to fscl_tpu's; the trainer copies them
-to the card. The port collates in Python (fscl_tpu's `native_io=False`
-path): the native C++ batch reader and the packed shards wait (ROADMAP
-Queue 1, item 5), as do the PR and ContiAE datamodules (items 8 and 10).
-The T2U family's are `T2UDataModule` here and the four of
-`data/mix_datamodules.py`, which this module imports so that every
-registered key resolves.
+to the card. With `native_io=True` (the default, as fscl_tpu's) the readers
+of `data/native_loader.py` and `data/shards.py` go through the host C++ of
+`cpp/` (built with g++ at first use, or the read raises): the supervised
+loader prefers a fresh packed `<train.txt>.shard` beside the split, else
+reads a single corpus with `NativeCollate`; the PR and T2U episodic loaders
+read a fresh `<train.txt>.fscl.shard`. `native_io=False` asks for numpy: the
+Python collate path, or the shard's numpy reader for the episodic loaders.
+The PR family's loaders (`PRDataModule`, `PREpisodicDataModule`) are here;
+ContiAE's waits (ROADMAP item 8). The T2U family's are `T2UDataModule` here
+and the four of `data/mix_datamodules.py`, which this module imports so that
+every registered key resolves.
 """
 from __future__ import annotations
 
@@ -26,14 +31,16 @@ from fscl_tpu_torch.core.config import DataConfig, ModelConfig, TrainConfig
 from fscl_tpu_torch.core.registry import DATAMODULES
 from fscl_tpu_torch.data.batch import TEXT_BUCKETS, Batch, bucket_len, collate_batch, pad_1d
 from fscl_tpu_torch.data.datasets import (
-    ConcatDataset, FSCLDataset, FastSpeech2Dataset, UnitDataset,
+    ConcatDataset, FSCLDataset, FastSpeech2Dataset, PRDataset, UnitDataset,
 )
 from fscl_tpu_torch.data.episodic import (
-    EpisodicSampler, collate_episode, get_or_create_tasks,
+    WAV_BUCKETS, EpisodicSampler, collate_episode, get_or_create_tasks, split_sup_qry,
 )
 from fscl_tpu_torch.data.feature_store import FeatureStore
 from fscl_tpu_torch.data.samplers import GroupBatchSampler, maybe_distribute
-from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS
+from fscl_tpu_torch.data.native_loader import NativeCollate
+from fscl_tpu_torch.data.shards import MultiShardCollate, PackedShard, shard_compatible
+from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, n_symbols as n_symbols_of
 
 
 def build_id2symbols(data_configs: Sequence[DataConfig]):
@@ -105,9 +112,10 @@ class FastSpeech2DataModule(BaseDataModule):
     pass re_id=False (FastSpeech2DataModule.py:136 — single-language table
     addressed by symbol_id with raw ids)."""
 
-    def __init__(self, *args, re_id: bool = True, **kwargs):
+    def __init__(self, *args, re_id: bool = True, native_io: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
         self.re_id = re_id
+        self.native_io = native_io
         # d-vector speaker paths consume per-utterance reference mel slices
         # instead of speaker ids (speaker_encoder.py:115-136); the dataset
         # then loads spk_ref_mel_slices and the collate pads them to a
@@ -121,6 +129,53 @@ class FastSpeech2DataModule(BaseDataModule):
             self._datasets("train", FastSpeech2Dataset, re_id=self.re_id, **kw))
         val = self._datasets("val", FastSpeech2Dataset, re_id=self.re_id, **kw)
         self.val_set = ConcatDataset(val) if val else None
+        # the native readers (fscl_tpu's `:130-170`): packed shards beside
+        # every corpus's split (one shard used directly, several stitched
+        # with collate-time re-id offsets), else NativeCollate for a single
+        # corpus; none with d-vector slices
+        self._native = None
+        self._shard = None
+        if not self.native_io or self.dvec_slices is not None:
+            return
+        shards = self._fresh_shards()
+        if shards:
+            ds0 = self.train_set.datasets[0]
+            if len(shards) == 1 and ds0.id_offset == 0 and ds0.speaker_offset == 0:
+                self._shard = shards[0]
+            else:
+                self._shard = MultiShardCollate(
+                    shards, [d.id_offset for d in self.train_set.datasets],
+                    [d.speaker_offset for d in self.train_set.datasets])
+        elif len(self.train_set.datasets) == 1:
+            ds = self.train_set.datasets[0]
+            self._native = NativeCollate(ds.store, ds.config, self.model_cfg, ds.stats,
+                                         id_offset=ds.id_offset,
+                                         speaker_offset=ds.speaker_offset)
+
+    def _fresh_shards(self) -> Optional[List[PackedShard]]:
+        """A compatible `<train.txt>.shard` for every train dataset, or None:
+        one stale by count or packed under another variance or normalisation
+        config, or one missing, and the store is read instead."""
+        shards = []
+        for ds in self.train_set.datasets:
+            dc = next(dc for dc in self.data_configs if dc.name == ds.config.name)
+            sp = (dc.subset_path("train") or "") + ".shard"
+            if not os.path.isfile(sp):
+                return None
+            sh = PackedShard(sp)
+            if len(sh) != len(ds) or not shard_compatible(sh, self.model_cfg, ds.stats):
+                return None
+            shards.append(sh)
+        return shards
+
+    def _collate(self, idxs) -> Batch:
+        if self._shard is not None:
+            return self._shard.collate(idxs, **self._var_kw)[1]
+        if self._native is not None:
+            ds = self.train_set.datasets[0]
+            return self._native.collate([ds.queries[int(i)] for i in idxs])[1]
+        return collate_batch([self.train_set[int(i)] for i in idxs],
+                             dvec_slices=self.dvec_slices, **self._var_kw)[1]
 
     def train_batches(self) -> Iterator[Batch]:
         """Infinite epochs of length-grouped batches (GroupBatchSampler,
@@ -137,10 +192,7 @@ class FastSpeech2DataModule(BaseDataModule):
             sampler = maybe_distribute(GroupBatchSampler(
                 lengths, bs, seed=self.train_cfg.seed + epoch))
             for idxs in sampler:
-                _, batch = collate_batch(
-                    [self.train_set[int(i)] for i in idxs],
-                    dvec_slices=self.dvec_slices, **self._var_kw)
-                yield batch
+                yield self._collate(idxs)
             epoch += 1
 
     def full_train_batch(self, max_utts: int = 128) -> Optional[Batch]:
@@ -154,8 +206,7 @@ class FastSpeech2DataModule(BaseDataModule):
         n = len(self.train_set)
         if n == 0 or n > max_utts or self.dvec_slices is not None:
             return None
-        return collate_batch([self.train_set[i] for i in range(n)],
-                             **self._var_kw)[1]
+        return self._collate(np.arange(n))
 
     def val_batches(self) -> List[Batch]:
         if self.val_set is None:
@@ -285,6 +336,97 @@ class T2UDataModule(BaseDataModule):
         n = len(self.train_set)
         while True:
             yield collate_t2u([self.train_set[int(i)] for i in rng.integers(0, n, bs)])
+
+
+def collate_pr(samples, symbol_id: str, n_symbols: int):
+    """PRBatch of PRDataset samples: wavs padded to their wav bucket, the
+    phonemes and their 20 ms frame counts to their text bucket (fscl_tpu's
+    PR collates, `datamodules.py:378-386`, `:417-434`,
+    `eval/protonet_eval.py:_pr_batch_from_samples`)."""
+    from fscl_tpu_torch.systems.pr import PRBatch
+    L = bucket_len(max(len(s["phonemes"]) for s in samples), TEXT_BUCKETS)
+    W = bucket_len(max(len(s["wav"]) for s in samples), WAV_BUCKETS)
+    return PRBatch(
+        wavs=pad_1d([s["wav"] for s in samples], W, dtype=np.float32),
+        wav_lens=np.array([min(len(s["wav"]), W) for s in samples], np.int32),
+        avg_frames=pad_1d([s["avg_frames"] for s in samples], L, dtype=np.int32),
+        phonemes=pad_1d([s["phonemes"] for s in samples], L, dtype=np.int32),
+        lang_ids=np.array([s["lang_id"] for s in samples], np.int32),
+        n_symbols=n_symbols, symbol_id=symbol_id)
+
+
+@DATAMODULES.register("pr-ssl-linear", "pr-ssl-linear-tune", "pr-ssl-baseline",
+                      "pr-ssl-baseline-tune", "pr-ssl-cluster", "pr-ssl-cluster-tune")
+class PRDataModule(BaseDataModule):
+    """SSL PR loader whose every batch comes from one dataset, so that the
+    per-language head is consistent (MultiTaskSampler semantics): a dataset,
+    then batch_size utterances, drawn uniformly with replacement from
+    `seed`."""
+
+    def setup(self):
+        self.datasets = []
+        for dc in self.data_configs:
+            path = dc.subset_path("train")
+            if path and os.path.isfile(path):
+                self.datasets.append((dc, PRDataset(path, self.stores[dc.name], dc)))
+
+    def train_batches(self):
+        rng = np.random.default_rng(self.train_cfg.seed)
+        bs = self.train_cfg.optim.batch_size
+        while True:
+            dc, ds = self.datasets[int(rng.integers(0, len(self.datasets)))]
+            samples = [ds[int(i)] for i in rng.integers(0, len(ds), bs)]
+            yield collate_pr(samples, dc.symbol_id, n_symbols_of(dc.symbol_id))
+
+
+@DATAMODULES.register("pr-ssl-protonet", "pr-fscl", "pr-fscl-tune", "pr-trans-head",
+                      "pr-trans-head-tune")
+class PREpisodicDataModule(BaseDataModule):
+    """Episodic PR loader for the protonet and TransHead systems: shots +
+    queries utterances of one dataset drawn with replacement, split by
+    phoneme coverage into support and query PRBatches. A fresh
+    `<train.txt>.fscl.shard` beside the split (as many records as the
+    split) serves the episode through `PackedShard.collate_pr_episode`:
+    wavs, phonemes and 20 ms frame counts in one native read a side (numpy
+    with `native_io=False`)."""
+
+    def __init__(self, *args, shots: int = 4, queries: int = 2, native_io: bool = True,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.shots = shots
+        self.queries = queries
+        self.native_io = native_io
+
+    def setup(self):
+        self.datasets = []
+        for dc in self.data_configs:
+            path = dc.subset_path("train")
+            if not (path and os.path.isfile(path)):
+                continue
+            ds = PRDataset(path, self.stores[dc.name], dc)
+            shard = None
+            if os.path.isfile(path + ".fscl.shard"):
+                sh = PackedShard(path + ".fscl.shard", native=self.native_io)
+                if len(sh) == len(ds):
+                    shard = sh
+            self.datasets.append((dc, ds, shard))
+
+    def train_batches(self):
+        from fscl_tpu_torch.systems.pr import PREpisode
+        rng = np.random.default_rng(self.train_cfg.seed)
+        k = self.shots + self.queries
+        while True:
+            dc, ds, shard = self.datasets[int(rng.integers(0, len(self.datasets)))]
+            idxs = rng.integers(0, len(ds), k)
+            n_sym = n_symbols_of(dc.symbol_id)
+            if shard is not None:
+                yield shard.collate_pr_episode(idxs, self.shots, self.queries,
+                                               symbol_id=dc.symbol_id, n_symbols=n_sym)
+                continue
+            samples = [ds[int(i)] for i in idxs]
+            sup_ids, qry_ids = split_sup_qry(samples, self.shots, self.queries)
+            yield PREpisode(sup=collate_pr([samples[i] for i in sup_ids], dc.symbol_id, n_sym),
+                            qry=collate_pr([samples[i] for i in qry_ids], dc.symbol_id, n_sym))
 
 
 def get_datamodule(algorithm_type: str):

@@ -7,8 +7,9 @@ raw 16 kHz wav + avg_frames for SSL), TextDataset (inference). Normalization
 uses the global stats exactly like Define.ALLSTATS["global"] consumption.
 Items are numpy, equal to fscl_tpu's item for item. The T2U family's
 `UnitFSCLDataset` and `UnitDataset` (`:151`, `:214`) read the pseudo-unit
-sub-store `ssl_units/<name>` (`phoneme`, `duration`). The ContiAE and PR
-datasets wait for their families (ROADMAP Queue 1, items 8 and 10).
+sub-store `ssl_units/<name>` (`phoneme`, `duration`). `PRDataset` (`:304`)
+is the PR family's (`wav_trim_16000`, `phoneme`, `mfa_segment`). The ContiAE
+dataset waits for its family (ROADMAP Queue 1, item 8).
 
 The features an item reads from a store (`data/feature_store.py`):
 `mfa_duration`, `mel`, `mfa_duration_avg_pitch` / `interpolate_pitch`,
@@ -249,6 +250,40 @@ class TextDataset:
             "text": q["text"], "phonemes": text, "mel": None,
             "pitch": None, "energy": None, "duration": None,
             "lang_id": self.config.lang_id, "symbol_id": self.config.symbol_id,
+        }
+
+
+class PRDataset:
+    """Phoneme recognition: the 16 kHz wav, the phoneme ids, their 20 ms
+    frame counts from the MFA segments, and frame labels by repetition
+    (lightning/datasets/phoneme_recognition/PRDataset.py:13-161)."""
+
+    def __init__(self, split_txt: str, store: FeatureStore, config: DataConfig,
+                 fp: float = 0.02):
+        self.store = store
+        self.config = config
+        self.fp = fp
+        self.queries = read_queries_from_txt(split_txt)
+
+    def __len__(self):
+        return len(self.queries)
+
+    def __getitem__(self, idx: int) -> Dict:
+        q = self.queries[idx]
+        query = {"spk": q["spk"], "basename": q["basename"]}
+        wav = np.asarray(self.store.wav_trim_16000.read_from_query(query)).astype(np.float32)
+        phonemes = self.store.phoneme.read_from_query(query)
+        text = np.asarray(text_to_sequence(f"{{{phonemes}}}", self.config.text_cleaners,
+                                           self.config.symbol_id))
+        segment = self.store.mfa_segment.read_from_query(query)
+        avg_frames = np.asarray(segment_to_duration(segment, self.fp), dtype=np.int64)
+        labels = np.repeat(text[: len(avg_frames)], avg_frames)
+        return {
+            "id": q["basename"], "speaker": 0,
+            "wav": wav, "phonemes": text, "avg_frames": avg_frames,
+            "frame_labels": labels.astype(np.int64),
+            "lang_id": self.config.lang_id, "symbol_id": self.config.symbol_id,
+            "n_symbols": len(LANG_ID2SYMBOLS[self.config.symbol_id]),
         }
 
 

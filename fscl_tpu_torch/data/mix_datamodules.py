@@ -1,12 +1,13 @@
 """Mix / DA datamodules of the T2U tune flows (port of
 `fscl_tpu/data/mix_datamodules.py`: `T2U2SDataModule` `:41`,
 `T2UEpisodicDataModule` `:104`, `T2UDADataModule` `:160`,
-`T2U2SDADataModule` `:195`), on the Python collate path.
+`T2U2SDADataModule` `:195`).
 
-fscl_tpu's episodic T2U loader reads the support side from a packed
-`.fscl.shard` beside the split when one is there (`:126-153`); the shard
-readers wait for ROADMAP Queue 1, item 5, so here such a file raises rather
-than a different batch being collated in silence.
+The episodic T2U loader reads the wav-heavy support side from a fresh packed
+`<train.txt>.fscl.shard` beside the split when one is there
+(`PackedShard.collate_fscl_sup`, fscl_tpu's `:126-153`; the C++ reader, or
+numpy with `native_io=False`); the query side's unit batches are collated in
+Python.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from fscl_tpu_torch.data.batch import collate_batch, pad_1d
 from fscl_tpu_torch.data.datamodules import BaseDataModule, collate_t2u
 from fscl_tpu_torch.data.datasets import ConcatDataset, FSCLDataset, UnitDataset
 from fscl_tpu_torch.data.episodic import collate_sup_info, split_sup_qry
+from fscl_tpu_torch.data.shards import PackedShard
 
 
 def _unit_splits(dm: BaseDataModule):
@@ -95,36 +97,42 @@ class T2UEpisodicDataModule(BaseDataModule):
     """Episodic T2U loader (t2u FSCLDataModule over FSCLdataset.py:64-117):
     shots + queries utterances drawn with replacement, split by phoneme
     coverage; the support's raw speech and MFA segments, the queries'
-    text -> unit batch."""
+    text -> unit batch. A fresh `.fscl.shard` (as many records as the split)
+    serves the support side."""
 
     def __init__(self, *args, shots: int = 4, queries: int = 2,
-                 upstream: str = "hubert_large_ll60k", **kwargs):
+                 upstream: str = "hubert_large_ll60k", native_io: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
         self.shots = shots
         self.queries = queries
         self.upstream = upstream
+        self.native_io = native_io
 
     def setup(self):
         self.pairs = []
         for dc, path in _unit_splits(self):
+            fscl_ds = FSCLDataset(path, self.stores[dc.name], dc, self.model_cfg,
+                                  upstream=self.upstream)
+            shard = None
             if os.path.isfile(path + ".fscl.shard"):
-                raise NotImplementedError(
-                    f"{path}.fscl.shard: the packed shard readers are not ported yet: "
-                    "ROADMAP.md Queue 1, item 5, native loader and packed shards")
-            self.pairs.append((FSCLDataset(path, self.stores[dc.name], dc, self.model_cfg,
-                                           upstream=self.upstream),
-                               UnitDataset(path, self.stores[dc.name], dc)))
+                sh = PackedShard(path + ".fscl.shard", native=self.native_io)
+                if len(sh) == len(fscl_ds):
+                    shard = sh
+            self.pairs.append((fscl_ds, UnitDataset(path, self.stores[dc.name], dc), shard))
 
     def train_batches(self):
         from fscl_tpu_torch.systems.t2u import T2UEpisode
         rng = np.random.default_rng(self.train_cfg.seed)
         k = self.shots + self.queries
         while True:
-            fscl_ds, unit_ds = self.pairs[int(rng.integers(0, len(self.pairs)))]
+            fscl_ds, unit_ds, shard = self.pairs[int(rng.integers(0, len(self.pairs)))]
             idxs = rng.integers(0, len(fscl_ds), k)
-            fscl_samples = [fscl_ds[int(i)] for i in idxs]
-            sup_ids, qry_ids = split_sup_qry(fscl_samples, self.shots, self.queries)
-            sup = collate_sup_info([fscl_samples[i] for i in sup_ids])
+            if shard is not None:
+                sup, _, qry_ids = shard.collate_fscl_sup(idxs, self.shots, self.queries)
+            else:
+                fscl_samples = [fscl_ds[int(i)] for i in idxs]
+                sup_ids, qry_ids = split_sup_qry(fscl_samples, self.shots, self.queries)
+                sup = collate_sup_info([fscl_samples[i] for i in sup_ids])
             qry = collate_t2u([unit_ds[int(idxs[i])] for i in qry_ids])
             yield T2UEpisode(sup=sup, qry=qry)
 

@@ -1,1 +1,3 @@
-"""Port of fscl_tpu/eval: DPDP segmentation (the rest waits for ROADMAP item 10)."""
+"""Port of fscl_tpu/eval: PER / FER metrics, DPDP decoding, the offline
+evaluation drivers, few-shot task generation and the PR systems' zero-shot
+transcription (`protonet_eval.py`)."""

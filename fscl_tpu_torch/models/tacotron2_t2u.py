@@ -113,8 +113,27 @@ def _lstm_cell(n_in: int, n_hidden: int) -> nn.LSTMCell:
     return _one_bias(nn.LSTMCell(n_in, n_hidden))
 
 
-def _lstm(n_in: int, n_hidden: int) -> nn.LSTM:
+def one_bias_lstm(n_in: int, n_hidden: int) -> nn.LSTM:
+    """A batch-first `nn.LSTM` with flax's one bias per gate."""
     return _one_bias(nn.LSTM(n_in, n_hidden, batch_first=True))
+
+
+def bilstm(lstm_fwd: nn.LSTM, lstm_bwd: nn.LSTM, x: torch.Tensor,
+           valid: torch.Tensor) -> torch.Tensor:
+    """One bidirectional layer as flax's `nn.RNN` pair with `seq_lengths`
+    (the backward one `reverse=True, keep_order=True`): (B, L, 2 * hidden),
+    padding frames zeroed. The backward direction reads each row reversed
+    within its length (pad frames after), so that it starts at the last valid
+    frame; the same gather puts its outputs back in order. The lengths stay
+    on the device."""
+    L = x.shape[1]
+    t = torch.arange(L, device=x.device)[None, :]
+    lens = valid.sum(dim=-1, keepdim=True)
+    rev = torch.where(t < lens, lens - 1 - t, t)[..., None]
+    fwd, _ = lstm_fwd(x)
+    bwd, _ = lstm_bwd(x.gather(1, rev.expand(-1, -1, x.shape[2])))
+    bwd = bwd.gather(1, rev.expand(-1, -1, bwd.shape[2]))
+    return torch.where(valid[..., None], torch.cat([fwd, bwd], -1), 0.0)
 
 
 class Prenet(nn.Module):
@@ -167,8 +186,8 @@ class T2UEncoder(nn.Module):
         self.norms = nn.ModuleList(BatchNorm(dims[i + 1])
                                    for i in range(c.encoder_n_convolutions))
         half = c.encoder_embedding_dim // 2
-        self.lstm_fwd = _lstm(c.encoder_embedding_dim, half)
-        self.lstm_bwd = _lstm(c.encoder_embedding_dim, half)
+        self.lstm_fwd = one_bias_lstm(c.encoder_embedding_dim, half)
+        self.lstm_bwd = one_bias_lstm(c.encoder_embedding_dim, half)
 
     def forward(self, emb_text, src_valid, keep: Optional[torch.Tensor] = None):
         x = emb_text.transpose(1, 2)
@@ -178,18 +197,7 @@ class T2UEncoder(nn.Module):
             if keep is not None:
                 x = _drop(x, keep[i].transpose(1, 2), ENCODER_KEEP)
             x = torch.where(valid, x, 0.0)
-        x = x.transpose(1, 2)
-        # the backward direction reads each row reversed within its length
-        # (pad frames after), so that it starts at the last valid frame;
-        # the same gather puts its outputs back in order
-        L = x.shape[1]
-        t = torch.arange(L, device=x.device)[None, :]
-        lens = src_valid.sum(dim=-1, keepdim=True)
-        rev = torch.where(t < lens, lens - 1 - t, t)[..., None].expand(-1, -1, x.shape[2])
-        fwd, _ = self.lstm_fwd(x)
-        bwd, _ = self.lstm_bwd(x.gather(1, rev))
-        bwd = bwd.gather(1, rev[..., :bwd.shape[2]])
-        return torch.where(src_valid[..., None], torch.cat([fwd, bwd], -1), 0.0)
+        return bilstm(self.lstm_fwd, self.lstm_bwd, x.transpose(1, 2), src_valid)
 
 
 class DecoderCell(nn.Module):

@@ -1,25 +1,34 @@
-"""SSL downstream heads of the T2U family (port of `fscl_tpu/nn/downstreams.py`:
-`WeightedSumLayer` `:21`, `EncoderBlock` `:80`, `CodeformerBlock` `:109`,
-`Downstream1` `:141`, `Downstream2` `:161`).
+"""SSL downstreams and the PR heads (port of `fscl_tpu/nn/downstreams.py`:
+`WeightedSumLayer` `:21`, `LinearDownstream` `:41`, `BiLSTMDownstream` `:54`,
+`EncoderBlock` `:80`, `CodeformerBlock` `:109`, `Downstream1` `:141`,
+`Downstream2` `:161`, `MultilingualPRHead` `:186`, `MultilingualClusterHead`
+`:199`).
 
 A learned softmax-weighted sum over the SSL layers, a projection, then
 post-LN transformer blocks (`Downstream1`), the last of them a cross-attention
-to a learned codebook in `Downstream2`. The blocks' self-attention goes
+to a learned codebook in `Downstream2`; or a 2-layer BiLSTM (`BiLSTMDownstream`,
+the T2U encoder's flax-layout LSTMs: one bias per gate, the backward
+direction reversed within each row's length). The blocks' self-attention goes
 through `ops.attention.attend`: on the card, the attention kernel (under
 `AttentionFunction` when a gradient is needed). The codeformer's attention is
 L queries against codebook_size rows, which the kernel does not take
 (Lq == Lk only): `torch.matmul` and `softmax` there, as fscl_tpu's `einsum`.
-The phoneme-recognition heads (`:41-79`, `:186-223`) wait for ROADMAP item
-10. LayerNorm eps is flax's 1e-6.
+LayerNorm eps is flax's 1e-6.
+
+The PR heads hold one head per language of `id2symbols` (`head-<symbol_id>`,
+fscl_tpu's parameter name) and pick it by the batch's `symbol_id`, a Python
+string that never reaches the card. fscl_tpu's flax heads create only the
+head of the language they are initialised with.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fscl_tpu_torch.models.tacotron2_t2u import bilstm, one_bias_lstm
 from fscl_tpu_torch.ops.attention import attend
 
 LN_EPS = 1e-6
@@ -44,6 +53,41 @@ class WeightedSumLayer(nn.Module):
         shape = [1] * x.dim()
         shape[axis] = raw.shape[0]
         return (torch.softmax(raw, dim=0).reshape(shape) * x).sum(dim=axis)
+
+
+class LinearDownstream(nn.Module):
+    """Weighted sum over (B, T, n_layers, d_in) + a linear projection."""
+
+    def __init__(self, n_in_layers: int, d_in: int, d_out: int,
+                 specific_layer: Optional[int] = None):
+        super().__init__()
+        self.weighted_sum = WeightedSumLayer(n_in_layers, specific_layer)
+        self.proj = nn.Linear(d_in, d_out)
+
+    def forward(self, reprs):
+        return self.proj(self.weighted_sum(reprs))
+
+
+class BiLSTMDownstream(nn.Module):
+    """Weighted sum + projection + 2 bidirectional LSTM layers of d_out / 2
+    a direction; padding frames zeroed after each layer."""
+
+    def __init__(self, n_in_layers: int, d_in: int, d_out: int,
+                 specific_layer: Optional[int] = None):
+        super().__init__()
+        self.weighted_sum = WeightedSumLayer(n_in_layers, specific_layer)
+        self.proj = nn.Linear(d_in, d_out)
+        half = d_out // 2
+        self.lstm_fwd = nn.ModuleList(one_bias_lstm(d_out, half) for _ in range(2))
+        self.lstm_bwd = nn.ModuleList(one_bias_lstm(d_out, half) for _ in range(2))
+
+    def forward(self, reprs, valid=None):
+        x = self.proj(self.weighted_sum(reprs))
+        if valid is None:
+            valid = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        for fwd, bwd in zip(self.lstm_fwd, self.lstm_bwd):
+            x = bilstm(fwd, bwd, x, valid)
+        return x
 
 
 class EncoderBlock(nn.Module):
@@ -145,3 +189,41 @@ class Downstream2(nn.Module):
         for layer in self.layers:
             x = layer(x, valid)
         return self.codeformer(x, need_weights)
+
+
+class MultilingualPRHead(nn.Module):
+    """Per-language linear classification heads (heads.py:7-19)."""
+
+    def __init__(self, id2symbols: Tuple[Tuple[str, int], ...], d_in: int = 256):
+        super().__init__()
+        self.heads = nn.ModuleDict({f"head-{sid}": nn.Linear(d_in, n) for sid, n in id2symbols})
+
+    def forward(self, x, symbol_id: str):
+        return self.heads[f"head-{symbol_id}"](x)
+
+
+class MultilingualClusterHead(nn.Module):
+    """Per-language cluster centres; logits are the temperature-scaled
+    cosine similarity ("cos") or the negative Euclidean distance ("l2")
+    (heads.py:22-50)."""
+
+    def __init__(self, id2symbols: Tuple[Tuple[str, int], ...], d_in: int = 256,
+                 temperature: float = 0.1, mode: str = "cos"):
+        super().__init__()
+        if mode not in ("cos", "l2"):
+            raise NotImplementedError(mode)
+        self.temperature = temperature
+        self.mode = mode
+        self.centers = nn.ParameterDict(
+            {f"head-{sid}": nn.Parameter(torch.randn(n, d_in)) for sid, n in id2symbols})
+
+    def forward(self, x, symbol_id: str):
+        centers = self.centers[f"head-{symbol_id}"]
+        if self.mode == "cos":
+            xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
+            cn = centers / (torch.linalg.vector_norm(centers, dim=-1, keepdim=True) + 1e-8)
+            return torch.matmul(xn, cn.T) / self.temperature
+        # the distances directly, not through |x|^2 - 2 x.c + |c|^2, whose
+        # rounding near 0 the square root would amplify
+        return -torch.cdist(x, centers.expand(x.shape[0], -1, -1),
+                            compute_mode="donot_use_mm_for_euclid_dist")

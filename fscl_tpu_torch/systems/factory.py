@@ -1,12 +1,17 @@
 """System factory: algorithm type + configs -> a built system (port of
 `fscl_tpu/systems/factory.py:build_system`, `:32`).
 
-Bridges the registry and the T2U systems' constructors, so that the CLI's
-generic path builds a T2U key from (model config, optimizer config, data
-configs). The other ported keys raise `ValueError` here: `train` builds
-baseline and FSCL on its main path (`cli/train_cmd.py:_main_path`) and
-`tune` fscl-tune and fscl-orig-tune. Keys the port does not have yet raise
-`NotImplementedError` from the registry, naming their ROADMAP item.
+Bridges the registry and the T2U and PR systems' constructors, so that the
+CLI's generic path builds a T2U or PR key from (model config, optimizer
+config, data configs); a PR system takes the data configs' id2symbols
+(fscl_tpu's `:85-86`). The other ported keys raise `ValueError` here:
+`train` builds baseline and FSCL on its main path
+(`cli/train_cmd.py:_main_path`) and `tune` fscl-tune and fscl-orig-tune.
+Keys the port does not have yet raise `NotImplementedError` from the
+registry, naming their ROADMAP item; a key fscl_tpu registers nowhere
+(`pr-ssl-codebook-cluster`, named by
+config/algorithm/phoneme_recognition/ssl-codebook-cluster.yaml) raises
+KeyError, as in fscl_tpu.
 
 Two faults of fscl_tpu's factory are kept, and pinned by
 tests/test_torch_t2u_data.py (ROADMAP Queue 3): the T2U keys take
@@ -44,11 +49,14 @@ def build_system(
     device=None,
     **extra,
 ):
-    """The T2U system registered under `algorithm_type`, on `device`."""
+    """The T2U or PR system registered under `algorithm_type`, on `device`."""
     cls = SYSTEMS.get(algorithm_type)
     t = algorithm_type
+    if t.startswith("pr-"):
+        return cls(model_cfg, build_id2symbols(data_configs), device=device,
+                   optim_cfg=optim_cfg, **extra)
     if not t.startswith(("tacot2u", "fscl-t2u")):
-        raise ValueError(f"{t}: the factory builds the T2U keys only; `train` builds baseline, "
+        raise ValueError(f"{t}: the factory builds the T2U and PR keys only; `train` builds baseline, "
                          "baseline-tune, fscl and fscl-orig on its main path "
                          "(cli/train_cmd.py:_main_path), and `tune` fscl-tune and fscl-orig-tune")
     id2symbols = build_id2symbols(data_configs)

@@ -169,6 +169,31 @@ def test_synth_text_and_text_file(world, baseline_run, tmp_path):
         np.testing.assert_allclose(got, alone.infer(m), atol=1e-5, rtol=0)
 
 
+def test_synth_text_keeps_one_frame_of_a_line_predicted_at_zero_frames(world, baseline_run,
+                                                                      tmp_path):
+    """A departure on purpose (ROADMAP Queue 3): with every predicted
+    duration 0 (the duration head's bias pinned at -100), `synth --text`
+    writes one frame's wav, as `--text_file` does; fscl_tpu's `synth --text`
+    vocodes `mel[:0]`, on which its Griffin-Lim raises."""
+    from fscl_tpu.audio_out.vocoder import griffin_lim as jax_griffin_lim
+    from fscl_tpu_torch.core.config import model_config_from_yaml
+    from fscl_tpu_torch.dsp.audio_io import load_wav
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    system = BaselineSystem(model_config_from_yaml(world["model"]), (("en", 152),), device="cpu")
+    CheckpointManager(f"{baseline_run[0]}/ckpt").restore_into(system)
+    with torch.no_grad():
+        system.model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(-100.0)
+    CheckpointManager(str(tmp_path / "ckpt")).save(1, system, system.init_state())
+    out = tmp_path / "zero.wav"
+    (mel,) = main(["synth", "--ckpt_dir", str(tmp_path / "ckpt"), "--data_config", world["en"],
+                   "--model_config", world["model"], "--text", "{HH AY1 W ER1 L D}",
+                   "--output", str(out)] + CPU)
+    assert mel.shape == (1, 80) and np.isfinite(mel).all()
+    assert load_wav(str(out), 22050).shape == (256,)
+    with pytest.raises(Exception):
+        jax_griffin_lim(np.zeros((0, 80), np.float32))
+
+
 def test_train_fscl_with_a_tiny_upstream(world):
     exp = str(world["root"] / "fexp")
     system, state = main(["train", "--system", "fscl", "--data_config", world["en"],
@@ -214,7 +239,7 @@ def test_tune(world, scan, tmp_path):
     (["--n_devices", "2"], "item 12"), (["--upstream_parallel", "pp"], "item 12"),
     (["--distributed"], "item 12"), (["--use_tracker"], "item 11"),
     (["--exp_key", "k"], "item 11"), (["--system", "maml"], "item 8"),
-    (["--system", "conti-ae"], "item 8"), (["--system", "pr-ssl-linear"], "item 10"),
+    (["--system", "conti-ae"], "item 8"), (["--system", "imaml"], "item 8"),
 ])
 def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
@@ -222,8 +247,12 @@ def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
 
 
 def test_unported_synth_and_subcommands_name_their_item(world, baseline_run):
-    for cmd in ("evaluate", "clean", "pack", "rehearse"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 13"):
+    """`rehearse` waits for item 13; `evaluate`, `clean` and `pack` are
+    ported and parse fscl_tpu's flags (an unknown one is an argparse error)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 13"):
+        main(["rehearse", "--anything", "x"])
+    for cmd in ("evaluate", "clean", "pack"):
+        with pytest.raises(SystemExit):
             main([cmd, "--anything", "x"])
     with pytest.raises(SystemExit):
         main(["train"])                        # --data_config is required
@@ -319,12 +348,10 @@ def _tap_adapt(stack, module, rec, data_arg):
 
 def _run_jax(argv):
     """fscl_tpu's command line in process, tapped; returns the record. Its
-    compilation-cache setting (a directory outside the test) is skipped, and
-    its datamodules take the Python collate path, the one the port ports:
-    fscl_tpu's native C++ loader (ROADMAP.md Queue 1, item 5) normalizes
-    pitch and energy in float32 and differs from its own Python path by up
-    to 2.4e-7 (one ulp) on this corpus."""
-    import fscl_tpu.data.native_loader as jnative
+    compilation-cache setting (a directory outside the test) is skipped. Its
+    datamodules read as the port's do by default: a single corpus through
+    the native C++ loader (which normalises pitch and energy in float64
+    before the f32 store, one ulp from the Python path on this corpus)."""
     import fscl_tpu.systems.tune as jtune
     from fscl_tpu.cli.__main__ import main as jmain
     from fscl_tpu.systems.base import System as JSystem
@@ -355,7 +382,6 @@ def _run_jax(argv):
         stack.enter_context(mock.patch.object(
             jax.config, "update",
             lambda k, v: None if k == "jax_compilation_cache_dir" else update(k, v)))
-        stack.enter_context(mock.patch.object(jnative, "native_available", lambda: False))
         _tap(stack, JSystem, "init_state", init_state)
         _tap_fit(stack, JTrainer, rec)
         _tap(stack, jtune, "tune_init", tune_init)

@@ -724,3 +724,88 @@ def test_e2e_gradient_through_frozen_u2s_card_matches_cpu(cuda_device):
     for n, w in out["cpu"][1].items():
         if w is not None:
             torch.testing.assert_close(out["card"][1][n], w, atol=1e-4, rtol=0, msg=n)
+
+
+def _pr_cfg():
+    """The PR systems at Downstream1's full head dim (256 in 2 heads of 128)
+    over a custom upstream of dim 128 (2 heads of 64, 2 layers): both of
+    the kernel's instances."""
+    import dataclasses
+    cfg = _tiny_cfg(256, 2)
+    return dataclasses.replace(cfg, upstream=C.UpstreamConfig(name="custom", dim=128, n_layers=3),
+                               codebook=C.CodebookConfig(size=16, num_heads=2, dim=256))
+
+
+def _pr_batch(rng, wav_lens, n_sym):
+    from fscl_tpu_torch.systems.pr import PRBatch
+    B, W = len(wav_lens), 32000
+    wavs = (0.3 * rng.normal(size=(B, W))).astype(np.float32)
+    wavs[np.arange(W)[None] >= np.array(wav_lens)[:, None]] = 0
+    avg = np.zeros((B, 12), np.int32)
+    ph = rng.integers(1, n_sym, (B, 12)).astype(np.int32)
+    for b, n in enumerate(wav_lens):
+        avg[b] = 1 + rng.multinomial(n // 320 - 12, np.ones(12) / 12)
+    return PRBatch(wavs, np.array(wav_lens, np.int32), avg, ph, np.zeros(B, np.int32), n_sym, "xx")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pr-ssl-protonet", "pr-trans-head", "pr-ssl-linear",
+                                  "pr-ssl-baseline", "pr-ssl-cluster"])
+def test_pr_system_card_matches_cpu(cuda_device, kind):
+    """Each PR system's loss (dropout off) and every trainable gradient on
+    the card against the same system on the CPU: loss 1e-5 relative,
+    gradients 1e-4 relative to each tensor's largest magnitude; the episode
+    launches the attention kernel where the system attends."""
+    from fscl_tpu_torch.core.registry import SYSTEMS
+    from fscl_tpu_torch.systems.pr import PREpisode
+    rng = np.random.default_rng(5)
+    n_sym = 30
+    sup = _pr_batch(rng, [32000, 21000, 9000, 6400], n_sym)
+    qry = _pr_batch(rng, [30000, 12000], n_sym)
+    batch = PREpisode(sup, qry) if kind in ("pr-ssl-protonet", "pr-trans-head") else sup
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda_device)):
+        torch.manual_seed(0)
+        system = SYSTEMS.get(kind)(_pr_cfg(), (("xx", n_sym),), device=dev, upstream_seed=0)
+        if name == "card":
+            system.load_state_dict(cpu_sd)
+        cpu_sd = system.state_dict()
+        for m in system.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        mask = system.trainable_mask()
+        names = [n for n, _ in system.named_parameters() if mask[n]]
+        params = dict(system.named_parameters())
+        before = tattn.LAUNCHES
+        system.train()
+        loss, _ = system.loss_and_metrics(to_device(batch, dev))
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        system.eval()
+        if name == "card":
+            assert tattn.LAUNCHES > before
+        out[name] = (float(loss.detach()), {n: None if g is None else g.cpu()
+                                            for n, g in zip(names, grads)})
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-5)
+    for n, w in out["cpu"][1].items():
+        if w is not None:
+            scale = max(float(w.abs().max()), 1e-3)
+            assert float((out["card"][1][n] - w).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.cuda
+def test_bilstm_downstream_card_matches_cpu_on_ragged_lengths(cuda_device):
+    """cuDNN's LSTMs with the backward direction reversed within each row's
+    length by a device gather: output within 1e-5 of the CPU's, padding
+    zero and out of the valid frames."""
+    from fscl_tpu_torch.nn.downstreams import BiLSTMDownstream
+    torch.manual_seed(0)
+    cpu = BiLSTMDownstream(4, 64, 32)
+    card = BiLSTMDownstream(4, 64, 32).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(3, 40, 4, 64)).astype(np.float32))
+    valid = torch.arange(40)[None] < torch.tensor([[40], [23], [1]])
+    want = cpu(x, valid)
+    got = card(x.to(cuda_device), valid.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert not got[~valid].any()

@@ -47,7 +47,13 @@ CLI_AND_DATA_MODULES = (
     "fscl_tpu_torch.data.scripts", "fscl_tpu_torch.dsp.preprocess", "fscl_tpu_torch.dsp.pitch",
     "fscl_tpu_torch.dsp.pitch_device", "fscl_tpu_torch.dsp.world_device",
     "fscl_tpu_torch.dsp.cpp_bindings", "fscl_tpu_torch.dsp.textgrid",
-    "fscl_tpu_torch.frontend.kog2p", "fscl_tpu_torch.ops.dio_contour", "fscl_tpu_torch.ops.stft")
+    "fscl_tpu_torch.frontend.kog2p", "fscl_tpu_torch.ops.dio_contour", "fscl_tpu_torch.ops.stft",
+    "fscl_tpu_torch.cli.pack_cmd", "fscl_tpu_torch.cli.clean_cmd",
+    "fscl_tpu_torch.cli.evaluate_cmd", "fscl_tpu_torch.data.shards",
+    "fscl_tpu_torch.data.native_loader", "fscl_tpu_torch.eval.metrics",
+    "fscl_tpu_torch.eval.drivers", "fscl_tpu_torch.eval.task_generation",
+    "fscl_tpu_torch.eval.protonet_eval", "fscl_tpu_torch.systems.pr",
+    "fscl_tpu_torch.nn.asr_center", "fscl_tpu_torch.nn.phoneme_embedding")
 
 
 def test_cli_and_data_modules_load_no_jax():
@@ -77,6 +83,12 @@ def test_cli_and_data_modules_load_no_jax():
         proc = subprocess.run([sys.executable, "-m", "fscl_tpu_torch.cli", cmd, "--help"],
                               cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0 and "--device" in proc.stdout, proc.stderr
+    # the host-only subcommands take fscl_tpu's flags and no device
+    for cmd, flag in (("evaluate", "--pl_filter"), ("pack", "--fscl"), ("clean", "--output")):
+        proc = subprocess.run([sys.executable, "-m", "fscl_tpu_torch.cli", cmd, "--help"],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0 and flag in proc.stdout, proc.stderr
+        assert "--device" not in proc.stdout
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -153,3 +165,14 @@ def test_a_cuda_device_comes_with_tf32_off(monkeypatch):
     assert resolve_device("cuda").type == "cuda"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("key", ["pr-ssl-linear", "pr-ssl-baseline", "pr-ssl-cluster",
+                                 "pr-trans-head", "pr-ssl-protonet"])
+def test_pr_systems_ask_for_cuda_by_default(key):
+    _no_card()
+    from fscl_tpu_torch.core.config import ModelConfig
+    from fscl_tpu_torch.core.registry import SYSTEMS
+    import fscl_tpu_torch.systems  # noqa: F401 (registers the systems)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SYSTEMS.get(key)(ModelConfig(), (("en", 152),))

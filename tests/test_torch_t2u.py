@@ -21,6 +21,7 @@ Tolerances, each with its reason:
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +55,7 @@ from fscl_tpu_torch.systems.baseline import BaselineSystem
 
 from torch_parity import capture_dropout, make_cfg, t2u_scan_masks, to_jax
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MOD_ATOL, LOGIT_ATOL, LOSS_RTOL, GRAD_ATOL, PARAM_RTOL = 1e-5, 1e-4, 1e-5, 1e-5, 1e-5
 INFER_MARGIN = 1e-4
 N_UNITS, N_SYM = 21, 24
@@ -500,3 +502,54 @@ def test_t2u_tune_init_matches(kind):
     assert torch.equal(pt2u.embedding_model.tables["table-xx"].detach(), got)
 
 
+
+
+E2E_STEPS, E2E_REF_STEPS, E2E_LOSS_RTOL = 40, 1500, 1e-4
+
+
+def test_e2e_tune_trajectory_matches_fscl_tpu():
+    """40 E2E tune steps in both packages on the same batches (a new one
+    each step) and the same dropout masks, at config/train/tune-t2s-1500.yaml's
+    optimizer (Adam betas 0.9 / 0.98, eps 1e-9, clip 1.0, the sqrt schedule)
+    with its 4000 warm-up steps cut in proportion to the run (107), as
+    chip_smoke.py's phase 14 runs it: every step's loss within 1e-4
+    relative. This classifies the card's reading (ROADMAP Queue 3, PERF.md
+    §7): the tune's trajectory is fscl_tpu's."""
+    jsys, v, psys, _, _ = _build("fscl-t2u-e2e-tune")
+    path = os.path.join(REPO, "config", "train", "tune-t2s-1500.yaml")
+    jref = jax_config.train_config_from_yaml(path)
+    pref = torch_config.train_config_from_yaml(path)
+    assert jref.total_step == pref.total_step == E2E_REF_STEPS
+    warmup = round(jref.optim.warmup_step * E2E_STEPS / E2E_REF_STEPS)
+    # YAML 1.1 reads `1e-09` as a string, which optax cannot add: a number here
+    jopt = dataclasses.replace(jref.optim, warmup_step=warmup, eps=float(jref.optim.eps))
+    popt = dataclasses.replace(pref.optim, warmup_step=warmup, eps=float(pref.optim.eps))
+    assert dataclasses.asdict(jopt) == dataclasses.asdict(popt) and warmup == 107
+
+    tx = jax_make_optimizer(jopt, jsys.trainable_mask(v["params"]))
+    state, _ = create_state({"params": to_jax(v["params"]),
+                             "batch_stats": to_jax(v["batch_stats"])}, tx)
+    rng = jax.random.PRNGKey(3)
+
+    def loss(params, batch_stats, b, key):
+        return jsys.loss_and_metrics(params, batch_stats, b, key, True, None)
+    grad_fn = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    apply = jax.jit(lambda s, g, bs: apply_grads(s, g, tx, bs))
+    psys.optim_cfg = popt
+    pstate = psys.init_state()
+    want, got = [], []
+    for step in range(E2E_STEPS):
+        batch = PT.E2EBatch(_t2u_batch(100 + step), _u2s(200 + step))
+        jbatch = JT.E2EBatch(_jbatch(batch.t2u), JBatch(*map(jnp.asarray, batch.u2s)))
+        key = jax.random.fold_in(rng, step)
+        r_scan, _ = jax.random.split(key)
+        masks = t2u_scan_masks(JCFG, r_scan, B, TU, True,
+                               encoder=_encoder_masks(v, batch.t2u, key))
+        (value, (metrics, new_bs)), grads = grad_fn(state.params, state.batch_stats, jbatch,
+                                                     key)
+        state = apply(state, grads, new_bs)
+        want.append(float(value))
+        psys.loss_and_metrics = lambda b, m=masks: type(psys).loss_and_metrics(psys, b, masks=m)
+        pstate, pm = psys.train_step(pstate, to_device(batch, "cpu"))
+        got.append(float(pm["Total Loss"]))
+    np.testing.assert_allclose(got, want, rtol=E2E_LOSS_RTOL)

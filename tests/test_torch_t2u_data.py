@@ -241,14 +241,46 @@ def test_t2u_datamodules_match(world, key):
 
 
 def test_episodic_shard_raises_until_item_5(world, tmp_path):
+    """A `.fscl.shard` beside the split is read since item 5: a file that is
+    not a shard raises in setup, in both packages."""
     shutil.copytree(world["root"] / "b", tmp_path / "c")
     cfg = torch_config.read_data_config(str(tmp_path / "c" / "en" / "t2u.yaml"))
     cfg = dataclasses.replace(cfg, data_dir=str(tmp_path / "c" / "en" / "features"))
     (tmp_path / "c" / "en" / "splits" / "train.txt.fscl.shard").write_bytes(b"")
     dm = DATAMODULES.get("fscl-t2u")([cfg], torch_config.ModelConfig(),
                                      torch_config.TrainConfig(), exp_dir="unused")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 5"):
+    with pytest.raises(ValueError, match="not a packed shard"):
         dm.setup()
+    jcfg = jax_config.read_data_config(str(tmp_path / "c" / "en" / "t2u.yaml"))
+    jcfg = dataclasses.replace(jcfg, data_dir=cfg.data_dir)
+    jm = jdm.get_datamodule("fscl-t2u")([jcfg], jax_config.ModelConfig(),
+                                         jax_config.TrainConfig(), exp_dir="unused")
+    with pytest.raises(ValueError, match="not a packed shard"):
+        jm.setup()
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["cpp", "numpy"])
+def test_t2u_episodic_datamodule_reads_the_support_from_a_shard(world, tmp_path, native):
+    """With `pack --fscl` beside the split, T2UEpisodicDataModule serves the
+    support side from the shard (C++ or numpy reader): episodes equal
+    fscl_tpu's, whose loader reads the same shard."""
+    shutil.copytree(world["root"] / "b", tmp_path / "c")
+    t2u = str(tmp_path / "c" / "en" / "t2u.yaml")
+    main(["pack", "--data_config", t2u, "--fscl"])
+    pdc, jdc = torch_config.read_data_config(t2u), jax_config.read_data_config(t2u)
+    pm = DATAMODULES.get("fscl-t2u")([pdc], torch_config.ModelConfig(),
+                                     torch_config.TrainConfig(seed=2), exp_dir="unused",
+                                     native_io=native)
+    jm = jdm.get_datamodule("fscl-t2u")([jdc], jax_config.ModelConfig(),
+                                         jax_config.TrainConfig(seed=2), exp_dir="unused")
+    pm.setup()
+    jm.setup()
+    assert pm.pairs[0][2] is not None and pm.pairs[0][2].native == native
+    assert jm.pairs[0][3] is not None
+    for i, (got, want) in enumerate(zip(pm.train_batches(), jm.train_batches())):
+        same(got, want, f"episode {i}")
+        if i == 2:
+            break
 
 
 def _tiny_model_cfg(C):
