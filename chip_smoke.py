@@ -106,8 +106,8 @@ non-zero exit code when it fails:
    (adaptation.csv finite and falling, adaptation steps/s). Every attention
    launch is held in phase 3; each stage shape phase 3 did not hold is held
    to the plain version right after the run that launched it.
-13. A raw corpus on the card: 256 utterances of 1.5-10 s in the LJSpeech
-   layout with TextGrids, written from --seed (about 24 minutes of audio,
+13. A raw corpus on the card: 128 utterances of 1.5-10 s in the LJSpeech
+   layout with TextGrids, written from --seed (about 12 minutes of audio,
    tests/torch_corpus.py:write_raw_corpus). `python -m fscl_tpu_torch.cli
    preprocess ... --parse_raw --preprocess --create_dataset --pitch_method
    world_device --n_workers 4` in a fresh subprocess (wall time per stage,
@@ -144,7 +144,7 @@ non-zero exit code when it fails:
    a small episode card vs CPU (table and loss 1e-4); `t2u_tune_init` of a
    32-shot split into an E2ETuneSystem from the trained T2U, 10 steps at
    B = 4 on one batch through the frozen u2s (10 attention launches per
-   step, a falling loss, the u2s unchanged), then on one seed 40 steps on
+   step, a falling loss, the u2s unchanged), then on one seed 20 steps on
    the stream at config/train/tune-t2s-1500.yaml's optimizer beside 40 at
    lr 0 on the same batches and masks (the difference of their losses
    read; steps/s; the held val loss read after each); one step's loss
@@ -176,11 +176,37 @@ non-zero exit code when it fails:
    atol 1e-3, loss 1e-4 and one step's gradient norm 1e-3 relative, one
    task's eval frame logits atol 1e-3). Every attention shape is held in
    phase 3.
-9. Attention timing (run last, after phase 15): the kernel at each key
+16. `rehearse` and the meta-learning variants. `python -m fscl_tpu_torch.cli
+   rehearse --preset full`, each flow in a fresh interpreter (its `main`
+   wrapped to report the attention shapes it launched) on synthetic
+   corpora in one temporary cache: fscl at its defaults (40 episodes of
+   4 + 2, --adapt_steps 200: its three gates enforced), t2u with 10
+   episodes, 10 u2s and 10 tune steps and pr with 10 episodes (gates
+   advisory, as fscl_tpu makes them below 100); each exits 0, and its
+   phase seconds, per-phase kernel launches, rehearsal.json metrics and
+   gates are printed. Then in process at fscl-fastspeech2.yaml width with
+   HuBERT-large (f32) drawn on the card from --seed and shared: `meta`
+   (32 + 8, one second-order inner step), `imaml` (20 + 5, 50 inner
+   steps, K = 5), `fscl_ada1`, `fscl_ada2`, `fscl_ssl_ada1` (phase 10's
+   32 + 8 episodes, the SSL one with the query speech), `conti_ae` (B = 8)
+   and `semi_fscl` (a hand-built `SemiEpisode`), each 5 steps on one
+   episode repeated at lr 5e-4 (4 through `Trainer.fit`, the 5th split
+   into upstream, inner loop, CG + HVPs and the rest): every loss finite
+   and the last below the first, steps/s, peak memory, attention
+   launches; with --profile a traced `meta` step (busy share, kernel
+   launches). Card vs
+   CPU at a reduced size (the trunk at full width, a 3-layer custom
+   upstream of dim 256, dropout off): one `meta` episode, one `imaml`
+   episode (3 inner steps, K = 2), one `fscl_ada1` step: losses 1e-4,
+   gradient norms 1e-3 relative; the MAML and iMAML steps leave the
+   PostNet's running statistics unchanged on both devices. Every attention
+   shape phase 3 did not hold is held to the plain version right after the
+   run that launched it.
+9. Attention timing (run last, after phase 16): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
-   (32, 16, 199, 64)), and in float32 at every shape phases 14 and 15 launched,
+   (32, 16, 199, 64)), and in float32 at every shape phases 14-16 launched,
    beside its route's bound (split TF32 or bf16 tensor cores) and the f32
    FMA bound of the earlier design. The kernel also through its
    public wrapper with CUDA events over back-to-back calls (how the main
@@ -194,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -2812,15 +2839,16 @@ def cli_tune(root: Path, zh_tune: str, attn_checked, fscl_ckpt: str):
             "losses": written, "attention_launches": attn.LAUNCHES, "wall_s": wall}
 
 
-# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 256
-# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 24
-# minutes of audio over the 2-10 s wav buckets (tests/torch_corpus.py:
+# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 128
+# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 12
+# minutes of audio over the 2-10 s wav buckets (256 until PR 12, cut to make
+# room for phase 16; tests/torch_corpus.py:
 # write_raw_corpus). `preprocess` runs once through the command line in a
 # subprocess (world_device, 4 workers for --parse_raw), then the three pitch
 # methods in process on RAW_INPROC of its utterances; the baseline trains
 # RAW_TRAIN_STEPS steps from the store and a d-vector copy RAW_DVEC_STEPS
 # steps before `synth --ref_wav`. RAW_UTTS is the depth to cut first.
-RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 256, (1.5, 10.0), 4
+RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 128, (1.5, 10.0), 4
 RAW_INPROC, RAW_CPU_UTTS, RAW_CHECK_B = 64, 8, 4
 RAW_TRAIN_STEPS, RAW_DVEC_STEPS = 20, 5
 # phase 13's device (a CPU rehearsal of the phase sets it to "cpu")
@@ -3549,17 +3577,18 @@ E2E_B, E2E_COUNTED = 4, 10                  # config/train/tune-t2s-1500.yaml:4
 # (to 4000 * E2E_STREAM / 1500, so that the lr climbs over the run to the
 # 3.75e-4 the config's 1500 steps reach), from the same start on one seed
 # (the stream's draws and the dropout masks; two until PR 11, cut to keep
-# the script near half its time limit once phase 15 came). Beside each run, a control at
+# the script near half its time limit once phase 15 came; 40 steps until
+# PR 12, cut to 20 to make room for phase 16). Beside each run, a control at
 # lr 0 on the same seed sees the same batches and masks, so the difference
 # of their losses step by step is what the tune learned: B = 4 batches of
-# 1.5-10 s utterances vary more from one to the next than 40 steps move the
+# 1.5-10 s utterances vary more from one to the next than 20 steps move the
 # loss. The held val batches' loss is read before and after each run, and
 # after it with the T2U's BatchNorm statistics of the start. These are
 # readings: at this schedule the tune beats its control over its first
-# steps but not over the last 10 of 40, as fscl_tpu's does
+# steps but not over its last 10 (at 40 steps, PR 10-11), as fscl_tpu's does
 # (tests/test_torch_t2u.py holds the trajectory to it; PERF.md section 7),
 # so the check that the chain learns is the one-batch fit at lr 2e-3.
-E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 40, 1, 1500
+E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 20, 1, 1500
 # Card vs CPU: the teacher-forced logits of the T2U trained above through
 # its 1024-wide recurrences (cuBLAS and the CPU's BLAS sum in another
 # order, and the recurrence carries the differences step to step); the
@@ -4793,6 +4822,374 @@ def phase_pr(seed: int, card: str, attn_checked):
     return summary
 
 
+# -- phase 16: rehearse and the meta-learning variants -------------------------------------
+
+# `rehearse --preset full` through the CLI, each flow in a fresh interpreter
+# on synthetic corpora in one cache: the fscl flow at its defaults (40
+# episodes, --adapt_steps 200: its gates enforced); the t2u and pr flows cut
+# in depth (their gates advisory below 100 steps or episodes, as in fscl_tpu).
+REHEARSE_FLOWS = (("fscl", ()),
+                  ("t2u", ("--episodes", "10", "--u2s_steps", "10", "--tune_steps", "10")),
+                  ("pr", ("--episodes", "10")))
+# The meta systems at config/model/fscl-fastspeech2.yaml's widths with
+# HuBERT-large (f32) drawn on the card: meta.yaml's 32 + 8 with one
+# second-order inner step (train steps 0, the factory's max(., 1)), imaml.yaml's
+# 20 + 5 with 50 inner steps and K = 5 CG steps (reg_param 1), the ADA,
+# SSL-ADA and semi systems on phase 10's 32 + 8 episodes, ContiAE at B = 8.
+# Each takes META_STEPS steps on one episode (or batch) repeated: all but
+# the last through `Trainer.fit`, the last split by synchronizes; its loss
+# must fall. Adam at META_LR, warm-up 5: half config/train/*.yaml's peak of
+# 1e-3, which they reach after 4000 warm-up steps; at 2e-3 from the first
+# step, ContiAE's and semi-FSCL's losses rose over their first steps.
+META_SHOTS = {"meta": (32, 8), "imaml": (20, 5)}
+META_INNER_LR, IMAML_INNER, IMAML_K, IMAML_REG = 1e-3, 50, 5, 1.0
+META_KEYS = ("meta", "imaml", "fscl_ada1", "fscl_ada2", "fscl_ssl_ada1", "conti_ae", "semi_fscl")
+META_STEPS = 5
+META_LR = 5e-4
+CONTI_B = 8
+# Card vs CPU at a reduced size (the trunk at full width, a 3-layer custom
+# upstream of dim 256 in place of HuBERT-large, dropout off, a small
+# episode: S, samples, B, L, T; iMAML's inner loop cut to 3 steps and K to
+# 2): losses 1e-4 relative, gradient norms 1e-3 relative (the bars of
+# phases 14 and 15).
+META_CHECK = (4, 32000, 4, 32, 128)
+META_CHECK_IMAML = (3, 2)
+META_LOSS_RTOL, META_GRAD_NORM_RTOL = 1e-4, 1e-3
+
+REHEARSE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fscl_tpu_torch.ops import attention as attn
+seen = set()
+launch = attn.attention_cuda
+
+
+def recording(q, *args):
+    seen.add((*q.shape, str(q.dtype).split(".")[-1]))
+    return launch(q, *args)
+
+
+attn.attention_cuda = recording
+from fscl_tpu_torch.cli import main
+rc = main(sys.argv[2:])
+print("ATTENTION_SHAPES " + json.dumps(sorted(seen)), flush=True)
+sys.exit(rc)
+"""
+
+
+def hold_attention_shapes(shapes, checked, what: str) -> int:
+    """Hold the attention kernel to its plain version at every key split at
+    each (B, H, L, Dh, dtype) of `shapes` that phase 3 did not, right after
+    the run that launched it; add them to `checked`. Returns how many."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    new = sorted({tuple(s) for s in shapes} - checked)
+    gen = torch.Generator(device="cuda").manual_seed(len(checked))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, H, L, Dh, dname in new:
+        dtype = getattr(torch, dname)
+        q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
+        auto = attn.choose_key_split(B * H, L, n_sm, dtype)
+        for s in attn.KEY_SPLITS:
+            check_attention(attn, q, k, v, valid, None if s == auto else s,
+                            f"{what}: {dname} B={B} H={H} L={L} Dh={Dh} key_split={s}")
+        checked.add((B, H, L, Dh, dname))
+    if new:
+        log(f"{what}: held {len(new)} attention shapes phase 3 did not hold to the plain "
+            f"version at every key split: {new}")
+    return len(new)
+
+
+def rehearse_flow(flow: str, extra, root: Path, attn_checked):
+    """`python -m fscl_tpu_torch.cli rehearse --flow <flow> --preset full` in a
+    fresh interpreter (its `main` wrapped so that it reports the attention
+    shapes it launched): exit code 0 (every enforced gate ok), its phases'
+    seconds and launches, its rehearsal.json metrics and gates."""
+    import re
+    exp = root / f"rehearse_{flow}"
+    cmd = [sys.executable, "-c", REHEARSE_CHILD, str(REPO), "rehearse", "--flow", flow,
+           "--preset", "full", "--exp_dir", str(exp), "--corpus_cache", str(root / "cache"),
+           "--device", CARD, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    report_path = exp / "rehearsal.json"
+    report = json.loads(report_path.read_text()) if report_path.is_file() else {}
+    for name, g in report.get("gates", {}).items():
+        log(f"rehearse {flow}: gate {name}: "
+            f"{'ok' if g['ok'] else 'FAIL' if g['enforced'] else 'fail (advisory)'} — "
+            f"{g['detail']}")
+    if proc.returncode != 0:
+        fail(f"rehearse {flow} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+             f"{proc.stderr[-3000:]}")
+    phases = re.findall(r"\[rehearse\] (\S+) done in ([\d.]+)s \(launches: attention_fwd (\d+), "
+                        r"mrf_stage (\d+), dio_contour (\d+)\)", proc.stdout)
+    shapes = next((json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+                   if line.startswith("ATTENTION_SHAPES ")), None)
+    if not phases or shapes is None or set(p[0] for p in phases) != set(report["phase_seconds"]):
+        fail(f"rehearse {flow}: phases or shapes not reported:\n{proc.stdout[-3000:]}")
+    LAUNCHED.setdefault(f"rehearse {flow}", set()).update(tuple(s) for s in shapes)
+    hold_attention_shapes(shapes, attn_checked, f"rehearse {flow}")
+    launches = {name: {"attention_fwd": int(a), "mrf_stage": int(m), "dio_contour": int(d)}
+                for name, _, a, m, d in phases}
+    if not sum(v["attention_fwd"] for v in launches.values()):
+        fail(f"rehearse {flow}: the attention kernel was never launched")
+    metrics = {k: v for k, v in report.items() if isinstance(v, (int, float))}
+    log(f"rehearse {flow} (--preset full, {' '.join(extra) or 'defaults'}): {wall:.1f} s wall; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in report["phase_seconds"].items())
+        + "; attention launches by phase "
+        + ", ".join(f"{k} {v['attention_fwd']}" for k, v in launches.items() if v["attention_fwd"])
+        + "; " + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    return {"wall_s": wall, "phase_seconds": report["phase_seconds"], "launches": launches,
+            "attention_launches": sum(v["attention_fwd"] for v in launches.values()),
+            "metrics": metrics, "gates": report["gates"]}
+
+
+def meta_batch(seed: int, B: int):
+    """A B-line numpy TTS batch as phase 10's queries (L = 128, T = 512,
+    DvecRefs of 10 slices): the support set's own batch."""
+    return fscl_episodes(seed, 1, 1, 16000, B, FSCL_L, FSCL_T)[0].qry
+
+
+def query_speech(seed: int, B: int):
+    """B float 16 kHz wavs of 4 s (the last two cut to 3 s) and their lengths."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = np.full(B, FSCL_WAV, np.int32)
+    lens[-2:] = 3 * FSCL_WAV // 4
+    wavs = (0.1 * rng.normal(size=(B, FSCL_WAV))).astype(np.float32)
+    wavs[np.arange(FSCL_WAV)[None, :] >= lens[:, None]] = 0.0
+    return wavs, lens
+
+
+def conti_batch(seed: int, B: int):
+    import numpy as np
+    from fscl_tpu_torch.systems.conti_ae import ContiAEBatch
+    rng = np.random.default_rng(seed)
+    wavs, lens = query_speech(seed, B)
+    mel_lens = (lens * 22050 // 16000 // 256).astype(np.int32)
+    mels = rng.normal(size=(B, FSCL_T, 80)).astype(np.float32)
+    mels[np.arange(FSCL_T)[None, :] >= mel_lens[:, None]] = 0.0
+    return ContiAEBatch(wavs, lens, mels, mel_lens)
+
+
+def meta_batches(key: str, seed: int, n: int):
+    """`n` numpy batches of the key's kind."""
+    from fscl_tpu_torch.systems.ada import SSLEpisode
+    from fscl_tpu_torch.systems.conti_ae import SemiEpisode
+    S, Q = META_SHOTS.get(key, (FSCL_S, FSCL_B))
+    if key == "conti_ae":
+        return [conti_batch(seed + i, CONTI_B) for i in range(n)]
+    eps = fscl_episodes(seed, n, S, FSCL_WAV, Q, FSCL_L, FSCL_T)
+    if key in META_SHOTS:
+        return [e._replace(sup_batch=meta_batch(seed + 50 + i, S)) for i, e in enumerate(eps)]
+    if key == "fscl_ssl_ada1":
+        return [SSLEpisode(e.sup, e.qry, *query_speech(seed + 60 + i, Q))
+                for i, e in enumerate(eps)]
+    if key == "semi_fscl":
+        return [SemiEpisode(e, conti_batch(seed + 70 + i, CONTI_B)) for i, e in enumerate(eps)]
+    return eps
+
+
+def build_meta_system(key: str, cfg, seed: int, device, upstream=None, optim=None, **kw):
+    """The port's system for `key` as the factory builds it from the key's
+    algorithm YAML (config/algorithm/language/{meta,imaml,fscl-ada*}.yaml)."""
+    import torch
+    from fscl_tpu_torch.systems.ada import TransEmbADASystem, TransEmbSSLADASystem
+    from fscl_tpu_torch.systems.conti_ae import ContiAESystem, SemiTransEmbSystem
+    from fscl_tpu_torch.systems.maml import IMAMLTransEmbSystem, MAMLTransEmbSystem
+    torch.manual_seed(seed)
+    common = dict(device=device, optim_cfg=optim, upstream=upstream, upstream_seed=seed)
+    if key == "meta":
+        return MAMLTransEmbSystem(cfg, FSCL_NSYM, adaptation_lr=META_INNER_LR,
+                                  adaptation_steps=kw.get("steps", 1), **common)
+    if key == "imaml":
+        steps, k = kw.get("imaml", (IMAML_INNER, IMAML_K))
+        return IMAMLTransEmbSystem(cfg, FSCL_NSYM, adaptation_lr=META_INNER_LR,
+                                   adaptation_steps=steps, cg_steps=k, reg_param=IMAML_REG,
+                                   **common)
+    if key in ("fscl_ada1", "fscl_ada2"):
+        return TransEmbADASystem(cfg, FSCL_NSYM, ada_stage="matching" if key == "fscl_ada1"
+                                 else "unsup_tuning", **common)
+    if key == "fscl_ssl_ada1":
+        return TransEmbSSLADASystem(cfg, FSCL_NSYM, ada_stage="matching", **common)
+    if key == "conti_ae":
+        return ContiAESystem(cfg, **common)
+    return SemiTransEmbSystem(cfg, FSCL_NSYM, **common)
+
+
+def meta_split(system, state, batch):
+    """One step split by synchronizes at the frozen upstream's forwards, the
+    inner loop (`inner_adapt`) and iMAML's CG with its Hessian-vector
+    products (`cg_solve`); the rest is the table, the outer (query) loss,
+    the backward and the optimizer."""
+    import torch
+    from fscl_tpu_torch.systems import maml
+    spent = {"upstream": 0.0, "inner": 0.0, "hvp_cg": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    with mock.patch.object(maml, "inner_adapt", timed("inner", maml.inner_adapt)), \
+            mock.patch.object(maml, "cg_solve", timed("hvp_cg", maml.cg_solve)), \
+            mock.patch.object(system, "extract_ssl", timed("upstream", system.extract_ssl)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = system.train_step(state, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    out = {f"{k}_ms": 1e3 * v for k, v in spent.items()}
+    out["outer_ms"] = 1e3 * (total - sum(spent.values()))
+    out["step_ms"] = 1e3 * total
+    out["loss"] = float(metrics["Total Loss"])
+    return out
+
+
+def meta_run(key: str, cfg, seed: int, upstream, attn_checked, profile: bool = False):
+    """META_STEPS steps on one episode (or batch) repeated: all but the last
+    through `Trainer.fit`, the last split by synchronizes; every loss finite
+    and the last below the first; steps/s, the split, peak memory,
+    attention launches and shapes; with --profile for `meta`, a traced step
+    (busy share, kernel launches; no trace file). An `imaml` step is not
+    traced: on an H100 the profiler did not finish three of them within 15
+    minutes."""
+    import itertools
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    n = META_STEPS - 1
+    train_cfg = t2u_train_config(FSCL_B, log_step=1, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    train_cfg = dataclasses.replace(train_cfg, optim=dataclasses.replace(train_cfg.optim,
+                                                                         lr=META_LR))
+    system = build_meta_system(key, cfg, seed, CARD, upstream, train_cfg.optim)
+    batch = meta_batches(key, seed + 3, 1)[0]
+    rec = LossRecorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, f"meta {key}") as seen:
+        state = system.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = Trainer(system, train_cfg, callbacks=[rec]).fit(state, itertools.repeat(batch),
+                                                                max_steps=n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = attn.LAUNCHES
+        split = meta_split(system, state, to_device(batch, CARD))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hold_attention_shapes(seen, attn_checked, f"meta {key}")
+    traced = None
+    if profile and key == "meta":
+        traced = profile_steps(lambda: system.train_step(state, to_device(batch, CARD)), 1, None,
+                               f"meta {key}")
+    losses = [float(m["Total Loss"]) for _, m, _ in rec.logs] + [split["loss"]]
+    if len(losses) != META_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"meta {key}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"meta {key}: one episode repeated {META_STEPS} times, the loss did not fall: "
+             f"{losses}")
+    log(f"meta {key}: one episode repeated, {n} steps in {wall:.2f} s = {n / wall:.3f} steps/s, "
+        f"loss {' -> '.join(f'{x:.4f}' for x in losses)}; step {META_STEPS} "
+        f"{split['step_ms']:.1f} ms: upstream {split['upstream_ms']:.1f}, inner loop "
+        f"{split['inner_ms']:.1f}, CG + HVPs {split['hvp_cg_ms']:.1f}, outer "
+        f"{split['outer_ms']:.1f}; peak {peak:.2f} GiB; {launches} attention launches "
+        f"({launches / n:.0f} per step)")
+    return system, {"steps": n, "steps_per_s": n / wall, "losses": losses, "split": split,
+                    "peak_gib": peak, "attention_launches": launches, "profile": traced}
+
+
+def meta_card_vs_cpu(cfg, seed: int):
+    """At a reduced size (META_CHECK), dropout off: one `meta` episode
+    (second order), one `imaml` episode (META_CHECK_IMAML) and one
+    `fscl_ada1` step on the card and on the CPU from the same weights:
+    losses 1e-4 relative, gradient norms 1e-3 relative; the PostNet's
+    running statistics unchanged by the MAML step on both."""
+    import torch
+    from fscl_tpu_torch.core.config import UpstreamConfig
+    from fscl_tpu_torch.data.batch import to_device
+    small = dataclasses.replace(cfg, upstream=UpstreamConfig(name="custom", dim=256, n_layers=3))
+    S, n_samples, B, L, T = META_CHECK
+    ep = fscl_episodes(seed + 9, 1, S, n_samples, B, L, T)[0]
+    ep = ep._replace(sup_batch=fscl_episodes(seed + 10, 1, 1, 16000, S, L, T)[0].qry)
+    out = {}
+    for key in ("meta", "imaml", "fscl_ada1"):
+        got = {}
+        card = build_meta_system(key, small, seed, CARD, imaml=META_CHECK_IMAML)
+        cpu = build_meta_system(key, small, seed, "cpu", imaml=META_CHECK_IMAML)
+        cpu.load_state_dict(card.state_dict(), strict=True)
+        for system in (card, cpu):
+            for m in system.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+            stats = {k: v.clone() for k, v in system.state_dict().items() if "running" in k}
+            mask = system.trainable_mask()
+            params = [p for n, p in system.named_parameters() if mask[n]]
+            system.train()
+            loss, metrics = system.loss_and_metrics(to_device(ep, system.device))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            system.eval()
+            norm = math.sqrt(sum(float(g.double().square().sum()) for g in grads if g is not None))
+            value = float(metrics["Total Loss"])
+            moved = [k for k, v in system.state_dict().items()
+                     if "running" in k and not torch.equal(v, stats[k])]
+            if key in ("meta", "imaml") and moved:
+                fail(f"meta card vs CPU: the {key} step wrote BatchNorm statistics {moved[:3]} "
+                     f"on {system.device}")
+            got["card" if system is card else "cpu"] = (value, norm)
+        (v_card, n_card), (v_cpu, n_cpu) = got["card"], got["cpu"]
+        loss_rel = abs(v_card - v_cpu) / abs(v_cpu)
+        norm_rel = abs(n_card - n_cpu) / n_cpu
+        if loss_rel > META_LOSS_RTOL or norm_rel > META_GRAD_NORM_RTOL:
+            fail(f"meta card vs CPU, {key}: loss {v_card} vs {v_cpu} ({loss_rel:.3g}), gradient "
+                 f"norm {n_card} vs {n_cpu} ({norm_rel:.3g})")
+        out[key] = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "loss": v_cpu}
+        log(f"meta card vs CPU, {key}: loss rel {loss_rel:.3g} (bar {META_LOSS_RTOL:g}), "
+            f"gradient norm rel {norm_rel:.3g} (bar {META_GRAD_NORM_RTOL:g})"
+            + ("; PostNet BatchNorm statistics unchanged on both" if key != "fscl_ada1" else ""))
+        del card, cpu
+    return out
+
+
+def phase_meta(seed: int, card: str, attn_checked, profile: bool = False):
+    """Phase 16: `rehearse --preset full`, its three flows through the CLI;
+    the meta systems in process at full width; card vs CPU."""
+    import shutil
+    import tempfile
+    import torch
+
+    root = Path(tempfile.mkdtemp(prefix="fscl_meta_"))
+    summary = {"rehearse": {}, "systems": {}}
+    try:
+        for flow, extra in REHEARSE_FLOWS:
+            summary["rehearse"][flow] = rehearse_flow(flow, extra, root, attn_checked)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = fscl_model_config("float32")
+    upstream = None
+    for key in META_KEYS:
+        system, summary["systems"][key] = meta_run(key, cfg, seed, upstream, attn_checked,
+                                                   profile)
+        upstream = system.upstream
+        del system
+        torch.cuda.empty_cache()
+    del upstream
+    torch.cuda.empty_cache()
+    summary["card_vs_cpu"] = meta_card_vs_cpu(fscl_model_config("float32"), seed)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4828,8 +5225,11 @@ def main(argv=None) -> int:
     check_f32_precision("phase 14")
     pr = phase_pr(args.seed, card, attn_checked)
     check_f32_precision("phase 15")
+    meta = phase_meta(args.seed, card, attn_checked, args.profile)
+    check_f32_precision("phase 16")
     timings = phase_attention_timing(args.seed, {
-        shape[:4] for what, seen in LAUNCHED.items() if what.startswith(("t2u", "pr "))
+        shape[:4] for what, seen in LAUNCHED.items()
+        if what.startswith(("t2u", "pr ", "rehearse ", "meta "))
         for shape in seen if shape[4] == "float32"})
 
     main_row = next(r for r in timings
@@ -4877,7 +5277,11 @@ def main(argv=None) -> int:
                                 for k, v in pr["supervised"].items()},
                              "pr_eval_protonet": pr["eval"]["protonet"]["attention_launches"],
                              "pr_eval_trans_head": pr["eval"]["trans_head"][
-                                 "attention_launches"]},
+                                 "attention_launches"],
+                             **{f"rehearse_{flow}": r["attention_launches"]
+                                for flow, r in meta["rehearse"].items()},
+                             **{key: r["attention_launches"]
+                                for key, r in meta["systems"].items()}},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4935,7 +5339,11 @@ def main(argv=None) -> int:
         "replaces": "fscl_tpu/dsp/world_device.py:211",
         "launches": pre["dio_contour_launches"],
         "launches_by_path": {"preprocess_in_process_world_device": pre["dio_contour_launches"],
-                             "preprocess_cli_world_device": pre["cli"]["dio_contour_launches"]},
+                             "preprocess_cli_world_device": pre["cli"]["dio_contour_launches"],
+                             # rehearse's corpora run DIO on the host (pitch
+                             # method "world", as fscl_tpu's make_synthetic_corpus)
+                             "rehearse_corpus": meta["rehearse"]["fscl"]["launches"]["corpus"][
+                                 "dio_contour"]},
         "max_abs_err": max(r["max_abs_err"] for r in pre["kernel"]),
         # B = 16 in the 20 s wav bucket (F = 1723), the largest shape
         **{k: pre["kernel"][-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")},
@@ -4946,7 +5354,7 @@ def main(argv=None) -> int:
     record = {"card": card, "kernels": kernels, "text_to_mel": main_path,
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
-              "cli": cli, "preprocess": pre, "t2u": t2u, "pr": pr,
+              "cli": cli, "preprocess": pre, "t2u": t2u, "pr": pr, "meta": meta,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

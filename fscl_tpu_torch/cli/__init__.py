@@ -1,4 +1,5 @@
-"""CLI entry points: preprocess / train / tune / synth (port of `fscl_tpu/cli`).
+"""CLI entry points (port of `fscl_tpu/cli`): preprocess, make-units, train, tune,
+synth, evaluate, clean, pack and rehearse.
 
 Usage: `python -m fscl_tpu_torch.cli <command> [...] [--device cpu]`, or
 in process `fscl_tpu_torch.cli.main([...])`.

@@ -1,20 +1,20 @@
-"""`python -m fscl_tpu_torch.cli preprocess|make-units|train|tune|synth|evaluate|clean|pack ...`
-(port of `fscl_tpu/cli/__main__.py`).
+"""`python -m fscl_tpu_torch.cli <command> ...` with the commands preprocess,
+make-units, train, tune, synth, evaluate, clean, pack and rehearse (port of
+`fscl_tpu/cli/__main__.py`).
 
-The subparsers take fscl_tpu's flags with its defaults (`:13-177`); those
+The subparsers take fscl_tpu's flags with its defaults (`:13-220`); those
 that run a model add `--device` (default `cuda`, through
 `core.device.resolve_device`: without a card it raises unless `--device cpu`
 is passed). `evaluate`, `clean` and `pack` run on the host only. A flag the
 port does not run yet raises when it is set to anything but its default,
-naming the ROADMAP item that ports it; so does `rehearse`.
+naming the ROADMAP item that ports it. `rehearse --corpus_cache` defaults to
+the port's own directory: its corpora are made by the port's preprocessing.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-
-# fscl_tpu's other subcommand; it waits for ROADMAP.md Queue 1, item 13
-WAITING_COMMANDS = ("rehearse",)
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -172,8 +172,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="global stats json for pitch/energy normalization (default: "
                          "built-in global stats, matching the training datamodule)")
 
-    for name in WAITING_COMMANDS:
-        sub.add_parser(name, help="not ported yet (ROADMAP item 13)", add_help=False)
+    r = sub.add_parser(
+        "rehearse",
+        help="full-experiment rehearsal: corpus -> meta-train -> task generation -> "
+             "transplant -> adaptation -> synthesis -> eval, timed per phase (rehearsal.json)")
+    r.add_argument("--exp_dir", default="output/rehearsal")
+    r.add_argument("--flow", choices=["fscl", "t2u", "pr"], default="fscl",
+                   help="experiment family: fscl (TTS transfer), t2u (unit discovery -> u2s -> "
+                        "fscl-t2u -> E2E chain), pr (episodic protonet -> task PER/FER)")
+    r.add_argument("--n_units", type=int, default=12,
+                   help="t2u flow: k-means pseudo-unit inventory size")
+    r.add_argument("--u2s_steps", type=int, default=80,
+                   help="t2u flow: unit-to-speech training steps")
+    r.add_argument("--tune_steps", type=int, default=40,
+                   help="t2u flow: E2E-chain fine-tuning steps")
+    r.add_argument("--preset", choices=["tiny", "full"], default="tiny",
+                   help="tiny: CPU-smoke sizes; full: reference scale (enc4/dec6 256d + "
+                        "HuBERT-large in bf16)")
+    r.add_argument("--episodes", type=int, default=40, help="meta-training episodes")
+    r.add_argument("--adapt_steps", type=int, default=200,
+                   help="test-time adaptation budget (reference: 20000)")
+    r.add_argument("--shots", type=int, default=4)
+    r.add_argument("--queries", type=int, default=2)
+    r.add_argument("--corpus_utts", type=int, default=12,
+                   help="utterances per synthetic corpus")
+    r.add_argument("--corpus_cache",
+                   default=os.path.join(os.path.expanduser("~"), ".cache", "fscl_tpu_torch",
+                                        "corpora"),
+                   help="persist synthetic corpora across rehearsal runs under a content-hash "
+                        "key (generation params + source hash); '' disables")
+    r.add_argument("--lr", type=float, default=1e-3)
+    r.add_argument("--adapt_lr", type=float, default=1e-4)
+    r.add_argument("--data_config", action="append", default=None,
+                   help="meta-train corpora (repeatable); with --target, skips synthetic "
+                        "corpus generation")
+    r.add_argument("--target", default=None, help="held-out target-language data config")
+    r.add_argument("--write_wavs", action="store_true",
+                   help="also render the synthesized mels to wav via Griffin-Lim into "
+                        "exp_dir/wavs/")
+    _add_device(r)
     return parser
 
 
@@ -182,10 +219,6 @@ def main(argv=None):
     what the subcommand's `run` returns."""
     parser = build_parser()
     args, rest = parser.parse_known_args(argv)
-    if args.command in WAITING_COMMANDS:
-        raise NotImplementedError(
-            f"the '{args.command}' subcommand is not ported yet: ROADMAP.md Queue 1, "
-            f"item 13, CLI, rehearse and bench")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.command == "preprocess":
@@ -202,11 +235,15 @@ def main(argv=None):
         from fscl_tpu_torch.cli.clean_cmd import run
     elif args.command == "pack":
         from fscl_tpu_torch.cli.pack_cmd import run
+    elif args.command == "rehearse":
+        from fscl_tpu_torch.cli.rehearse_cmd import run
     else:
         from fscl_tpu_torch.cli.synth_cmd import run
     return run(args)
 
 
 if __name__ == "__main__":
-    main()
-    sys.exit(0)
+    # `rehearse` returns its exit code (1 when an enforced quality gate
+    # fails); the other commands return their results
+    result = main()
+    sys.exit(result if isinstance(result, int) else 0)

@@ -134,14 +134,14 @@ def _main_path(name, data_configs, model_cfg, train_cfg, algo_cfg, id2symbols, d
 def _generic_path(args, data_configs, model_cfg, train_cfg, algo_cfg, device):
     """Any other registered key: the factory's system and the key's
     datamodule (fscl_tpu's `:121-133`); the T2U systems' dropout generator
-    and an FSCL-T2U or PR upstream are seeded from the train config's
-    seed."""
-    if args.system.startswith("pr-"):
-        seeds = {"upstream_seed": train_cfg.seed}
-    else:
+    and every other system's frozen upstream are seeded from the train
+    config's seed."""
+    if args.system.startswith(("tacot2u", "fscl-t2u")):
         seeds = {"seed": train_cfg.seed}
-    if args.system.startswith("fscl-t2u") and "tune" not in args.system:
-        seeds["upstream_seed"] = train_cfg.seed
+        if args.system.startswith("fscl-t2u") and "tune" not in args.system:
+            seeds["upstream_seed"] = train_cfg.seed
+    else:
+        seeds = {"upstream_seed": train_cfg.seed}
     system = build_system(args.system, model_cfg, train_cfg.optim, data_configs, algo_cfg,
                           device=device, **seeds)
     dm = get_datamodule(args.system)(data_configs, model_cfg, train_cfg, exp_dir=args.exp_dir,

@@ -27,6 +27,11 @@ LSTM keys, which `convert_resemblyzer_checkpoint` reads back (flax keeps one
 bias per gate on the hidden side: it goes to `bias_hh`, `bias_ih` is 0);
 `codebook_state_dict` the codebook's; `transemb_state_dict` the whole
 TransEmbSystem, the frozen upstream included when the variables hold it.
+The meta-learning variants: the ADA encoder (`ada_state_dict`, under `ada.`)
+and semi-FSCL's `unsup_embed` ride in `transemb_state_dict`;
+`conti_ae_state_dict` gives ContiAE's `embed`, its decoder half
+(`mel_decoder_state_dict`, FastSpeech2's decoder, mel_linear and PostNet)
+and its upstream.
 
 The T2U family (`tacot2u_entries`, `downstream_entries`, `da_entries`,
 `t2u_entries`) is written as tables of (torch key, flax path, layout) read in
@@ -102,6 +107,21 @@ def fastspeech2_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
         _variance_predictor(sd, f"variance_adaptor.{name}", va[name])
     for name in ("pitch_embedding", "energy_embedding"):
         sd[f"variance_adaptor.{name}.weight"] = _t(va[name]["embedding"])
+    sd.update(mel_decoder_state_dict(params, batch_stats))
+    for name in ("speaker_emb", "language_emb"):
+        if name in params and "table" in params[name]:
+            sd[f"{name}.model.weight"] = _t(params[name]["table"]["embedding"])
+    if "ge2e" in params.get("speaker_emb", {}):
+        sd.update({f"speaker_emb.ge2e.{k}": v
+                   for k, v in ge2e_state_dict(params["speaker_emb"]["ge2e"]).items()})
+    return sd
+
+
+def mel_decoder_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
+    """FastSpeech2's decoder half (`decoder`, `mel_linear`, `postnet` with
+    its BatchNorm statistics) -> the port's names, as
+    `systems/conti_ae.py:MelDecoder` and `FastSpeech2` hold them."""
+    sd: StateDict = {}
     _fft_stack(sd, "decoder", params["decoder"])
     _linear(sd, "mel_linear", params["mel_linear"])
     postnet, stats = params["postnet"], batch_stats["postnet"]
@@ -112,12 +132,6 @@ def fastspeech2_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
         sd[f"{key}.1.running_mean"] = _t(stats[f"bn_{i}"]["mean"])
         sd[f"{key}.1.running_var"] = _t(stats[f"bn_{i}"]["var"])
         sd[f"{key}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-    for name in ("speaker_emb", "language_emb"):
-        if name in params and "table" in params[name]:
-            sd[f"{name}.model.weight"] = _t(params[name]["table"]["embedding"])
-    if "ge2e" in params.get("speaker_emb", {}):
-        sd.update({f"speaker_emb.ge2e.{k}": v
-                   for k, v in ge2e_state_dict(params["speaker_emb"]["ge2e"]).items()})
     return sd
 
 
@@ -192,17 +206,49 @@ def hubert_state_dict(variables: Mapping) -> StateDict:
     return sd
 
 
+def ada_state_dict(params: Mapping) -> StateDict:
+    """flax ADAEncoder params (`params["ada"]`: `embed`, `encoder`) -> the
+    port's ADAEncoder."""
+    sd: StateDict = {}
+    _linear(sd, "embed", params["embed"])
+    _fft_stack(sd, "encoder", params["encoder"])
+    return sd
+
+
+def _upstream(sd: StateDict, variables: Mapping) -> None:
+    if variables.get("frozen") is not None:
+        up = hubert_state_dict(variables["frozen"]["upstream"])
+        sd.update({f"upstream.{k}": v for k, v in up.items()})
+
+
 def transemb_state_dict(variables: Mapping) -> StateDict:
     """fscl_tpu TransEmbSystem variables (`{"params": {"codebook", "model"},
     "batch_stats": {"model"}, "frozen": {"upstream"}}`) -> the port's
-    TransEmbSystem; the `upstream.` keys only when `frozen` is there."""
+    TransEmbSystem; the `upstream.` keys only when `frozen` is there. The
+    ADA systems' `params["ada"]` goes to `ada.`, semi-FSCL's
+    `params["unsup_embed"]` to `unsup_embed.`."""
     params = variables["params"]
     sd = {f"codebook.{k}": v for k, v in codebook_state_dict(params["codebook"]).items()}
     model = fastspeech2_state_dict(params["model"], variables["batch_stats"]["model"])
     sd.update({f"model.{k}": v for k, v in model.items()})
-    if variables.get("frozen") is not None:
-        up = hubert_state_dict(variables["frozen"]["upstream"])
-        sd.update({f"upstream.{k}": v for k, v in up.items()})
+    if "ada" in params:
+        sd.update({f"ada.{k}": v for k, v in ada_state_dict(params["ada"]).items()})
+    if "unsup_embed" in params:
+        _linear(sd, "unsup_embed", params["unsup_embed"])
+    _upstream(sd, variables)
+    return sd
+
+
+def conti_ae_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu ContiAESystem variables (`{"params": {"embed", "model"},
+    "batch_stats": {"model"}, "frozen": {"upstream"}}`, the model holding
+    FastSpeech2's decoder half) -> the port's ContiAESystem."""
+    params = variables["params"]
+    sd: StateDict = {}
+    _linear(sd, "embed", params["embed"])
+    model = mel_decoder_state_dict(params["model"], variables["batch_stats"]["model"])
+    sd.update({f"model.{k}": v for k, v in model.items()})
+    _upstream(sd, variables)
     return sd
 
 

@@ -15,8 +15,8 @@ loader prefers a fresh packed `<train.txt>.shard` beside the split, else
 reads a single corpus with `NativeCollate`; the PR and T2U episodic loaders
 read a fresh `<train.txt>.fscl.shard`. `native_io=False` asks for numpy: the
 Python collate path, or the shard's numpy reader for the episodic loaders.
-The PR family's loaders (`PRDataModule`, `PREpisodicDataModule`) are here;
-ContiAE's waits (ROADMAP item 8). The T2U family's are `T2UDataModule` here
+The PR family's loaders (`PRDataModule`, `PREpisodicDataModule`) and
+ContiAE's (`ContiAEDataModule`) are here. The T2U family's are `T2UDataModule` here
 and the four of `data/mix_datamodules.py`, which this module imports so that
 every registered key resolves.
 """
@@ -31,7 +31,8 @@ from fscl_tpu_torch.core.config import DataConfig, ModelConfig, TrainConfig
 from fscl_tpu_torch.core.registry import DATAMODULES
 from fscl_tpu_torch.data.batch import TEXT_BUCKETS, Batch, bucket_len, collate_batch, pad_1d
 from fscl_tpu_torch.data.datasets import (
-    ConcatDataset, FSCLDataset, FastSpeech2Dataset, PRDataset, UnitDataset,
+    ConcatDataset, ContiAEDataset, FSCLDataset, FastSpeech2Dataset, PRDataset, UnitDataset,
+    collate_conti_ae,
 )
 from fscl_tpu_torch.data.episodic import (
     WAV_BUCKETS, EpisodicSampler, collate_episode, get_or_create_tasks, split_sup_qry,
@@ -427,6 +428,28 @@ class PREpisodicDataModule(BaseDataModule):
             sup_ids, qry_ids = split_sup_qry(samples, self.shots, self.queries)
             yield PREpisode(sup=collate_pr([samples[i] for i in sup_ids], dc.symbol_id, n_sym),
                             qry=collate_pr([samples[i] for i in qry_ids], dc.symbol_id, n_sym))
+
+
+@DATAMODULES.register("conti-ae")
+class ContiAEDataModule(BaseDataModule):
+    """Speech-reconstruction loader for ContiAE (language
+    ContiAEDataModule): batch_size utterances drawn uniformly with
+    replacement from `seed`, as `collate_conti_ae` batches."""
+
+    def setup(self):
+        datasets = []
+        for dc in self.data_configs:
+            path = dc.subset_path("train")
+            if path and os.path.isfile(path):
+                datasets.append(ContiAEDataset(path, self.stores[dc.name], dc))
+        self.train_set = ConcatDataset(datasets)
+
+    def train_batches(self):
+        rng = np.random.default_rng(self.train_cfg.seed)
+        bs = self.train_cfg.optim.batch_size
+        n = len(self.train_set)
+        while True:
+            yield collate_conti_ae([self.train_set[int(i)] for i in rng.integers(0, n, bs)])
 
 
 def get_datamodule(algorithm_type: str):

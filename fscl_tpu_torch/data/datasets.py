@@ -8,8 +8,9 @@ uses the global stats exactly like Define.ALLSTATS["global"] consumption.
 Items are numpy, equal to fscl_tpu's item for item. The T2U family's
 `UnitFSCLDataset` and `UnitDataset` (`:151`, `:214`) read the pseudo-unit
 sub-store `ssl_units/<name>` (`phoneme`, `duration`). `PRDataset` (`:304`)
-is the PR family's (`wav_trim_16000`, `phoneme`, `mfa_segment`). The ContiAE
-dataset waits for its family (ROADMAP Queue 1, item 8).
+is the PR family's (`wav_trim_16000`, `phoneme`, `mfa_segment`);
+`ContiAEDataset` (`:260`) ContiAE's (`wav_trim_16000`, `mel`), with
+`collate_conti_ae` (`:288`).
 
 The features an item reads from a store (`data/feature_store.py`):
 `mfa_duration`, `mel`, `mfa_duration_avg_pitch` / `interpolate_pitch`,
@@ -251,6 +252,44 @@ class TextDataset:
             "pitch": None, "energy": None, "duration": None,
             "lang_id": self.config.lang_id, "symbol_id": self.config.symbol_id,
         }
+
+
+class ContiAEDataset:
+    """Speech reconstruction for ContiAE (lightning/datasets/language
+    ContiAEDataset): the 16 kHz wav (the SSL input) and the target mel."""
+
+    def __init__(self, split_txt: str, store: FeatureStore, config: DataConfig):
+        self.store = store
+        self.config = config
+        self.queries = read_queries_from_txt(split_txt)
+
+    def __len__(self):
+        return len(self.queries)
+
+    def __getitem__(self, idx: int) -> Dict:
+        q = self.queries[idx]
+        query = {"spk": q["spk"], "basename": q["basename"]}
+        wav = np.asarray(self.store.wav_trim_16000.read_from_query(query)).astype(np.float32)
+        mel = np.asarray(self.store.mel.read_from_query(query))
+        return {"id": q["basename"], "wav": wav, "mel": mel.astype(np.float32),
+                "lang_id": self.config.lang_id}
+
+
+def collate_conti_ae(samples):
+    """`systems.conti_ae.ContiAEBatch` of ContiAEDataset samples: wavs
+    padded to their wav bucket, mels to their mel bucket."""
+    from fscl_tpu_torch.data.batch import MEL_BUCKETS, bucket_len, pad_1d, pad_2d
+    from fscl_tpu_torch.data.episodic import WAV_BUCKETS
+    from fscl_tpu_torch.systems.conti_ae import ContiAEBatch
+    wav_lens = np.array([len(s["wav"]) for s in samples], np.int32)
+    mel_lens = np.array([len(s["mel"]) for s in samples], np.int32)
+    W = bucket_len(int(wav_lens.max()), WAV_BUCKETS)
+    T = bucket_len(int(mel_lens.max()), MEL_BUCKETS)
+    return ContiAEBatch(
+        wavs=pad_1d([s["wav"] for s in samples], W, dtype=np.float32),
+        wav_lens=np.minimum(wav_lens, W),
+        mels=pad_2d([s["mel"] for s in samples], T),
+        mel_lens=np.minimum(mel_lens, T))
 
 
 class PRDataset:

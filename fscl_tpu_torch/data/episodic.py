@@ -12,10 +12,9 @@ Re-provides the learn2learn-based pipeline (SURVEY §2.4) in plain Python:
 - infinite weighted resampling for step-based epochs
   (EpisodicInfiniteWrapper, datamodules/utils.py:102-117).
 
-Episodes are numpy, equal to fscl_tpu's. The support set's own TTS batch
-(`with_sup_batch`, the MAML inner loops) and the query set's speech
-(`with_qry_wavs`, the SSL-ADA systems) wait for those systems (ROADMAP
-Queue 1, item 8).
+Episodes are numpy, equal to fscl_tpu's, with the support set's own TTS
+batch (`with_sup_batch`, the MAML inner loops) or the query set's speech
+(`with_qry_wavs`, the SSL-ADA systems) when asked.
 """
 from __future__ import annotations
 
@@ -179,24 +178,35 @@ def collate_episode(samples: List[dict], shots: int, queries: int,
                     var_kw: Optional[dict] = None,
                     wav_dtype: str = "float32"):
     """Episode collate (FSCLCollate._collate_fn): coverage split, then
-    Episode(sup_info, qry TTS batch). `with_sup_batch` (the support set's
-    TTS batch for MAML inner loops) and `with_qry_wavs` (the query set's
-    speech for the SSL-ADA systems) raise until item 8. `var_kw` forwards
-    the variance feature levels (pitch_feature/energy_feature) and
-    `dvec_slices` to collate_batch; `wav_dtype` the
-    support-wav wire format to collate_sup_info (int16 = 4x less upload
-    for bf16 upstreams)."""
-    if with_sup_batch or with_qry_wavs:
-        raise NotImplementedError(
-            "episodes with the support TTS batch (MAML) or the query wavs (SSL-ADA) "
-            "are not ported yet: ROADMAP.md Queue 1, item 8, meta-learning variants")
+    Episode(sup_info, qry TTS batch[, sup TTS batch for the MAML inner
+    loops with `with_sup_batch`]). `with_qry_wavs` also attaches the query
+    set's raw speech, padded to its wav bucket (the SSL-ADA systems), and
+    returns an `systems.ada.SSLEpisode`. `var_kw` forwards the variance
+    feature levels (pitch_feature/energy_feature) and `dvec_slices` to
+    collate_batch; `wav_dtype` the support-wav wire format to
+    collate_sup_info (int16 = 4x less upload for bf16 upstreams)."""
     var_kw = var_kw or {}
     sup_ids, qry_ids = split_sup_qry(samples, shots, queries)
     sup = collate_sup_info([samples[i] for i in sup_ids], bucket,
                            wav_dtype=wav_dtype)
     _, qry = collate_batch([samples[i] for i in qry_ids], bucket=bucket,
                            **var_kw)
-    return Episode(sup=sup, qry=qry)
+    sup_batch = None
+    if with_sup_batch:
+        _, sup_batch = collate_batch([samples[i] for i in sup_ids],
+                                     bucket=bucket, **var_kw)
+    if with_qry_wavs:
+        from fscl_tpu_torch.systems.ada import SSLEpisode
+        qry_samples = [samples[i] for i in qry_ids]
+        wav_lens = np.array([len(s["raw_feat"]) for s in qry_samples], np.int32)
+        T = int(wav_lens.max())
+        if bucket:
+            T = bucket_len(T, WAV_BUCKETS)
+        return SSLEpisode(
+            sup=sup, qry=qry, sup_batch=sup_batch,
+            qry_wavs=pad_1d([s["raw_feat"] for s in qry_samples], T, dtype=np.float32),
+            qry_wav_lens=np.minimum(wav_lens, T))
+    return Episode(sup=sup, qry=qry, sup_batch=sup_batch)
 
 
 class ReIdMapper:

@@ -12,6 +12,9 @@
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 from torch import nn
 
@@ -64,7 +67,9 @@ class GE2EEncoder(nn.Module):
     Under a `torch.func` transform (the tune flow's task-parallel
     adaptation vmaps `grad` over the trunk) the LSTM runs as `lstm_unrolled`:
     on the card `nn.LSTM` reads its weights' storage, which the transforms'
-    wrapped tensors do not have."""
+    wrapped tensors do not have. So it does inside `unrolled_lstms`, which
+    the meta-learning systems enter where a gradient keeps its graph for a
+    second derivative: cuDNN's RNN has no double backward."""
 
     def __init__(self, mel_n_channels: int = 40, hidden_size: int = 256,
                  num_layers: int = 3, out_dim: int = 256):
@@ -73,6 +78,7 @@ class GE2EEncoder(nn.Module):
         for i in range(num_layers):
             getattr(self.lstm, f"bias_ih_l{i}").requires_grad_(False)
         self.linear = nn.Linear(hidden_size, out_dim)
+        self.unrolled = False
 
     def forward(self, mel_slices: torch.Tensor, mask=None) -> torch.Tensor:
         """mel_slices (B, N, T, 40); mask (B, N), 1 for real slices (padded
@@ -80,7 +86,8 @@ class GE2EEncoder(nn.Module):
         Returns (B, out_dim)."""
         B, N = mel_slices.shape[:2]
         x = mel_slices.reshape(B * N, *mel_slices.shape[2:])
-        if torch._C._functorch.is_functorch_wrapped_tensor(self.lstm.weight_hh_l0):
+        if self.unrolled or torch._C._functorch.is_functorch_wrapped_tensor(
+                self.lstm.weight_hh_l0):
             out = lstm_unrolled(self.lstm, x)
         else:
             out, _ = self.lstm(x)
@@ -91,6 +98,19 @@ class GE2EEncoder(nn.Module):
             w = mask.to(e.dtype)[..., None]
             d = (e * w).sum(dim=1) / w.sum(dim=1).clamp(min=1.0)
         return _unit(d)
+
+
+@contextlib.contextmanager
+def unrolled_lstms(module: nn.Module) -> Iterator[None]:
+    """Within, every `GE2EEncoder` under `module` runs `lstm_unrolled`."""
+    encoders = [m for m in module.modules() if isinstance(m, GE2EEncoder)]
+    for m in encoders:
+        m.unrolled = True
+    try:
+        yield
+    finally:
+        for m in encoders:
+            m.unrolled = False
 
 
 class SpeakerEncoder(nn.Module):

@@ -1,11 +1,18 @@
-"""Port of fscl_tpu/systems: the systems of the main path, registered under
-fscl_tpu's keys (`baseline`/`baseline-tune`, `fscl`/`fscl-orig`,
-`fscl-orig-tune`/`fscl-tune`, the T2U family's `tacot2u`, `fscl-t2u*`, and
-the PR family's `pr-*`); `systems/factory.py:build_system` builds the T2U
-and PR keys from configs."""
+"""Port of fscl_tpu/systems: every system, registered under fscl_tpu's keys
+(`baseline`/`baseline-tune`, `fscl`/`fscl-orig`, `fscl-orig-tune`/
+`fscl-tune`, the meta-learning variants `fscl-orig2`/`maml`/`meta`,
+`imaml`, `fscl-ada*`, `fscl-ssl_ada*`, `conti-ae`, `semi-fscl*`, the T2U
+family's `tacot2u`, `fscl-t2u*`, and the PR family's `pr-*`);
+`systems/factory.py:build_system` builds every key but the main path's
+from configs."""
 from fscl_tpu_torch.systems.base import System, TrainState
 from fscl_tpu_torch.systems.baseline import BaselineSystem
+from fscl_tpu_torch.systems.ada import SSLEpisode, TransEmbADASystem, TransEmbSSLADASystem
+from fscl_tpu_torch.systems.conti_ae import (
+    ContiAEBatch, ContiAESystem, SemiEpisode, SemiTransEmbSystem,
+)
 from fscl_tpu_torch.systems.fscl import Episode, TransEmbSystem, transplant_embedding
+from fscl_tpu_torch.systems.maml import IMAMLTransEmbSystem, MAMLTransEmbSystem, inner_adapt
 from fscl_tpu_torch.systems.pr import (
     PRBatch, PREpisode, SSLBaselineSystem, SSLClusterSystem, SSLLinearSystem, SSLProtoNetSystem,
     TransHeadPRSystem,
@@ -20,8 +27,6 @@ from fscl_tpu_torch.systems.tune import TransEmbTuneSystem, adapt_on_chip, tune_
 
 
 def get_system(algorithm_type: str):
-    """System registry lookup (port of `fscl_tpu/systems/__init__.py:28`):
-    a key that fscl_tpu registers and the port does not have yet raises
-    NotImplementedError naming its ROADMAP item."""
+    """System registry lookup (port of `fscl_tpu/systems/__init__.py:28`)."""
     from fscl_tpu_torch.core.registry import SYSTEMS
     return SYSTEMS.get(algorithm_type)

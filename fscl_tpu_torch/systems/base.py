@@ -16,14 +16,43 @@ that have them.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
 from fscl_tpu_torch.core.config import OptimConfig
 from fscl_tpu_torch.train.optim import Adam, AdamState
+
+
+@contextlib.contextmanager
+def module_mode(module: nn.Module, training: bool) -> Iterator[None]:
+    """`module` (and every submodule) in train or eval mode within; each
+    submodule's own mode back after (JAX passes `deterministic` per call)."""
+    before = [(m, m.training) for m in module.modules()]
+    module.train(training)
+    try:
+        yield
+    finally:
+        for m, mode in before:
+            m.training = mode
+
+
+@contextlib.contextmanager
+def adaptation_mode(module: nn.Module) -> Iterator[None]:
+    """Eval mode (the JAX losses' train=False) with every LSTM in train mode:
+    cuDNN's RNN backward refuses eval mode, and without dropout an LSTM
+    computes the same function in both; the modes are restored after."""
+    with module_mode(module, False):
+        for m in module.modules():
+            if isinstance(m, nn.LSTM):
+                if m.dropout:
+                    raise ValueError("an LSTM with dropout computes another function in train "
+                                     "mode")
+                m.train()
+        yield
 
 
 @dataclass

@@ -165,17 +165,22 @@ class TransEmbSystem(FrozenUpstream, System):
         table = self.build_embedding_table(ssl_hidden, episode.sup)
         return self.forward_query(table, episode.qry)
 
-    def forward_query(self, table: torch.Tensor, qry: Batch) -> FastSpeech2Output:
+    def forward_query(self, table: torch.Tensor, qry: Batch,
+                      model_state: Optional[Dict[str, torch.Tensor]] = None) -> FastSpeech2Output:
         """The query batch's texts looked up in `table` (zero at PAD), through
-        FastSpeech2 with the speaker embedding averaged over the batch."""
+        FastSpeech2 with the speaker embedding averaged over the batch; with
+        `model_state` (names of `self.model`'s parameters and buffers to
+        tensors), through `functional_call` with those in place of the
+        module's own."""
         emb = nn.functional.embedding(qry.texts, table)
         emb = emb.masked_fill((qry.texts == 0)[..., None], 0.0)
-        return self.model(
-            emb, qry.src_lens, qry.mels.shape[1],
-            speaker_args=qry.speaker_args, mel_lens=qry.mel_lens,
-            p_targets=qry.pitches, e_targets=qry.energies,
-            d_targets=qry.durations, lang_args=qry.lang_ids,
-            average_spk_emb=True)
+        args = (emb, qry.src_lens, qry.mels.shape[1])
+        kwargs = dict(speaker_args=qry.speaker_args, mel_lens=qry.mel_lens,
+                      p_targets=qry.pitches, e_targets=qry.energies,
+                      d_targets=qry.durations, lang_args=qry.lang_ids, average_spk_emb=True)
+        if model_state is None:
+            return self.model(*args, **kwargs)
+        return torch.func.functional_call(self.model, model_state, args, kwargs)
 
     def query_loss(self, out: FastSpeech2Output, qry: Batch):
         """`fastspeech2_loss` of the query batch's forward."""

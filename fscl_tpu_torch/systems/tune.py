@@ -31,8 +31,7 @@ the loops of `systems/maml.py` eagerly: nothing to cache.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Iterable, Iterator, List, Optional
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +43,7 @@ from fscl_tpu_torch.core.registry import SYSTEMS
 from fscl_tpu_torch.data.batch import Batch, SupInfo
 from fscl_tpu_torch.nn.losses import fastspeech2_loss
 from fscl_tpu_torch.ops.segment_ops import phoneme_query_sums, queries_from_sums
+from fscl_tpu_torch.systems.base import adaptation_mode
 from fscl_tpu_torch.systems.baseline import BaselineSystem
 from fscl_tpu_torch.systems.fscl import TransEmbSystem, transplant_embedding
 from fscl_tpu_torch.systems.maml import (Params, adam_carry, adam_scan_carry,
@@ -140,24 +140,6 @@ def load_adapted(baseline: BaselineSystem, adapted: Params, task: Optional[int] 
         params[name].copy_(value if task is None else value[task])
 
 
-@contextlib.contextmanager
-def _adaptation_mode(baseline: BaselineSystem) -> Iterator[None]:
-    """Eval mode (the JAX loss's train=False), with every LSTM in train mode
-    (cuDNN's RNN backward refuses eval mode; same function without
-    dropout); the system's mode is restored after."""
-    was_training = baseline.training
-    baseline.eval()
-    for m in baseline.modules():
-        if isinstance(m, nn.LSTM):
-            if m.dropout:
-                raise ValueError("an LSTM with dropout computes another function in train mode")
-            m.train()
-    try:
-        yield
-    finally:
-        baseline.train(was_training)
-
-
 def _make_task_loss_fn(baseline: BaselineSystem, symbol_id: Optional[str]):
     """loss(params, batch): the total FastSpeech2 loss of the system's
     forward with `params` in place of its parameters of those names (the
@@ -189,7 +171,7 @@ def adapt_on_chip(baseline: BaselineSystem, params: Params, batches: List[Batch]
     losses (n_steps,)) on the system's device."""
     scan = _scan(optimizer)
     stacked = stack_batches(batches, baseline.device)
-    with _adaptation_mode(baseline):
+    with adaptation_mode(baseline):
         return scan(_make_task_loss_fn(baseline, symbol_id), params, stacked, lr)
 
 
@@ -206,7 +188,7 @@ def adapt_on_chip_chunked(baseline: BaselineSystem, params: Params, batch_iter,
     loss_fn = _make_task_loss_fn(baseline, symbol_id)
     carry = adam_carry(params) if optimizer == "adam" else None
     losses, done = [], 0
-    with _adaptation_mode(baseline):
+    with adaptation_mode(baseline):
         while done < n_steps:
             n = min(chunk, n_steps - done)
             stacked = stack_batches([next(batch_iter) for _ in range(n)], baseline.device)
@@ -256,7 +238,7 @@ def adapt_on_chip_resident(baseline: BaselineSystem, params: Params, support: Ba
     def idx_loss(p: Params, i: torch.Tensor) -> torch.Tensor:
         return loss_fn(p, _gather_rows(support, i))
 
-    with _adaptation_mode(baseline):
+    with adaptation_mode(baseline):
         return scan(idx_loss, params, idx, lr)
 
 
@@ -277,5 +259,5 @@ def adapt_many_on_chip(baseline: BaselineSystem, params: Params,
         raise ValueError(f"n_tasks * B * heads = {blocks} exceeds the attention kernel's "
                          f"grid limit 65535: adapt fewer tasks at once")
     loss_fn = _make_task_loss_fn(baseline, symbol_id)
-    with _adaptation_mode(baseline):
+    with adaptation_mode(baseline):
         return vmap(lambda b: scan(loss_fn, params, b, lr))(stacked)

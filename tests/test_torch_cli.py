@@ -238,8 +238,7 @@ def test_tune(world, scan, tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 12"), (["--upstream_parallel", "pp"], "item 12"),
     (["--distributed"], "item 12"), (["--use_tracker"], "item 11"),
-    (["--exp_key", "k"], "item 11"), (["--system", "maml"], "item 8"),
-    (["--system", "conti-ae"], "item 8"), (["--system", "imaml"], "item 8"),
+    (["--exp_key", "k"], "item 11"),
 ])
 def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
@@ -247,11 +246,9 @@ def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
 
 
 def test_unported_synth_and_subcommands_name_their_item(world, baseline_run):
-    """`rehearse` waits for item 13; `evaluate`, `clean` and `pack` are
-    ported and parse fscl_tpu's flags (an unknown one is an argparse error)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 13"):
-        main(["rehearse", "--anything", "x"])
-    for cmd in ("evaluate", "clean", "pack"):
+    """`rehearse`, `evaluate`, `clean` and `pack` are ported and parse
+    fscl_tpu's flags (an unknown one is an argparse error)."""
+    for cmd in ("rehearse", "evaluate", "clean", "pack"):
         with pytest.raises(SystemExit):
             main([cmd, "--anything", "x"])
     with pytest.raises(SystemExit):

@@ -114,11 +114,7 @@ def test_algorithm_type_resolves_or_names_its_roadmap_item(path):
         return
     for port, jax_registry in ((SYSTEMS, JSYS), (DATAMODULES, JDM)):
         assert cfg.type in jax_registry
-        if cfg.type in port:
-            port.get(cfg.type)
-        else:
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1, item \d+"):
-                port.get(cfg.type)
+        port.get(cfg.type)
 
 
 def test_every_fscl_tpu_key_is_ported_or_waits():
@@ -131,8 +127,7 @@ def test_every_fscl_tpu_key_is_ported_or_waits():
     from fscl_tpu_torch.core.registry import DATAMODULES, SYSTEMS
 
     for port, jax_registry in ((SYSTEMS, JSYS), (DATAMODULES, JDM)):
-        assert set(port.keys()) | set(port.waiting) == set(jax_registry.keys())
-        assert not set(port.keys()) & set(port.waiting)
+        assert set(port.keys()) == set(jax_registry.keys())
     assert {"baseline", "baseline-tune", "fscl", "fscl-orig", "fscl-orig-tune",
             "fscl-tune"} <= set(SYSTEMS.keys())
     with pytest.raises(KeyError, match="Unknown system 'nope'"):

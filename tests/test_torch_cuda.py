@@ -809,3 +809,84 @@ def test_bilstm_downstream_card_matches_cpu_on_ragged_lengths(cuda_device):
     got = card(x.to(cuda_device), valid.to(cuda_device)).cpu()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert not got[~valid].any()
+
+
+def _maml_system(device):
+    """A second-order MAML system at d_model 128 (head dim 64 and 128 on
+    the kernel's own instances) with GE2E d-vectors and a 2-layer custom
+    upstream of dim 128, dropout off."""
+    from fscl_tpu_torch.systems.maml import MAMLTransEmbSystem
+    cfg = C.ModelConfig(
+        transformer=C.TransformerConfig(
+            encoder_layer=2, decoder_layer=2, encoder_hidden=128, decoder_hidden=128,
+            encoder_head=2, decoder_head=2, conv_filter_size=256, encoder_dropout=0.0,
+            decoder_dropout=0.0),
+        variance_predictor=C.VariancePredictorConfig(dropout=0.0), max_seq_len=256,
+        speaker=C.SpeakerConfig(emb_type="dvec", n_speakers=4, n_ref_slices=3),
+        codebook=C.CodebookConfig(size=16, num_heads=2, dim=128),
+        upstream=C.UpstreamConfig(name="custom", dim=128, n_layers=3))
+    torch.manual_seed(0)
+    system = MAMLTransEmbSystem(cfg, 40, device=device, adaptation_lr=1e-2, adaptation_steps=2)
+    system.model.postnet.dropout.p = 0.0
+    return system
+
+
+@pytest.mark.cuda
+def test_second_order_maml_episode_card_matches_cpu(cuda_device):
+    """One second-order MAML episode (the attention Function differentiated
+    twice, GE2E unrolled under `create_graph`): the loss 1e-5 relative and
+    every gradient 1e-4 relative to its own largest entry, plus 1e-6
+    absolute where it is 0 in exact arithmetic (an attention key's bias, a
+    conv bias before a train-mode BatchNorm: rounding alone), card vs CPU;
+    the PostNet's running statistics untouched on both."""
+    from fscl_tpu_torch.data.batch import SupInfo
+    from fscl_tpu_torch.systems.fscl import Episode
+    rng = np.random.default_rng(41)
+    batches = _tune_batches(41, 2)
+    wav_lens = np.array([8000, 6100], np.int32)
+    wavs = np.where(np.arange(8000)[None] < wav_lens[:, None],
+                    0.3 * rng.normal(size=(2, 8000)), 0.0).astype(np.float32)
+    sup = SupInfo(wavs, wav_lens, rng.integers(0, 4, (2, 8)).astype(np.int32),
+                  rng.integers(1, 40, (2, 8)).astype(np.int32), 40)
+    ep = Episode(sup=sup, qry=batches[0], sup_batch=batches[1])
+    card, cpu = _maml_system(cuda_device), _maml_system("cpu")
+    cpu.load_state_dict(card.state_dict(), strict=True)
+    out = {}
+    for system in (card, cpu):
+        stats = {k: v.clone() for k, v in system.state_dict().items() if "running" in k}
+        mask = system.trainable_mask()
+        names = [n for n, _ in system.named_parameters() if mask[n]]
+        params = dict(system.named_parameters())
+        before = tattn.LAUNCHES
+        system.train()
+        loss, _ = system.loss_and_metrics(to_device(ep, system.device))
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        system.eval()
+        if system is card:
+            assert tattn.LAUNCHES > before
+        for k, v in system.state_dict().items():
+            if "running" in k:
+                assert torch.equal(v, stats[k]), k
+        out[system.device.type] = (float(loss.detach()), {
+            n: torch.zeros(params[n].shape) if g is None else g.cpu() for n, g in zip(names, grads)})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, w in out["cpu"][1].items():
+        assert torch.isfinite(out["cuda"][1][n]).all(), n
+        zero = n.endswith("attn.w_ks.bias") or (
+            ".postnet.convolutions." in n and n.endswith(".conv.bias"))
+        err, scale = float((out["cuda"][1][n] - w).abs().max()), float(w.abs().max())
+        assert err <= 1e-4 * scale + (1e-6 if zero else 0.0), (n, err, scale)
+
+
+@pytest.mark.cuda
+def test_lstm_unrolled_matches_cudnn_on_card(cuda_device):
+    """GE2E's LSTM written out step by step against cuDNN's forward on the
+    same weights, on the card (f32, TF32 off): within 1e-5."""
+    from fscl_tpu_torch.nn.speaker_encoder import GE2EEncoder, lstm_unrolled
+    torch.manual_seed(3)
+    enc = GE2EEncoder().to(cuda_device)
+    x = torch.randn(12, 160, 40, device=cuda_device)
+    with torch.no_grad():
+        want, _ = enc.lstm(x)
+        got = lstm_unrolled(enc.lstm, x)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -318,8 +318,12 @@ def test_collates_and_symbol_tables_match(corpora):
         kw = {"pitch_feature": "phoneme_level", "energy_feature": "phoneme_level"}
         same(pep.collate_episode(ps, SHOTS, QUERIES, var_kw=kw, bucket=False),
              jep.collate_episode(js, SHOTS, QUERIES, var_kw=kw, bucket=False), "episode")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pep.collate_episode(ps, SHOTS, QUERIES, with_sup_batch=True)
+        for flags in ({"with_sup_batch": True}, {"with_qry_wavs": True},
+                      {"with_sup_batch": True, "with_qry_wavs": True}):
+            got = pep.collate_episode(ps, SHOTS, QUERIES, var_kw=kw, **flags)
+            same(got, jep.collate_episode(js, SHOTS, QUERIES, var_kw=kw, **flags),
+                 f"episode {flags}")
+            assert type(got).__name__ == ("SSLEpisode" if "with_qry_wavs" in flags else "Episode")
     dcs = [PC.read_data_config(p) for p in corpora + corpora[:1]]
     jdcs = [JC.read_data_config(p) for p in corpora + corpora[:1]]
     id2symbols = pdm.build_id2symbols(dcs)

@@ -53,7 +53,9 @@ CLI_AND_DATA_MODULES = (
     "fscl_tpu_torch.data.native_loader", "fscl_tpu_torch.eval.metrics",
     "fscl_tpu_torch.eval.drivers", "fscl_tpu_torch.eval.task_generation",
     "fscl_tpu_torch.eval.protonet_eval", "fscl_tpu_torch.systems.pr",
-    "fscl_tpu_torch.nn.asr_center", "fscl_tpu_torch.nn.phoneme_embedding")
+    "fscl_tpu_torch.nn.asr_center", "fscl_tpu_torch.nn.phoneme_embedding",
+    "fscl_tpu_torch.cli.rehearse_cmd", "fscl_tpu_torch.systems.maml",
+    "fscl_tpu_torch.systems.ada", "fscl_tpu_torch.systems.conti_ae")
 
 
 def test_cli_and_data_modules_load_no_jax():

@@ -211,7 +211,7 @@ def sgd_runs(world):
                                      [_jb(b) for b in batches], lr=LR, symbol_id="xx")
         system = _port(variables[speaker], speaker)
         before = tune.adaptable_params(system)
-        with tune._adaptation_mode(system):
+        with tune.adaptation_mode(system):
             got, losses = maml.fast_adaptation_scan(
                 tune._make_task_loss_fn(system, "xx"), before,
                 tune.stack_batches(batches, "cpu"), LR)
@@ -281,7 +281,7 @@ def test_fast_adaptation_scan_adam_matches_at_eps_1e_3(world):
     loss_fn = tune._make_task_loss_fn(system, "xx")
     params = tune.adaptable_params(system)
     stacked = tune.stack_batches(batches, "cpu")
-    with tune._adaptation_mode(system):
+    with tune.adaptation_mode(system):
         got, losses = maml.fast_adaptation_scan_adam(loss_fn, params, stacked, LR, eps=1e-3)
         layout = maml._layout(params)
         _, g = maml._value_and_flat_grad(loss_fn, maml._flatten(params, layout), layout,
