@@ -202,11 +202,37 @@ non-zero exit code when it fails:
    PostNet's running statistics unchanged on both devices. Every attention
    shape phase 3 did not hold is held to the plain version right after the
    run that launched it.
-9. Attention timing (run last, after phase 16): the kernel at each key
+17. Precision, remat and observability. The attention kernel in bf16 under
+   `AttentionFunction` at the training shapes (B = 16, H = 2, L = 128 and
+   512, Dh = 128): forward at every key split against the plain version
+   (bf16 bars), gradients against autograd of the plain version within 1e-2
+   of each one's largest entry. Then four runs of 20 steps through
+   `Trainer.fit` at base.yaml width on phase 8's batch shape (B = 16,
+   L = 128, T = 512; every dropout off, Adam at lr 1e-4, eps 1e-3): f32,
+   bf16 (`compute_dtype: bfloat16`), f32 + remat and bf16 + remat; each
+   prints steps/s, peak GiB and the card's name and power limit; every loss
+   finite and falling, 10 attention launches per step (20 under remat: the
+   recompute); remat against no remat: the first step's loss within 1e-5
+   and its gradient norm within 1e-4 relative; bf16 against f32:
+   tests/test_precision_parity.py's bars (first loss 2 %, last 8 %, any
+   step 15 %). `synthesize` of phase 4's 32 lines in bf16 against f32 (half
+   the lines or more with equal rounded durations; on those, the mels' mean
+   |d| over all their frames within 5e-2). `Trainer.fit` with a `SynthSaver` (HiFi-GAN V1:
+   8 stage launches) for one validation, its mels against a CPU copy
+   (1e-3); phase 10's FSCL system with an `FSCLSaver` for one validation,
+   its codebook attention and layer weights against a CPU copy (1e-5);
+   whether matplotlib is present decides up front whether the savers write
+   PNGs. `train --use_tracker` through the CLI, then `--resume --exp_key`
+   (metrics.jsonl at steps 1-5, `resumed` 1). The mel Tacotron2 at
+   Tacotron2Config's defaults: a teacher-forced forward at B = 4 card vs CPU
+   (1e-4 of each output's max), then `infer`: ms and kernel launches per
+   decoder step. Every attention shape is held to the plain version.
+9. Attention timing (run last, after phase 17): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
-   (32, 16, 199, 64)), and in float32 at every shape phases 14-16 launched,
+   (32, 16, 199, 64)), in float32 at every shape phases 14-16 launched and
+   in bf16 at phase 17's training shapes,
    beside its route's bound (split TF32 or bf16 tensor cores) and the f32
    FMA bound of the earlier design. The kernel also through its
    public wrapper with CUDA events over back-to-back calls (how the main
@@ -326,6 +352,35 @@ CLI_SPEAKERS = ("spkA", "spkB")
 CLI_TRAIN, CLI_VAL, CLI_TUNE_K = 64, 16, 32
 CLI_FRAMES, CLI_PHONES = (172, 680), (30, 100)
 CLI_STEPS, CLI_RESUME_STEPS, CLI_FSCL_EPISODES, CLI_ADAPT_STEPS = 20, 30, 6, 50
+# Precision, remat and observability (phase 17): phase 8's batch shape at
+# base.yaml width with every dropout off (the PostNet's too), so that the
+# f32, bf16 and remat runs draw no masks and compute the same function; Adam
+# at lr 1e-4, eps 1e-3 after a 10-step warmup, the rate at which
+# tests/test_torch_precision.py holds bf16 trajectories (at lr 2e-3 one
+# implementation's own bf16 and f32 runs end 48 % apart on the CPU).
+PREC_STEPS, PREC_LR, PREC_EPS = 20, 1e-4, 1e-3
+PREC_RUNS = (("float32", False), ("bfloat16", False), ("float32", True), ("bfloat16", True))
+# Remat recomputes the same ops on the same inputs: the first step's loss and
+# the norm of all its gradients, against the run without remat.
+REMAT_LOSS_RTOL, REMAT_GNORM_RTOL = 1e-5, 1e-4
+# bf16 against f32, step by step: tests/test_precision_parity.py's bars
+# (first loss, last loss, any step).
+BF16_FIRST, BF16_LAST, BF16_ANY = 0.02, 0.08, 0.15
+# The bf16 Function's gradients against autograd of the plain version,
+# relative to each gradient's largest |entry| (measured on the CPU 5.4e-3).
+BF16_GRAD_REL = 1e-2
+# bf16 serving against f32 on the lines whose rounded durations agree: the
+# mean |d| over all their valid frames, pooled (on the CPU at full width
+# 1.94e-2 for phase 4's 32 lines; a short line's own mean reached 4.4e-2,
+# and 6.3e-2 on the card, where a few bin swaps cover much of the line).
+SERVE_BF16_MEAN = 5e-2
+# The savers card vs CPU: mels as phase 5; the codebook's softmax weights
+# (values near 1/128) and the layer weights absolute.
+SAVER_MEL_ATOL, SAVER_ATTN_ATOL = 1e-3, 1e-5
+# The mel Tacotron2 at Tacotron2Config's defaults: a teacher-forced forward of
+# B = 4 lines of L = 48 embedded symbols over 240 mel frames (80 decoder
+# steps), card vs CPU relative to each output's largest |value|; then infer.
+TACO_B, TACO_L, TACO_T, TACO_INFER_STEPS, TACO_REL = 4, 48, 240, 50, 1e-4
 # HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
 V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
 
@@ -629,12 +684,12 @@ def host_us_per_call(fn, calls: int = 100) -> float:
     return 1e6 * seconds / calls
 
 
-def phase_attention_timing(seed: int, extra_f32=()):
+def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
     """The attention kernel at each key split, the plain version and SDPA,
     timed at the encoder's and decoder's lengths of the served layout, at
     HuBERT-large's head layout (16 heads of 64) and at phase 11's and 14's
-    shapes; and in float32 at the shapes of `extra_f32` (every shape phase
-    14 launched).
+    shapes; and in float32 at the shapes of `extra_f32` (every shape phases
+    14-16 launched), in bf16 at those of `extra_bf16` (phase 17's training).
     Runs after the main path: the captures' cuBLAS workspace stays allocated
     and would count in its peak memory. The kernel is also timed through
     `attention_cuda` with CUDA events over 50 back-to-back calls, as earlier
@@ -660,10 +715,11 @@ def phase_attention_timing(seed: int, extra_f32=()):
         (FSCL_T2U_SHOTS, 2, ssl_num_frames(8 * 16000), 128), (8, 16, ssl_num_frames(160000), 64),
         (8, 2, 1280, 128)]
     timings = []
-    extra = sorted(set(extra_f32) - set(timed))
+    extra = {torch.float32: sorted(set(extra_f32) - set(timed)),
+             torch.bfloat16: sorted(set(extra_bf16) - set(timed))}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for B, H, L, Dh in timed + (extra if dtype == torch.float32 else []):
+        for B, H, L, Dh in timed + extra[dtype]:
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
             mask4 = valid[:, None, None, :]
             iters = 100 if L <= 256 else 20
@@ -2698,11 +2754,12 @@ def cli_synth(root: Path, en: str, seed: int, attn_checked, stage_checked, ckpt:
                                                   "max_abs_err": err}}
 
 
-def hold_stage_shapes(stages, stage_checked, voc_ckpt: str, what: str) -> None:
+def hold_stage_shapes(stages, stage_checked, voc, what: str) -> None:
     """The (B, C, T) stage shapes of a main path's run that phase 3 did not
     hold (a line vocoded alone runs at its own length): each held now, in
-    float32, with the vocoder's own stage modules on random inputs, as
-    phase 3 holds its shapes; added to `stage_checked`."""
+    float32, with the vocoder's own stage modules (`voc`: its checkpoint's
+    path, or the generator) on random inputs, as phase 3 holds its shapes;
+    added to `stage_checked`."""
     import torch
     from fscl_tpu_torch.audio_out.vocoder import Vocoder
     from fscl_tpu_torch.ops import mrf_stage as mrf
@@ -2710,7 +2767,8 @@ def hold_stage_shapes(stages, stage_checked, voc_ckpt: str, what: str) -> None:
     new = sorted(set(stages) - stage_checked)
     if not new:
         return
-    gen = Vocoder.from_checkpoint(voc_ckpt, kind="HifiGAN", device=CARD).model
+    gen = (voc if isinstance(voc, torch.nn.Module)
+           else Vocoder.from_checkpoint(voc, kind="HifiGAN", device=CARD).model)
     n = len(gen.resblock_kernel_sizes)
     by_c = {C: (gen.resblocks[i * n:(i + 1) * n], gen.conv_post if post else None)
             for i, (C, _, post) in enumerate(V1_STAGES)}
@@ -5190,6 +5248,530 @@ def phase_meta(seed: int, card: str, attn_checked, profile: bool = False):
     return summary
 
 
+# -- phase 17: precision, remat and observability -------------------------------
+
+def precision_system(cfg, seed: int, device: str):
+    """BaselineSystem at `cfg` with torch's init under `seed` (the same
+    weights whatever cfg's compute dtype and remat), the PostNet's dropout
+    off, Adam at PREC_LR / PREC_EPS after a 10-step warmup."""
+    import torch
+    from fscl_tpu_torch.core.config import OptimConfig
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+
+    optim = OptimConfig(batch_size=TRAIN_B, lr=PREC_LR, eps=PREC_EPS, warmup_step=10,
+                        anneal_steps=())
+    torch.manual_seed(seed)
+    system = BaselineSystem(cfg, (("en", n_symbols("en")),), device=device, optim_cfg=optim)
+    system.model.postnet.dropout.p = 0.0
+    return system
+
+
+def phase_precision_kernel(seed: int, attn_checked):
+    """The attention kernel in bf16 under `AttentionFunction` at the shapes
+    the bf16 runs launch (B = 16, H = 2, L = 128 and 512, Dh = 128): the
+    forward against the plain version at every key split (phase 3's bf16
+    bars), and each gradient against autograd through the plain version
+    within BF16_GRAD_REL of that gradient's largest |entry| (the Function's
+    backward recomputes in f32 and rounds each gradient to bf16; the plain
+    version's autograd rounds the weights to bf16 first; measured on the CPU
+    about 5e-3); dk of the sample with no valid key exactly 0. The shapes
+    join the set the recorders accept."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device=CARD).manual_seed(seed + 17)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    H, Dh, worst = 2, 128, {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for L in (TRAIN_L, TRAIN_T):
+        q, k, v, valid = attention_inputs(gen, TRAIN_B, H, L, Dh, torch.bfloat16)
+        auto = attn.choose_key_split(TRAIN_B * H, L, n_sm, torch.bfloat16)
+        errs = {"fwd": max(check_attention(attn, q, k, v, valid, None if s == auto else s,
+                                           f"precision bfloat16 B={TRAIN_B} L={L} key_split={s}")
+                           for s in attn.KEY_SPLITS)}
+        attn_checked.add((TRAIN_B, H, L, Dh, "bfloat16"))
+        g = torch.randn(q.shape, generator=gen, device=CARD).to(torch.bfloat16)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attn.attend(*leaves, valid)
+        if out.grad_fn is None or out.dtype != torch.bfloat16:
+            fail("attend in bf16 under autograd: no grad_fn or not bf16")
+        got = torch.autograd.grad(out, leaves, g)
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attn.attention_reference(*ref_leaves, valid), ref_leaves, g)
+        for n, a, b in zip("qkv", got, want):
+            if a.dtype != torch.bfloat16 or not torch.isfinite(a.float()).all():
+                fail(f"precision Function d{n} at L={L}: {a.dtype}, or non-finite")
+            errs[f"d{n}"] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        dead = float(got[1][-1].float().abs().max())
+        log(f"attention Function B={TRAIN_B} H={H} L={L} Dh={Dh} bf16: max |kernel - plain| "
+            f"{errs['fwd']:.3g} (bar {BF16_TOL}); gradients against autograd of the plain "
+            f"version, relative to each one's max: dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, "
+            f"dv {errs['dv']:.3g} (bar {BF16_GRAD_REL}); dk of the all-invalid sample {dead:.3g}")
+        if max(errs[n] for n in ("dq", "dk", "dv")) > BF16_GRAD_REL or dead != 0.0:
+            fail(f"precision: bf16 Function gradients at L={L}: {errs}, dead {dead}")
+        worst = {n: max(worst[n], errs[n]) for n in worst}
+    return worst
+
+
+def precision_run(cfg, dtype: str, remat: bool, seed: int, batches, check, card: str,
+                  attn_checked):
+    """One of the four runs: the first step's loss and gradient norm on
+    `check` before any update, then PREC_STEPS steps through `Trainer.fit`
+    with a loss read per step; steps/s over the steps after the fifth,
+    peak memory, attention launches (each block once per step, again in the
+    backward under remat)."""
+    import torch
+    from fscl_tpu_torch.core.config import TrainConfig
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    name = f"{dtype}{' + remat' if remat else ''}"
+    system = precision_system(dataclasses.replace(cfg, compute_dtype=dtype, remat=remat),
+                              seed, CARD)
+    system.train()
+    loss, _ = system.loss_and_metrics(to_device(check, CARD))
+    params = [p for p in system.parameters() if p.requires_grad]
+    grads = [g for g in torch.autograd.grad(loss, params, allow_unused=True) if g is not None]
+    loss0 = float(loss.detach())
+    gnorm0 = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    system.eval()
+    del loss, grads
+    state = system.init_state()
+    rec = LossRecorder()
+    train_cfg = TrainConfig(optim=system.optim_cfg, total_step=PREC_STEPS, log_step=1,
+                            val_step=10 ** 9, save_step=10 ** 9, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, f"precision {name}"):
+        t0 = time.perf_counter()
+        state = Trainer(system, train_cfg, [rec]).fit(state, iter(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["Total Loss"] for _, m, _ in rec.logs]
+    t = cfg.transformer
+    want = (t.encoder_layer + t.decoder_layer) * PREC_STEPS * (2 if remat else 1)
+    if state.step != PREC_STEPS or len(losses) != PREC_STEPS:
+        fail(f"precision {name}: {state.step} steps, {len(losses)} losses")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"precision {name}: non-finite loss in {losses}")
+    head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not tail < head:
+        fail(f"precision {name}: loss did not fall (first 5 mean {head:.4f}, last 5 {tail:.4f})")
+    if launches != want:
+        fail(f"precision {name}: {launches} attention launches, expected {want}")
+    timed = [sps for step, _, sps in rec.logs if step > 5]
+    steps_per_s = len(timed) / sum(1.0 / s for s in timed)
+    log(f"precision {name}: {PREC_STEPS} steps at B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {steps_per_s:.2f} steps/s over steps 6-"
+        f"{PREC_STEPS} (a loss read per step), {wall:.2f} s in all, peak {peak:.2f} GiB, "
+        f"{launches} attention launches; first-step loss {loss0:.6f}, gradient norm "
+        f"{gnorm0:.6f}; on {card}")
+    del system, state
+    torch.cuda.empty_cache()
+    return {"dtype": dtype, "remat": remat, "losses": losses, "loss0": loss0, "gnorm0": gnorm0,
+            "steps_per_s": steps_per_s, "seconds": wall, "peak_gib": peak,
+            "attention_launches": launches, "card": card}
+
+
+def precision_runs(seed: int, card: str, attn_checked):
+    """The four runs on the same weights and batches; remat against no remat
+    (first-step loss and gradient norm), bf16 against f32 (the trajectory
+    bars)."""
+    from fscl_tpu_torch.frontend.define import n_symbols
+
+    cfg = train_model_config(dropout=False)
+    stream = train_batches(seed + 17, TRAIN_B, n_symbols("en"), cfg.variance)
+    batches = [next(stream) for _ in range(PREC_STEPS)]
+    runs = {}
+    for dtype, remat in PREC_RUNS:
+        runs[(dtype, remat)] = precision_run(cfg, dtype, remat, seed, batches, batches[0], card,
+                                             attn_checked)
+    checks = {}
+    for dtype in ("float32", "bfloat16"):
+        a, b = runs[(dtype, False)], runs[(dtype, True)]
+        loss_rel = abs(b["loss0"] - a["loss0"]) / abs(a["loss0"])
+        gnorm_rel = abs(b["gnorm0"] - a["gnorm0"]) / abs(a["gnorm0"])
+        traj = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"]))
+        log(f"precision {dtype}: remat against no remat: first-step loss relative |d| "
+            f"{loss_rel:.3g} (bar {REMAT_LOSS_RTOL}), gradient norm {gnorm_rel:.3g} (bar "
+            f"{REMAT_GNORM_RTOL}); over {PREC_STEPS} steps the losses at most {traj:.3g} apart; "
+            f"peak {a['peak_gib']:.2f} -> {b['peak_gib']:.2f} GiB, {a['steps_per_s']:.2f} -> "
+            f"{b['steps_per_s']:.2f} steps/s; on {card}")
+        if not (loss_rel <= REMAT_LOSS_RTOL and gnorm_rel <= REMAT_GNORM_RTOL):
+            fail(f"precision {dtype}: remat moved the first step: loss {loss_rel:.3g}, gradient "
+                 f"norm {gnorm_rel:.3g}")
+        checks[f"remat_{dtype}"] = {"loss_rel": loss_rel, "gnorm_rel": gnorm_rel,
+                                    "trajectory_rel": traj}
+    for remat in (False, True):
+        f32 = runs[("float32", remat)]["losses"]
+        bf16 = runs[("bfloat16", remat)]["losses"]
+        rel = [abs(x - y) / max(abs(y), 1e-3) for x, y in zip(bf16, f32)]
+        name = "bf16 + remat against f32 + remat" if remat else "bf16 against f32"
+        log(f"precision {name}: relative |d| of the losses first {rel[0]:.3g} (bar "
+            f"{BF16_FIRST}), last {rel[-1]:.3g} (bar {BF16_LAST}), largest {max(rel):.3g} "
+            f"(bar {BF16_ANY}); on {card}")
+        if not (rel[0] < BF16_FIRST and rel[-1] < BF16_LAST and max(rel) < BF16_ANY):
+            fail(f"precision {name}: trajectory outside the bars: {rel}")
+        checks[f"bf16_vs_f32{'_remat' if remat else ''}"] = {
+            "first": rel[0], "last": rel[-1], "max": max(rel)}
+    return {"runs": {f"{d}{'_remat' if r else ''}": v for (d, r), v in runs.items()},
+            "checks": checks}
+
+
+def precision_serving(seed: int, card: str, attn_checked):
+    """`synthesize` of phase 4's 32 lines in bf16 against f32, the same
+    weights (duration head pinned as phase 4) and the same mel bucket per
+    batch. Bars: every mel finite; the rounded durations equal on at least
+    half of the lines; on those lines mean |d| over valid frames within
+    SERVE_BF16_MEAN. No max bar: a pitch or energy prediction that crosses a
+    bin edge swaps that frame's embedding (on the CPU at full width max |d|
+    reached 1.2 at values up to 2.1), and a duration rounded the other way
+    shifts the frames after it. The mean is pooled over the lines' frames:
+    a short line's own mean is a few frames' swaps."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.frontend import text_to_sequence
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.serve import CLEANERS, L_BUCKETS, pack_batch
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+
+    cfg, f32 = build_system(seed, CARD)
+    bf16 = BaselineSystem(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                          (("en", n_symbols("en")),), device=CARD)
+    bf16.load_state_dict(f32.state_dict(), strict=True)
+    seqs = [text_to_sequence(line, list(CLEANERS), "en") for line in LINES]
+    same, means, maxes, ms = 0, [], [], {"float32": 0.0, "bfloat16": 0.0}
+    total, frames = 0.0, 0
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "precision serve bf16"):
+        for start in range(0, len(seqs), 8):
+            texts, lens = pack_batch(seqs[start:start + 8], L_BUCKETS)
+            B = len(lens)
+            spk, lang = np.zeros(B, np.int64), np.zeros(B, np.int64)
+            T = f32.pick_mel_bucket(texts, lens, spk, lang, "en")
+            outs = {}
+            for name, s in (("float32", f32), ("bfloat16", bf16)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = s.synthesize(texts, lens, T, spk, lang, symbol_id="en")
+                torch.cuda.synchronize()
+                ms[name] += 1e3 * (time.perf_counter() - t0)
+            a, b = outs["float32"], outs["bfloat16"]
+            if not torch.isfinite(b.postnet_mel).all() or b.postnet_mel.dtype != torch.float32:
+                fail("precision serve: bf16 mel non-finite or not f32")
+            for i in range(B):
+                if not torch.equal(a.duration_rounded[i], b.duration_rounded[i]):
+                    continue
+                same += 1
+                n = int(a.mel_len[i])
+                d = (a.postnet_mel[i, :n] - b.postnet_mel[i, :n]).abs()
+                means.append(float(d.mean()))
+                maxes.append(float(d.max()))
+                total += float(d.sum())
+                frames += d.numel()
+    launches = attn.LAUNCHES
+    pooled = total / frames if frames else math.inf
+    log(f"precision serve: {len(LINES)} lines in bf16 against f32: {same} with equal rounded "
+        f"durations, on them mean |d| {pooled:.3g} over all their frames (bar "
+        f"{SERVE_BF16_MEAN}), a line's mean up to {max(means) if means else 0:.3g}, max |d| up "
+        f"to {max(maxes) if maxes else 0:.3g}; synthesize {ms['float32']:.1f} ms f32, "
+        f"{ms['bfloat16']:.1f} ms bf16 for the 4 batches; {launches} attention launches; "
+        f"on {card}")
+    if same < len(LINES) // 2 or pooled > SERVE_BF16_MEAN:
+        fail(f"precision serve: {same} lines with equal durations, mean |d| {pooled:.3g}")
+    del f32, bf16
+    torch.cuda.empty_cache()
+    return {"lines": len(LINES), "equal_durations": same, "mean_abs": pooled,
+            "max_line_mean_abs": max(means) if means else None,
+            "max_abs": max(maxes) if maxes else None, "ms": ms, "attention_launches": launches}
+
+
+def synth_saver_run(seed: int, root: Path, card: str, attn_checked, stage_checked):
+    """`Trainer.fit` with a SynthSaver (HiFi-GAN V1 of random weights from
+    the seed) for one step and one validation: the saver's teacher-forced
+    forward and `synthesize` of the first validation line, both vocoded
+    through the MRF stage kernel; its mels against a CPU copy of the system
+    (SAVER_MEL_ATOL) and its wavs finite and bounded."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder
+    from fscl_tpu_torch.core.config import TrainConfig
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.obs import SynthSaver
+    from fscl_tpu_torch.obs.figures import have_matplotlib
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    figures = have_matplotlib()
+    cfg = train_model_config(dropout=False)
+    system = precision_system(cfg, seed, CARD)
+    stream = train_batches(seed + 19, CHECK_B, n_symbols("en"), cfg.variance)
+    train, val = next(stream), next(stream)
+    vocoder = Vocoder(build_vocoder(seed, CARD), "HifiGAN", device=CARD)
+    saver = SynthSaver(str(root / "synth"), system, vocoder=vocoder, synth_step=1,
+                       write_figures=figures)
+    stages = []
+    launch = mrf.mrf_stage_cuda
+
+    def record_stage(x, *args, **kwargs):
+        stages.append(tuple(x.shape))
+        return launch(x, *args, **kwargs)
+
+    train_cfg = TrainConfig(optim=system.optim_cfg, total_step=1, log_step=1, val_step=1,
+                            save_step=10 ** 9, seed=seed)
+    attn.LAUNCHES = mrf.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "synth saver") as seen, \
+            mock.patch.object(mrf, "mrf_stage_cuda", record_stage):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Trainer(system, train_cfg, [saver]).fit(system.init_state(), iter([train]),
+                                                val_loader=lambda: [val])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hold_attention_shapes(seen, attn_checked, "synth saver")
+    launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
+    hold_stage_shapes(stages, stage_checked, vocoder.model, "synth saver")
+    if launches["mrf_stage"] != 8 or not launches["attention_fwd"]:
+        fail(f"synth saver: launches {launches}, expected 8 stage launches (2 wavs)")
+    for tag in ("recon", "synth"):
+        wav = saver.last[tag]["wav"]
+        if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
+            fail(f"synth saver: {tag} wav non-finite or |wav| > 1")
+    cpu = precision_system(cfg, seed, "cpu")
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    cpu_saver = SynthSaver(str(root / "synth-cpu"), cpu, synth_step=1, write_audio=False,
+                           write_figures=False)
+    cpu_saver.on_validation_sample(1, None, val)
+    errs = {}
+    for tag in ("recon", "synth"):
+        a, b = saver.last[tag]["mel"], cpu_saver.last[tag]["mel"]
+        if a.shape != b.shape:
+            fail(f"synth saver: {tag} mel {a.shape} on the card, {b.shape} on the CPU")
+        errs[tag] = float(np.abs(a - b).max())
+    files = sorted(p.name for p in (root / "synth").iterdir())
+    log(f"synth saver: Trainer.fit 1 step + 1 validation in {wall:.2f} s, launches {launches}; "
+        f"mels card vs CPU max |d| recon {errs['recon']:.3g}, synth {errs['synth']:.3g} (bar "
+        f"{SAVER_MEL_ATOL}); files {files} (matplotlib {'present: PNGs written' if figures else 'missing: no PNG'}); on {card}")
+    if max(errs.values()) > SAVER_MEL_ATOL:
+        fail(f"synth saver: card vs CPU mels {errs}")
+    want = {f"step1-{t}.wav" for t in ("recon", "synth")} | (
+        {f"step1-{t}.png" for t in ("recon", "synth")} if figures else set())
+    if set(files) != want:
+        fail(f"synth saver: files {files}, expected {sorted(want)}")
+    del system, cpu, vocoder
+    torch.cuda.empty_cache()
+    return {"seconds": wall, "launches": launches, "mel_max_abs_err": errs, "files": files,
+            "figures": figures}
+
+
+def fscl_saver_run(seed: int, root: Path, card: str, attn_checked):
+    """`Trainer.fit` on phase 10's FSCL system (fscl-fastspeech2.yaml,
+    HuBERT-large f32 drawn from the seed) with an FSCLSaver, for one episode
+    and one validation on FSCL_CHECK-sized episodes: the codebook attention
+    per head and the softmax layer weights against a CPU copy (SAVER_ATTN_ATOL)."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.core.config import TrainConfig
+    from fscl_tpu_torch.models.hubert import make_upstream
+    from fscl_tpu_torch.obs.figures import have_matplotlib
+    from fscl_tpu_torch.obs.fscl_saver import FSCLSaver
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    figures = have_matplotlib()
+    cfg = fscl_model_config("float32")
+    system = build_fscl_system(cfg, seed, CARD)
+    train, val = fscl_episodes(seed + 23, 2, *FSCL_CHECK)
+    saver = FSCLSaver(str(root / "fscl"), system, synth_step=1, write_figures=figures)
+    train_cfg = TrainConfig(optim=system.optim_cfg, total_step=1, log_step=1, val_step=1,
+                            save_step=10 ** 9, seed=seed)
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "fscl saver") as seen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Trainer(system, train_cfg, [saver]).fit(system.init_state(), iter([train]),
+                                                val_loader=lambda: [val])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hold_attention_shapes(seen, attn_checked, "fscl saver")
+    launches = attn.LAUNCHES
+    up = cfg.upstream
+    with torch.device("meta"):
+        shell = make_upstream(up.name, up)
+    cpu = build_fscl_system(cfg, seed, "cpu", upstream=shell.to_empty(device="cpu"))
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    cpu_saver = FSCLSaver(str(root / "fscl-cpu"), cpu, synth_step=1, write_figures=False)
+    cpu_saver.on_validation_sample(1, None, val)
+    errs = {k: float(np.abs(saver.last[k] - cpu_saver.last[k]).max())
+            for k in ("attn", "layer_weights")}
+    files = sorted(p.name for p in (root / "fscl").iterdir())
+    heads = saver.last["attn"].shape[0]
+    log(f"fscl saver: Trainer.fit 1 episode + 1 validation in {wall:.2f} s, {launches} "
+        f"attention launches; codebook attention {saver.last['attn'].shape} and layer weights "
+        f"card vs CPU max |d| {errs['attn']:.3g}, {errs['layer_weights']:.3g} (bar "
+        f"{SAVER_ATTN_ATOL}); files {files} (matplotlib "
+        f"{'present: PNGs written' if figures else 'missing: no PNG'}); on {card}")
+    if max(errs.values()) > SAVER_ATTN_ATOL or not launches:
+        fail(f"fscl saver: card vs CPU {errs}, {launches} attention launches")
+    want = ({f"matching-1-step1-head-{h}.png" for h in range(heads)}
+            | {"step1-layer-weights.png"}) if figures else set()
+    if set(files) != want:
+        fail(f"fscl saver: files {files}, expected {sorted(want)}")
+    del system, cpu
+    torch.cuda.empty_cache()
+    return {"seconds": wall, "attention_launches": launches, "max_abs_err": errs,
+            "files": files, "figures": figures}
+
+
+def tracker_cli(seed: int, root: Path, card: str, attn_checked):
+    """`train --use_tracker` through the CLI for 3 steps on a small corpus
+    (base.yaml with a 2-row speaker table), then `--resume --exp_key <key>`
+    to 5: metrics.jsonl holds steps 1-5, meta.json counts one resume."""
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.ops import attention as attn
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_corpus import write_corpus
+    en = write_corpus(str(root), "en-trk", "en", 0, seed + 29, n_train=16, n_val=4,
+                      speakers=CLI_SPEAKERS, frames=(172, 400), n_phones=(30, 60))
+    model = root / "base-2spk.yaml"
+    model.write_text((REPO / "config" / "model" / "base.yaml").read_text()
+                     + f"\nspeaker:\n  n_speakers: {len(CLI_SPEAKERS)}\n")
+    overlay = cli_train_overlay(root, "tracker-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 10\n  anneal_steps: []\n"
+                                "step:\n  log_step: 1\n  val_step: 1000\n  save_step: 1000\n")
+    exp = root / "exp-tracker"
+    args = ["train", "--system", "baseline", "--data_config", en, "--model_config", str(model),
+            "--train_config", str(REPO / "config" / "train" / "baseline.yaml"),
+            "--train_config", overlay, "--exp_dir", str(exp), "--use_tracker",
+            "--device", CARD]
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "tracker cli") as seen:
+        t0 = time.perf_counter()
+        cli(args + ["--total_step", "3"])
+        (key,) = [p.name for p in (exp / "experiments").iterdir()]
+        cli(args + ["--resume", "--exp_key", key, "--total_step", "5"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hold_attention_shapes(seen, attn_checked, "tracker cli")
+    launches = attn.LAUNCHES
+    exp_dir = exp / "experiments" / key
+    meta = json.loads((exp_dir / "meta.json").read_text())
+    rows = [json.loads(line) for line in (exp_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r for r in rows if r["name"] == "Train/Total Loss"]
+    log(f"tracker cli: train --use_tracker 3 steps, then --resume --exp_key {key} to 5, in "
+        f"{wall:.2f} s: resumed {meta.get('resumed')}, params {meta.get('params')}, "
+        f"{len(rows)} scalars, losses at steps {[r['step'] for r in losses]}; {launches} "
+        f"attention launches; on {card}")
+    if meta.get("resumed") != 1 or [r["step"] for r in losses] != [1, 2, 3, 4, 5] \
+            or not all(math.isfinite(r["value"]) for r in rows):
+        fail(f"tracker cli: meta {meta}, loss steps {[r['step'] for r in losses]}")
+    return {"seconds": wall, "exp_key": key, "resumed": meta["resumed"],
+            "loss_steps": [r["step"] for r in losses], "attention_launches": launches}
+
+
+def tacotron2_run(seed: int, card: str):
+    """The mel Tacotron2 at Tacotron2Config's defaults (28.4 M parameters):
+    a teacher-forced forward at B = TACO_B (L = TACO_L, T = TACO_T mel
+    frames, TACO_T / 3 decoder steps) with the same prenet masks on the card
+    and on the CPU, each output within TACO_REL of its largest |value|; then
+    `infer` for 10 and TACO_INFER_STEPS steps, its decoder steps timed and
+    their kernel launches counted by difference (encoder and PostNet cancel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fscl_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+
+    cfg = Tacotron2Config()
+    torch.manual_seed(seed)
+    cpu = Tacotron2(cfg).eval()
+    model = Tacotron2(cfg).to(CARD).eval()
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    g = torch.Generator().manual_seed(seed + 31)
+    emb = torch.randn(TACO_B, TACO_L, cfg.symbols_embedding_dim, generator=g)
+    lens = torch.tensor([TACO_L, TACO_L - 5, TACO_L // 2, TACO_L // 3])[:TACO_B]
+    mels = torch.randn(TACO_B, TACO_T, cfg.n_mels, generator=g)
+    n_steps = TACO_T // cfg.n_frames_per_step
+    masks = cpu.draw_masks(TACO_B, TACO_L, n_steps, False, g, "cpu")
+    on_card = type(masks)(*(None if m is None else m.to(CARD) for m in masks))
+    with torch.no_grad():
+        want = cpu(emb, lens, mels, masks)
+        got = model(emb.to(CARD), lens.to(CARD), mels.to(CARD), on_card)
+    errs = {}
+    for name, a, b in zip(want._fields, got, want):
+        errs[name] = float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-12))
+    log(f"tacotron2: teacher-forced B={TACO_B} L={TACO_L} T={TACO_T} ({n_steps} decoder steps) "
+        "card vs CPU, max |d| relative to each output's max: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (bar {TACO_REL})")
+    if max(errs.values()) > TACO_REL or not torch.isfinite(got.postnet_mel).all():
+        fail(f"tacotron2 card vs CPU: {errs}")
+
+    def run(steps):
+        m = model.draw_masks(TACO_B, TACO_L, steps, False, None, CARD)
+        return model.infer(emb.to(CARD), lens.to(CARD), steps, masks=m)
+
+    run(10)
+    times, counts = {}, {}
+    for steps in (10, TACO_INFER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(steps)
+        torch.cuda.synchronize()
+        times[steps] = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(steps)
+            torch.cuda.synchronize()
+        counts[steps] = sum(e.count for e in prof.key_averages()
+                            if e.key.startswith("cudaLaunchKernel"))
+    span = TACO_INFER_STEPS - 10
+    ms_step = (times[TACO_INFER_STEPS] - times[10]) / span
+    launches_step = (counts[TACO_INFER_STEPS] - counts[10]) / span
+    if not torch.isfinite(out.postnet_mel).all() or out.mel.shape[1] != \
+            TACO_INFER_STEPS * cfg.n_frames_per_step:
+        fail("tacotron2 infer: non-finite mel or wrong length")
+    log(f"tacotron2: infer {TACO_INFER_STEPS} steps at B={TACO_B}: "
+        f"{times[TACO_INFER_STEPS]:.1f} ms in all, {ms_step:.3f} ms and {launches_step:.1f} "
+        f"kernel launches per decoder step; frames emitted {out.n_frames.tolist()}; on {card}")
+    return {"card_vs_cpu_rel": errs, "infer_ms": times, "ms_per_step": ms_step,
+            "launches_per_step": launches_step}
+
+
+def phase_precision(seed: int, card: str, attn_checked, stage_checked):
+    """Phase 17: the bf16 attention Function, the four precision and remat
+    runs, bf16 serving, the savers through `Trainer.fit`, the tracker through
+    the CLI, and the mel Tacotron2."""
+    import shutil
+    import tempfile
+    import torch
+    from fscl_tpu_torch.obs.figures import have_matplotlib
+
+    t0 = time.perf_counter()
+    log(f"precision: matplotlib {'present' if have_matplotlib() else 'missing'}: the savers "
+        f"{'write' if have_matplotlib() else 'skip'} their PNGs; their device outputs are held "
+        "either way")
+    summary = {"kernel_grads": phase_precision_kernel(seed, attn_checked)}
+    summary.update(precision_runs(seed, card, attn_checked))
+    summary["serve_bf16"] = precision_serving(seed, card, attn_checked)
+    root = Path(tempfile.mkdtemp(prefix="fscl_obs_"))
+    try:
+        summary["synth_saver"] = synth_saver_run(seed, root, card, attn_checked, stage_checked)
+        summary["fscl_saver"] = fscl_saver_run(seed, root, card, attn_checked)
+        summary["tracker"] = tracker_cli(seed, root, card, attn_checked)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["tacotron2"] = tacotron2_run(seed, card)
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 (precision, remat, observability, mel Tacotron2): {summary['seconds']:.1f} s")
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5227,10 +5809,14 @@ def main(argv=None) -> int:
     check_f32_precision("phase 15")
     meta = phase_meta(args.seed, card, attn_checked, args.profile)
     check_f32_precision("phase 16")
+    prec = phase_precision(args.seed, card, attn_checked, stage_checked)
+    check_f32_precision("phase 17")
     timings = phase_attention_timing(args.seed, {
         shape[:4] for what, seen in LAUNCHED.items()
         if what.startswith(("t2u", "pr ", "rehearse ", "meta "))
-        for shape in seen if shape[4] == "float32"})
+        for shape in seen if shape[4] == "float32"}, {
+        shape[:4] for what, seen in LAUNCHED.items()
+        if what.startswith("precision ") for shape in seen if shape[4] == "bfloat16"})
 
     main_row = next(r for r in timings
                     if r["dtype"] == "float32" and r["L"] == 1000 and r["H"] == 2)
@@ -5281,7 +5867,13 @@ def main(argv=None) -> int:
                              **{f"rehearse_{flow}": r["attention_launches"]
                                 for flow, r in meta["rehearse"].items()},
                              **{key: r["attention_launches"]
-                                for key, r in meta["systems"].items()}},
+                                for key, r in meta["systems"].items()},
+                             **{f"precision_{key}": r["attention_launches"]
+                                for key, r in prec["runs"].items()},
+                             "precision_serve_bf16": prec["serve_bf16"]["attention_launches"],
+                             "synth_saver": prec["synth_saver"]["launches"]["attention_fwd"],
+                             "fscl_saver": prec["fscl_saver"]["attention_launches"],
+                             "tracker_cli": prec["tracker"]["attention_launches"]},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5298,6 +5890,9 @@ def main(argv=None) -> int:
         # library_ms
         "train_grads_max_abs_err": train["kernel_grads_max_abs_err"],
         "train_fwd_bwd": train["attention_fwd_bwd"],
+        # bf16 under the Function (phase 17): forward max |kernel - plain|,
+        # gradients relative to each one's max
+        "train_bf16_grads_rel_err": prec["kernel_grads"],
     }, {
         "name": "mrf_stage",
         "route": "cuda",
@@ -5309,7 +5904,8 @@ def main(argv=None) -> int:
                              "tune": tune["mrf_stage_launches"],
                              "cli_synth": cli["synth"]["launches"]["mrf_stage"],
                              "preprocess_synth_ref_wav": pre["synth"]["launches"]["mrf_stage"],
-                             "t2u_chained": t2u["chained"]["launches"]["mrf_stage"]},
+                             "t2u_chained": t2u["chained"]["launches"]["mrf_stage"],
+                             "synth_saver": prec["synth_saver"]["launches"]["mrf_stage"]},
         "max_abs_err": stage_err["float32"],
         # the four V1 stages of one vocoded batch at B = 8, T_mel = 1000, f32
         "ms": sum(r["ms"] for r in f32_stages),
@@ -5355,6 +5951,7 @@ def main(argv=None) -> int:
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
               "cli": cli, "preprocess": pre, "t2u": t2u, "pr": pr, "meta": meta,
+              "precision": prec,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -96,8 +96,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the model structure and cap the run to 2 steps "
                         "(reference main.py --debug)")
     t.add_argument("--use_tracker", action="store_true",
-                   help="not ported yet (ROADMAP item 11)")
-    t.add_argument("--exp_key", default=None, help="not ported yet (ROADMAP item 11)")
+                   help="track the run under <exp_dir>/experiments/<exp_key> (local JSON: "
+                        "meta.json, metrics.jsonl, assets/; the reference's Comet role)")
+    t.add_argument("--exp_key", default=None,
+                   help="experiment key to resume a tracked experiment under "
+                        "(reference --exp_key)")
     t.add_argument("--distributed", action="store_true",
                    help="not ported yet (ROADMAP item 12)")
     _add_device(t)

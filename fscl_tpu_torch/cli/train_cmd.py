@@ -5,8 +5,11 @@ Ported: the `baseline`/`baseline-tune` and `fscl`/`fscl-orig` paths
 (`:90-125`), the generic path (`:121-133`: `systems/factory.py:build_system`
 and the key's registered datamodule, which the T2U family's keys take),
 `--pretrain_ckpt` (warm start), `--resume` (full restore), `--debug`,
-`--total_step` and `--steps_per_dispatch`. The multi-device and tracking
-flags wait for items 11 and 12, and raise when set. The generic path keeps
+`--total_step`, `--steps_per_dispatch`, and `--use_tracker` / `--exp_key`
+(`:187-200`: an `obs/tracking.py:ExperimentTracker` under
+`<exp_dir>/experiments`, named after the system, with the run's params; the
+same key resumes it). The multi-device flags wait for item 12, and raise
+when set. The generic path keeps
 fscl_tpu's faults (ROADMAP Queue 3): it passes the factory no T2U config (a
 model YAML's `tacotron2:` block is not read) and no u2s (the E2E keys
 raise); the episodic PR keys take episodes of 4 + 2 (the algorithm YAML's
@@ -43,6 +46,7 @@ from fscl_tpu_torch.data.episodic import EpisodicSampler, InfiniteEpisodes
 from fscl_tpu_torch.data.feature_store import FeatureStore
 from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, register_unit_symbols
 from fscl_tpu_torch.obs.loggers import CheckpointCallback, LossTableLogger, TensorBoardLogger
+from fscl_tpu_torch.obs.tracking import ExperimentTracker
 from fscl_tpu_torch.systems import get_system
 from fscl_tpu_torch.systems.factory import build_system
 from fscl_tpu_torch.systems.fscl import FrozenUpstream
@@ -53,8 +57,6 @@ UNPORTED_FLAGS = (  # flag, its default, the ROADMAP.md Queue 1 item that ports 
     ("upstream_parallel", "none", "item 12, parallelism"),
     ("n_model", None, "item 12, parallelism"),
     ("distributed", False, "item 12, parallelism"),
-    ("use_tracker", False, "item 11, observability (obs/tracking.py)"),
-    ("exp_key", None, "item 11, observability (obs/tracking.py)"),
 )
 
 
@@ -221,10 +223,23 @@ def run(args):
     tb = TensorBoardLogger(os.path.join(args.exp_dir, "tb"))
     callbacks = [LossTableLogger(os.path.join(args.exp_dir, "log")), tb,
                  CheckpointCallback(mgr, system)]
+    tracker = None
+    if args.use_tracker:
+        # experiment tracking with a persistent exp_key (the reference's
+        # --use_comet + --exp_key resume flow, main.py:91-137)
+        tracker = ExperimentTracker(
+            os.path.join(args.exp_dir, "experiments"), name=args.system,
+            exp_key=args.exp_key,
+            params={"system": args.system, "total_step": train_cfg.total_step,
+                    "batch_size": train_cfg.optim.batch_size, "lr": train_cfg.optim.lr})
+        print(f"[tracker] exp_key={tracker.exp_key} ({tracker.dir})")
+        callbacks.append(tracker)
     try:
         state = Trainer(system, train_cfg, callbacks=callbacks).fit(state, batches())
     finally:
         tb.close()
+        if tracker is not None:
+            tracker.close()
     mgr.save(state.step, system, state)
     print(f"[train] done at step {state.step}; ckpts in {ckpt_dir}")
     return system, state

@@ -41,7 +41,8 @@ state dict back to fscl_tpu's params and batch_stats. The PR family
 (`pr_entries`, `pr_state_dict`, `pr_variables`) uses the same tables: its
 heads are `head-<symbol_id>` on both sides (a Dense, or a cluster-centre
 array), and `BiLSTMDownstream`'s four flax cells, named by creation order,
-map to the port's `lstm_fwd.{0,1}` / `lstm_bwd.{0,1}`.
+map to the port's `lstm_fwd.{0,1}` / `lstm_bwd.{0,1}`. The mel Tacotron2
+(`tacotron2_entries`, `tacotron2_state_dict`, `tacotron2_variables`) too.
 """
 from __future__ import annotations
 
@@ -406,6 +407,45 @@ def tacot2u_entries(n_conv: int = 3) -> List[Entry]:
     e += _linear_entries("decoder_cell.final_proj", cell + ("final_proj",))
     e += _linear_entries("memory_layer", P + ("memory_layer",), bias=False)
     return e
+
+
+def tacotron2_entries(n_conv: int = 3, n_postnet: int = 5) -> List[Entry]:
+    """flax mel Tacotron2 (`params`, `batch_stats`) <-> the port's: the T2U
+    encoder's entries, the prenet, the two cells, the attention, the
+    projections and FastSpeech2's PostNet."""
+    P, S = ("params",), ("batch_stats",)
+    e = [x for x in tacot2u_entries(n_conv) if x[0].startswith("encoder.")]
+    for i in range(2):
+        e += _linear_entries(f"prenet.layers.{i}", P + ("prenet", f"fc_{i}"), bias=False)
+    e += _linear_entries("memory_layer", P + ("memory_layer",), bias=False)
+    e += _lstm_entries("attention_rnn", P + ("attention_rnn",))
+    att = P + ("attention_layer",)
+    e += _linear_entries("attention_layer.query_layer", att + ("query_layer",), bias=False)
+    e.append(("attention_layer.location_conv.weight", att + ("location_conv", "kernel"), "conv"))
+    e += _linear_entries("attention_layer.location_dense", att + ("location_dense",), bias=False)
+    e += _linear_entries("attention_layer.v", att + ("v",), bias=False)
+    e += _lstm_entries("decoder_rnn", P + ("decoder_rnn",))
+    e += _linear_entries("linear_projection", P + ("linear_projection",))
+    e += _linear_entries("gate_layer", P + ("gate_layer",))
+    for i in range(n_postnet):
+        key = f"postnet.convolutions.{i}"
+        e += [(f"{key}.0.conv.weight", P + ("postnet", f"conv_{i}", "kernel"), "conv"),
+              (f"{key}.0.conv.bias", P + ("postnet", f"conv_{i}", "bias"), "plain")]
+        e += _norm_entries(f"{key}.1", P + ("postnet", f"bn_{i}"))
+        e += [(f"{key}.1.running_mean", S + ("postnet", f"bn_{i}", "mean"), "plain"),
+              (f"{key}.1.running_var", S + ("postnet", f"bn_{i}", "var"), "plain"),
+              (f"{key}.1.num_batches_tracked", (), "count")]
+    return e
+
+
+def tacotron2_state_dict(variables: Mapping) -> StateDict:
+    """fscl_tpu Tacotron2 variables -> the port's Tacotron2 (strict keys)."""
+    return state_dict_from(tacotron2_entries(), variables)
+
+
+def tacotron2_variables(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's Tacotron2 state dict -> fscl_tpu variables."""
+    return variables_from(tacotron2_entries(), sd)
 
 
 def _block_entries(prefix: str, path: Tuple[str, ...], names) -> List[Entry]:

@@ -157,8 +157,7 @@ class ModelConfig:
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     # dtype policy: "float32" for parity, "bfloat16" for speed
     compute_dtype: str = "float32"
-    # rematerialize FFT blocks in backward (jax.checkpoint): HBM <-> FLOPs;
-    # the port raises NotImplementedError when it is set
+    # rematerialize FFT blocks in backward (torch.utils.checkpoint): HBM <-> FLOPs
     remat: bool = False
 
 

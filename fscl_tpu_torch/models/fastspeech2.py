@@ -8,6 +8,12 @@ length regulator, the pitch and energy targets pick the embeddings, and
 gradients reach the predictors through their predictions and the embedding
 tables through the looked-up rows, as in the JAX model. Train or eval mode
 is the module's (`nn.Module.train`); the JAX model's `deterministic` flag.
+
+`compute_dtype: bfloat16` runs the FFT blocks and the PostNet's convs in
+bf16 over f32 parameters (`nn/fft_block.py`), as the JAX model's `dtype` does
+(`:52-67`): the variance adaptor, `mel_linear`, the embeddings and the
+LayerNorms and BatchNorms stay f32, and so do the outputs, so the loss is
+f32. `remat` recomputes each FFT block in the backward.
 """
 from __future__ import annotations
 
@@ -39,28 +45,30 @@ class FastSpeech2Output(NamedTuple):
     decoder_input: Optional[torch.Tensor] = None
 
 
+def compute_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """The FFT blocks' and PostNet's compute dtype: bf16 for
+    `compute_dtype: bfloat16`, else None (the parameters' f32), as the JAX
+    model reads it (`:55`)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
 class FastSpeech2(nn.Module):
     def __init__(self, cfg: ModelConfig, stats: GlobalStats):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: the port runs float32")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat: the port does not rematerialise FFT blocks in the backward")
         self.cfg = cfg
         t = cfg.transformer
+        dtype = compute_dtype(cfg)
         self.encoder = Encoder(
             t.encoder_layer, t.encoder_hidden, t.encoder_head,
             t.conv_filter_size, t.conv_kernel_size, t.encoder_dropout,
-            cfg.max_seq_len)
+            cfg.max_seq_len, cfg.remat, dtype)
         self.variance_adaptor = VarianceAdaptor(cfg, stats)
         self.decoder = Decoder(
             t.decoder_layer, t.decoder_hidden, t.decoder_head,
             t.conv_filter_size, t.conv_kernel_size, t.decoder_dropout,
-            cfg.max_seq_len)
+            cfg.max_seq_len, cfg.remat, dtype)
         self.mel_linear = nn.Linear(t.decoder_hidden, cfg.audio.n_mels)
-        self.postnet = PostNet(cfg.audio.n_mels)
+        self.postnet = PostNet(cfg.audio.n_mels, dtype=dtype)
         if cfg.multi_speaker:
             self.speaker_emb = SpeakerEncoder(
                 cfg.speaker.emb_type, cfg.speaker.n_speakers, t.encoder_hidden)

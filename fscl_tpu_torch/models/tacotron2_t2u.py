@@ -136,6 +136,23 @@ def bilstm(lstm_fwd: nn.LSTM, lstm_bwd: nn.LSTM, x: torch.Tensor,
     return torch.where(valid[..., None], torch.cat([fwd, bwd], -1), 0.0)
 
 
+def zero_carry(cfg, memory):
+    """The decoder's first carry: (attention h, c, decoder h, c, attention
+    weights, their running sum, context), zeros."""
+    B, T_mem = memory.shape[:2]
+    z = lambda d: memory.new_zeros(B, d)
+    return (z(cfg.attention_rnn_dim), z(cfg.attention_rnn_dim), z(cfg.decoder_rnn_dim),
+            z(cfg.decoder_rnn_dim), z(T_mem), z(T_mem), z(cfg.encoder_embedding_dim))
+
+
+def encode(model: nn.Module, emb_text, src_lens, keep):
+    """(src_valid, memory, processed memory) through `model.encoder` and
+    `model.memory_layer`."""
+    src_valid = length_mask(src_lens, emb_text.shape[1])
+    memory = model.encoder(emb_text, src_valid, keep)
+    return src_valid, memory, model.memory_layer(memory)
+
+
 class Prenet(nn.Module):
     """2-layer bias-free ReLU prenet; its dropout is always on."""
 
@@ -248,18 +265,6 @@ class TacoT2U(nn.Module):
         self.decoder_cell = DecoderCell(cfg)
         self.memory_layer = nn.Linear(cfg.encoder_embedding_dim, cfg.attention_dim, bias=False)
 
-    def _init_carry(self, memory):
-        c = self.cfg
-        B, T_mem = memory.shape[:2]
-        z = lambda d: memory.new_zeros(B, d)
-        return (z(c.attention_rnn_dim), z(c.attention_rnn_dim), z(c.decoder_rnn_dim),
-                z(c.decoder_rnn_dim), z(T_mem), z(T_mem), z(c.encoder_embedding_dim))
-
-    def _encode(self, emb_text, src_lens, keep):
-        src_valid = length_mask(src_lens, emb_text.shape[1])
-        memory = self.encoder(emb_text, src_valid, keep)
-        return src_valid, memory, self.memory_layer(memory)
-
     def forward(self, emb_text, src_lens, units, masks: Optional[T2UMasks] = None,
                 generator: Optional[torch.Generator] = None):
         """Teacher-forced forward over T_out = units.shape[1] steps, in the
@@ -272,8 +277,8 @@ class TacoT2U(nn.Module):
         if masks is None:
             masks = draw_masks(self.cfg, B, L, T_out, self.training, generator,
                                emb_text.device)
-        src_valid, memory, processed = self._encode(emb_text, src_lens, masks.encoder)
-        carry = self._init_carry(memory)
+        src_valid, memory, processed = encode(self, emb_text, src_lens, masks.encoder)
+        carry = zero_carry(self.cfg, memory)
         teacher_emb = self.unit_embedding(units)
         teacher_in = torch.cat([teacher_emb.new_zeros(B, 1, self.cfg.d_unit),
                                 teacher_emb[:, :-1]], 1)
@@ -299,8 +304,8 @@ class TacoT2U(nn.Module):
         max_steps = max_steps or self.cfg.max_decoder_ratio * L
         if masks is None:
             masks = draw_masks(self.cfg, B, L, max_steps, False, generator, emb_text.device)
-        src_valid, memory, processed = self._encode(emb_text, src_lens, None)
-        carry = self._init_carry(memory)
+        src_valid, memory, processed = encode(self, emb_text, src_lens, None)
+        carry = zero_carry(self.cfg, memory)
         prev_in = memory.new_zeros(B, self.cfg.d_unit)
         finished = torch.zeros(B, dtype=torch.bool, device=memory.device)
         logits_all, preds, active, aligns = [], [], [], []

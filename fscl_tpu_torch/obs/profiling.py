@@ -1,18 +1,36 @@
-"""Per-phase wall timer for the train loop (port of `fscl_tpu/obs/profiling.py:28-54`).
+"""Profiling: a trace of a region and a per-phase wall timer for the train
+loop (port of `fscl_tpu/obs/profiling.py`).
 
-The counterpart of the reference's always-on Lightning `profiler: 'simple'`
-(main.py:39). A phase given a tensor to block on ends with a
-`torch.cuda.synchronize` of that tensor's device, so the phase's time
+`trace(log_dir)` records the enclosed region with `torch.profiler` (host
+ops, and the card's kernels when CUDA is available) and writes a Chrome
+trace into `log_dir`, where fscl_tpu writes a `jax.profiler` trace.
+`PhaseTimer` is the counterpart of the reference's always-on Lightning
+`profiler: 'simple'` (main.py:39). A phase given a tensor to block on ends
+with a `torch.cuda.synchronize` of that tensor's device, so the phase's time
 includes the card's work and not only its launch.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a torch.profiler trace of the enclosed region into
+    `log_dir/trace.json`; yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class PhaseTimer:

@@ -3,31 +3,16 @@
 
 Every `synth_step` steps, one teacher-forced forward of the first
 validation batch in eval mode; the first sample's (T_units, L_text)
-location-attention alignment is saved as a heatmap PNG (matplotlib, Agg).
+location-attention alignment is saved as a heatmap PNG (`obs/figures.py`).
 """
 from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
+from fscl_tpu_torch.obs.figures import plot_attention
 from fscl_tpu_torch.obs.loggers import Callback
-
-
-def plot_attention(attn: np.ndarray, title: str, path: str) -> None:
-    """Heatmap of `attn` saved at `path`."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig, ax = plt.subplots(figsize=(6, 4))
-    im = ax.imshow(np.asarray(attn), origin="lower", aspect="auto", interpolation="none")
-    fig.colorbar(im, ax=ax)
-    ax.set_title(title)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    fig.savefig(path, bbox_inches="tight", dpi=120)
-    plt.close(fig)
 
 
 class T2UAlignmentSaver(Callback):

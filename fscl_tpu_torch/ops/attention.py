@@ -4,15 +4,23 @@
 replaces the TPU kernel `_attn_kernel` (`fscl_tpu/ops/attention.py:48-66`).
 It runs on the tensor cores: bf16 products directly, f32 products by split
 TF32 (three TF32 products per f32 product, within 2e-5 of the plain version).
-`attention_reference` is its plain PyTorch version, with the kernel's math:
-scores in f32, invalid keys filled with the finite -1e9, softmax weights and
-weights . V in f32, the result cast to the input dtype.
+`attention_reference` is its plain PyTorch version, with the JAX package's
+math (`xla_attention`, `:24-43`): scores in f32, invalid keys filled with the
+finite -1e9, softmax in f32, the weights rounded to v's dtype (a no-op in
+f32; in bf16 as `xla_attention` rounds them, `:40`, and as the kernel rounds
+its unnormalised weights), weights . V accumulated in f32, the result cast
+to the input dtype. In bf16 the rounding matters: kept in f32, the weights
+put the plain version 3.9e-3 from `xla_attention` at (4, 2, 64, 32); rounded,
+2.4e-4.
 
 The kernel has instances for head dims 64 and 128; the wrapper zero-pads
 other head dims up to 128 to the next one (`_launch`).
 
 `attend` takes the plain version only for CPU tensors. For CUDA tensors it
-launches the kernel or raises: there is no fallback. With grad mode on (where
+launches the kernel or raises: there is no fallback. The one exception is
+`return_weights=True`, which the JAX package too sends outside its kernel
+(`attend`, `:151-164`, to `xla_attention`): the kernel never writes the
+weights, so they come from the plain version on the tensors' own device. With grad mode on (where
 autograd or a `torch.func` transform may be tracing) it launches the kernel
 through `AttentionFunction`, the port of `_pallas_attention_ad` (`:106-130`), whose
 backward `attention_bwd` recomputes the weights from q, k and v as
@@ -52,15 +60,15 @@ def attention_reference(
     temperature: Optional[float] = None,
     return_weights: bool = False,
 ):
-    """Plain attention with the kernel's math; key-only masking."""
+    """Plain attention with `xla_attention`'s math; key-only masking."""
     temp = temperature if temperature is not None else q.shape[-1] ** 0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / temp
     if key_valid is not None:
         scores = scores.masked_fill(~key_valid[:, None, None, :], NEG_INF)
-    weights = torch.softmax(scores, dim=-1)
-    out = torch.matmul(weights, v.float()).to(q.dtype)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.matmul(weights.float(), v.float()).to(q.dtype)
     if return_weights:
-        return out, weights.to(v.dtype)
+        return out, weights
     return out
 
 
@@ -279,11 +287,8 @@ def attend(
     return_weights: bool = False,
 ):
     """Self-attention dispatch. Shapes (B, H, L, Dh)."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or return_weights:
         return attention_reference(q, k, v, key_valid, temperature, return_weights)
-    if return_weights:
-        raise NotImplementedError(
-            "return_weights on CUDA: the kernel does not write the weights")
     if key_valid is None:
         key_valid = torch.ones(q.shape[0], k.shape[2], dtype=torch.bool, device=q.device)
     if torch.is_grad_enabled():     # autograd or a torch.func transform may be tracing

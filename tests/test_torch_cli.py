@@ -34,6 +34,7 @@ import contextlib
 import dataclasses
 import csv
 import glob
+import json
 import os
 from unittest import mock
 
@@ -237,8 +238,8 @@ def test_tune(world, scan, tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 12"), (["--upstream_parallel", "pp"], "item 12"),
-    (["--distributed"], "item 12"), (["--use_tracker"], "item 11"),
-    (["--exp_key", "k"], "item 11"),
+    (["--distributed"], "item 12"), (["--n_model", "2"], "item 12"),
+    (["--use_tracker", "--exp_key", "k", "--distributed"], "item 12"),
 ])
 def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
@@ -463,6 +464,53 @@ def test_train_matches_fscl_tpu_cli(world, tmp_path, no_flax_dropout, system):
     assert len(prec["items"]) >= n and len(jrec["items"]) >= n
     same(prec["items"][:n], jrec["items"][:n], f"{system} batches")
     _held(prec["losses"], jrec["losses"])
+
+
+def _experiment(exp_dir):
+    """(key, meta.json without its timestamp, metrics rows) of the one
+    tracked experiment under exp_dir."""
+    root = os.path.join(exp_dir, "experiments")
+    (key,) = os.listdir(root)
+    with open(os.path.join(root, key, "meta.json")) as f:
+        meta = json.load(f)
+    assert meta.pop("created") and meta.pop("exp_key") == key
+    with open(os.path.join(root, key, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return key, meta, rows
+
+
+def test_train_use_tracker_and_exp_key_match_fscl_tpu_cli(world, tmp_path, no_flax_dropout):
+    """`train --use_tracker` for 3 steps, then `--resume --exp_key <key>` to 5,
+    in both packages from the same weights: the same experiment layout,
+    meta.json (params, `resumed` 1) and metric names at the same steps; the
+    losses held as above, the learning rates within 1e-6."""
+    args = ["train", "--data_config", world["en"], "--model_config", world["model"],
+            "--train_config", world["parity_train"], "--use_tracker"]
+    exps = {side: str(tmp_path / side) for side in ("jax", "port")}
+    prec = _run_port(args + ["--exp_dir", exps["port"]],
+                     _run_jax(args + ["--exp_dir", exps["jax"]]))
+    assert prec["out"][1].step == 3
+    keys = {side: _experiment(exp)[0] for side, exp in exps.items()}
+    resume = ["--resume", "--total_step", "5"]
+    prec = _run_port(args + resume + ["--exp_key", keys["port"], "--exp_dir", exps["port"]],
+                     _run_jax(args + resume + ["--exp_key", keys["jax"],
+                                               "--exp_dir", exps["jax"]]))
+    assert prec["out"][1].step == 5
+    (pkey, pmeta, prows), (jkey, jmeta, jrows) = (_experiment(exps[s]) for s in ("port", "jax"))
+    assert (pkey, jkey) == (keys["port"], keys["jax"])
+    assert pmeta == jmeta and pmeta["resumed"] == 1 and pmeta["name"] == "baseline"
+    assert pmeta["params"]["total_step"] == 5
+    # the same names at the same steps (each package orders a step's metrics its own way)
+    assert sorted((r["step"], r["name"]) for r in prows) == \
+        sorted((r["step"], r["name"]) for r in jrows)
+    assert sorted({r["step"] for r in prows}) == [1, 2, 3, 4, 5]
+    for name in {r["name"] for r in prows}:
+        got = [r["value"] for r in prows if r["name"] == name]
+        want = [r["value"] for r in jrows if r["name"] == name]
+        if name == "Train/lr":
+            np.testing.assert_allclose(got, want, rtol=1e-6)
+        elif name == "Train/Total Loss":
+            _held(got, want)
 
 
 @pytest.mark.parametrize("scan", [False, True], ids=["trainer", "scan_adapt"])

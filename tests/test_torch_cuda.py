@@ -890,3 +890,100 @@ def test_lstm_unrolled_matches_cudnn_on_card(cuda_device):
         want, _ = enc.lstm(x)
         got = lstm_unrolled(enc.lstm, x)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# -- bf16 compute, remat, return_weights (phase 17's paths) --------------------
+
+BF16_GRAD_REL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [77, 512])
+def test_bf16_attention_function_grads_match_plain_autograd(cuda_device, L):
+    """`attend` in bf16 under autograd (the kernel forward, the recompute
+    backward in f32, each gradient rounded to bf16) against autograd through
+    the plain version (which rounds its weights to bf16): the forward within
+    the bf16 bars, each gradient within 1e-2 of its largest |entry|."""
+    q, k, v, valid = _inputs(12, 4, 2, L, 128, torch.bfloat16, cuda_device)
+    g = torch.from_numpy(np.random.default_rng(13).normal(size=q.shape).astype(np.float32))
+    g = g.to(cuda_device, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = tattn.LAUNCHES
+    out = tattn.attend(*leaves, valid)
+    got = torch.autograd.grad(out, leaves, g)
+    assert tattn.LAUNCHES == before + 1 and out.dtype == torch.bfloat16
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tattn.attention_reference(*ref_leaves, valid), ref_leaves, g)
+    torch.testing.assert_close(out.float(), tattn.attention_reference(q, k, v, valid).float(),
+                               atol=BF16_TOL, rtol=BF16_TOL)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BF16_GRAD_REL * float(b.float().abs().max()), (name, err)
+    assert float(got[1][2].float().abs().max()) == 0.0   # sample 2 has no valid key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_on_card_matches_no_remat(cuda_device, dtype):
+    """A 2 + 2 layer FastSpeech2 at d_model 128 (head dim 64) with dropout on:
+    remat recomputes each block in the backward (the attention kernel
+    launched again, through the Function) and gives the same loss and
+    gradients (tests/test_remat.py's bars: loss 1e-6, gradients rtol 1e-5,
+    atol 1e-6; cuDNN's convolution backward may add atomics' order)."""
+    from fscl_tpu_torch.core.stats import DEFAULT_STATS
+    from fscl_tpu_torch.models.fastspeech2 import FastSpeech2
+
+    rng = np.random.default_rng(14)
+    B, L, T = 3, 24, 80
+    dur = torch.from_numpy(rng.integers(1, 4, (B, L))).to(cuda_device)
+    emb = torch.from_numpy(rng.normal(size=(B, L, 128)).astype(np.float32)).to(cuda_device)
+    src_lens = torch.tensor([24, 17, 9], device=cuda_device)
+    mel_lens = dur.sum(1).clamp(max=T)
+    target = torch.from_numpy(rng.normal(size=(B, T, 80)).astype(np.float32)).to(cuda_device)
+    pitch, energy = (torch.from_numpy(rng.normal(size=(B, L)).astype(np.float32)).to(cuda_device)
+                     for _ in range(2))
+    results = []
+    for remat in (False, True):
+        cfg = C.ModelConfig(
+            transformer=C.TransformerConfig(
+                encoder_layer=2, decoder_layer=2, encoder_hidden=128, decoder_hidden=128,
+                encoder_head=2, decoder_head=2, conv_filter_size=256),
+            max_seq_len=256, remat=remat, compute_dtype=dtype)
+        torch.manual_seed(0)
+        model = FastSpeech2(cfg, DEFAULT_STATS).to(cuda_device).train()
+        before = tattn.LAUNCHES
+        torch.cuda.manual_seed(1)
+        out = model(emb, src_lens, T, speaker_args=torch.zeros(B, dtype=torch.long,
+                                                                device=cuda_device),
+                    mel_lens=mel_lens, p_targets=pitch, e_targets=energy, d_targets=dur,
+                    lang_args=torch.zeros(B, dtype=torch.long, device=cuda_device))
+        loss = ((out.postnet_mel - target) ** 2).mean()
+        fwd = tattn.LAUNCHES - before
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+        results.append((float(loss.detach()), grads, fwd, tattn.LAUNCHES - before - fwd))
+    (l1, g1, f1, b1), (l2, g2, f2, b2) = results
+    assert (f1, b1, f2, b2) == (4, 0, 4, 4)
+    np.testing.assert_allclose(l2, l1, rtol=1e-6)
+    for a, b in zip(g1, g2):
+        if a is not None:
+            torch.testing.assert_close(b.float(), a.float(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_return_weights_on_card_come_from_the_plain_version(cuda_device, dtype):
+    """`return_weights=True` on CUDA tensors: the output and weights of the
+    plain version on the card (as fscl_tpu sends that case to
+    `xla_attention`), no kernel launch; without it the kernel runs."""
+    q, k, v, valid = _inputs(15, 4, 2, 96, 128, dtype, cuda_device)
+    before = tattn.LAUNCHES
+    with torch.no_grad():
+        out, w = tattn.attend(q, k, v, valid, return_weights=True)
+    assert tattn.LAUNCHES == before and w.device.type == "cuda" and w.dtype == dtype
+    want, w_want = tattn.attention_reference(q, k, v, valid, return_weights=True)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    torch.testing.assert_close(w, w_want, rtol=0, atol=0)
+    with torch.no_grad():
+        tattn.attend(q, k, v, valid)
+    assert tattn.LAUNCHES == before + 1

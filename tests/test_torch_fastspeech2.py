@@ -38,6 +38,15 @@ MODULE_ATOL = 1e-5
 SYSTEM_ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """torch on 2 threads: tier-1 runs six test processes on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jsys, variables = init_jax_variables(jax_cfg())

@@ -93,6 +93,48 @@ def test_cli_and_data_modules_load_no_jax():
         assert "--device" not in proc.stdout
 
 
+PRECISION_AND_OBS_MODULES = (
+    "fscl_tpu_torch.core.prng", "fscl_tpu_torch.utils", "fscl_tpu_torch.utils.tool",
+    "fscl_tpu_torch.train.precision", "fscl_tpu_torch.obs", "fscl_tpu_torch.obs.figures",
+    "fscl_tpu_torch.obs.tracking", "fscl_tpu_torch.obs.synth_saver",
+    "fscl_tpu_torch.obs.codebook_analysis", "fscl_tpu_torch.obs.fscl_saver",
+    "fscl_tpu_torch.obs.t2u_saver", "fscl_tpu_torch.models.tacotron2")
+
+
+def test_precision_obs_and_tacotron2_modules_load_no_jax_nor_matplotlib():
+    """The seeding, precision, observability and mel Tacotron2 modules load
+    no JAX, and no matplotlib either: a figure imports it when it is drawn,
+    so the savers' device work runs where it is not installed."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PRECISION_AND_OBS_MODULES!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} + ('matplotlib',))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_attend_off_the_cpu_launches_the_kernel_unless_weights_are_asked_for():
+    """No fallback: a tensor off the CPU (here on the meta device) goes to
+    the kernel's wrapper, which takes CUDA tensors only and raises; with
+    `return_weights=True` the weights come from the plain version on the
+    tensors' own device, as fscl_tpu sends that case to `xla_attention`."""
+    import torch
+    from fscl_tpu_torch.ops import attention as tattn
+    q, k, v = (torch.empty(2, 2, 8, 64, device="meta") for _ in range(3))
+    valid = torch.ones(2, 8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tattn.attend(q, k, v, valid)
+    with torch.no_grad(), pytest.raises(ValueError, match="takes CUDA tensors"):
+        tattn.attend(q, k, v, valid)
+    out, w = tattn.attend(q, k, v, valid, return_weights=True)
+    assert out.device.type == w.device.type == "meta"
+    assert tuple(w.shape) == (2, 2, 8, 8) and w.dtype == v.dtype
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_source_imports_no_jax(path):
     with open(path, encoding="utf-8") as f:

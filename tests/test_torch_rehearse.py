@@ -20,6 +20,7 @@ import sys
 import types
 
 import pytest
+import torch
 
 import fscl_tpu.cli.rehearse_cmd as jreh
 import fscl_tpu.core.config as jax_config
@@ -71,6 +72,19 @@ def reference_flow(fn_name, path=jreh.__file__):
     return set(phases), keys, gates
 
 
+THREADS = 2      # tier-1 runs six test processes on eight cores
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """torch on THREADS threads in this process (the t2u and pr flows run in
+    it), as the other torch test files do."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def cache(tmp_path_factory):
     return str(tmp_path_factory.mktemp("corpora"))
@@ -93,6 +107,10 @@ def test_fscl_flow_through_the_cli(tmp_path, cache):
     them fails."""
     exp = str(tmp_path / "fscl")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # the child's torch takes one thread per core unless told: beside five
+    # other test processes its OpenMP threads oversubscribe the host (the
+    # flow took 543 s of a tier-1 run, 30 s alone on 2 threads)
+    env.update(OMP_NUM_THREADS=str(THREADS), MKL_NUM_THREADS=str(THREADS))
     proc = subprocess.run(
         [sys.executable, "-m", "fscl_tpu_torch.cli", "rehearse", "--flow", "fscl", "--preset",
          "tiny", "--device", "cpu", "--episodes", "3", "--adapt_steps", "100", "--exp_dir", exp,

@@ -585,10 +585,19 @@ def test_phase_timer_counts_phases():
 
 
 def test_remat_is_refused():
+    """remat is ported (tests/test_torch_precision.py holds it to the run
+    without it): the model builds with it and runs it under autograd; it is
+    refused where torch's checkpoint cannot run, under a torch.func
+    transform, with an error that names it."""
     cfg = dataclasses.replace(_cfg(torch_config), remat=True)
     from fscl_tpu_torch.core.stats import DEFAULT_STATS
-    with pytest.raises(NotImplementedError, match="remat"):
-        FastSpeech2(cfg, DEFAULT_STATS)
+    model = FastSpeech2(cfg, DEFAULT_STATS)
+    assert model.encoder.remat and model.decoder.remat
+    x = torch.randn(2, 8, 64, requires_grad=True)
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    assert torch.autograd.grad(model.encoder(x, valid).sum(), x)[0].shape == x.shape
+    with pytest.raises(RuntimeError, match="remat"):
+        torch.func.grad(lambda t: model.encoder(t, valid).sum())(x.detach())
 
 
 def test_trainable_mask_trains_everything_without_dvec(jax_side):
