@@ -106,8 +106,8 @@ non-zero exit code when it fails:
    (adaptation.csv finite and falling, adaptation steps/s). Every attention
    launch is held in phase 3; each stage shape phase 3 did not hold is held
    to the plain version right after the run that launched it.
-13. A raw corpus on the card: 128 utterances of 1.5-10 s in the LJSpeech
-   layout with TextGrids, written from --seed (about 12 minutes of audio,
+13. A raw corpus on the card: 64 utterances of 1.5-10 s in the LJSpeech
+   layout with TextGrids, written from --seed (about 6 minutes of audio,
    tests/torch_corpus.py:write_raw_corpus). `python -m fscl_tpu_torch.cli
    preprocess ... --parse_raw --preprocess --create_dataset --pitch_method
    world_device --n_workers 4` in a fresh subprocess (wall time per stage,
@@ -132,7 +132,7 @@ non-zero exit code when it fails:
    1.5-10 s written from --seed: `make-units --source hubert_large_ll60k
    --n_units 512` through the CLI (HuBERT-large drawn on the card; 24
    attention launches per batch of 8; utterances/s, upstream and k-means
-   ms); `train --system tacot2u` through the CLI, 20 steps at B = 16 with
+   ms); `train --system tacot2u` through the CLI, 10 steps at B = 16 with
    T2UConfig's full width (encoder 512, RNNs 1024; a falling loss; steps/s;
    decoder ms and launches per step; card vs CPU teacher-forced logits
    within 1e-3; with --profile a traced train step); a base.yaml u2s over
@@ -180,18 +180,19 @@ non-zero exit code when it fails:
    rehearse --preset full`, each flow in a fresh interpreter (its `main`
    wrapped to report the attention shapes it launched) on synthetic
    corpora in one temporary cache: fscl at its defaults (40 episodes of
-   4 + 2, --adapt_steps 200: its three gates enforced), t2u with 10
-   episodes, 10 u2s and 10 tune steps and pr with 10 episodes (gates
+   4 + 2, --adapt_steps 200: its three gates enforced), t2u with 5
+   episodes, 5 u2s and 5 tune steps and pr with 5 episodes (gates
    advisory, as fscl_tpu makes them below 100); each exits 0, and its
    phase seconds, per-phase kernel launches, rehearsal.json metrics and
    gates are printed. Then in process at fscl-fastspeech2.yaml width with
    HuBERT-large (f32) drawn on the card from --seed and shared: `meta`
-   (32 + 8, one second-order inner step), `imaml` (20 + 5, 50 inner
+   (32 + 8, one second-order inner step), `imaml` (20 + 5, 20 inner
    steps, K = 5), `fscl_ada1`, `fscl_ada2`, `fscl_ssl_ada1` (phase 10's
    32 + 8 episodes, the SSL one with the query speech), `conti_ae` (B = 8)
-   and `semi_fscl` (a hand-built `SemiEpisode`), each 5 steps on one
-   episode repeated at lr 5e-4 (4 through `Trainer.fit`, the 5th split
-   into upstream, inner loop, CG + HVPs and the rest): every loss finite
+   and `semi_fscl` (a hand-built `SemiEpisode`), each 5 steps (imaml 3)
+   on one episode repeated at lr 5e-4 (all but the last through
+   `Trainer.fit`, the last split into upstream, inner loop, CG + HVPs and
+   the rest): every loss finite
    and the last below the first, steps/s, peak memory, attention
    launches; with --profile a traced `meta` step (busy share, kernel
    launches). Card vs
@@ -227,7 +228,33 @@ non-zero exit code when it fails:
    Tacotron2Config's defaults: a teacher-forced forward at B = 4 card vs CPU
    (1e-4 of each output's max), then `infer`: ms and kernel launches per
    decoder step. Every attention shape is held to the plain version.
-9. Attention timing (run last, after phase 17): the kernel at each key
+18. The parallel layer (`fscl_tpu_torch/parallel/`). 18a: the attention
+   kernel at Lq != Lk (the sequence-parallel upstream's local frames against
+   all gathered ones) held to its plain version at every key split in f32
+   and bf16 at PAR_CROSS's shapes, then timed beside its plain version, SDPA
+   and its bound at (32, 16, 100 | 200, 64) and, as a control, at
+   Lq = Lk = 199. 18b: one spawn of 2 ranks sharing the card over gloo,
+   every check against the same computation in one process on the card:
+   the data-parallel and the tensor-parallel train step at phase 8's shape
+   (5 steps, dropout off: first loss 1e-5, its gradient norm 1e-4, each
+   first gradient against float64 on the host within 1e-4 of its own max
+   plus twice the one process's distance, later losses 1e-3 at Adam eps 1e-3,
+   BatchNorm statistics 1e-5; the data-parallel steps again at phase 8's
+   eps 1e-9 beside the one process on reversed rows, the parameters one
+   step left apart named, no bar), the pipelined and the
+   sequence-parallel HuBERT-large over 8 wavs of 4 s (hidden states 1e-4 of
+   each layer's max), phase 10's episode through `attach_parallel_upstream`
+   "pp" and "sp" (table and loss 1e-4), `adapt_many_sharded` at phase 11's
+   shape (8 tasks, 1e-4), phase 4's 32 lines through `make_parallel_synth`
+   (mels 1e-3, equal lengths); which collectives gloo takes on CUDA tensors;
+   every attention shape the ranks launched held afterwards; each parallel
+   call's attention launches (the count set to 0 just before it, read just
+   after; the one-process runs outside) and wall seconds. 18c: `train
+   --system fscl --n_devices 2 --upstream_parallel sp` (4 ranks) on phase
+   12's corpus, then `--resume`; then one NCCL all_reduce and broadcast at
+   world size 1. Seconds are labelled: 2 ranks sharing one H100 over gloo,
+   correctness, not scaling.
+9. Attention timing (run last, after phase 18): the kernel at each key
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
@@ -343,15 +370,15 @@ TUNE_CHECK_STEPS = 3
 # tables for, each 2 speakers with 64 train and 16 val utterances of 2-7.9 s
 # (mel T 172-680 at hop 256 / 22.05 kHz: the 256, 512 and 768 buckets; 16 kHz
 # wavs in the 4 s and 8 s buckets) and 30-100 phonemes; the baseline trained
-# 20 steps then resumed to 30, 6 FSCL episodes, 50 adaptation steps on a
-# 32-utterance split. Depth (these step counts) is what to cut first. The
+# 10 steps then resumed to 15 (20 and 30 before phase 18), 6 FSCL episodes, 50
+# adaptation steps on a 32-utterance split. Depth (these step counts) is what to cut first. The
 # corpora come from tests/torch_corpus.py:write_corpus, the CPU tests' writer,
 # whose docstring names the features the datasets read.
 CLI_LANGS = (("en", 0), ("zh", 1))
 CLI_SPEAKERS = ("spkA", "spkB")
 CLI_TRAIN, CLI_VAL, CLI_TUNE_K = 64, 16, 32
 CLI_FRAMES, CLI_PHONES = (172, 680), (30, 100)
-CLI_STEPS, CLI_RESUME_STEPS, CLI_FSCL_EPISODES, CLI_ADAPT_STEPS = 20, 30, 6, 50
+CLI_STEPS, CLI_RESUME_STEPS, CLI_FSCL_EPISODES, CLI_ADAPT_STEPS = 10, 15, 6, 50
 # Precision, remat and observability (phase 17): phase 8's batch shape at
 # base.yaml width with every dropout off (the PostNet's too), so that the
 # f32, bf16 and remat runs draw no masks and compute the same function; Adam
@@ -548,7 +575,7 @@ def check_attention(attn, q, k, v, valid, key_split, label):
     else:
         ok = torch.allclose(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
     # the sample with no valid key gets uniform weights: the mean of V
-    mean_v = v[-1].float().mean(dim=1, keepdim=True).expand(v.shape[1:])
+    mean_v = v[-1].float().mean(dim=1, keepdim=True).expand(q.shape[1:])
     mean_err = float((got[-1].float() - mean_v).abs().max())
     ok = ok and mean_err <= (F32_ATOL if q.dtype == torch.float32 else BF16_TOL)
     if not ok:
@@ -2897,16 +2924,16 @@ def cli_tune(root: Path, zh_tune: str, attn_checked, fscl_ckpt: str):
             "losses": written, "attention_launches": attn.LAUNCHES, "wall_s": wall}
 
 
-# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 128
-# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 12
+# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 64
+# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 6
 # minutes of audio over the 2-10 s wav buckets (256 until PR 12, cut to make
-# room for phase 16; tests/torch_corpus.py:
+# room for phase 16, then 128, cut for phase 18; tests/torch_corpus.py:
 # write_raw_corpus). `preprocess` runs once through the command line in a
 # subprocess (world_device, 4 workers for --parse_raw), then the three pitch
 # methods in process on RAW_INPROC of its utterances; the baseline trains
 # RAW_TRAIN_STEPS steps from the store and a d-vector copy RAW_DVEC_STEPS
 # steps before `synth --ref_wav`. RAW_UTTS is the depth to cut first.
-RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 128, (1.5, 10.0), 4
+RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 64, (1.5, 10.0), 4
 RAW_INPROC, RAW_CPU_UTTS, RAW_CHECK_B = 64, 8, 4
 RAW_TRAIN_STEPS, RAW_DVEC_STEPS = 20, 5
 # phase 13's device (a CPU rehearsal of the phase sets it to "cpu")
@@ -3625,7 +3652,7 @@ def preprocess_chain(root: Path, store: Path, corpus: str, seed: int, attn_check
 # 30). Depth, to cut first: the step and episode counts.
 T2U_TRAIN, T2U_VAL, T2U_FRAMES, T2U_PHONES = 64, 8, (130, 860), (30, 100)
 T2U_UNITS, T2U_UNIT_NAME = 512, "hubert-512c"
-T2U_STEPS, U2S_STEPS = 20, 10          # B = 16 (config/train/baseline.yaml:3)
+T2U_STEPS, U2S_STEPS = 10, 10          # B = 16 (config/train/baseline.yaml:3); 20 before phase 18
 FSCL_T2U_CLI_EPISODES, FSCL_T2U_EPISODES = 3, 10
 FSCL_T2U_SHOTS, FSCL_T2U_QUERIES = 32, 8    # config/algorithm/t2u/fscl.yaml
 E2E_B, E2E_COUNTED = 4, 10                  # config/train/tune-t2s-1500.yaml:4
@@ -4887,12 +4914,14 @@ def phase_pr(seed: int, card: str, attn_checked):
 # episodes, --adapt_steps 200: its gates enforced); the t2u and pr flows cut
 # in depth (their gates advisory below 100 steps or episodes, as in fscl_tpu).
 REHEARSE_FLOWS = (("fscl", ()),
-                  ("t2u", ("--episodes", "10", "--u2s_steps", "10", "--tune_steps", "10")),
-                  ("pr", ("--episodes", "10")))
+                  ("t2u", ("--episodes", "5", "--u2s_steps", "5", "--tune_steps", "5")),
+                  ("pr", ("--episodes", "5")))
 # The meta systems at config/model/fscl-fastspeech2.yaml's widths with
 # HuBERT-large (f32) drawn on the card: meta.yaml's 32 + 8 with one
 # second-order inner step (train steps 0, the factory's max(., 1)), imaml.yaml's
-# 20 + 5 with 50 inner steps and K = 5 CG steps (reg_param 1), the ADA,
+# 20 + 5 with K = 5 CG steps (reg_param 1) and its 50 inner steps cut to 20
+# (to make room for phase 18: 64 -> 37 s; at 10 still 37 s, the CG's
+# HVPs taking the rest), the ADA,
 # SSL-ADA and semi systems on phase 10's 32 + 8 episodes, ContiAE at B = 8.
 # Each takes META_STEPS steps on one episode (or batch) repeated: all but
 # the last through `Trainer.fit`, the last split by synchronizes; its loss
@@ -4900,9 +4929,12 @@ REHEARSE_FLOWS = (("fscl", ()),
 # 1e-3, which they reach after 4000 warm-up steps; at 2e-3 from the first
 # step, ContiAE's and semi-FSCL's losses rose over their first steps.
 META_SHOTS = {"meta": (32, 8), "imaml": (20, 5)}
-META_INNER_LR, IMAML_INNER, IMAML_K, IMAML_REG = 1e-3, 50, 5, 1.0
+META_INNER_LR, IMAML_INNER, IMAML_K, IMAML_REG = 1e-3, 20, 5, 1.0
 META_KEYS = ("meta", "imaml", "fscl_ada1", "fscl_ada2", "fscl_ssl_ada1", "conti_ae", "semi_fscl")
 META_STEPS = 5
+# imaml takes 3 (its loss falls over them in every run; cut to make
+# room for phase 18: a step is 7-9 s, the CG's HVPs most of it)
+META_STEPS_BY_KEY = {"imaml": 3}
 META_LR = 5e-4
 CONTI_B = 8
 # Card vs CPU at a reduced size (the trunk at full width, a 3-layer custom
@@ -5111,7 +5143,8 @@ def meta_split(system, state, batch):
 
 
 def meta_run(key: str, cfg, seed: int, upstream, attn_checked, profile: bool = False):
-    """META_STEPS steps on one episode (or batch) repeated: all but the last
+    """META_STEPS steps (META_STEPS_BY_KEY's for a key there) on one episode
+    (or batch) repeated: all but the last
     through `Trainer.fit`, the last split by synchronizes; every loss finite
     and the last below the first; steps/s, the split, peak memory,
     attention launches and shapes; with --profile for `meta`, a traced step
@@ -5124,7 +5157,8 @@ def meta_run(key: str, cfg, seed: int, upstream, attn_checked, profile: bool = F
     from fscl_tpu_torch.ops import attention as attn
     from fscl_tpu_torch.train.trainer import Trainer
 
-    n = META_STEPS - 1
+    steps = META_STEPS_BY_KEY.get(key, META_STEPS)
+    n = steps - 1
     train_cfg = t2u_train_config(FSCL_B, log_step=1, save_step=10**9, val_step=10**9,
                                  synth_step=10**9)
     train_cfg = dataclasses.replace(train_cfg, optim=dataclasses.replace(train_cfg.optim,
@@ -5152,13 +5186,13 @@ def meta_run(key: str, cfg, seed: int, upstream, attn_checked, profile: bool = F
         traced = profile_steps(lambda: system.train_step(state, to_device(batch, CARD)), 1, None,
                                f"meta {key}")
     losses = [float(m["Total Loss"]) for _, m, _ in rec.logs] + [split["loss"]]
-    if len(losses) != META_STEPS or not all(math.isfinite(x) for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"meta {key}: losses {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"meta {key}: one episode repeated {META_STEPS} times, the loss did not fall: "
+        fail(f"meta {key}: one episode repeated {steps} times, the loss did not fall: "
              f"{losses}")
     log(f"meta {key}: one episode repeated, {n} steps in {wall:.2f} s = {n / wall:.3f} steps/s, "
-        f"loss {' -> '.join(f'{x:.4f}' for x in losses)}; step {META_STEPS} "
+        f"loss {' -> '.join(f'{x:.4f}' for x in losses)}; step {steps} "
         f"{split['step_ms']:.1f} ms: upstream {split['upstream_ms']:.1f}, inner loop "
         f"{split['inner_ms']:.1f}, CG + HVPs {split['hvp_cg_ms']:.1f}, outer "
         f"{split['outer_ms']:.1f}; peak {peak:.2f} GiB; {launches} attention launches "
@@ -5772,6 +5806,680 @@ def phase_precision(seed: int, card: str, attn_checked, stage_checked):
     return summary
 
 
+# -- phase 18: the parallel layer ----------------------------------------------------
+# The attention kernel at Lq != Lk (18a): the sequence-parallel upstream's
+# shape, HuBERT-large at 4 s (T' = 199, padded to 200) on 2 ranks, 100 local
+# frames against 200 gathered at B = 32; a head dim of 128; a ragged pair; and
+# the shapes of 18c's CLI run (16 support wavs per data rank in the 4 s and
+# 8 s buckets). Timed at the first and, as a control against phase 9's row,
+# at Lq = Lk = 199.
+PAR_CROSS = ((32, 16, 100, 200, 64), (8, 2, 64, 128, 128), (4, 16, 37, 199, 64),
+             (16, 16, 100, 200, 64), (16, 16, 200, 400, 64))
+PAR_TIMED = ((32, 16, 100, 200, 64), (32, 16, 199, 199, 64))
+# Two ranks sharing the card over gloo (18b), each check against the same
+# computation in one process on the card (rank 0 runs it, outside the windows
+# that count and time the parallel calls): phase 8's batch shape and rate,
+# dropout off, PAR_STEPS steps. First loss 1e-5 relative, its gradient norm
+# 1e-4; each first gradient against the same step in float64 on the host,
+# tensor by tensor, within 1e-4 of the tensor's own largest entry plus twice
+# the one process's own distance from float64 (plus 1e-6 where the gradient
+# is 0 in exact arithmetic, tests/test_torch_meta.py's floor): the one
+# process on the card is itself up to 2.2e-3 of a tensor's max off float64
+# (the decoder's conv FFN, the energy embedding: cuDNN picks its algorithms
+# by shape, and half the batch or half the channels is another shape), so a
+# bar between the two float32 runs alone would fail a correct step. The
+# BatchNorm running statistics after the first step 1e-5 of their largest
+# |value|, later losses 1e-3 (phase 8's card-vs-CPU bar) at Adam eps PAR_EPS.
+# At phase 8's eps 1e-9 the same data-parallel steps run once more beside the
+# one process with each batch's rows reversed, with no bar: Adam's first step
+# moves every entry whose gradient exceeds eps by the full rate, so an entry
+# whose gradient is rounding alone moves either way, as the summation order
+# decides, and the script names the parameters that came out apart after one
+# step. HuBERT-large over PAR_WAVS wavs of 4 s (hidden states on valid frames
+# within 1e-4 of each layer's max |h|); phase 10's episode (32 + 8) with the
+# upstream pipelined and sequence-parallel (table and loss 1e-4 relative);
+# phase 11's adaptation shape, PAR_TASKS tasks of PAR_TASK_STEPS steps split
+# over the ranks (each task 1e-4 relative); phase 4's 32 lines in batches of
+# 8 (mels 1e-3, equal lengths).
+PAR_RANKS, PAR_STEPS, PAR_WAVS, PAR_TASKS, PAR_TASK_STEPS = 2, 5, 8, 8, 3
+PAR_LOSS_RTOL, PAR_GNORM_RTOL, PAR_STATS_REL, PAR_HIDDEN_REL = 1e-5, 1e-4, 1e-5, 1e-4
+PAR_GRAD_REL, PAR_F32_FACTOR, PAR_ZERO_ATOL = 1e-4, 10.0, 1e-6
+PAR_EPS, PHASE8_EPS = 1e-3, 1e-9
+# The CLI (18c): `train --system fscl --n_devices 2 --upstream_parallel sp`
+# (2 data x 2 model ranks) on phase 12's corpus, then `--resume`.
+PAR_CLI_STEPS, PAR_CLI_RESUME = 2, 3
+PAR_LABEL = "2 ranks sharing one H100 over gloo: correctness, not scaling"
+
+
+def cross_bound(B, H, Lq, Lk, Dh, dtype_name, itemsize):
+    """Least time for one Lq x Lk attention call: split TF32 is 3 * 4 B H Lq
+    Lk Dh operations at 495 TFLOP/s, bf16 4 B H Lq Lk Dh at 989; the bytes
+    (2 Lq + 2 Lk) B H Dh x itemsize + B Lk key flags at 3.35 TB/s."""
+    flops = 4 * B * H * Lq * Lk * Dh
+    t_ops = (3 * flops / PEAK_TF32_FLOPS if dtype_name == "float32"
+             else flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    t_bytes = ((2 * Lq + 2 * Lk) * B * H * Dh * itemsize + B * Lk) / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cross_inputs(gen, B, H, Lq, Lk, Dh, dtype):
+    import torch
+    q = torch.randn(B, H, Lq, Dh, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(B, H, Lk, Dh, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    lens = torch.randint(1, Lk + 1, (B,), generator=gen, device="cuda")
+    lens[0] = Lk
+    lens[-1] = 0
+    return q, k, v, torch.arange(Lk, device="cuda")[None, :] < lens[:, None]
+
+
+def hold_cross_shapes(shapes, checked, what: str) -> list:
+    """The kernel against its plain version at every key split, in f32 and
+    bf16 at phase 3's bars, at each (B, H, Lq, Lk, Dh) of `shapes` (dtype
+    too when given) not yet in `checked`; returns the max |err| per dtype."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    gen = torch.Generator(device="cuda").manual_seed(len(checked) + 18)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for shape in shapes:
+        for dname in ((shape[5],) if len(shape) > 5 else ("float32", "bfloat16")):
+            key = (*shape[:5], dname)
+            if key in checked:
+                continue
+            B, H, Lq, Lk, Dh = shape[:5]
+            q, k, v, valid = cross_inputs(gen, B, H, Lq, Lk, Dh, getattr(torch, dname))
+            for s in attn.KEY_SPLITS:
+                errs[dname] = max(errs[dname], check_attention(
+                    attn, q, k, v, valid, s,
+                    f"{what}: {dname} B={B} H={H} Lq={Lq} Lk={Lk} Dh={Dh} key_split={s}"))
+            checked.add(key)
+    return errs
+
+
+def phase_parallel_kernel(seed: int, cross_checked):
+    """18a: the attention kernel at Lq != Lk held and timed."""
+    import torch
+    import torch.nn.functional as F
+    from fscl_tpu_torch.ops import attention as attn
+
+    errs = hold_cross_shapes(PAR_CROSS, cross_checked, "parallel kernel")
+    log(f"parallel kernel: Lq != Lk held to the plain version at every key split at "
+        f"{len(PAR_CROSS)} shapes: max err f32 {errs['float32']:.3g} (bar {F32_ATOL}), bf16 "
+        f"{errs['bfloat16']:.3g}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.Stream()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for B, H, Lq, Lk, Dh in PAR_TIMED:
+            q, k, v, valid = cross_inputs(gen, B, H, Lq, Lk, Dh, dtype)
+            mask4 = valid[:, None, None, :]
+            split_ms = {s: graph_time_ms(lambda: attn._launch(q, k, v, valid, None, s), 50,
+                                         stream) for s in attn.KEY_SPLITS}
+            key_split = attn.choose_key_split(B * H, Lq, n_sm, dtype)
+            plain_ms = graph_time_ms(lambda: attn.attention_reference(q, k, v, valid), 10, stream)
+            library_ms = graph_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 50, stream)
+            bound_ms, bound_by = cross_bound(B, H, Lq, Lk, Dh, dname, q.element_size())
+            row = {"B": B, "H": H, "Lq": Lq, "Lk": Lk, "Dh": Dh, "dtype": dname,
+                   "key_split": key_split, "ms": split_ms[key_split], "ms_by_key_split": split_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bound_share": bound_ms / split_ms[key_split]}
+            rows.append(row)
+            log(f"attention {dname:8s} B={B} H={H} Lq={Lq} Lk={Lk} Dh={Dh}: kernel "
+                f"{row['ms']:.4f} ms (key_split {key_split}; 1/2/4: "
+                + "/".join(f"{split_ms[s]:.4f}" for s in attn.KEY_SPLITS)
+                + f"), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {100 * row['bound_share']:.1f}% of bound")
+    return {"max_abs_err": errs, "timed": rows}
+
+
+def par_probe_gloo(device):
+    """Which collectives gloo takes on CUDA tensors here: each is tried on
+    both ranks at once (a refusal is raised before any message is sent)."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(4, device=device)
+    out = {}
+    for name, fn in (("broadcast", lambda: dist.broadcast(t, 0)),
+                     ("all_reduce", lambda: dist.all_reduce(t)),
+                     ("all_gather", lambda: dist.all_gather([torch.empty_like(t)] * 2, t))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refuses CUDA tensors ({str(e).splitlines()[0][:80]})"
+        dist.barrier()
+    return out
+
+
+class _GradRecorder:
+    """Records the first update's gradients by parameter name, and every
+    global gradient norm the optimizer clips by."""
+
+    def __init__(self, system):
+        opt = system.optimizer
+        names = {id(p): n for n, p in system.named_parameters()}
+        self.norm, self.update, self.norms, self.grads = opt.grad_norm, opt.update, [], None
+
+        def update(state, grads):
+            if self.grads is None:
+                self.grads = {names[id(p)]: g.detach().float().cpu().clone()
+                              for p, g in zip(opt.params, grads)}
+            return self.update(state, grads)
+
+        opt.grad_norm, opt.update = self, update
+
+    def __call__(self, grads):
+        n = self.norm(grads)
+        self.norms.append(float(n))
+        return n
+
+
+def par_train(system, batches, step, device):
+    """PAR_STEPS steps; (losses, the first step's gradient norm, its
+    gradients by name, the PostNet's running statistics after it, the
+    parameters after it)."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    rec = _GradRecorder(system)
+    state = system._par_state
+    losses, stats, after = [], None, None
+    for i, b in enumerate(batches):
+        state, m = step(state, to_device(b, device))
+        losses.append(float(m["Total Loss"]))
+        if i == 0:
+            stats = torch.cat([t.detach().float().flatten() for n, t in system.named_buffers()
+                               if "running" in n]).cpu()
+            after = {n: p.detach().cpu().clone() for n, p in system.named_parameters()}
+    return losses, rec.norms[0], rec.grads, stats, after
+
+
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """A gradient that is 0 in exact arithmetic, so rounding alone
+    (tests/test_torch_meta.py's list): an attention key's bias (softmax
+    ignores a shift of every score) and a conv bias before the PostNet's
+    train-mode BatchNorm (the batch mean takes the shift away)."""
+    return name.endswith("attn.w_ks.bias") or (
+        ".postnet.convolutions." in name and name.endswith(".conv.bias"))
+
+
+def grads_rel(got: dict, want: dict):
+    """(the worst tensor's |got - want| over its own max |want| plus
+    PAR_ZERO_ATOL / PAR_GRAD_REL where the gradient is 0 in exact
+    arithmetic, that tensor's name): within PAR_GRAD_REL is each tensor
+    within PAR_GRAD_REL of its own largest entry (+ PAR_ZERO_ATOL)."""
+    worst, at = 0.0, None
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        denom = float(w.abs().max()) + (PAR_ZERO_ATOL / PAR_GRAD_REL
+                                        if zero_in_exact_arithmetic(k) else 0.0)
+        r = err / denom if denom > 0 else (0.0 if err == 0 else math.inf)
+        if r >= worst:
+            worst, at = r, k
+    return worst, at
+
+
+def diverged_leaves(after: dict, want: dict, rate: float, top: int = 8) -> list:
+    """The parameters that one Adam step left more than half the step's
+    rate apart: (name, entries apart, entries), most first."""
+    rows = [(k, int(((after[k] - w).abs() > 0.5 * rate).sum()), w.numel())
+            for k, w in want.items()]
+    return sorted((r for r in rows if r[1]), key=lambda r: -r[1])[:top]
+
+
+def float64_gradients(cfg, seed: int, card_system, batch) -> dict:
+    """The first step's gradients by name in float64 on the host (the plain
+    versions) from `card_system`'s initial weights."""
+    import torch
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.train.precision import cast_floating
+    cpu = build_train_system(cfg, seed, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card_system.state_dict().items()})
+    cpu.model.postnet.dropout.p = 0.0
+    cpu.double()
+    cpu.init_state()
+    grads, _ = cpu.grads_and_metrics(cast_floating(to_device(batch, "cpu"), torch.float64))
+    names = {id(p): n for n, p in cpu.named_parameters()}
+    return {names[id(p)]: torch.zeros_like(p) if g is None else g
+            for p, g in zip(cpu.optimizer.params, grads)}
+
+
+def against_float64(got: dict, one: dict, truth: dict) -> dict:
+    """Each tensor of a run's first gradients against float64 (`truth`),
+    beside the one process's on the card (`one`): the worst tensor's |got -
+    truth| over PAR_GRAD_REL of its own max |truth| plus PAR_F32_FACTOR
+    times the one process's own |one - truth| (plus PAR_ZERO_ATOL where the
+    gradient is 0 in exact arithmetic); within 1 is every tensor within its
+    bound. With both runs' errors over the tensor's max there too, and the
+    largest |got - truth| / |one - truth| over the tensors whose one-process
+    error is above 1e-5 of their max (how far two float32 roundings of one
+    gradient lie apart)."""
+    worst = {"ratio": 0.0}
+    spread = 0.0
+    for k, t in truth.items():
+        scale = float(t.abs().max())
+        err = float((got[k].double() - t).abs().max())
+        err_one = float((one[k].double() - t).abs().max())
+        if not zero_in_exact_arithmetic(k) and err_one > 1e-5 * scale:
+            spread = max(spread, err / err_one)
+        bound = PAR_GRAD_REL * scale + PAR_F32_FACTOR * err_one + (
+            PAR_ZERO_ATOL if zero_in_exact_arithmetic(k) else 0.0)
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else math.inf)
+        if ratio >= worst["ratio"]:
+            worst = {"ratio": ratio, "tensor": k, "rel": err / scale if scale else err,
+                     "one_rel": err_one / scale if scale else err_one}
+    return {**worst, "spread": spread}
+
+
+def float64_worst(one: dict, truth: dict, top: int = 4) -> list:
+    """The one process's `top` tensors furthest from float64, each over its
+    own max (the tensors whose gradient is 0 in exact arithmetic left out)."""
+    rows = [(k, float((one[k].double() - t).abs().max()) / float(t.abs().max()))
+            for k, t in truth.items() if not zero_in_exact_arithmetic(k) and t.abs().max() > 0]
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def par_rank(rank: int, device, seed: int):
+    """18b, one rank: every parallel entry point, and on rank 0 the same
+    computation in one process, outside the windows that time and count the
+    parallel calls; returns the numbers the parent checks."""
+    import dataclasses
+    import itertools
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.core.device import resolve_device
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.models.hubert import frozen_upstream_features
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops.masking import length_mask
+    from fscl_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    from fscl_tpu_torch.parallel.pipeline import (attach_parallel_upstream,
+                                                   pipeline_upstream_features)
+    from fscl_tpu_torch.parallel.sequence_parallel import sequence_parallel_upstream_features
+    from fscl_tpu_torch.parallel.serving import make_parallel_synth
+    from fscl_tpu_torch.parallel.tensor_parallel import (fastspeech2_param_spec,
+                                                          make_tp_train_step, shard_state,
+                                                          shard_tensor)
+    from fscl_tpu_torch.systems.tune import (adapt_many_on_chip, adapt_many_sharded,
+                                             adaptable_params)
+    from fscl_tpu_torch.train.trainer import make_parallel_train_step
+
+    resolve_device(str(device))          # TF32 off, as every entry point sets it
+    lead = rank == 0
+    out = {"backend": torch.distributed.get_backend(), "seconds": {}, "launches": {},
+           "shapes": set()}
+    launch = attn.attention_cuda
+
+    def recording(q, k, *a):
+        out["shapes"].add((*q.shape, k.shape[2], str(q.dtype).split(".")[-1]))
+        return launch(q, k, *a)
+
+    attn.attention_cuda = recording
+    out["gloo_cuda"] = par_probe_gloo(device)
+    dp, tp = make_mesh(PAR_RANKS, 1, device), make_mesh(1, PAR_RANKS, device)
+
+    def parallel(name, fn, *args):
+        """One call of a parallel entry point, both ranks started together:
+        its attention launches (the count set to 0 just before the call and
+        read just after) and its wall seconds, added to the part's."""
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        attn.LAUNCHES = 0
+        res = fn(*args)
+        n = attn.LAUNCHES
+        torch.cuda.synchronize()
+        out["seconds"][name] = out["seconds"].get(name, 0.0) + time.perf_counter() - t0
+        out["launches"][name] = out["launches"].get(name, 0) + n
+        return res
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # -- the data-parallel and the tensor-parallel train step
+    cfg = train_model_config(dropout=False)
+    batches = list(itertools.islice(train_batches(seed + 18, TRAIN_B, n_symbols("en"),
+                                                  cfg.variance), PAR_STEPS))
+
+    def train_system(eps):
+        s = build_train_system(cfg, seed, str(device))
+        s.optim_cfg = dataclasses.replace(s.optim_cfg, eps=eps)
+        s.model.postnet.dropout.p = 0.0
+        s._par_state = s.init_state()
+        return s
+
+    def reversed_rows(b):
+        return type(b)(*(np.ascontiguousarray(x[::-1]) if isinstance(x, np.ndarray) and x.ndim
+                         else x for x in b))
+
+    runs = {}
+    for eps, tag in ((PAR_EPS, ""), (PHASE8_EPS, "_eps_1e-9")):
+        ref = ref_reversed = None
+        if lead:
+            s = train_system(eps)
+            ref = par_train(s, batches, s.train_step, device)
+            rate = s.optimizer.schedule(0)
+            del s
+            if tag:       # the same steps with each batch's rows in reverse order
+                s = train_system(eps)
+                ref_reversed = par_train(s, [reversed_rows(b) for b in batches], s.train_step,
+                                         device)
+                del s
+        s = train_system(eps)
+        replicate(s, dp)
+        runs["dp" + tag] = (parallel("dp_train" + tag, par_train, s,
+                                     [shard_batch(b, dp) for b in batches],
+                                     make_parallel_train_step(s, dp), device), ref)
+        del s
+        if tag:
+            runs["reversed" + tag] = (ref_reversed, ref)
+            continue
+        s = train_system(eps)
+        s._par_state = shard_state(s, s._par_state, tp)
+        runs["tp"] = (parallel("tp_train", par_train, s, batches, make_tp_train_step(s, tp),
+                               device), ref)
+        del s
+    if lead:
+        s = train_system(PAR_EPS)
+        truth = float64_gradients(cfg, seed, s, batches[0])
+        del s
+        out["one_process_float64_worst"] = float64_worst(runs["dp"][1][2], truth)
+        for name, ((losses, gnorm, grads, stats, after), ref) in runs.items():
+            # rank 0's shard of each tensor-parallel gradient and parameter
+            want, want_after, want64 = ({k: shard_tensor(g, fastspeech2_param_spec(k)
+                                                         if name == "tp" else None, PAR_RANKS, 0)
+                                         for k, g in d.items()}
+                                        for d in (ref[2], ref[4], truth))
+            worst, at = grads_rel(grads, want)
+            out[name] = {
+                "losses": losses, "ref_losses": ref[0],
+                "first_loss_rel": abs(losses[0] - ref[0][0]) / abs(ref[0][0]),
+                "later_loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0])),
+                "gnorm_rel": abs(gnorm - ref[1]) / ref[1],
+                "grads_rel": worst, "grads_worst": at,
+                "float64": against_float64(grads, want, want64),
+                "stats_rel": float((stats - ref[3]).abs().max() / ref[3].abs().max()),
+                "diverged_after_step_1": diverged_leaves(after, want_after, rate)}
+
+    # -- the pipelined and the sequence-parallel upstream
+    fsys = build_fscl_system(fscl_model_config("float32"), seed, str(device))
+    ep = to_device(fscl_episodes(seed + 18, 1, FSCL_S, FSCL_WAV, FSCL_B, FSCL_L, FSCL_T)[0],
+                   device)
+    wavs, wav_lens = ep.sup.wavs[:PAR_WAVS], ep.sup.wav_lens[:PAR_WAVS]
+    valid = length_mask(wav_lens, wavs.shape[-1])
+    up_out = {"pp": parallel("pp_upstream", pipeline_upstream_features, fsys.upstream, wavs,
+                             valid, tp)[0],
+              "sp": parallel("sp_upstream", sequence_parallel_upstream_features, fsys.upstream,
+                             wavs, valid, tp)[0]}
+    if lead:
+        want, fv = frozen_upstream_features(fsys.upstream, wavs, valid)
+        m = fv[:, :, None, None]
+        scale = (want * m).abs().amax(dim=(0, 1, 3))           # each layer's max |h|
+        for mode, got in up_out.items():
+            err = ((got - want) * m).abs().amax(dim=(0, 1, 3)) / scale
+            out[f"upstream_{mode}"] = {"rel": float(err.max()), "shape": tuple(got.shape)}
+    del up_out
+
+    # -- the FSCL episode's table and loss with the upstream hook
+    if lead:
+        ref_table, ref_loss = fscl_table_and_loss(fsys, ep)
+    for mode in ("pp", "sp"):
+        attach_parallel_upstream(fsys, mode, tp)
+        table, loss = parallel(f"fscl_{mode}", fscl_table_and_loss, fsys, ep)
+        if lead:
+            out[f"fscl_{mode}"] = {"table_rel": rel(table, ref_table),
+                                   "loss_rel": abs(loss - ref_loss) / abs(ref_loss)}
+    attach_parallel_upstream(fsys, "none", tp)
+    del fsys, ep
+    torch.cuda.empty_cache()
+
+    # -- the task axis of the adaptation split over the ranks
+    from fscl_tpu_torch.core.config import SpeakerConfig
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    acfg = dataclasses.replace(cfg, speaker=SpeakerConfig(n_speakers=8))
+    torch.manual_seed(seed)
+    asys = BaselineSystem(acfg, (("ko", 100),), device=str(device))
+    params = adaptable_params(asys)
+    tasks = many_tasks(seed + 18, PAR_TASKS, PAR_TASK_STEPS, False)
+    got, got_losses = parallel("adapt_many_sharded",
+                               lambda: adapt_many_sharded(asys, params, tasks, dp, lr=MANY_LR,
+                                                          symbol_id="ko"))
+    if lead:
+        want, want_losses = adapt_many_on_chip(asys, params, tasks, lr=MANY_LR, symbol_id="ko")
+        out["adapt"] = {
+            "loss_rel": float(((got_losses - want_losses).abs() / want_losses.abs()).max()),
+            "params_rel": max(params_rel({k: v[i] for k, v in got.items()},
+                                         {k: v[i] for k, v in want.items()})
+                              for i in range(PAR_TASKS))}
+    del asys, params, got
+
+    # -- data-parallel serving
+    from fscl_tpu_torch.frontend import text_to_sequence
+    from fscl_tpu_torch.serve import CLEANERS, L_BUCKETS, pack_batch
+    _, ssys = build_system(seed, str(device))
+    worst, same_len = 0.0, True
+    for start in range(0, len(LINES), 8):
+        seqs = [text_to_sequence(line, list(CLEANERS), "en") for line in LINES[start:start + 8]]
+        texts, src_lens = pack_batch(seqs, L_BUCKETS)
+        spk, lang = np.zeros(len(seqs), np.int64), np.zeros(len(seqs), np.int64)
+        T = ssys.pick_mel_bucket(texts, src_lens, spk, lang, "en")
+        mel, mel_len = parallel("serving", make_parallel_synth(ssys, dp, T, "en"),
+                                texts, src_lens, spk, lang)
+        if lead:
+            with torch.inference_mode():
+                want = ssys.synthesize(texts, src_lens, T, spk, lang, symbol_id="en")
+            worst = max(worst, float((mel - want.postnet_mel).abs().max()))
+            same_len = same_len and bool(torch.equal(mel_len, want.mel_len))
+    if lead:
+        out["serving"] = {"mel_max_abs_err": worst, "same_mel_len": same_len}
+    attn.attention_cuda = launch
+    return out
+
+
+def phase_parallel_ranks(seed: int, attn_checked, cross_checked):
+    """18b: one spawn of PAR_RANKS ranks on the card; every check's largest
+    difference against its bar, the backend, what gloo takes on CUDA, each
+    part's wall seconds. Every attention shape a rank launched is then held
+    to the plain version here (those phase 3 and 18a did not hold)."""
+    import tempfile
+    import shutil
+    from fscl_tpu_torch.parallel.multihost import launch
+
+    work = tempfile.mkdtemp(prefix="fscl_ranks_")
+    t0 = time.perf_counter()
+    try:
+        res = launch(par_rank, PAR_RANKS, seed, device_type="cuda", workdir=work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    checks = []
+    for name in ("dp", "tp"):
+        got = r0[name]
+        checks += [(f"{name} first loss", got["first_loss_rel"], PAR_LOSS_RTOL),
+                   (f"{name} first gradient norm", got["gnorm_rel"], PAR_GNORM_RTOL),
+                   (f"{name} first gradients against float64, each tensor over its bound "
+                    f"(worst {got['float64']['tensor']}: {got['float64']['rel']:.3g} of its max, "
+                    f"the one process {got['float64']['one_rel']:.3g}; distance over the one "
+                    f"process's at most {got['float64']['spread']:.3g})",
+                    got["float64"]["ratio"], 1.0),
+                   (f"{name} later losses (Adam eps {PAR_EPS})", got["later_loss_rel"],
+                    TRAIN_LATER_RTOL),
+                   (f"{name} BatchNorm statistics", got["stats_rel"], PAR_STATS_REL)]
+    checks += [
+        ("dp at eps 1e-9 first loss", r0["dp_eps_1e-9"]["first_loss_rel"], PAR_LOSS_RTOL),
+        ("pp upstream hidden", r0["upstream_pp"]["rel"], PAR_HIDDEN_REL),
+        ("sp upstream hidden", r0["upstream_sp"]["rel"], PAR_HIDDEN_REL),
+        ("pp episode table", r0["fscl_pp"]["table_rel"], FSCL_TABLE_REL),
+        ("pp episode loss", r0["fscl_pp"]["loss_rel"], FSCL_LOSS_RTOL),
+        ("sp episode table", r0["fscl_sp"]["table_rel"], FSCL_TABLE_REL),
+        ("sp episode loss", r0["fscl_sp"]["loss_rel"], FSCL_LOSS_RTOL),
+        ("adapt_many_sharded losses", r0["adapt"]["loss_rel"], TUNE_RTOL),
+        ("adapt_many_sharded parameters", r0["adapt"]["params_rel"], TUNE_RTOL),
+        ("parallel synth mels", r0["serving"]["mel_max_abs_err"], CARD_VS_CPU_ATOL)]
+    for name, got, bar in checks:
+        log(f"parallel {name}: {got:.3g} (bar {bar})")
+    # Phase 8's Adam (eps 1e-9), no bar: the data-parallel steps and the one
+    # process with each batch's rows reversed, each against the one process
+    for name in ("dp_eps_1e-9", "reversed_eps_1e-9"):
+        got = r0[name]
+        log(f"parallel {name} (no bar): first gradients' distance from float64 over the one "
+            f"process's at most {got['float64']['spread']:.3g}; first gradients "
+            f"{got['grads_rel']:.3g} of their own "
+            f"max (worst {got['grads_worst']}), later losses {got['later_loss_rel']:.3g} relative "
+            f"({got['losses']} against {got['ref_losses']}); parameters more than half the "
+            f"first step's rate apart after it (name, entries, of): "
+            f"{got['diverged_after_step_1']}")
+    log(f"parallel: the one process's first gradients on the card against float64 on the "
+        f"host, each tensor over its own max, worst {r0['one_process_float64_worst']}; the "
+        f"parallel runs against the one process, each tensor over its own max (no bar): dp "
+        f"{r0['dp']['grads_rel']:.3g} ({r0['dp']['grads_worst']}), tp {r0['tp']['grads_rel']:.3g}"
+        f" ({r0['tp']['grads_worst']})")
+    bad = [(n, g, b) for n, g, b in checks if not g <= b]
+    if bad or not r0["serving"]["same_mel_len"]:
+        fail(f"parallel: checks over their bars {bad}, equal mel_len "
+             f"{r0['serving']['same_mel_len']}")
+    for r in res[1:]:
+        if r["backend"] != r0["backend"]:
+            fail("parallel: the ranks run different backends")
+    per_rank = [r["launches"] for r in res]
+    # every part does the same work on each rank: its own rows, stage,
+    # frames or tasks
+    if any(n == 0 for r in per_rank for n in r.values()) or \
+            any(r != per_rank[0] for r in per_rank):
+        fail(f"parallel: a part launched no attention kernel on a rank, or the ranks "
+             f"launched different counts: {per_rank}")
+    shapes = set().union(*(r["shapes"] for r in res))
+    cross = {s for s in shapes if s[2] != s[4]}
+    same = {(B, H, Lq, Dh, d) for B, H, Lq, Dh, Lk, d in shapes if Lq == Lk}
+    n_held = hold_attention_shapes(same, attn_checked, "parallel ranks")
+    errs = hold_cross_shapes([(B, H, Lq, Lk, Dh, d) for B, H, Lq, Dh, Lk, d in cross],
+                             cross_checked, "parallel ranks")
+    log(f"parallel ranks: backend {r0['backend']} ({PAR_LABEL}); gloo on CUDA tensors: "
+        f"{r0['gloo_cuda']}; attention launches of each parallel call, per rank "
+        f"{per_rank[0]}; {len(shapes)} attention shapes, {n_held} + "
+        f"{len(cross)} (Lq != Lk) held after the run; wall seconds of the parallel calls "
+        "(rank 0) " + ", ".join(f"{k} {v:.2f}" for k, v in r0["seconds"].items())
+        + f"; the spawn {wall:.2f} s")
+    return {"label": PAR_LABEL, "backend": r0["backend"], "gloo_cuda": r0["gloo_cuda"],
+            "checks": {n: {"value": g, "bar": b} for n, g, b in checks},
+            "seconds": r0["seconds"], "spawn_s": wall,
+            "launches_per_rank": per_rank[0],
+            "launches": {p: sum(r[p] for r in per_rank) for p in per_rank[0]},
+            "shapes": sorted(shapes), "cross_err_after": errs,
+            "eps_1e-9": {n: {k: r0[n][k] for k in ("losses", "ref_losses", "later_loss_rel",
+                                                   "grads_rel", "grads_worst",
+                                                   "diverged_after_step_1")}
+                         for n in ("dp_eps_1e-9", "reversed_eps_1e-9")},
+            "dp_losses": r0["dp"]["losses"], "tp_losses": r0["tp"]["losses"],
+            "ref_losses": r0["dp"]["ref_losses"],
+            "one_process_float64_worst": r0["one_process_float64_worst"],
+            "float64": {n: r0[n]["float64"] for n in ("dp", "tp", "dp_eps_1e-9",
+                                                      "reversed_eps_1e-9")}}
+
+
+def phase_parallel_cli(seed: int):
+    """18c: `train --system fscl --n_devices 2 --upstream_parallel sp` on
+    phase 12's corpus (2 data x 2 model ranks on the card), then `--resume`;
+    one checkpoint from rank 0 each time. Then an NCCL group of one rank:
+    one all_reduce and one broadcast (NCCL at 2 or more ranks needs a card
+    per rank, which this machine does not have)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.core.checkpoint import CheckpointManager
+
+    root = Path(tempfile.mkdtemp(prefix="fscl_par_cli_"))
+    out = {}
+    try:
+        sys.path.insert(0, str(REPO / "tests"))
+        from torch_corpus import write_corpus
+        en, zh = (write_corpus(str(root), f"{sid}-cli", sid, lang, seed + 40 + lang,
+                               n_train=CLI_TRAIN, n_val=CLI_VAL, speakers=CLI_SPEAKERS,
+                               frames=CLI_FRAMES, n_phones=CLI_PHONES,
+                               n_slices=(DVEC_N, DVEC_N), tune=CLI_TUNE_K)
+                  for sid, lang in CLI_LANGS)
+        overlay = cli_train_overlay(root, "par-overlay",
+                                    "optimizer:\n  lr: 0.002\n  warm_up_step: 5\n"
+                                    "  anneal_steps: []\nstep:\n  log_step: 1\n"
+                                    f"  save_step: {PAR_CLI_RESUME}\n")
+        exp = root / "exp-par"
+        argv = ["train", "--system", "fscl", "--data_config", en, "--data_config", zh,
+                "--model_config", str(REPO / "config" / "model" / "fscl-fastspeech2.yaml"),
+                "--algorithm_config",
+                str(REPO / "config" / "algorithm" / "language" / "fscl.yaml"),
+                "--train_config", str(REPO / "config" / "train" / "fscl.yaml"),
+                "--train_config", overlay, "--exp_dir", str(exp),
+                "--n_devices", "2", "--upstream_parallel", "sp"]
+        for name, extra, steps in (("first", ["--total_step", str(PAR_CLI_STEPS)], [2]),
+                                   ("resume", ["--total_step", str(PAR_CLI_RESUME),
+                                               "--resume"], [2, 3])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                ret = cli(argv + extra)
+            wall = time.perf_counter() - t0
+            printed = buf.getvalue()
+            sys.stdout.write(printed)
+            got = CheckpointManager(str(exp / "ckpt")).all_steps()
+            if ret is not None or got != steps or "[parallel] 4 ranks (2 data x 2 model)" \
+                    not in printed:
+                fail(f"parallel cli {name}: returned {ret!r}, checkpoints {got} (want {steps}), "
+                     f"printed {printed[-400:]!r}")
+            out[name] = {"wall_s": wall, "checkpoints": got}
+            log(f"parallel cli {name}: 4 ranks, checkpoints {got} from rank 0, {wall:.2f} s "
+                f"({PAR_LABEL})")
+        with open(exp / "log" / "log.txt") as f:
+            lines = f.read().splitlines()
+        losses = [float(line.split("Total Loss: ")[1].split(" ")[0]) for line in lines]
+        if len(losses) != PAR_CLI_RESUME or not all(math.isfinite(x) for x in losses):
+            fail(f"parallel cli: losses {losses}")
+        out["losses"] = losses
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # NCCL, one rank: the path loads and runs on this card
+    store = dist.HashStore()
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    try:
+        t = torch.arange(4.0, device="cuda")
+        dist.all_reduce(t)
+        dist.broadcast(t, 0)
+        torch.cuda.synchronize()
+        if not torch.equal(t.cpu(), torch.arange(4.0)):
+            fail(f"parallel: NCCL at world size 1 changed the tensor: {t}")
+    finally:
+        dist.destroy_process_group()
+    out["nccl_world_1"] = "all_reduce and broadcast ran"
+    log("parallel: NCCL at world size 1 ran one all_reduce and one broadcast; NCCL at 2 or "
+        "more ranks needs a card per rank and is not run here")
+    return out
+
+
+def phase_parallel(seed: int, attn_checked):
+    """Phase 18: the kernel at Lq != Lk (18a), two ranks on the card (18b),
+    the CLI on four (18c); the phase's seconds."""
+    t0 = time.perf_counter()
+    cross_checked = set()
+    out = {"kernel": phase_parallel_kernel(seed, cross_checked)}
+    t1 = time.perf_counter()
+    out["ranks"] = phase_parallel_ranks(seed, attn_checked, cross_checked)
+    t2 = time.perf_counter()
+    out["cli"] = phase_parallel_cli(seed)
+    t3 = time.perf_counter()
+    out["seconds"] = {"kernel": t1 - t0, "ranks": t2 - t1, "cli": t3 - t2, "phase": t3 - t0}
+    out["cross_checked"] = sorted(cross_checked)
+    log(f"phase 18 took {t3 - t0:.1f} s: kernel {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s, "
+        f"cli {t3 - t2:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5811,6 +6519,8 @@ def main(argv=None) -> int:
     check_f32_precision("phase 16")
     prec = phase_precision(args.seed, card, attn_checked, stage_checked)
     check_f32_precision("phase 17")
+    par = phase_parallel(args.seed, attn_checked)
+    check_f32_precision("phase 18")
     timings = phase_attention_timing(args.seed, {
         shape[:4] for what, seen in LAUNCHED.items()
         if what.startswith(("t2u", "pr ", "rehearse ", "meta "))
@@ -5873,7 +6583,11 @@ def main(argv=None) -> int:
                              "precision_serve_bf16": prec["serve_bf16"]["attention_launches"],
                              "synth_saver": prec["synth_saver"]["launches"]["attention_fwd"],
                              "fscl_saver": prec["fscl_saver"]["attention_launches"],
-                             "tracker_cli": prec["tracker"]["attention_launches"]},
+                             "tracker_cli": prec["tracker"]["attention_launches"],
+                             # phase 18: each parallel call's launches, summed
+                             # over the 2 ranks sharing the card
+                             **{f"parallel_{part}": n
+                                for part, n in par["ranks"]["launches"].items()}},
         "max_abs_err": max_err["float32"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5893,6 +6607,12 @@ def main(argv=None) -> int:
         # bf16 under the Function (phase 17): forward max |kernel - plain|,
         # gradients relative to each one's max
         "train_bf16_grads_rel_err": prec["kernel_grads"],
+        # Lq != Lk (phase 18): the sequence-parallel upstream's local frames
+        # against the gathered ones; every (B, H, Lq, Lk, Dh, dtype) held at
+        # every key split, and timed at the SP shape beside Lq = Lk = 199
+        "lq_ne_lk_checked": par["cross_checked"],
+        "lq_ne_lk_max_abs_err": par["kernel"]["max_abs_err"],
+        "lq_ne_lk_by_shape": par["kernel"]["timed"],
     }, {
         "name": "mrf_stage",
         "route": "cuda",
@@ -5951,7 +6671,7 @@ def main(argv=None) -> int:
               "card_vs_cpu": card_vs_cpu, "text_to_wav": text_to_wav,
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
               "cli": cli, "preprocess": pre, "t2u": t2u, "pr": pr, "meta": meta,
-              "precision": prec,
+              "precision": prec, "parallel": par,
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -87,11 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--pretrain_ckpt", default=None)
     t.add_argument("--resume", action="store_true")
     t.add_argument("--n_devices", type=int, default=None,
-                   help="not ported yet (ROADMAP item 12)")
+                   help="data-axis ranks: spawn n_devices x n_model ranks on this host, one "
+                        "process each, that split every batch (gloo where ranks share a card)")
     t.add_argument("--upstream_parallel", choices=["none", "pp", "sp"], default="none",
-                   help="not ported yet (ROADMAP item 12)")
+                   help="shard the frozen SSL upstream over the model axis: pp = pipeline "
+                        "stages of its layers, sp = sequence-parallel frames")
     t.add_argument("--n_model", type=int, default=None,
-                   help="not ported yet (ROADMAP item 12)")
+                   help="model-axis size (default 2 when --upstream_parallel is pp or sp)")
     t.add_argument("--debug", action="store_true",
                    help="print the model structure and cap the run to 2 steps "
                         "(reference main.py --debug)")
@@ -102,7 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="experiment key to resume a tracked experiment under "
                         "(reference --exp_key)")
     t.add_argument("--distributed", action="store_true",
-                   help="not ported yet (ROADMAP item 12)")
+                   help="join a multi-process run started from outside, one process per rank "
+                        "(FSCL_COORDINATOR / FSCL_NUM_PROCESSES / FSCL_PROCESS_ID, or "
+                        "torchrun's environment); each process reads its own batch stream; "
+                        "no-op for one process")
     _add_device(t)
 
     tu = sub.add_parser("tune", help="few-shot transfer to a new language")

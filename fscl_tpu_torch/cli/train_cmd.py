@@ -8,8 +8,20 @@ and the key's registered datamodule, which the T2U family's keys take),
 `--total_step`, `--steps_per_dispatch`, and `--use_tracker` / `--exp_key`
 (`:187-200`: an `obs/tracking.py:ExperimentTracker` under
 `<exp_dir>/experiments`, named after the system, with the run's params; the
-same key resumes it). The multi-device flags wait for item 12, and raise
-when set. The generic path keeps
+same key resumes it).
+
+Several ranks (`:30-37`, `:167-181`), one process each (`parallel/`):
+`--distributed` joins processes started from outside (the FSCL_* or
+torchrun environment, `parallel.multihost.maybe_initialize`; each reads a
+stream of its own); `--n_devices N` spawns N x n_model ranks on this host,
+which all read the one global stream and keep their rows. The mesh is
+(n_data, n_model): n_data is `--n_devices` (the world // n_model under
+`--distributed`), n_model is `--n_model`, 2 by default when
+`--upstream_parallel pp|sp` shards the frozen upstream over the model axis.
+Each rank builds the system from the seed (rank 0's trainable weights are
+then broadcast), restores on `--resume`, and runs the data-parallel step;
+rank 0 alone logs, tracks and saves. In the spawning process `run` returns
+None: the result is the checkpoint. The generic path keeps
 fscl_tpu's faults (ROADMAP Queue 3): it passes the factory no T2U config (a
 model YAML's `tacotron2:` block is not read) and no u2s (the E2E keys
 raise); the episodic PR keys take episodes of 4 + 2 (the algorithm YAML's
@@ -47,25 +59,13 @@ from fscl_tpu_torch.data.feature_store import FeatureStore
 from fscl_tpu_torch.frontend import LANG_ID2SYMBOLS, register_unit_symbols
 from fscl_tpu_torch.obs.loggers import CheckpointCallback, LossTableLogger, TensorBoardLogger
 from fscl_tpu_torch.obs.tracking import ExperimentTracker
+from fscl_tpu_torch.parallel.mesh import choose_backend, make_mesh, replicate, world
+from fscl_tpu_torch.parallel.multihost import launch, maybe_initialize, process_info
+from fscl_tpu_torch.parallel.pipeline import attach_parallel_upstream
 from fscl_tpu_torch.systems import get_system
 from fscl_tpu_torch.systems.factory import build_system
 from fscl_tpu_torch.systems.fscl import FrozenUpstream
 from fscl_tpu_torch.train.trainer import Trainer
-
-UNPORTED_FLAGS = (  # flag, its default, the ROADMAP.md Queue 1 item that ports it
-    ("n_devices", None, "item 12, parallelism"),
-    ("upstream_parallel", "none", "item 12, parallelism"),
-    ("n_model", None, "item 12, parallelism"),
-    ("distributed", False, "item 12, parallelism"),
-)
-
-
-def refuse_unported(args) -> None:
-    for name, default, item in UNPORTED_FLAGS:
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name} is not ported yet: ROADMAP.md Queue 1, {item}")
-
 
 def check_speaker_table(datasets, model_cfg: ModelConfig) -> None:
     """A speaker-table model must have a row for every speaker id the
@@ -152,10 +152,44 @@ def _generic_path(args, data_configs, model_cfg, train_cfg, algo_cfg, device):
     return system, dm.train_batches
 
 
+def mesh_shape(args):
+    """(n_data or None, n_model) of fscl_tpu's rule: n_model defaults to 2
+    once the upstream is parallel."""
+    if args.upstream_parallel == "none":
+        return args.n_devices, args.n_model or 1
+    return args.n_devices, max(args.n_model or 2, 2)
+
+
 def run(args):
-    """Returns (system, final TrainState)."""
+    """Returns (system, final TrainState); None in a process that spawned
+    the ranks (`--n_devices`)."""
     device = resolve_device(args.device)
-    refuse_unported(args)
+    n_data, n_model = mesh_shape(args)
+    if args.distributed and maybe_initialize(device_type=device.type):
+        pid, pcount = process_info()
+        print(f"[distributed] process {pid}/{pcount}, backend "
+              f"{torch.distributed.get_backend()}")
+    if world()[1] == 1 and (n_data or 1) * n_model > 1:
+        n = (n_data or 1) * n_model
+        print(f"[parallel] {n} ranks ({n_data or 1} data x {n_model} model) on this host, "
+              f"backend {choose_backend(device, n)}: nccl when every rank has a card of its "
+              f"own, else gloo")
+        launch(_rank_run, n, args, device_type=device.type)
+        return None
+    return _train(args, device, n_data, n_model)
+
+
+def _rank_run(rank: int, device: torch.device, args):
+    _train(args, device, args.n_devices, mesh_shape(args)[1])
+
+
+def _train(args, device, n_data, n_model):
+    rank, size = world()
+    if device.type == "cuda" and size > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(n_data if not args.distributed else None, n_model, device) \
+        if size > 1 else None
+    lead = rank == 0
 
     data_configs = [read_data_config(p) for p in args.data_config]
     model_cfg = (model_config_from_yaml(args.model_config)
@@ -199,6 +233,12 @@ def run(args):
         system, batches = _generic_path(args, data_configs, model_cfg, train_cfg, algo_cfg,
                                         device)
     state = system.init_state()
+    if mesh is not None:
+        # the same seed gives every rank the same weights; rank 0's are
+        # broadcast all the same (the frozen upstream, drawn on the device
+        # from the seed, is left out: it is large and never trained)
+        replicate([p for n, p in system.named_parameters() if not n.startswith("upstream.")]
+                  + list(system.buffers()), mesh)
 
     if args.debug:
         # reference --debug harness (main.py:45-49, system.py:32-36): print
@@ -220,6 +260,16 @@ def run(args):
     if args.resume and mgr.all_steps():
         state = mgr.restore_into(system, state, full=True)
 
+    if args.upstream_parallel != "none":
+        # pipeline- or sequence-parallel frozen upstream over the model axis;
+        # the step is unchanged: extract_ssl dispatches through the hook
+        attach_parallel_upstream(system, args.upstream_parallel, mesh)
+        if lead:
+            print(f"[parallel] frozen upstream {args.upstream_parallel} over "
+                  f"{mesh.size('model')} model-axis ranks")
+    if not lead:
+        Trainer(system, train_cfg, mesh=mesh).fit(state, batches())
+        return system, state
     tb = TensorBoardLogger(os.path.join(args.exp_dir, "tb"))
     callbacks = [LossTableLogger(os.path.join(args.exp_dir, "log")), tb,
                  CheckpointCallback(mgr, system)]
@@ -235,7 +285,7 @@ def run(args):
         print(f"[tracker] exp_key={tracker.exp_key} ({tracker.dir})")
         callbacks.append(tracker)
     try:
-        state = Trainer(system, train_cfg, callbacks=callbacks).fit(state, batches())
+        state = Trainer(system, train_cfg, callbacks=callbacks, mesh=mesh).fit(state, batches())
     finally:
         tb.close()
         if tracker is not None:

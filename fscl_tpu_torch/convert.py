@@ -646,3 +646,31 @@ def pr_variables(sd: Mapping[str, torch.Tensor]) -> dict:
     upstream is left out)."""
     sd = {k: v for k, v in sd.items() if not k.startswith("upstream.")}
     return variables_from(pr_entries(sd.keys()), sd)
+
+
+def tp_shard_state_dict(sd: Mapping[str, torch.Tensor], n_model: int, index: int,
+                        spec_fn=None) -> Dict[str, torch.Tensor]:
+    """Model rank `index` of `n_model`'s tensor-parallel shard of a converted
+    state dict, cut by `spec_fn` (`parallel.tensor_parallel.
+    fastspeech2_param_spec` by default; `frozen_spec` or `upstream_param_spec`
+    for an upstream's keys): what `tensor_parallel.shard_state` leaves a rank
+    of a system loaded with `sd`."""
+    from fscl_tpu_torch.parallel.tensor_parallel import fastspeech2_param_spec, shard_tensor
+    spec_fn = spec_fn or fastspeech2_param_spec
+    return {k: shard_tensor(v, spec_fn(k, v), n_model, index) for k, v in sd.items()}
+
+
+def stage_state_dict(sd: Mapping[str, torch.Tensor], n_layers: int, n_stages: int,
+                     stage: int, prefix: str = "encoder.layers.") -> Dict[str, torch.Tensor]:
+    """Pipeline stage `stage` of `n_stages`'s part of an upstream's state
+    dict (HF keys, `hubert_state_dict`): its n_layers / n_stages contiguous
+    layers and the pre-transformer weights every stage runs; the other
+    stages' layers are left out."""
+    per = n_layers // n_stages
+    keep = range(stage * per, (stage + 1) * per)
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(prefix) and int(k[len(prefix):].split(".")[0]) not in keep:
+            continue
+        out[k] = v
+    return out

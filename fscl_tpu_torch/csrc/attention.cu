@@ -1,14 +1,17 @@
-// Masked self-attention forward for Hopper (sm_90a), on the tensor cores.
+// Masked attention forward for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel fscl_tpu/ops/attention.py:_attn_kernel (launched by
-// pallas_attention). Per (batch, head): scores = Q K^T / temperature in f32,
+// pallas_attention). Per (batch, head), Lq query rows against Lk keys (self-
+// attention has Lq == Lk; the sequence-parallel upstream attends a rank's
+// T / S query frames to all T gathered keys, the shape the JAX package sends
+// to XLA): scores = Q K^T / temperature in f32,
 // keys with key_valid == 0 filled with the finite -1e9 (so a row with no
 // valid key gets uniform weights, the mean of V, never NaN), a row softmax,
 // then weights . V accumulated in f32, cast to the input type on store.
 //
-// What bounds it on the card: 4 * L^2 * Dh operations per (batch, head)
-// against 4 * L * Dh elements moved, so at the lengths this model serves
-// (L >= 128) operations bound it, by route:
+// What bounds it on the card: 4 * Lq * Lk * Dh operations per (batch, head)
+// against (2 Lq + 2 Lk) * Dh elements moved, so at the lengths this model
+// serves (L >= 128) operations bound it, by route:
 // - bf16: bf16 x bf16 -> f32 products on the tensor cores (989 TFLOP/s).
 //   The unnormalised weights P are rounded to bf16 to be the A operand of
 //   P V, as xla_attention (fscl_tpu/ops/attention.py:40) rounds its weights
@@ -25,7 +28,7 @@
 //   is taken as small*big + big*small + big*big on the TF32 tensor cores,
 //   accumulated in f32; the dropped small*small term is below 2^-22
 //   relative. Three TF32 products per f32 product bound it at
-//   3 * 4 * L^2 * Dh over 495 TFLOP/s, 2.5x below the f32 FMA units.
+//   3 * 4 * Lq * Lk * Dh over 495 TFLOP/s, 2.5x below the f32 FMA units.
 //
 // What the design does (the FlashAttention-2 layout, on mma.sync):
 // - A block of warps owns a tile of query rows; each warp owns 16 of them and
@@ -54,16 +57,16 @@
 //   it stands.
 // - bf16: 4 warps (64 query rows), two blocks per SM; ldmatrix for K,
 //   ldmatrix.trans for V, and the standard accumulator-to-A repacking.
-// - Grid: one block per (query tile, batch * head). Where full query tiles
-//   give too few blocks for the card (short L), the block's warps also split
+// - Grid: one block per (query tile of Lq, batch * head). Where full query
+//   tiles give too few blocks for the card (short Lq), the block's warps also split
 //   the key loop (key_split 2 or 4: each warp a slice of every key tile, the
 //   block 1/2 or 1/4 as many query rows) and merge their softmax states
 //   through shared memory at the end.
 //
-// Keys past L (the ragged edge of the last tile) get weight 0: score -inf and
-// zero-filled K and V rows. Keys inside L that are masked take the -1e9 fill,
+// Keys past Lk (the ragged edge of the last tile) get weight 0: score -inf and
+// zero-filled K and V rows. Keys inside Lk that are masked take the -1e9 fill,
 // exactly as the reference does. Scores are held in log2 units (scaled by
-// log2(e) / temperature) for exp2. Query rows past L are computed on zeros and
+// log2(e) / temperature) for exp2. Query rows past Lq are computed on zeros and
 // not stored.
 
 #include <cuda_runtime.h>
@@ -75,7 +78,7 @@
 namespace {
 
 constexpr int STAGES = 3;            // K/V ring depth
-constexpr int MAX_LEN = 16384;       // the key_valid bytes of one sample
+constexpr int MAX_LEN = 16384;       // the key_valid bytes of one sample; Lq and Lk each
 constexpr int MAX_SMEM = 227 * 1024; // sm_90's dynamic shared memory per block
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASK_FILL_LOG2 = -1e9f * LOG2E;
@@ -212,12 +215,12 @@ template <typename T, int DH> struct QFrag;
 template <int DH>
 struct QFrag<float, DH> {
   float a[DH / 16][4], b[DH / 16][4];
-  __device__ __forceinline__ void load(const float* q, int row, int L, int g, int t) {
+  __device__ __forceinline__ void load(const float* q, int row, int Lq, int g, int t) {
 #pragma unroll
     for (int j = 0; j < DH / 16; ++j) {
-      const float4 x = row + g < L ? *reinterpret_cast<const float4*>(q + (size_t)(row + g) * DH + 16 * j + 4 * t)
+      const float4 x = row + g < Lq ? *reinterpret_cast<const float4*>(q + (size_t)(row + g) * DH + 16 * j + 4 * t)
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 y = row + g + 8 < L
+      const float4 y = row + g + 8 < Lq
           ? *reinterpret_cast<const float4*>(q + (size_t)(row + g + 8) * DH + 16 * j + 4 * t)
           : make_float4(0.f, 0.f, 0.f, 0.f);
       a[j][0] = x.x; a[j][1] = x.y; a[j][2] = x.z; a[j][3] = x.w;
@@ -229,10 +232,10 @@ struct QFrag<float, DH> {
 template <int DH>
 struct QFrag<__nv_bfloat16, DH> {
   uint32_t a[DH / 16][4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* q, int row, int L, int g, int t) {
+  __device__ __forceinline__ void load(const __nv_bfloat16* q, int row, int Lq, int g, int t) {
     const uint32_t* r0 = reinterpret_cast<const uint32_t*>(q + (size_t)(row + g) * DH);
     const uint32_t* r1 = reinterpret_cast<const uint32_t*>(q + (size_t)(row + g + 8) * DH);
-    const bool ok0 = row + g < L, ok1 = row + g + 8 < L;
+    const bool ok0 = row + g < Lq, ok1 = row + g + 8 < Lq;
 #pragma unroll
     for (int ks = 0; ks < DH / 16; ++ks) {
       a[ks][0] = ok0 ? r0[8 * ks + t] : 0u;
@@ -254,13 +257,13 @@ __device__ __forceinline__ void copy_slot(int u, int& r, int& c) {
 // Start the copies of key tile `tile` into the stage at `st`. f32 V lands at
 // 2c in its pair row, where its (big, small) pairs will go.
 template <class C, typename T>
-__device__ __forceinline__ void load_stage(T* st, const T* kb, const T* vb, int tile, int L) {
+__device__ __forceinline__ void load_stage(T* st, const T* kb, const T* vb, int tile, int Lk) {
   const int n0 = tile * C::STAGE_KEYS;
 #pragma unroll
   for (int u = 0; u < C::COPIES; ++u) {
     int r, c;
     copy_slot<C>(u, r, c);
-    const bool in = n0 + r < L;
+    const bool in = n0 + r < Lk;
     const size_t off = in ? (size_t)(n0 + r) * C::HEAD_DIM + c : 0;
     cp_async16(st + r * C::LDK + c, kb + off, in);
     cp_async16(st + C::V_OFFSET + r * C::LDV + (C::F32 ? 2 * c : c), vb + off, in);
@@ -394,7 +397,7 @@ template <typename T, int DH, int SPLIT>
 __global__ void __launch_bounds__(Cfg<T, DH, SPLIT>::THREADS, Cfg<T, DH, SPLIT>::MIN_BLOCKS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const uint8_t* __restrict__ key_valid, T* __restrict__ out,
-                     int H, int L, float scale_log2) {
+                     int H, int Lq, int Lk, float scale_log2) {
   using C = Cfg<T, DH, SPLIT>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
@@ -403,22 +406,23 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / SPLIT, wn = warp % SPLIT;
   const int g = lane / 4, t = lane % 4;
-  const size_t base = (size_t)blockIdx.y * L * DH;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const size_t q_base = (size_t)blockIdx.y * Lq * DH;
+  const size_t kv_base = (size_t)blockIdx.y * Lk * DH;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
   const int row0 = blockIdx.x * C::BLOCK_M + 16 * wm;     // this warp's first query row
-  const int n_tiles = (L + C::STAGE_KEYS - 1) / C::STAGE_KEYS;
+  const int n_tiles = (Lk + C::STAGE_KEYS - 1) / C::STAGE_KEYS;
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_tiles) load_stage<C>(ring + st * C::STAGE_ELEMS, kb, vb, st, L);
+    if (st < n_tiles) load_stage<C>(ring + st * C::STAGE_ELEMS, kb, vb, st, Lk);
     cp_async_commit();
   }
-  const uint8_t* kv = key_valid + (size_t)(blockIdx.y / H) * L;
-  for (int i = threadIdx.x; i < L; i += C::THREADS) valid_s[i] = kv[i];
+  const uint8_t* kv = key_valid + (size_t)(blockIdx.y / H) * Lk;
+  for (int i = threadIdx.x; i < Lk; i += C::THREADS) valid_s[i] = kv[i];
 
   QFrag<T, DH> qf;
-  qf.load(q + base, row0, L, g, t);
+  qf.load(q + q_base, row0, Lq, g, t);
 
   float o[DH / 8][4];
 #pragma unroll
@@ -434,11 +438,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();               // everyone's, split; and everyone is done with tile it - 1
     {
       const int next = it + STAGES - 1;   // refill the stage tile it - 1 used
-      if (next < n_tiles) load_stage<C>(ring + (next % STAGES) * C::STAGE_ELEMS, kb, vb, next, L);
+      if (next < n_tiles) load_stage<C>(ring + (next % STAGES) * C::STAGE_ELEMS, kb, vb, next, Lk);
       cp_async_commit();
     }
     const int key0 = it * C::STAGE_KEYS + wn * C::BN;   // first key of this warp's slice
-    if (key0 >= L) continue;                            // the whole slice lies past L
+    if (key0 >= Lk) continue;                           // the whole slice lies past Lk
 
     float s[C::BN / 8][4];
 #pragma unroll
@@ -454,7 +458,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int key = key0 + 8 * nt + 2 * t + c;
-        const bool in = key < L;
+        const bool in = key < Lk;
         const bool ok = in && valid_s[key] != 0;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -463,7 +467,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
           mx[r] = fmaxf(mx[r], x);
         }
       }
-    // online softmax; key0 < L is in the slice, so each row max is finite
+    // online softmax; key0 < Lk is in the slice, so each row max is finite
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -517,7 +521,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         // m_run[r] is finite (warp 0's slice of tile 0 holds key 0); a warp
-        // whose slices all lay past L left m = -inf, l = 0, o = 0
+        // whose slices all lay past Lk left m = -inf, l = 0, o = 0
         const float m_w = src[(DH / 2 + r) * 32];
         const float m_new = fmaxf(m_run[r], m_w);
         a_own[r] = exp2f(m_run[r] - m_new);
@@ -539,8 +543,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
-    if (row >= L) continue;
-    T* dst = out + base + (size_t)row * DH + 2 * t;
+    if (row >= Lq) continue;
+    T* dst = out + q_base + (size_t)row * DH + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < DH / 8; ++dn)
       store2(dst + 8 * dn, o[dn][2 * r] * inv[r], o[dn][2 * r + 1] * inv[r]);
@@ -549,11 +553,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 template <typename T, int DH, int SPLIT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid, void* out,
-                   int B, int H, int L, float scale_log2, cudaStream_t stream) {
+                   int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t stream) {
   using C = Cfg<T, DH, SPLIT>;
   auto kernel = attention_fwd_kernel<T, DH, SPLIT>;
   // The shared-memory allowance (above the 48 KB default) is set once per
-  // instance and device, for the longest L.
+  // instance and device, for the longest Lk.
   constexpr int MAX_DEVICES = 64;
   static bool allowed[MAX_DEVICES] = {};
   int dev = 0;
@@ -565,48 +569,50 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) allowed[dev] = true;
   }
-  const size_t smem = C::RING_BYTES + ((L + 15) & ~15);
-  const dim3 grid((L + C::BLOCK_M - 1) / C::BLOCK_M, B * H);
+  const size_t smem = C::RING_BYTES + ((Lk + 15) & ~15);
+  const dim3 grid((Lq + C::BLOCK_M - 1) / C::BLOCK_M, B * H);
   kernel<<<grid, C::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), H, L, scale_log2);
+      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), H, Lq, Lk, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const void* key_valid,
-                         void* out, int B, int H, int L, float scale_log2, int key_split,
-                         cudaStream_t stream) {
+                         void* out, int B, int H, int Lq, int Lk, float scale_log2,
+                         int key_split, cudaStream_t stream) {
   switch (key_split) {
-    case 1: return launch<T, DH, 1>(q, k, v, key_valid, out, B, H, L, scale_log2, stream);
-    case 2: return launch<T, DH, 2>(q, k, v, key_valid, out, B, H, L, scale_log2, stream);
-    case 4: return launch<T, DH, 4>(q, k, v, key_valid, out, B, H, L, scale_log2, stream);
+    case 1: return launch<T, DH, 1>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, stream);
+    case 2: return launch<T, DH, 2>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, stream);
+    case 4: return launch<T, DH, 4>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous (B, H, L, Dh); key_valid: contiguous (B, L) bytes.
+// q, out: contiguous (B, H, Lq, Dh); k, v: contiguous (B, H, Lk, Dh);
+// key_valid: contiguous (B, Lk) bytes.
 // dtype: 0 = float32, 1 = bfloat16. key_split: warps of a block that share
 // the key loop (1, 2 or 4); a block owns 128 (f32) or 64 (bf16) query rows
 // divided by key_split. Returns a cudaError_t (0 on success).
 extern "C" int fscl_attention_fwd(const void* q, const void* k, const void* v,
-                                  const void* key_valid, void* out, int B, int H, int L,
-                                  int Dh, int dtype, float temperature, int key_split,
+                                  const void* key_valid, void* out, int B, int H, int Lq,
+                                  int Lk, int Dh, int dtype, float temperature, int key_split,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L < 1 || L > MAX_LEN || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (Lq < 1 || Lq > MAX_LEN || Lk < 1 || Lk > MAX_LEN || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / (double)temperature);
   if (dtype == 0 && Dh == 128)
-    return (int)launch_split<float, 128>(q, k, v, key_valid, out, B, H, L, scale_log2, key_split, s);
+    return (int)launch_split<float, 128>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, key_split, s);
   if (dtype == 0 && Dh == 64)
-    return (int)launch_split<float, 64>(q, k, v, key_valid, out, B, H, L, scale_log2, key_split, s);
+    return (int)launch_split<float, 64>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, key_split, s);
   if (dtype == 1 && Dh == 128)
-    return (int)launch_split<__nv_bfloat16, 128>(q, k, v, key_valid, out, B, H, L, scale_log2,
-                                                 key_split, s);
+    return (int)launch_split<__nv_bfloat16, 128>(q, k, v, key_valid, out, B, H, Lq, Lk,
+                                                 scale_log2, key_split, s);
   if (dtype == 1 && Dh == 64)
-    return (int)launch_split<__nv_bfloat16, 64>(q, k, v, key_valid, out, B, H, L, scale_log2,
-                                                key_split, s);
+    return (int)launch_split<__nv_bfloat16, 64>(q, k, v, key_valid, out, B, H, Lq, Lk,
+                                                scale_log2, key_split, s);
   return (int)cudaErrorInvalidValue;
 }

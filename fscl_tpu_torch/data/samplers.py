@@ -2,9 +2,9 @@
 
 Re-provides lightning/sampler.py:7-86's GroupBatchSampler: shuffle within
 length-sorted groups to minimize padding waste, which serves the static-shape
-bucketing. One process feeds one card, so `maybe_distribute` is the
-identity; the per-process split over `torch.distributed` waits for the
-parallel layer (ROADMAP Queue 1, item 12).
+bucketing. `maybe_distribute` splits a sampler's batches over the
+processes that read streams of their own (`--distributed`), as fscl_tpu
+splits them over its hosts.
 """
 from __future__ import annotations
 
@@ -47,6 +47,34 @@ class GroupBatchSampler:
 
 
 def maybe_distribute(sampler):
-    """The sampler unchanged: one process, one card (fscl_tpu shards it
-    over `jax.process_count()` hosts when there are several)."""
+    """Shard a batch sampler over the processes when each reads a stream of
+    its own (`parallel.multihost.maybe_initialize`; split over the mesh's
+    data axis once there is a mesh); the sampler unchanged otherwise: one
+    process, or ranks that all read the one global stream (`--n_devices`).
+    Datamodules route every train sampler through this (the reference's DDP
+    per-process split, lightning/sampler.py:50-86)."""
+    from fscl_tpu_torch.parallel.multihost import stream_shard
+    shard = stream_shard()
+    if shard is not None and shard[0] > 1:
+        return DistributedBatchSampler(sampler, *shard)
     return sampler
+
+
+class DistributedBatchSampler:
+    """Shard a batch sampler over processes (lightning/sampler.py:50-86):
+    process `rank` takes every num_replicas-th batch, a disjoint stream."""
+
+    def __init__(self, sampler, num_replicas: int, rank: int):
+        if not 0 <= rank < num_replicas:
+            raise ValueError(f"rank {rank} outside 0..{num_replicas - 1}")
+        self.sampler = sampler
+        self.num_replicas = num_replicas
+        self.rank = rank
+
+    def __iter__(self):
+        for i, batch in enumerate(self.sampler):
+            if i % self.num_replicas == self.rank:
+                yield batch
+
+    def __len__(self):
+        return len(self.sampler) // self.num_replicas

@@ -28,6 +28,7 @@ from fscl_tpu_torch.nn.fft_block import Decoder, Encoder, PostNet
 from fscl_tpu_torch.nn.speaker_encoder import LanguageEncoder, SpeakerEncoder
 from fscl_tpu_torch.nn.variance_adaptor import VarianceAdaptor, round_durations
 from fscl_tpu_torch.ops.masking import length_mask
+from fscl_tpu_torch.ops.global_reduce import global_mean
 
 
 class FastSpeech2Output(NamedTuple):
@@ -83,7 +84,7 @@ class FastSpeech2(nn.Module):
         if cfg.multi_speaker and speaker_args is not None:
             spk_emb = self.speaker_emb(speaker_args)
             if average_spk_emb:
-                spk_emb = spk_emb.mean(dim=0, keepdim=True).expand_as(spk_emb)
+                spk_emb = global_mean(spk_emb, dim=0, keepdim=True).expand_as(spk_emb)
             x = x + spk_emb[:, None, :]
         if cfg.multi_lingual and cfg.use_lang_id and lang_args is not None:
             x = x + self.language_emb(lang_args)[:, None, :]

@@ -208,24 +208,35 @@ class SSLUpstream(nn.Module):
         (hidden (B, T', n_layers + 1, dim), frame_valid (B, T') bool). A
         frame is valid below floor(valid samples / 320), clipped to T' (the
         JAX package's count, not HF's conv-length formula)."""
-        feats = self.feature_extractor(wav)
-        Tp = feats.shape[1]
-        if wav_valid is not None:
-            n_valid = wav_valid.sum(dim=-1)
-            frame_len = torch.floor(n_valid.float() / float(SAMPLES_PER_FRAME)).long()
-            frame_valid = length_mask(frame_len.clamp(0, Tp), Tp)
-        else:
-            frame_valid = torch.ones(feats.shape[:2], dtype=torch.bool, device=feats.device)
-        x = self.feature_projection(feats)
-        x = torch.where(frame_valid[..., None], x, 0.0)
-        x = x + self.encoder.pos_conv_embed(x)
-        if not self.layer_norm_first:
-            x = self.encoder.layer_norm(x)
+        x, frame_valid = pre_transformer_features(self, wav, wav_valid)
         hiddens = [x]
         for layer in self.encoder.layers:
             x = layer(x, frame_valid)
             hiddens.append(x)
         return torch.stack(hiddens, dim=2), frame_valid
+
+
+def pre_transformer_features(upstream: SSLUpstream, wav: torch.Tensor,
+                             wav_valid: Optional[torch.Tensor]):
+    """Everything before the layer stack: the conv extractor, the projection
+    (invalid frames zeroed), the positional conv and, post-LN, the encoder's
+    LayerNorm (`fscl_tpu/models/hubert.py:pre_transformer_features`). Returns
+    (x (B, T', dim), frame_valid (B, T')): the first hidden state, which the
+    pipeline- and sequence-parallel schedules run the layers on."""
+    feats = upstream.feature_extractor(wav)
+    Tp = feats.shape[1]
+    if wav_valid is not None:
+        n_valid = wav_valid.sum(dim=-1)
+        frame_len = torch.floor(n_valid.float() / float(SAMPLES_PER_FRAME)).long()
+        frame_valid = length_mask(frame_len.clamp(0, Tp), Tp)
+    else:
+        frame_valid = torch.ones(feats.shape[:2], dtype=torch.bool, device=feats.device)
+    x = upstream.feature_projection(feats)
+    x = torch.where(frame_valid[..., None], x, 0.0)
+    x = x + upstream.encoder.pos_conv_embed(x)
+    if not upstream.layer_norm_first:
+        x = upstream.encoder.layer_norm(x)
+    return x, frame_valid
 
 
 def make_upstream(name: str = "hubert_large_ll60k", cfg=None) -> SSLUpstream:

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from fscl_tpu_torch.ops.global_reduce import global_mean
+
 
 class MatchingCodebook(nn.Module):
     """ref (B, L, n_layers, d_in) -> attention map (B, num_heads, L, size)
@@ -54,4 +56,4 @@ class ASRCenterHead(nn.Module):
         logits = -(d * d).sum(dim=-1)
         if targets is None:
             return logits, None
-        return logits, ((x - centers[targets.long()]) ** 2).sum(dim=-1).mean()
+        return logits, global_mean(((x - centers[targets.long()]) ** 2).sum(dim=-1))

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from fscl_tpu_torch.ops.attention import attend
 from fscl_tpu_torch.ops.masking import mask_fill
+from fscl_tpu_torch.ops.global_reduce import data_parallel_active, global_sum
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -262,7 +263,11 @@ class BatchNorm(nn.BatchNorm1d):
     1 / (B T - 1), 3 % at a few dozen frames). `num_batches_tracked` is
     not advanced: flax keeps no such count. An input of another dtype than
     the parameters' (a bf16 conv's output) is normalised in theirs, as
-    flax's BatchNorm (`dtype=None`) promotes it."""
+    flax's BatchNorm (`dtype=None`) promotes it. Under
+    `parallel.mesh.data_parallel` the statistics are the global batch's (two
+    differentiable sums over the data axis: the mean, then the squared
+    deviations from it), as in fscl_tpu's sharded step; one implementation
+    for the CPU and the card, where `nn.SyncBatchNorm` takes CUDA only."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=0.1)
@@ -271,7 +276,12 @@ class BatchNorm(nn.BatchNorm1d):
         x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
-        var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
+        if data_parallel_active():
+            n = global_sum(torch.tensor(float(x.shape[0] * x.shape[2]), device=x.device))
+            mean = global_sum(x.sum(dim=(0, 2))) / n
+            var = global_sum(((x - mean[:, None]) ** 2).sum(dim=(0, 2))) / n
+        else:
+            var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)

@@ -4,7 +4,8 @@ Masked means over valid positions, as the reference's masked_select(...)
 .mean() reductions (lightning/model/loss.py); `masked_mean` counts at least
 one position. `framewise_ce_loss` and `framewise_accuracy` (`:66-80`) are
 the T2U family's: cross-entropy and accuracy over the frames whose target
-is not PAD.
+is not PAD. Under `parallel.mesh.data_parallel` every mean is over the
+global batch (`global_sum` of the sums and the counts).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from fscl_tpu_torch.ops.masking import masked_mean
+from fscl_tpu_torch.ops.global_reduce import global_sum
 
 
 class FastSpeech2LossOutput(NamedTuple):
@@ -70,10 +72,10 @@ def framewise_ce_loss(logits, targets, ignore_index: int = 0):
     valid = targets != ignore_index
     ce = -torch.log_softmax(logits.float(), dim=-1).gather(
         -1, targets.clamp(min=0).long()[..., None])[..., 0]
-    return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp(min=1)
+    return global_sum(torch.where(valid, ce, 0.0).sum()) / global_sum(valid.sum()).clamp(min=1)
 
 
 def framewise_accuracy(logits, targets, ignore_index: int = 0):
     valid = targets != ignore_index
     correct = (logits.argmax(dim=-1) == targets) & valid
-    return correct.sum() / valid.sum().clamp(min=1)
+    return global_sum(correct.sum()) / global_sum(valid.sum()).clamp(min=1)

@@ -1,4 +1,4 @@
-"""Masked self-attention (port of `fscl_tpu/ops/attention.py`).
+"""Masked attention (port of `fscl_tpu/ops/attention.py`).
 
 `attention_cuda` launches the Hopper kernel of `csrc/attention.cu`, which
 replaces the TPU kernel `_attn_kernel` (`fscl_tpu/ops/attention.py:48-66`).
@@ -14,7 +14,10 @@ put the plain version 3.9e-3 from `xla_attention` at (4, 2, 64, 32); rounded,
 2.4e-4.
 
 The kernel has instances for head dims 64 and 128; the wrapper zero-pads
-other head dims up to 128 to the next one (`_launch`).
+other head dims up to 128 to the next one (`_launch`). It takes Lq query rows
+against Lk keys: self-attention has Lq == Lk; the sequence-parallel upstream
+(`parallel/sequence_parallel.py`) attends a rank's T / S frames to all T
+gathered keys, a shape the JAX package sends to XLA (`attend`, `:160`).
 
 `attend` takes the plain version only for CPU tensors. For CUDA tensors it
 launches the kernel or raises: there is no fallback. The one exception is
@@ -76,7 +79,7 @@ def _load():
     built = cuda_lib.build("attention")
     fn = built.lib.fscl_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -88,7 +91,9 @@ def choose_key_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype) ->
     it owns 1/s of them, and each warp takes a slice of every key tile. The
     smallest s whose grid has a block for every two SMs, else 4: on an H100
     that was the fastest split, or within 15 % of it, at B * H = 16 and
-    L = 64 ... 1000 in both types (chip_smoke.py phase 3)."""
+    L = 64 ... 1000 in both types (chip_smoke.py phase 3). L is the query
+    length, which sets the grid; the key length only sets how many key
+    tiles each warp's slice runs through, so it does not enter."""
     rows = QUERY_ROWS[dtype]
     for split in KEY_SPLITS:
         if 2 * -(-L // (rows // split)) * batch_heads >= n_sm:
@@ -108,10 +113,11 @@ def attention_cuda(
     key_valid: torch.Tensor,
     temperature: Optional[float] = None,
 ) -> torch.Tensor:
-    """Launch the Hopper kernel. q, k, v: contiguous (B, H, L, Dh) CUDA
-    tensors of one dtype (float32 or bfloat16), Dh <= 128 (the kernel's
-    instances take 64 and 128; other head dims are padded, see `_launch`),
-    1 <= L <= MAX_LEN; key_valid: contiguous (B, L) bool on the same device."""
+    """Launch the Hopper kernel. q: contiguous (B, H, Lq, Dh), k and v:
+    contiguous (B, H, Lk, Dh) CUDA tensors of one dtype (float32 or
+    bfloat16), Dh <= 128 (the kernel's instances take 64 and 128; other head
+    dims are padded, see `_launch`), 1 <= Lq, Lk <= MAX_LEN; key_valid:
+    contiguous (B, Lk) bool on the same device."""
     return _launch(q, k, v, key_valid, temperature, None)
 
 
@@ -153,12 +159,14 @@ def _launch_kernel(
     """One launch of the kernel at a head dim it has an instance for."""
     global LAUNCHES
     if q.dim() != 4:
-        raise ValueError(f"q must be (B, H, L, Dh), got {tuple(q.shape)}")
-    B, H, L, Dh = q.shape
+        raise ValueError(f"q must be (B, H, Lq, Dh), got {tuple(q.shape)}")
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2] if k.dim() == 4 else -1
     for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, q has "
-                             f"{tuple(q.shape)}; the kernel takes Lq == Lk")
+        if t.shape != k.shape or (t.shape[:2], t.shape[3:]) != (q.shape[:2], q.shape[3:]):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q has {tuple(q.shape)}: "
+                             f"k and v must be one (B, H, Lk, Dh), q and k must agree on "
+                             f"(B, H, Dh)")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q's dtype and device")
     if q.dtype not in _DTYPE_CODES:
@@ -166,13 +174,14 @@ def _launch_kernel(
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not supported: the kernel takes {HEAD_DIMS} "
                          f"and pads smaller head dims")
-    if not 1 <= L <= MAX_LEN:
-        raise ValueError(f"length {L} outside 1..{MAX_LEN}")
+    for L in (Lq, Lk):
+        if not 1 <= L <= MAX_LEN:
+            raise ValueError(f"length {L} outside 1..{MAX_LEN}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid limit 65535")
-    if key_valid.shape != (B, L) or key_valid.dtype != torch.bool \
+    if key_valid.shape != (B, Lk) or key_valid.dtype != torch.bool \
             or key_valid.device != q.device:
-        raise ValueError("key_valid must be a (B, L) bool tensor on q's device")
+        raise ValueError("key_valid must be a (B, Lk) bool tensor on q's device")
     for name, t in (("q", q), ("k", k), ("v", v), ("key_valid", key_valid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -185,13 +194,13 @@ def _launch_kernel(
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
     temp = float(temperature if temperature is not None else Dh ** 0.5)
     if key_split is None:
-        key_split = choose_key_split(B * H, L, _sm_count(q.device.index), q.dtype)
+        key_split = choose_key_split(B * H, Lq, _sm_count(q.device.index), q.dtype)
 
     fn = _load()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-             out.data_ptr(), B, H, L, Dh, _DTYPE_CODES[q.dtype], temp, key_split, stream)
+             out.data_ptr(), B, H, Lq, Lk, Dh, _DTYPE_CODES[q.dtype], temp, key_split, stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -199,12 +208,12 @@ def _launch_kernel(
 
 
 def attention_bwd(
-    q: torch.Tensor,                       # (B, H, L, Dh)
-    k: torch.Tensor,
+    q: torch.Tensor,                       # (B, H, Lq, Dh)
+    k: torch.Tensor,                       # (B, H, Lk, Dh)
     v: torch.Tensor,
-    key_valid: torch.Tensor,               # (B, L) bool, True = valid
+    key_valid: torch.Tensor,               # (B, Lk) bool, True = valid
     temperature: Optional[float],
-    g: torch.Tensor,                       # (B, H, L, Dh), d loss / d out
+    g: torch.Tensor,                       # (B, H, Lq, Dh), d loss / d out
 ):
     """(dq, dk, dv) of the kernel's attention at (q, k, v), by recomputing
     the weights with its math (scores in f32, finite -1e9 fill at invalid
@@ -215,13 +224,15 @@ def attention_bwd(
     over B * H, whose transposed operands cuBLAS reads in place. Each
     gradient is cast to its input's dtype.
 
-    With grad mode off (a first-order backward) the (L, L) temporaries are
+    With grad mode off (a first-order backward) the (Lq, Lk) temporaries are
     updated in place. With it on (a double backward, `torch.func`) every step
     is out of place, so that autograd can differentiate the backward itself,
     as JAX differentiates `jax.vjp(xla_attention)` again."""
-    B, H, L, Dh = q.shape
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
     temp = temperature if temperature is not None else Dh ** 0.5
-    qf, kf, vf, gf = (t.reshape(B * H, L, Dh).float() for t in (q, k, v, g))
+    qf, gf = (t.reshape(B * H, Lq, Dh).float() for t in (q, g))
+    kf, vf = (t.reshape(B * H, Lk, Dh).float() for t in (k, v))
     invalid = (~key_valid).repeat_interleave(H, dim=0)[:, None, :]
     dw = torch.bmm(gf, vf.transpose(1, 2))
     if torch.is_grad_enabled():
@@ -237,7 +248,7 @@ def attention_bwd(
     dv = torch.bmm(weights.transpose(1, 2), gf)
     dq = torch.bmm(ds, kf)
     dk = torch.bmm(ds.transpose(1, 2), qf)
-    return tuple(d.view(B, H, L, Dh).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
+    return tuple(d.view(t.shape).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
 
 
 class AttentionFunction(torch.autograd.Function):
@@ -264,7 +275,8 @@ class AttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, key_valid, temperature):
-        """Fold the vmapped dim into B: (N, B, H, L, Dh) -> (N * B, H, L, Dh),
+        """Fold the vmapped dim into B: (N, B, H, L, Dh) -> (N * B, H, L, Dh)
+        (Lq for q, Lk for k and v),
         one launch for all N. An input without the vmapped dim (key_valid
         when only q, k and v are vmapped) is expanded to it."""
         n = info.batch_size
@@ -286,7 +298,8 @@ def attend(
     temperature: Optional[float] = None,
     return_weights: bool = False,
 ):
-    """Self-attention dispatch. Shapes (B, H, L, Dh)."""
+    """Attention dispatch. Shapes q (B, H, Lq, Dh), k and v (B, H, Lk, Dh),
+    key_valid (B, Lk)."""
     if q.device.type == "cpu" or return_weights:
         return attention_reference(q, k, v, key_valid, temperature, return_weights)
     if key_valid is None:

@@ -1,10 +1,15 @@
 """Length-mask utilities (port of `fscl_tpu/ops/masking.py:13-43`).
 
 Convention: `True` = VALID position, as in the JAX package.
+
+Under `parallel.mesh.data_parallel` the sums and counts of `masked_mean` are
+those of the global batch (`global_sum`), as in fscl_tpu's sharded step.
 """
 from __future__ import annotations
 
 import torch
+
+from fscl_tpu_torch.ops.global_reduce import global_sum
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -29,6 +34,6 @@ def mask_fill(x: torch.Tensor, valid: torch.Tensor, fill: float = 0.0) -> torch.
 def masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Mean of x over valid positions (at least one position in the count)."""
     valid = _expand_to(valid, x).expand(x.shape)
-    total = torch.where(valid, x, 0.0).sum()
-    count = valid.sum().clamp(min=1)
+    total = global_sum(torch.where(valid, x, 0.0).sum())
+    count = global_sum(valid.sum()).clamp(min=1)
     return total / count

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from fscl_tpu_torch.ops.bucketize import searchsorted_right
+from fscl_tpu_torch.ops.global_reduce import global_sum
 
 
 def _frame_segments(durations: torch.Tensor, T: int):
@@ -103,7 +104,8 @@ def phoneme_query_extract(
     """Two-stage phoneme query extraction ("average" mode): per-segment
     mean, then per-symbol mean over the batch's segments. Output
     (1, n_symbols, n_layers, D)."""
-    return queries_from_sums(*phoneme_query_sums(reprs, durations, phonemes, n_symbols))
+    sums, counts = phoneme_query_sums(reprs, durations, phonemes, n_symbols)
+    return queries_from_sums(global_sum(sums), global_sum(counts))
 
 
 def frame_phoneme_query_extract(
@@ -122,4 +124,4 @@ def frame_phoneme_query_extract(
     flat = reprs.reshape((B * T,) + reprs.shape[2:])
     sums = _scatter_sum(flat, ids, n_symbols + 1)[:n_symbols]
     counts = _scatter_sum(in_range.float().reshape(-1), ids, n_symbols + 1)[:n_symbols]
-    return queries_from_sums(sums, counts)
+    return queries_from_sums(global_sum(sums), global_sum(counts))

@@ -96,16 +96,22 @@ class System(nn.Module):
             raise RuntimeError("call init_state first")
         return self._optimizer
 
-    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One step in train mode (the module goes back to eval mode after
-        it): forward, backward, and the optimizer's update when one is due
-        (every grad_acc_step steps)."""
+    def grads_and_metrics(self, batch) -> Tuple[tuple, Dict[str, torch.Tensor]]:
+        """Forward and backward in train mode (the module goes back to eval
+        mode after it): the gradients of the optimizer's parameters (None
+        where the loss does not reach one) and the metrics."""
         self.train()
         try:
             loss, metrics = self.loss_and_metrics(batch)
             grads = torch.autograd.grad(loss, self.optimizer.params, allow_unused=True)
         finally:
             self.eval()
+        return grads, metrics
+
+    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step: `grads_and_metrics`, and the optimizer's update when
+        one is due (every grad_acc_step steps)."""
+        grads, metrics = self.grads_and_metrics(batch)
         self.optimizer.update(state.opt_state, grads)
         state.step += 1
         return state, metrics

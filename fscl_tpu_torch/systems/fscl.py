@@ -57,7 +57,14 @@ class FrozenUpstream:
     """The frozen SSL upstream of an FSCL system (`System` subclasses with
     `device` and `model_cfg`): its parameters do not require grad and stay
     out of `trainable_mask`, it stays in eval mode in train mode and runs
-    under `no_grad`, stored in `model_cfg.upstream.compute_dtype`."""
+    under `no_grad`, stored in `model_cfg.upstream.compute_dtype`. Every
+    system with one (FSCL, MAML, ADA, ContiAE, T2U, PR, and the tune flows
+    through them) runs it through `extract_ssl`, which dispatches through
+    the optional `upstream_forward` hook, as fscl_tpu's four systems do
+    (`parallel.pipeline.attach_parallel_upstream` sets it)."""
+
+    # (upstream, wavs, wav_valid) -> (hidden, frame_valid); None: one process
+    upstream_forward = None
 
     def attach_upstream(self, upstream: Optional[SSLUpstream], seed: int) -> None:
         """`upstream` moved to the device, or, when None, one made without
@@ -103,9 +110,9 @@ class FrozenUpstream:
 
     def extract_ssl(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
         """The frozen upstream's hidden states (S, T', n_layers, dim) in f32,
-        and the valid frames (S, T')."""
-        return frozen_upstream_features(self.upstream, wavs,
-                                        length_mask(wav_lens, wavs.shape[-1]))
+        and the valid frames (S, T'); through `upstream_forward` when set."""
+        fwd = self.upstream_forward or frozen_upstream_features
+        return fwd(self.upstream, wavs, length_mask(wav_lens, wavs.shape[-1]))
 
 
 @SYSTEMS.register("fscl", "fscl-orig")

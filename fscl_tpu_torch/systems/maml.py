@@ -51,6 +51,7 @@ from fscl_tpu_torch.core.registry import SYSTEMS
 from fscl_tpu_torch.data.batch import Batch
 from fscl_tpu_torch.nn.losses import FastSpeech2LossOutput
 from fscl_tpu_torch.nn.speaker_encoder import unrolled_lstms
+from fscl_tpu_torch.ops.global_reduce import grad_of_global_loss
 from fscl_tpu_torch.systems.base import adaptation_mode, module_mode
 from fscl_tpu_torch.systems.fscl import Episode, TransEmbSystem
 
@@ -187,10 +188,11 @@ def fast_adaptation_scan_adam(loss_fn: LossFn, params: Params, batches, lr: floa
 def _grads(loss: torch.Tensor, params: Params, create_graph: bool = False,
            retain_graph: Optional[bool] = None) -> Params:
     """d loss / d params, a zero tensor where the loss does not reach (as
-    `jax.grad` gives)."""
+    `jax.grad` gives); under data parallelism the global loss's gradient,
+    the same on every rank (`ops/global_reduce.py`)."""
     grads = torch.autograd.grad(loss, list(params.values()), create_graph=create_graph,
                                 retain_graph=retain_graph, allow_unused=True)
-    return {n: torch.zeros_like(p) if g is None else g
+    return {n: grad_of_global_loss(torch.zeros_like(p) if g is None else g)
             for (n, p), g in zip(params.items(), grads)}
 
 

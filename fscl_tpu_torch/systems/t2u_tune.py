@@ -36,6 +36,7 @@ from fscl_tpu_torch.models.tacotron2_t2u import T2UConfig, T2UMasks
 from fscl_tpu_torch.nn.losses import fastspeech2_loss, framewise_accuracy, framewise_ce_loss
 from fscl_tpu_torch.ops.masking import length_mask
 from fscl_tpu_torch.ops.segment_ops import phoneme_query_sums, queries_from_sums
+from fscl_tpu_torch.ops.global_reduce import global_mean
 from fscl_tpu_torch.systems.fscl import transplant_embedding
 from fscl_tpu_torch.systems.t2u import DA, T2UBatch, TacoT2USystem, TransEmbT2USystem
 
@@ -178,7 +179,7 @@ def da_loss(da: DA, logits, units, real_units, real_unit_lens, n_units: int):
     fake = da(torch.softmax(logits, dim=-1), units != 0)
     real = da(F.one_hot(real_units.long(), n_units).float(),
               length_mask(real_unit_lens, real_units.shape[1]))
-    return F.softplus(-real).mean() + F.softplus(fake).mean()
+    return global_mean(F.softplus(-real)) + global_mean(F.softplus(fake))
 
 
 @SYSTEMS.register("fscl-t2u-dae2e-tune", "fscl-t2u-da-e2e-tune",

@@ -27,7 +27,8 @@ mode; the LSTM has no dropout, so both modes compute the same function.
 
 Where JAX jits and caches a scan per (symbol_id, optimizer), the port runs
 the loops of `systems/maml.py` eagerly: nothing to cache.
-`adapt_many_sharded` waits for the parallel layer (ROADMAP item 12).
+`adapt_many_sharded` splits the task axis over the ranks of a mesh's data
+axis (`parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from fscl_tpu_torch.core.registry import SYSTEMS
 from fscl_tpu_torch.data.batch import Batch, SupInfo
 from fscl_tpu_torch.nn.losses import fastspeech2_loss
 from fscl_tpu_torch.ops.segment_ops import phoneme_query_sums, queries_from_sums
+from fscl_tpu_torch.parallel.mesh import DATA_AXIS, all_gather, shard_batch
 from fscl_tpu_torch.systems.base import adaptation_mode
 from fscl_tpu_torch.systems.baseline import BaselineSystem
 from fscl_tpu_torch.systems.fscl import TransEmbSystem, transplant_embedding
@@ -251,13 +253,39 @@ def adapt_many_on_chip(baseline: BaselineSystem, params: Params,
     into the kernel's batch (one launch for all of them), so N B H must
     stay within the kernel's grid limit of 65535 blocks. Returns (adapted
     params stacked on a leading task axis, losses (n_tasks, n_steps))."""
+    return _adapt_stacked(baseline, params, stack_tasks(task_batches, baseline.device), lr,
+                          symbol_id, optimizer)
+
+
+def _adapt_stacked(baseline: BaselineSystem, params: Params, stacked: Batch, lr: float,
+                   symbol_id: Optional[str], optimizer: str):
     scan = _scan(optimizer)
-    stacked = stack_tasks(task_batches, baseline.device)
     t = baseline.model_cfg.transformer
-    blocks = len(task_batches) * stacked.texts.shape[2] * max(t.encoder_head, t.decoder_head)
+    blocks = stacked.texts.shape[0] * stacked.texts.shape[2] * max(t.encoder_head,
+                                                                   t.decoder_head)
     if blocks > 65535:
         raise ValueError(f"n_tasks * B * heads = {blocks} exceeds the attention kernel's "
                          f"grid limit 65535: adapt fewer tasks at once")
     loss_fn = _make_task_loss_fn(baseline, symbol_id)
     with adaptation_mode(baseline):
         return vmap(lambda b: scan(loss_fn, params, b, lr))(stacked)
+
+
+def adapt_many_sharded(baseline: BaselineSystem, params: Params,
+                       task_batches: List[List[Batch]], mesh, lr: float = 1e-3,
+                       symbol_id: Optional[str] = None):
+    """`adapt_many_on_chip` (SGD, as fscl_tpu's) with the task axis split
+    over the mesh's data axis: each rank adapts its n_tasks / n_data tasks
+    (stacked and padded with all the others, so each task sees what it sees
+    in `adapt_many_on_chip`), then the adapted parameters and the losses are
+    gathered to every rank. Tasks are independent: nothing else crosses
+    ranks. Raises when n_tasks does not divide by the data axis."""
+    n_tasks, n_data = len(task_batches), mesh.size(DATA_AXIS)
+    if n_tasks % n_data != 0:
+        raise ValueError(f"n_tasks={n_tasks} must be divisible by the data axis ({n_data}) "
+                         f"so every rank adapts the same number of tasks")
+    local = shard_batch(stack_tasks(task_batches, baseline.device), mesh)
+    adapted, losses = _adapt_stacked(baseline, params, local, lr, symbol_id, "sgd")
+    group = mesh.group(DATA_AXIS)
+    return ({k: all_gather(v, group, 0) for k, v in adapted.items()},
+            all_gather(losses, group, 0))

@@ -61,6 +61,11 @@ def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
     return schedule
 
 
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all entries of `tensors` together."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
 @dataclass
 class AdamState:
     """count: updates applied (the schedule's step; optax's inner count,
@@ -85,6 +90,9 @@ class Adam:
         self.cfg = cfg
         self.params = list(params)
         self.schedule = lr_schedule(cfg)
+        # gradients -> their global norm; tensor parallelism puts in one
+        # that adds the other ranks' shards (`parallel/tensor_parallel.py`)
+        self.grad_norm: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm
         # YAML 1.1 reads `1e-09` as a string (config/train/*.yaml); the
         # loaders keep it as the JAX loader does, and it is a number here
         self.eps = float(cfg.eps)
@@ -116,7 +124,7 @@ class Adam:
         # optax's (g / g_norm) * max_norm; unclipped, a division and a
         # product by 1
         max_norm = float(cfg.grad_clip_thresh)
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        g_norm = self.grad_norm(grads)
         keep = g_norm < max_norm
         one = torch.ones_like(g_norm)
         torch._foreach_div_(grads, torch.where(keep, one, g_norm))

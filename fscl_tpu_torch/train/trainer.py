@@ -1,4 +1,5 @@
-"""Host training loop on one device (port of `fscl_tpu/train/trainer.py:75-326`).
+"""Host training loop, on one device or a mesh of ranks (port of
+`fscl_tpu/train/trainer.py`).
 
 `Trainer.fit` keeps the JAX loop's step-based cadence: metrics to `on_log`
 every log_step steps (and once at the end when the last step is not on
@@ -6,8 +7,18 @@ one), validation every val_step, `on_save` every save_step. Batches are
 copied to the device by `prefetch_batches` on a background thread,
 `TrainConfig.prefetch` batches ahead of the step. `steps_per_dispatch` k
 runs k single steps, the same math as the JAX package's scan of k steps,
-and keeps its check that the cadences are multiples of k. No mesh, no
-checkpoint: those come with the parallelism and checkpoint ports.
+and keeps its check that the cadences are multiples of k.
+
+Data parallelism (`make_parallel_train_step`, `:23-40`): each rank runs the
+step on its rows of the global batch under `parallel.mesh.data_parallel`,
+so that every batch-wide mean and the PostNet's BatchNorm statistics are
+the global batch's and every rank holds the global loss; the gradients are
+then averaged over the data axis (one all-reduce of them all) and each rank
+applies the same update. That is fscl_tpu's sharded jit: the single-device
+step on the global batch. With a mesh, `Trainer` places each rank's rows
+(`place_batch`, or the process's whole batch when it reads a stream of
+its own), and only rank 0 logs, validates through
+its callbacks and saves.
 """
 from __future__ import annotations
 
@@ -23,8 +34,69 @@ import torch
 from fscl_tpu_torch.core.config import TrainConfig
 from fscl_tpu_torch.data.batch import to_device
 from fscl_tpu_torch.obs.profiling import PhaseTimer
+from fscl_tpu_torch.parallel import multihost
+from fscl_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, data_parallel, shard_batch
 from fscl_tpu_torch.systems.base import System, TrainState
 from fscl_tpu_torch.train.optim import lr_schedule
+
+
+def place_batch(batch, mesh: Mesh):
+    """This rank's rows of a global batch, on its device."""
+    return to_device(shard_batch(batch, mesh), mesh.device)
+
+
+def reduce_gradients(grads, params, mesh: Mesh) -> list:
+    """The gradients averaged over the data axis, in one all-reduce of them
+    all (None, a parameter the loss did not reach, counts as zero)."""
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    group = mesh.group(DATA_AXIS)
+    if group is None:
+        return grads
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= mesh.size(DATA_AXIS)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out
+
+
+def make_parallel_train_step(system: System, mesh: Mesh) -> Callable:
+    """(state, this rank's rows) -> (state, metrics of the global batch):
+    the step fscl_tpu jits with the batch sharded over `data`."""
+    def step(state: TrainState, batch):
+        with data_parallel(mesh):
+            grads, metrics = system.grads_and_metrics(batch)
+        system.optimizer.update(state.opt_state,
+                                reduce_gradients(grads, system.optimizer.params, mesh))
+        state.step += 1
+        return state, metrics
+    return step
+
+
+def make_parallel_eval_step(system: System, mesh: Mesh) -> Callable:
+    def step(state: TrainState, batch):
+        with data_parallel(mesh):
+            return system.eval_step(state, batch)
+    return step
+
+
+def make_multi_train_step(system: System, k: int, mesh: Optional[Mesh] = None) -> Callable:
+    """(state, k batches) -> (state, the last step's metrics): k steps per
+    call, each the single (or, with a mesh, the data-parallel) step; the
+    port runs them one after another where fscl_tpu scans them in one
+    program."""
+    step = make_parallel_train_step(system, mesh) if mesh is not None else system.train_step
+
+    def multi(state: TrainState, batches):
+        if len(batches) != k:
+            raise ValueError(f"expected {k} batches, got {len(batches)}")
+        metrics = None
+        for b in batches:
+            state, metrics = step(state, b)
+        return state, metrics
+    return multi
 
 
 def prefetch_batches(iterator: Iterable, size: int = 2,
@@ -76,12 +148,23 @@ class Trainer:
     """Step-based host loop (log/val/save cadence from TrainConfig)."""
 
     def __init__(self, system: System, train_cfg: TrainConfig,
-                 callbacks: Iterable = (), profile: bool = False):
+                 callbacks: Iterable = (), profile: bool = False,
+                 mesh: Optional[Mesh] = None):
         """`profile=True` accumulates per-phase wall times, each train step
-        ended by a synchronize of the device; `trainer.timer.report()`."""
+        ended by a synchronize of the device; `trainer.timer.report()`.
+        With `mesh`, the data-parallel step (over a system
+        `tensor_parallel.shard_state` has sharded, the tensor-parallel one)
+        on each rank's part of every batch; the callbacks run on rank 0
+        only."""
         self.system = system
         self.cfg = train_cfg
-        self.callbacks = list(callbacks)
+        self.mesh = mesh
+        self._train_step = self._eval_step = None
+        if mesh is not None:
+            self._train_step = make_parallel_train_step(system, mesh)
+            self._eval_step = make_parallel_eval_step(system, mesh)
+        lead = mesh is None or mesh.rank == 0
+        self.callbacks = list(callbacks) if lead else []
         self.profile = profile
         self.timer = PhaseTimer()
         self._seeded = False
@@ -118,7 +201,10 @@ class Trainer:
                         f"boundaries)")
 
         def place(batch):
-            return to_device(batch, device)
+            # a process that reads a stream of its own keeps its whole batch
+            if self.mesh is None or multihost.stream_shard() is not None:
+                return to_device(batch, device)
+            return place_batch(batch, self.mesh)
 
         prefetch = self.cfg.prefetch
         batches = (prefetch_batches(train_iter, size=prefetch, place=place)
@@ -135,7 +221,7 @@ class Trainer:
                     if prefetch == 0:
                         batch = place(batch)
                 with phase("train_step", block_on=anchor):
-                    state, metrics = self.system.train_step(state, batch)
+                    state, metrics = (self._train_step or self.system.train_step)(state, batch)
                 step += 1
 
                 if step % self.cfg.log_step == 0:
@@ -172,7 +258,7 @@ class Trainer:
         for vb in val_loader():
             if first_vb is None:
                 first_vb = vb
-            m = self.system.eval_step(state, place(vb))
+            m = (self._eval_step or self.system.eval_step)(state, place(vb))
             for k, v in m.items():
                 agg.setdefault(k, []).append(float(v))
         val_metrics = {k: float(np.mean(v)) for k, v in agg.items()}

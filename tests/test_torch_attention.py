@@ -99,13 +99,13 @@ def test_attend_cpu_uses_plain_version_and_returns_weights():
 
 
 @pytest.mark.parametrize("bad,reason", [
-    ("cpu", "takes CUDA tensors"), ("shape", "Lq == Lk"), ("dh", "head dim"),
+    ("cpu", "takes CUDA tensors"), ("shape", "agree on"), ("dh", "head dim"),
     ("length", "outside"), ("mask", "key_valid"), ("layout", "contiguous"),
     ("dtype", "not supported"), ("offset", "16-byte")])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad, reason):
     q, k, v, valid = _torch(*_inputs(4, 2, 2, 16, 64))
-    if bad == "shape":
-        k = k[:, :, :8].contiguous()
+    if bad == "shape":      # Lq != Lk is taken; heads that differ are not
+        k = k[:, :1].contiguous()
     elif bad == "dh":           # above 128: no instance to pad to (smaller ones are padded)
         q, k, v = (torch.cat((t, t, t), dim=-1)[..., :160].contiguous() for t in (q, k, v))
     elif bad == "length":
@@ -138,3 +138,45 @@ def test_reference_bf16_rounds_its_weights_as_xla_attention():
     scores = scores.masked_fill(~torch.from_numpy(valid)[:, None, None, :], tattn.NEG_INF)
     f32_weights = torch.matmul(torch.softmax(scores, -1), tv.float()).bfloat16().float()
     assert np.abs(f32_weights.numpy() - want).max() > np.abs(got - want).max()
+
+
+def _cross_inputs(seed, B, H, Lq, Lk, Dh):
+    """Lq query rows against Lk keys (the sequence-parallel upstream's
+    local frames against the gathered ones): ragged, full and empty key rows."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)
+    k, v = rng.normal(size=(2, B, H, Lk, Dh)).astype(np.float32)
+    lens = np.array([max(1, Lk - Lk // 3), Lk, 0])[:B]
+    return q, k, v, np.arange(Lk)[None, :] < lens[:, None]
+
+
+@pytest.mark.parametrize("Lq,Lk", [(100, 200), (37, 199), (64, 128), (128, 64)])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_reference_matches_xla_attention_at_unequal_lengths(Lq, Lk, Dh):
+    q, k, v, valid = _cross_inputs(6, 3, 2, Lq, Lk, Dh)
+    want = jattn.xla_attention(*map(jnp.asarray, (q, k, v, valid)))
+    got = tattn.attention_reference(*_torch(q, k, v, valid))
+    assert got.shape == (3, 2, Lq, Dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want16 = jattn.xla_attention(jq, jk, jv, jnp.asarray(valid)).astype(jnp.float32)
+    got16 = tattn.attention_reference(*_torch(q, k, v, dtype=torch.bfloat16),
+                                      torch.from_numpy(valid))
+    np.testing.assert_allclose(got16.float().numpy(), np.asarray(want16), atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(100, 200), (37, 199)])
+def test_attention_bwd_at_unequal_lengths_matches_autograd(Lq, Lk):
+    """The Function's backward at Lq != Lk against autograd through the
+    plain version, with grad mode off (in place) and on (a double backward's)."""
+    q, k, v, valid = _torch(*_cross_inputs(7, 3, 2, Lq, Lk, 64))
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(tattn.attention_reference(qa, ka, va, valid), (qa, ka, va), g)
+    with torch.no_grad():
+        got = tattn.attention_bwd(q, k, v, valid, None, g)
+    got_on = tattn.attention_bwd(q, k, v, valid, None, g)
+    for a, b, c in zip(got, got_on, want):
+        assert a.shape == c.shape
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
+        torch.testing.assert_close(b, c, atol=1e-5, rtol=0)

@@ -4,9 +4,10 @@ On a small numpy-written store (tests/torch_corpus.py: `en` and `zh`, two
 speakers each) and a small model YAML: `train` for the baseline, then
 `--resume`; `synth --text` (Griffin-Lim) and `--text_file` with a HiFi-GAN
 V1 checkpoint in the official layout; `train --system fscl` with a tiny
-upstream; `tune` through the Trainer and through `--scan_adapt`. Flags,
-registry keys and subcommands the port does not run yet raise an error that
-names their ROADMAP item, and `main` without `--device` asks for the card.
+upstream; `tune` through the Trainer and through `--scan_adapt`; the
+parallel flags: `--n_devices 2 --upstream_parallel sp` (4 spawned ranks over
+gloo) and `--distributed` from the FSCL_* environment (2 processes). `main`
+without `--device` asks for the card.
 
 One repair against fscl_tpu is pinned here: its chunked adaptation stacks a
 chunk's batches only when they share one bucket (it raises otherwise, which
@@ -236,14 +237,76 @@ def test_tune(world, scan, tmp_path):
             assert "step 3" in f.read()
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--n_devices", "2"], "item 12"), (["--upstream_parallel", "pp"], "item 12"),
-    (["--distributed"], "item 12"), (["--n_model", "2"], "item 12"),
-    (["--use_tracker", "--exp_key", "k", "--distributed"], "item 12"),
+@pytest.mark.parametrize("extra,ranks", [
+    (["--n_devices", "2"], 2), (["--upstream_parallel", "pp"], 2),
+    (["--distributed"], None), (["--n_model", "2"], 2),
+    (["--use_tracker", "--exp_key", "k", "--distributed"], None),
 ])
-def test_unported_train_flags_and_systems_name_their_item(world, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-        main(["train", "--data_config", world["en"], "--exp_dir", "unused"] + extra + CPU)
+def test_unported_train_flags_and_systems_name_their_item(world, extra, ranks, monkeypatch):
+    """The parallel flags are ported: none raises "not ported yet" any more.
+    `--n_devices` / `--n_model` / `--upstream_parallel` spawn n_data x
+    n_model ranks (n_model 2 by default once the upstream is parallel);
+    `--distributed` without the FSCL_* or torchrun environment is one
+    process, a no-op."""
+    from fscl_tpu_torch.cli import train_cmd
+    for k in ("FSCL_COORDINATOR", "FSCL_NUM_PROCESSES", "FSCL_PROCESS_ID", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    calls = []
+    monkeypatch.setattr(train_cmd, "launch", lambda fn, n, *a, **kw: calls.append(("launch", n)))
+    monkeypatch.setattr(train_cmd, "_train", lambda *a: calls.append(("train", a[2:])))
+    main(["train", "--data_config", world["en"], "--exp_dir", "unused"] + extra + CPU)
+    assert calls == ([("launch", ranks)] if ranks else [("train", (None, 1))])
+    assert not torch.distributed.is_initialized()
+
+
+def test_train_n_devices_with_sequence_parallel_upstream(world, tmp_path, capfd):
+    """`train --system fscl --n_devices 2 --upstream_parallel sp`: 2 data x
+    2 model ranks spawned on the CPU over gloo, two episodes; rank 0 alone
+    writes the log and the checkpoint, without the upstream."""
+    exp = str(tmp_path / "sp")
+    out = main(["train", "--system", "fscl", "--data_config", world["en"], "--data_config",
+                world["zh"], "--model_config", world["fscl_model"], "--algorithm_config",
+                world["algo"], "--train_config", world["train"], "--exp_dir", exp,
+                "--total_step", "2", "--n_devices", "2", "--upstream_parallel", "sp"] + CPU)
+    assert out is None
+    printed = capfd.readouterr().out
+    assert "[parallel] 4 ranks (2 data x 2 model) on this host, backend gloo" in printed
+    assert printed.count("[parallel] frozen upstream sp over 2 model-axis ranks") == 1
+    assert CheckpointManager(f"{exp}/ckpt").all_steps() == [2]
+    raw = CheckpointManager(f"{exp}/ckpt").restore()
+    assert raw["step"] == 2 and not any(k.startswith("upstream.") for k in raw["params"])
+    with open(f"{exp}/log/log.txt") as f:
+        lines = f.read().splitlines()
+    assert [l.split(" | ")[0] for l in lines] == ["[Train] step 2"]
+    assert np.isfinite(float(lines[0].split("Total Loss: ")[1].split(" ")[0]))
+
+
+def test_train_distributed_from_the_fscl_environment(world, tmp_path):
+    """Two processes started with FSCL_COORDINATOR / FSCL_NUM_PROCESSES /
+    FSCL_PROCESS_ID join one run (`--distributed`); process 0 saves."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    exp = str(tmp_path / "dist")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for i in range(2):
+        env = dict(os.environ, FSCL_COORDINATOR=f"localhost:{port}", FSCL_NUM_PROCESSES="2",
+                   FSCL_PROCESS_ID=str(i), OMP_NUM_THREADS="1", PYTHONPATH=repo)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "fscl_tpu_torch.cli", "train", "--data_config", world["en"],
+             "--model_config", world["model"], "--train_config", world["train"],
+             "--exp_dir", exp, "--total_step", "2", "--distributed"] + CPU,
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "[distributed] process 0/2, backend gloo" in outs[0]
+    assert "[distributed] process 1/2, backend gloo" in outs[1]
+    assert "[train] done at step 2" in outs[0] and "[train] done" not in outs[1]
+    assert CheckpointManager(f"{exp}/ckpt").all_steps() == [2]
 
 
 def test_unported_synth_and_subcommands_name_their_item(world, baseline_run):

@@ -987,3 +987,87 @@ def test_return_weights_on_card_come_from_the_plain_version(cuda_device, dtype):
     with torch.no_grad():
         tattn.attend(q, k, v, valid)
     assert tattn.LAUNCHES == before + 1
+
+
+# Lq query rows against Lk keys: the sequence-parallel upstream's shape
+# (HuBERT-large at 4 s on 2 ranks: 100 local frames against 200 gathered),
+# a ragged pair past both tile edges, fewer keys than queries, and keys
+# shorter than one ring stage.
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_split", [None, 1, 2, 4], ids=["auto", "ks1", "ks2", "ks4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh", [
+    (4, 16, 100, 200, 64), (4, 16, 37, 199, 64), (3, 2, 64, 128, 128), (3, 2, 129, 65, 128),
+    (3, 2, 200, 17, 64)])
+def test_cuda_kernel_at_unequal_lengths_matches_plain_version(cuda_device, dtype, B, H, Lq,
+                                                             Lk, Dh, key_split):
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)).to(cuda_device, dtype)
+    k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+            for a in rng.normal(size=(2, B, H, Lk, Dh)).astype(np.float32))
+    lens = np.resize(np.array([max(1, Lk - Lk // 3), Lk, 0]), B)
+    valid = torch.from_numpy(np.arange(Lk)[None, :] < lens[:, None]).to(cuda_device)
+    before = tattn.LAUNCHES
+    got = (tattn.attend(q, k, v, valid) if key_split is None
+           else tattn._launch(q, k, v, valid, None, key_split))
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES == before + 1 and got.shape == q.shape
+    want = tattn.attention_reference(q, k, v, valid)
+    atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_attention_function_at_unequal_lengths_grads_match_plain_autograd(cuda_device):
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 100, 64)).astype(np.float32)).to(cuda_device)
+    k, v = (torch.from_numpy(a).to(cuda_device)
+            for a in rng.normal(size=(2, 2, 4, 200, 64)).astype(np.float32))
+    valid = torch.arange(200, device=cuda_device)[None] < torch.tensor([[150], [200]],
+                                                                       device=cuda_device)
+    g = torch.randn_like(q)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(tattn.attend(qa, ka, va, valid), (qa, ka, va), g)
+    qb, kb, vb = (t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(tattn.attention_reference(qb, kb, vb, valid), (qb, kb, vb), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_the_card_over_gloo_match_one_process(cuda_device, tmp_path):
+    """The data-parallel step on 2 ranks sharing the card (gloo, host-staged
+    gathers) against the single process on the card."""
+    import sys
+    import os
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_parallel as tp
+    from fscl_tpu_torch.parallel import multihost
+    inp = tp.inputs()
+    res = multihost.launch(_card_dp, 2, inp, device_type="cuda", workdir=str(tmp_path))
+    system = tp.baseline(inp["sd"], device=cuda_device)
+    state = system.init_state()
+    losses = []
+    for b in inp["batches"]:
+        state, m = system.train_step(state, to_device(b, cuda_device))
+        losses.append(float(m["Total Loss"]))
+    for r in res:
+        np.testing.assert_allclose(r["losses"][0], losses[0], rtol=TRAIN_FIRST_RTOL)
+        np.testing.assert_allclose(r["losses"], losses, rtol=TRAIN_LATER_RTOL)
+        assert r["backend"] == "gloo"
+
+
+def _card_dp(rank, device, inp):
+    import test_torch_parallel as tp
+    from fscl_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from fscl_tpu_torch.train.trainer import make_parallel_train_step
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(2, 1, device)
+    system = tp.baseline(inp["sd"], device=device)
+    state = system.init_state()
+    step = make_parallel_train_step(system, mesh)
+    losses = []
+    for b in inp["batches"]:
+        state, m = step(state, to_device(shard_batch(b, mesh), device))
+        losses.append(float(m["Total Loss"]))
+    return {"losses": losses, "backend": torch.distributed.get_backend()}

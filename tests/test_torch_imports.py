@@ -117,6 +117,34 @@ def test_precision_obs_and_tacotron2_modules_load_no_jax_nor_matplotlib():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+PARALLEL_RANK_MODULES = (
+    "fscl_tpu_torch.parallel", "fscl_tpu_torch.parallel.mesh",
+    "fscl_tpu_torch.parallel.multihost", "fscl_tpu_torch.parallel.pipeline",
+    "fscl_tpu_torch.parallel.sequence_parallel", "fscl_tpu_torch.parallel.serving",
+    "fscl_tpu_torch.parallel.tensor_parallel", "fscl_tpu_torch.cli.train_cmd",
+    "fscl_tpu_torch.systems.tune", "test_torch_parallel")
+
+
+def test_parallel_layer_and_every_rank_module_load_no_jax():
+    """`import fscl_tpu_torch.parallel` and every module a spawned rank
+    imports (the parallel layer, the train command whose `_rank_run` a
+    rank runs, the tests' rank suites) load no JAX, flax, optax or
+    fscl_tpu: a rank on the card has none of them."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        f"for m in {PARALLEL_RANK_MODULES!r}: importlib.import_module(m)\n"
+        "import fscl_tpu_torch.parallel as p\n"
+        "assert (p.DATA_AXIS, p.MODEL_AXIS) == ('data', 'model') and callable(p.make_mesh)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_attend_off_the_cpu_launches_the_kernel_unless_weights_are_asked_for():
     """No fallback: a tensor off the CPU (here on the meta device) goes to
     the kernel's wrapper, which takes CUDA tensors only and raises; with
