@@ -132,10 +132,22 @@ non-zero exit code when it fails:
    1.5-10 s written from --seed: `make-units --source hubert_large_ll60k
    --n_units 512` through the CLI (HuBERT-large drawn on the card; 24
    attention launches per batch of 8; utterances/s, upstream and k-means
-   ms); `train --system tacot2u` through the CLI, 10 steps at B = 16 with
+   ms); a seeded HuBERT-large written in five released layouts (HF with
+   `weight_g` / `weight_v`, `masked_spec_embed` and `encoder.layer_norm`; HF
+   with `parametrizations`; fairseq keys in `{"model", "cfg"}`; s3prl's
+   `{"model_weight"}`; the `w2v_model.` prefix) and loaded back through
+   `load_torch_checkpoint` on the card (each layer's hidden states on 8 wavs
+   of 4 s within 1e-5 of its max, 24 attention launches per forward); the
+   same `make-units` from make-units' own seeded weights in a fairseq
+   container file through `--upstream_ckpt` (every utterance gets units;
+   the unit strings equal to the seeded run's counted); `train --system
+   tacot2u` through the CLI, 10 steps at B = 16 with
    T2UConfig's full width (encoder 512, RNNs 1024; a falling loss; steps/s;
    decoder ms and launches per step; card vs CPU teacher-forced logits
-   within 1e-3; with --profile a traced train step); a base.yaml u2s over
+   within 1e-3; with --profile a traced train step); the trained T2U at
+   teacher-forcing ratios 0, 0.5 and 1 (B = 4, 64 steps) card vs CPU on
+   the same masks and teacher choices within 1e-3, ratio 1 bit-equal to
+   the forward without it, one train step at 0.5 with a finite loss; a base.yaml u2s over
    the unit symbols trained 10 steps from T2U2SDataModule, saved, and read
    back through its model card; `train --system fscl-t2u` through the CLI
    (config/model/fscl-t2u.yaml: HuBERT-large + Downstream1 at 256; the
@@ -3686,6 +3698,26 @@ T2U_LOGIT_ATOL, T2U_TABLE_REL, T2U_LOSS_RTOL, T2U_GRAD_NORM_RTOL = 1e-3, 1e-4, 1
 # two- and three-sentence lines take the L bucket 256, so the u2s runs over
 # 10 L = 2560 unit positions.
 T2U_LINES = LINES
+# Released checkpoints: HuBERT-large drawn on the card from the seed (its
+# biases and norm scales drawn too, and a final `encoder.layer_norm` as the
+# released pre-LN files carry), written in each layout of T2U_LAYOUTS
+# (tests/ssl_layouts.py) and read back by `models/hubert.py:
+# load_torch_checkpoint` on the card; on phase 10's 8 wavs of 4 s (two cut
+# to 3 s) every layer's hidden states within T2U_LAYOUT_REL of that layer's
+# largest |value| in the original module's (the weight-norm fold rounds the
+# positional conv's weights once). `make-units --upstream_ckpt` then reads
+# make-units' own seeded weights from a fairseq container file.
+T2U_LAYOUTS = ("hf_weight_g", "hf_parametrizations", "fairseq_container", "s3prl_container",
+               "w2v_model_prefix")
+T2U_LAYOUT_REL = 1e-5
+T2U_CKPT_UNIT_NAME = "hubert-512c-ckpt"
+# Scheduled sampling: the trained T2U at teacher-forcing ratios 0, 0.5 and 1
+# on the first T2U_SCHEDULE_T unit steps of B = 4 lines, card vs CPU on the
+# same drawn masks and teacher choices (T2U_LOGIT_ATOL). A sampled step reads
+# the previous step's argmax, so the logits are held up to the first sampled
+# step whose predecessor's argmax differs between card and CPU, which must
+# be a near-tie (CPU top-2 margin below 2 * T2U_LOGIT_ATOL).
+T2U_SCHEDULE_T, T2U_RATIOS = 64, (0.0, 0.5, 1.0)
 
 
 def t2u_attention_shapes(H: int, Dh: int):
@@ -3758,6 +3790,220 @@ def t2u_make_units(features: str, seed: int, attn_checked):
             "upstream_ms": 1e3 * sec["upstream"], "kmeans_ms": 1e3 * sec["kmeans"],
             "units_ms": 1e3 * sec["units"], "units_per_utterance": [min(counts), max(counts)],
             "attention_launches": attn.LAUNCHES}
+
+
+def hubert_large_on_card():
+    """HuBERT-large made without storage and placed on the card, frozen."""
+    import torch
+    from fscl_tpu_torch.models.hubert import make_upstream
+    with torch.device("meta"):
+        upstream = make_upstream("hubert_large_ll60k")
+    return upstream.to_empty(device=CARD).eval().requires_grad_(False)
+
+
+def t2u_upstream_layouts(seed: int, attn_checked):
+    """HuBERT-large drawn on the card from the seed, written in each layout
+    of T2U_LAYOUTS and loaded back through `load_torch_checkpoint` on the
+    card: each layout's 25 hidden states against the original module's on 8
+    wavs of 4 s, 24 attention launches per forward."""
+    import torch
+    from fscl_tpu_torch.models.hubert import (
+        frozen_upstream_features, init_random_, load_torch_checkpoint)
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops.masking import length_mask
+    sys.path.insert(0, str(REPO / "tests"))
+    from ssl_layouts import layout
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=CARD).manual_seed(seed + 150)
+    original = hubert_large_on_card()
+    init_random_(original, gen)
+    with torch.no_grad():
+        for p in original.parameters():
+            if p.dim() == 1:        # biases and norm scales, 0 and 1 after init_random_
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=CARD))
+    sd = dict(original.state_dict())
+    for leaf, base in (("weight", 1.0), ("bias", 0.0)):
+        sd[f"encoder.layer_norm.{leaf}"] = base + 0.1 * torch.randn(
+            original.dim, generator=gen, device=CARD)
+    wavs, lens = query_speech(seed + 151, 8)
+    w = torch.from_numpy(wavs).to(CARD)
+    valid = length_mask(torch.from_numpy(lens).to(CARD), w.shape[1])
+
+    def hidden(module):
+        attn.LAUNCHES = 0
+        h, _ = frozen_upstream_features(module, w, valid)
+        torch.cuda.synchronize()
+        return h, attn.LAUNCHES
+
+    loaded = hubert_large_on_card()
+    errs, launches = {}, {}
+    with attention_shapes(attn, attn_checked, "t2u upstream layouts"):
+        want, launches["original"] = hidden(original)
+        peak = want.abs().amax(dim=(0, 1, 3))
+        for name in T2U_LAYOUTS:
+            loaded.load_state_dict(load_torch_checkpoint(layout(name, sd), loaded), strict=True)
+            got, launches[name] = hidden(loaded)
+            errs[name] = float(((got - want).abs().amax(dim=(0, 1, 3)) / peak).max())
+    seconds = time.perf_counter() - t0
+    log(f"t2u upstream layouts (HuBERT-large, {len(sd)} keys, 8 wavs of 4 s): hidden states "
+        f"max |d| / layer max " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (bar {T2U_LAYOUT_REL}); attention launches per forward {launches}; {seconds:.2f} s")
+    if any(n != original.n_layers for n in launches.values()):
+        fail(f"t2u upstream layouts: attention launches {launches}, not {original.n_layers} "
+             f"per forward")
+    if not all(e <= T2U_LAYOUT_REL for e in errs.values()):
+        fail(f"t2u upstream layouts: {errs}")
+    del original, loaded, sd, want
+    torch.cuda.empty_cache()
+    return {"max_rel_err": errs, "attention_launches": sum(launches.values()),
+            "launches_per_forward": launches, "seconds": seconds}
+
+
+def t2u_make_units_ckpt(root: Path, features: str, seed: int, attn_checked):
+    """`make-units --upstream_ckpt`: make-units' own seeded HuBERT-large
+    written as a fairseq container file, then read by the CLI; every
+    utterance gets units, and the unit strings and frames' units equal to
+    the seeded run's are counted (advisory: the file's weight-normed
+    positional conv is folded back with one rounding, and k-means and the
+    segmentation may then break ties otherwise)."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.models.hubert import init_random_
+    from fscl_tpu_torch.ops import attention as attn
+    sys.path.insert(0, str(REPO / "tests"))
+    from ssl_layouts import layout
+
+    t0 = time.perf_counter()
+    upstream = hubert_large_on_card()
+    init_random_(upstream, torch.Generator(device=CARD).manual_seed(seed))
+    ckpt = root / "hubert_large_fairseq.pt"
+    torch.save(layout("fairseq_container", {k: v.cpu() for k, v in upstream.state_dict().items()}),
+               ckpt)
+    n_layers = upstream.n_layers
+    del upstream
+    torch.cuda.empty_cache()
+    t_write = time.perf_counter() - t0
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u make-units --upstream_ckpt"):
+        t1 = time.perf_counter()
+        out = cli(["make-units", features, "--unit_name", T2U_CKPT_UNIT_NAME, "--n_units",
+                   str(T2U_UNITS), "--source", "hubert_large_ll60k", "--seed", str(seed),
+                   "--upstream_ckpt", str(ckpt)])
+        wall = time.perf_counter() - t1
+    store = FeatureStore(features)
+    queries = store.load_metadata()
+    mine, seeded = (store.get_ssl_unit_store(name) for name in (T2U_CKPT_UNIT_NAME, T2U_UNIT_NAME))
+    strings = [(mine.phoneme.read_from_query(q), seeded.phoneme.read_from_query(q))
+               for q in queries]
+    counts = [len(a.split()) for a, _ in strings]
+    same = sum(a == b for a, b in strings)
+
+    def frame_units(unit_store, q):
+        return np.repeat([int(u) for u in unit_store.phoneme.read_from_query(q).split()],
+                         np.asarray(unit_store.duration.read_from_query(q)))
+    pairs = [(frame_units(mine, q), frame_units(seeded, q)) for q in queries]
+    frames_same = sum(int((a == b).sum()) for a, b in pairs if len(a) == len(b))
+    frames = sum(len(b) for _, b in pairs)
+    log(f"t2u make-units --upstream_ckpt (fairseq container, {ckpt.stat().st_size / 2**30:.2f} "
+        f"GiB, written in {t_write:.2f} s): {out['utterances']} utterances in {wall:.2f} s, "
+        f"{attn.LAUNCHES} attention launches; units per utterance {min(counts)}-{max(counts)}; "
+        f"{same} of {len(queries)} unit strings and {frames_same} of {frames} frames' units "
+        f"equal the seeded run's (advisory)")
+    if out["utterances"] != len(queries) or min(counts) < 1 \
+            or mine.load_attrs().get("n_units") != T2U_UNITS:
+        fail(f"t2u make-units --upstream_ckpt: {out}, min units {min(counts)}")
+    if attn.LAUNCHES == 0 or attn.LAUNCHES % n_layers:
+        fail(f"t2u make-units --upstream_ckpt: {attn.LAUNCHES} attention launches, "
+             f"not {n_layers} per batch")
+    return {"utterances": out["utterances"], "wall_s": wall, "write_s": t_write,
+            "ckpt_bytes": ckpt.stat().st_size, "attention_launches": attn.LAUNCHES,
+            "equal_unit_strings": same, "equal_frame_units": [frames_same, frames],
+            "seconds": time.perf_counter() - t0}
+
+
+def t2u_scheduled_sampling(system, batch):
+    """The trained T2U at teacher-forcing ratios 0, 0.5 and 1 (B = 4, the
+    first T2U_SCHEDULE_T unit steps) on the card and on the CPU with the same
+    masks and teacher choices; at ratio 1 the forward with the argument
+    bit-equal to the one without, its generator left where the forward
+    without it leaves it; one train step at 0.5 with a finite loss."""
+    import torch
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.nn.losses import framewise_ce_loss
+    from fscl_tpu_torch.systems.t2u import TacoT2USystem
+
+    t0 = time.perf_counter()
+    T = min(T2U_SCHEDULE_T, batch.units.shape[1])
+    small = batch._replace(**{f: getattr(batch, f)[:4] for f in batch._fields
+                              if getattr(batch, f) is not None})
+    small = small._replace(units=small.units[:, :T], unit_lens=small.unit_lens.clamp(max=T))
+    small_cpu = type(small)(*(None if x is None else x.cpu() for x in small))
+    B, L = small.texts.shape
+    cpu = TacoT2USystem(system.model_cfg, id2symbols_of(system), system.t2u_cfg, device="cpu")
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    held = {}
+    for ratio in T2U_RATIOS:
+        masks = draw_masks(system.t2u_cfg, B, L, T, False, torch.Generator().manual_seed(8),
+                           "cpu", ratio)
+        on_card = type(masks)(*(None if m is None else m.to(CARD) for m in masks))
+        with torch.no_grad():
+            card, _ = system(small, on_card, tf_ratio=ratio)
+            ref, _ = cpu(small_cpu, masks, tf_ratio=ratio)
+        card = card.cpu()
+        upto = T
+        if masks.teacher is not None:
+            differs = (card.argmax(-1) != ref.argmax(-1)).any(0)
+            sampled = ~masks.teacher
+            cut = [t for t in range(1, T) if sampled[t] and differs[t - 1]]
+            if cut:
+                upto = cut[0]
+                top2 = ref[:, upto - 1].topk(2, dim=-1).values
+                margin = float((top2[:, 0] - top2[:, 1]).min())
+                if not margin < 2 * T2U_LOGIT_ATOL:
+                    fail(f"t2u scheduled sampling at {ratio}: card and CPU argmax differ at "
+                         f"step {upto - 1} with a top-2 margin of {margin:.3g}")
+        err = float((card[:, :upto] - ref[:, :upto]).abs().max())
+        n_sampled = 0 if masks.teacher is None else int((~masks.teacher).sum())
+        held[ratio] = {"max_abs_err": err, "steps_held": upto, "sampled_steps": n_sampled}
+        if not err <= T2U_LOGIT_ATOL:
+            fail(f"t2u scheduled sampling at {ratio}: logits max |d| {err:.3g}")
+    del cpu
+    start = system.generator.get_state()
+    with torch.no_grad():
+        plain, _ = system(small)
+        after_plain = system.generator.get_state()
+        system.generator.set_state(start)
+        one, _ = system(small, tf_ratio=1.0)
+        after_one = system.generator.get_state()
+    bit_equal = bool(torch.equal(plain, one)) and bool(torch.equal(after_plain, after_one))
+    step_sys = TacoT2USystem(system.model_cfg, id2symbols_of(system), system.t2u_cfg,
+                             device=CARD, optim_cfg=system.optim_cfg)
+    step_sys.load_state_dict(system.state_dict(), strict=True)
+
+    def loss_at_half(b):
+        logits, _ = step_sys(b, None, tf_ratio=0.5)
+        loss = framewise_ce_loss(logits, b.units)
+        return loss, {"Total Loss": loss.detach()}
+
+    step_sys.loss_and_metrics = loss_at_half
+    state, metrics = step_sys.train_step(step_sys.init_state(), small)
+    loss = float(metrics["Total Loss"])
+    seconds = time.perf_counter() - t0
+    log(f"t2u scheduled sampling (B={B}, T={T}): card vs CPU logits "
+        + ", ".join(f"ratio {r}: max |d| {h['max_abs_err']:.3g} over {h['steps_held']} steps "
+                    f"({h['sampled_steps']} sampled)" for r, h in held.items())
+        + f" (bar {T2U_LOGIT_ATOL}); ratio 1 bit-equal to no argument, generator too: "
+        f"{bit_equal}; one train step at 0.5: loss {loss:.4f}; {seconds:.2f} s")
+    if not bit_equal:
+        fail("t2u scheduled sampling: ratio 1 differs from the forward without the argument")
+    if not math.isfinite(loss) or state.step != 1:
+        fail(f"t2u scheduled sampling: train step at 0.5 gave loss {loss}")
+    del step_sys
+    return {"B": B, "T": T, "by_ratio": {str(r): h for r, h in held.items()},
+            "ratio_1_bit_equal": bit_equal, "train_step_loss_at_half": loss, "seconds": seconds}
 
 
 def decoder_step_cost(system, batch):
@@ -4328,8 +4574,11 @@ def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, 
             f"{T2U_FRAMES[0]}-{T2U_FRAMES[1]} mel frames in {time.perf_counter() - t0:.2f} s")
         features = str(Path(data).parent / "features")
         summary["make_units"] = t2u_make_units(features, seed, attn_checked)
+        summary["upstream_layouts"] = t2u_upstream_layouts(seed, attn_checked)
+        summary["make_units_ckpt"] = t2u_make_units_ckpt(root, features, seed, attn_checked)
         tacot2u, batch, summary["train"] = t2u_train(root, t2u, attn_checked, profile, out_dir)
         summary["train"]["card_vs_cpu"] = t2u_card_vs_cpu_logits(tacot2u, batch)
+        summary["scheduled_sampling"] = t2u_scheduled_sampling(tacot2u, batch)
         u2s, summary["u2s"] = t2u_u2s(root, t2u, u2s_cfg, attn_checked)
         fscl, summary["fscl"] = t2u_fscl(root, t2u, attn_checked)
         e2e, summary["e2e"] = t2u_e2e(t2u, tacot2u, fscl, u2s, seed, attn_checked)
@@ -6560,6 +6809,9 @@ def main(argv=None) -> int:
                              "preprocess_synth_ref_wav": pre["synth"]["launches"][
                                  "attention_fwd"],
                              "t2u_make_units": t2u["make_units"]["attention_launches"],
+                             "t2u_upstream_layouts": t2u["upstream_layouts"][
+                                 "attention_launches"],
+                             "t2u_make_units_ckpt": t2u["make_units_ckpt"]["attention_launches"],
                              "t2u_u2s_train": t2u["u2s"]["attention_launches"],
                              "t2u_fscl_cli": t2u["fscl"]["cli_attention_launches"],
                              "t2u_fscl_episodes": t2u["fscl"]["attention_launches"],

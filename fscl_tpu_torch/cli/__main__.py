@@ -66,8 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     mu.add_argument("--layer", type=int, default=-1,
                     help="SSL hidden layer to cluster (hubert sources)")
     mu.add_argument("--upstream_ckpt", default=None,
-                    help="upstream state dict (HF HubertModel keys) for the SSL source "
-                         "(random weights from --seed without)")
+                    help="upstream checkpoint for the SSL source: a released HF, fairseq "
+                         "or s3prl file, or a state dict under the port's keys (random "
+                         "weights from --seed without)")
     _add_device(mu)
 
     t = sub.add_parser("train", help="train a system")

@@ -9,9 +9,14 @@ frame features on the device, then DPDP segmentation on the host. Sources:
   mel frames), no model;
 - an SSL upstream name (`hubert_large_ll60k`, ...): one hidden layer
   (`--layer`, default the last) of the upstream run on the device in wav
-  buckets, with the weights of `--upstream_ckpt` (a torch state dict under
-  HF HubertModel keys, as `convert.hubert_state_dict` writes from fscl_tpu
-  params) or drawn on the device from `--seed`.
+  buckets, with the weights of `--upstream_ckpt` or drawn on the device
+  from `--seed`. The file is a released checkpoint in any layout
+  `models/hubert.py:load_torch_checkpoint` reads (HF, fairseq or s3prl
+  containers and key names, weight-normed positional conv), or a state dict
+  under the port's keys (`convert.hubert_state_dict` of fscl_tpu params).
+  `torch.load` reads it with `weights_only=True`, as torch's default is
+  since 2.6, which refuses older fairseq files that pickle an
+  `argparse.Namespace` (fscl_tpu's bare `torch.load` refuses them too).
 
 Prints, and returns, the utterances written and the seconds of each stage
 (upstream features, k-means, units: frame logits on the device, DPDP and

@@ -20,8 +20,8 @@ melgan-neurips keys with weight norm folded, so each package's
 `convert_torch_checkpoint` is the second route for them.
 
 The FSCL slice: `hubert_state_dict` (SSLUpstream params, per-layer layout
-`layer_{i}`; scan-layout params go through `unstack_layer_params` first)
-gives HF HubertModel keys, which `fscl_tpu/models/hubert.py:
+`layer_{i}` or the scan layout's stacked `layers`, which the port's
+`models/hubert.py:unstack_layer_params` splits) gives HF HubertModel keys, which `fscl_tpu/models/hubert.py:
 convert_torch_checkpoint` reads back; `ge2e_state_dict` gives resemblyzer's
 LSTM keys, which `convert_resemblyzer_checkpoint` reads back (flax keeps one
 bias per gate on the hidden side: it goes to `bias_hh`, `bias_ih` is 0);
@@ -50,6 +50,8 @@ from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from fscl_tpu_torch.models.hubert import unstack_layer_params
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -172,11 +174,12 @@ def codebook_state_dict(params: Mapping) -> StateDict:
 
 
 def hubert_state_dict(variables: Mapping) -> StateDict:
-    """flax SSLUpstream params (or `{"params": ...}`) in the per-layer
-    layout -> the port's SSLUpstream (HF HubertModel keys)."""
+    """flax SSLUpstream params (or `{"params": ...}`), per-layer or in the
+    scan layout (`scan_layers=True`) -> the port's SSLUpstream (HF
+    HubertModel keys)."""
     p = variables.get("params", variables)
     if "layers" in p:
-        raise ValueError("scan-layout params: unstack them (hubert.unstack_layer_params)")
+        p = unstack_layer_params(p)
     fe = p["feature_extractor"]
     sd: StateDict = {}
     i = 0

@@ -20,7 +20,9 @@ import torch
 from fscl_tpu_torch.data.batch import bucket_len
 from fscl_tpu_torch.data.feature_store import FeatureStore
 from fscl_tpu_torch.eval.dpdp import dpdp_decode, dpdp_segment_to_time, merge_repeats
-from fscl_tpu_torch.models.hubert import init_random_, make_upstream, ssl_num_frames
+from fscl_tpu_torch.models.hubert import (
+    init_random_, load_torch_checkpoint, make_upstream, ssl_num_frames,
+)
 from fscl_tpu_torch.nn.phoneme_embedding import kmeans, sq_distances
 from fscl_tpu_torch.ops.masking import length_mask
 
@@ -57,25 +59,28 @@ def batched_ssl_extractor(
     queries: Sequence[dict],
     source: str = "hubert_base",
     layer: int = -1,
+    device_batch: int = DEVICE_BATCH,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
     cfg=None,
     device=None,
     seed: int = 0,
 ) -> Callable[[dict], torch.Tensor]:
     """One SSL layer's hidden states for every query, computed on `device`
-    in wav-length buckets of DEVICE_BATCH utterances, every batch launched
+    in wav-length buckets of `device_batch` utterances, every batch launched
     before any is read; returns `extract(q) -> (T', D)` float32 tensor in
     host memory. Each batch keeps only the chosen layer, copied to the host
     as it is launched (into pinned memory, without a wait, on the card), so
     the device holds one batch's upstream activations at a time whatever
-    the corpus size. `state_dict`: upstream weights (HF keys; from fscl_tpu
-    params through `convert.hubert_state_dict`); without it the weights are
-    drawn on the device from `seed` (`models.hubert.init_random_`)."""
+    the corpus size. `state_dict`: upstream weights in any layout
+    `models.hubert.load_torch_checkpoint` reads (a released HF, fairseq or
+    s3prl checkpoint, or the port's keys from fscl_tpu params through
+    `convert.hubert_state_dict`); without it the weights are drawn on the
+    device from `seed` (`models.hubert.init_random_`)."""
     with torch.device("meta"):
         upstream = make_upstream(source, cfg)
     upstream = upstream.to_empty(device=device)
     if state_dict is not None:
-        upstream.load_state_dict(state_dict, strict=True)
+        upstream.load_state_dict(load_torch_checkpoint(state_dict, upstream), strict=True)
     else:
         init_random_(upstream, torch.Generator(device=device).manual_seed(seed))
     upstream.requires_grad_(False).eval()
@@ -92,10 +97,10 @@ def batched_ssl_extractor(
     pending = []
     with torch.inference_mode():
         for bucket, keys in groups.items():
-            for c in range(0, len(keys), DEVICE_BATCH):
-                chunk = keys[c: c + DEVICE_BATCH]
-                padded = np.zeros((DEVICE_BATCH, bucket), np.float32)
-                lens = np.zeros(DEVICE_BATCH, np.int64)
+            for c in range(0, len(keys), device_batch):
+                chunk = keys[c: c + device_batch]
+                padded = np.zeros((device_batch, bucket), np.float32)
+                lens = np.zeros(device_batch, np.int64)
                 for row, k in enumerate(chunk):
                     padded[row, :len(wavs[k])] = wavs[k]
                     lens[row] = len(wavs[k])

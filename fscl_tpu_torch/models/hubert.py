@@ -21,12 +21,13 @@ in the large model): on the card, the attention kernel. The custom dims of
 `make_upstream` give other head dims (dim 80 in 2 heads of 40, dim 96 in 2
 of 48): `attention_cuda` zero-pads those to the kernel's 64. The layers run
 as a plain loop (the JAX package's `scan_layers` only shortens its
-compiles).
+compiles); `unstack_layer_params` reads its stacked params.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -85,6 +86,7 @@ class ConvFeatureExtractor(nn.Module):
         super().__init__()
         if mode not in ("group_norm", "layer_norm"):
             raise ValueError(f"extractor mode {mode!r}")
+        self.mode = mode
         layers, c_in = [], 1
         for i, (dim, k, s) in enumerate(CONV_SPEC):
             norm = "layer" if mode == "layer_norm" else ("group" if i == 0 else None)
@@ -290,3 +292,152 @@ def frozen_upstream_features(upstream: SSLUpstream, wavs: torch.Tensor,
     with torch.no_grad():
         hidden, frame_valid = upstream(dequant_and_cast_inputs(wavs, dtype), wav_valid)
     return hidden.float(), frame_valid
+
+
+# -- released checkpoints ----------------------------------------------------
+
+POS_CONV = "encoder.pos_conv_embed.conv"
+
+
+def normalize_checkpoint_layout(state_dict: Mapping) -> Dict[str, Any]:
+    """Any released SSL checkpoint layout -> HF HubertModel key names (copy
+    of `fscl_tpu/models/hubert.py:normalize_checkpoint_layout`):
+
+    - containers: fairseq `{"model": sd, "cfg": ...}`, s3prl
+      `{"model_weight": sd}`, generic `{"state_dict": sd}`;
+    - prefixes carried by every key: `w2v_encoder.w2v_model.` (fairseq's
+      fine-tuned CTC files), `w2v_model.`, `model.`;
+    - fairseq key names: `self_attn` -> `attention`, `fc1` / `fc2` ->
+      `feed_forward.*`, `post_extract_proj` -> `feature_projection.projection`,
+      the top-level `layer_norm` -> `feature_projection.layer_norm`, the conv
+      blocks' Sequential indices -> `conv` / `layer_norm`,
+      `encoder.pos_conv.0` -> `encoder.pos_conv_embed.conv`.
+
+    Keys neither family needs (`mask_emb`, `label_embs_concat`,
+    `final_proj`, `masked_spec_embed`, ...) pass through; an unknown layout
+    passes through unchanged."""
+    sd = state_dict
+    for container in ("model", "model_weight", "state_dict"):
+        if container in sd and isinstance(sd[container], Mapping):
+            sd = sd[container]
+            break
+    for prefix in ("w2v_encoder.w2v_model.", "w2v_model.", "model."):
+        if sd and all(k.startswith(prefix) for k in sd):
+            sd = {k[len(prefix):]: v for k, v in sd.items()}
+    if "feature_projection.projection.weight" in sd or "post_extract_proj.weight" not in sd:
+        return dict(sd)
+
+    out = {}
+    for k, v in sd.items():
+        nk = k
+        if k.startswith("feature_extractor.conv_layers."):
+            parts = k.split(".")
+            i, sub = parts[2], parts[3:]
+            # Sequential index 0 is the conv; ".2.{w,b}" the GroupNorm,
+            # ".2.1.{w,b}" the channel LayerNorm
+            what = "conv" if sub[0] == "0" else "layer_norm"
+            nk = f"feature_extractor.conv_layers.{i}.{what}.{sub[-1]}"
+        elif k.startswith("post_extract_proj."):
+            nk = "feature_projection.projection." + k.split(".", 1)[1]
+        elif k.startswith("layer_norm."):
+            nk = "feature_projection." + k
+        elif k.startswith("encoder.pos_conv.0."):
+            nk = f"{POS_CONV}." + k[len("encoder.pos_conv.0."):]
+        elif k.startswith("encoder.layers."):
+            parts = k.split(".", 3)
+            sub = parts[3]
+            sub = (sub.replace("self_attn_layer_norm.", "layer_norm.")
+                   if sub.startswith("self_attn_layer_norm.") else
+                   sub.replace("self_attn.", "attention.")
+                   .replace("fc1.", "feed_forward.intermediate_dense.")
+                   .replace("fc2.", "feed_forward.output_dense."))
+            nk = f"encoder.layers.{parts[2]}.{sub}"
+        out[nk] = v
+    return out
+
+
+def _fold_pos_conv(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """The positional conv's weight norm folded into `weight`, in both key
+    formats. The conv is weight-normed on dim 2 (one g per kernel tap, g of
+    shape (1, 1, k)), so ||v|| is over dims (0, 1) for `weight_g` /
+    `weight_v`, and over the dims where g has size 1 for
+    `parametrizations.weight.original0/1`, as fscl_tpu's converter folds
+    them. (HiFi-GAN's convs are normed on dim 0: `models/hifigan.py:
+    fold_weight_norm` would give this conv wrong weights.) In float64, cast
+    back to v's dtype."""
+    pairs = ((".weight_g", ".weight_v"),
+             (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+    for g_suffix, v_suffix in pairs:
+        if POS_CONV + g_suffix not in sd:
+            continue
+        g = torch.as_tensor(sd.pop(POS_CONV + g_suffix))
+        v = torch.as_tensor(sd.pop(POS_CONV + v_suffix))
+        dims = ((0, 1) if g_suffix == ".weight_g"
+                else tuple(i for i in range(v.dim()) if g.shape[i] == 1))
+        norm = torch.linalg.vector_norm(v.double(), dim=dims, keepdim=True)
+        sd[POS_CONV + ".weight"] = (g.double() * v.double() / norm).to(v.dtype)
+        break
+    return sd
+
+
+def load_torch_checkpoint(state_dict: Mapping, upstream: SSLUpstream
+                          ) -> Dict[str, torch.Tensor]:
+    """A released SSL checkpoint in any layout `normalize_checkpoint_layout`
+    reads (or a state dict under the port's keys, numpy leaves allowed) ->
+    a state dict that `upstream` loads with `strict=True`, as
+    `fscl_tpu/models/hubert.py:convert_torch_checkpoint` converts it: the
+    positional conv's weight norm folded; `encoder.layer_norm` used by a
+    post-LN module and dropped for a pre-LN one (the large family applies
+    it after the last layer, which the s3prl hidden states leave out); every
+    key the module has no place for dropped (`masked_spec_embed`,
+    `mask_emb`, `label_embs_concat`, `final_proj`, a group-norm file's conv
+    biases, ...). Raises, naming the key, where the module needs a key the
+    file lacks or a shape differs; raises where the file's extractor mode
+    (per-conv LayerNorms, or one GroupNorm) is not the module's, or where
+    the file holds a layer beyond the module's last."""
+    sd = _fold_pos_conv(normalize_checkpoint_layout(state_dict))
+    if "feature_extractor.conv_layers.0.conv.weight" in sd:
+        mode = ("layer_norm" if "feature_extractor.conv_layers.1.layer_norm.weight" in sd
+                else "group_norm")
+        if mode != upstream.feature_extractor.mode:
+            raise ValueError(f"the checkpoint's conv extractor is {mode!r}, the module's "
+                             f"{upstream.feature_extractor.mode!r}")
+    for k in sd:
+        if k.startswith("encoder.layers.") and int(k.split(".")[2]) >= upstream.n_layers:
+            raise ValueError(f"the checkpoint holds {k!r}; the module has "
+                             f"{upstream.n_layers} layers")
+    out: Dict[str, torch.Tensor] = {}
+    for key, ref in upstream.state_dict().items():
+        if key not in sd:
+            raise KeyError(f"the checkpoint lacks {key!r}")
+        value = torch.as_tensor(sd[key])
+        if value.shape != ref.shape:
+            raise ValueError(f"{key!r}: the checkpoint's shape {tuple(value.shape)}, "
+                             f"the module's {tuple(ref.shape)}")
+        out[key] = value
+    return out
+
+
+def unstack_layer_params(params: Mapping) -> dict:
+    """fscl_tpu's scan layout (one `layers` collection whose leaves carry a
+    leading n_layers axis) -> its per-layer layout (`layer_0` ..
+    `layer_{n-1}`); other keys unchanged (a copy of
+    `fscl_tpu/models/hubert.py:unstack_layer_params` over nested mappings
+    of arrays, numpy leaves out)."""
+    def leaves(tree):
+        if isinstance(tree, Mapping):
+            for v in tree.values():
+                yield from leaves(v)
+        else:
+            yield tree
+
+    def take(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    p = {k: v for k, v in params.items() if k != "layers"}
+    n = np.shape(next(leaves(params["layers"])))[0]
+    for i in range(n):
+        p[f"layer_{i}"] = take(params["layers"], i)
+    return p

@@ -15,7 +15,10 @@ the reference; in train mode the encoder's Dropout(0.5) and the attention-
 and decoder-RNN dropouts join it. Every mask is drawn up front, for all steps
 at once, from an explicit `torch.Generator` (`draw_masks`), or comes in as a
 `T2UMasks` (the parity tests rebuild fscl_tpu's masks from its key schedule).
-The loop itself draws nothing and never waits for the device: `infer` runs
+Scheduled sampling (a teacher-forcing ratio below 1) draws its per-step
+choices the same way, after the dropout masks and only then, so a forward
+at ratio 1 draws exactly what it drew before the option existed. The loop
+itself draws nothing and never waits for the device: `infer` runs
 all `max_decoder_ratio * L` steps as fscl_tpu does, with a per-sample
 finished flag on the device.
 
@@ -65,11 +68,16 @@ class T2UMasks(NamedTuple):
     """Keep masks (bool) for one forward; None where a dropout is off.
 
     prenet: (T, 2, B, prenet_dim); encoder: (n_conv, B, L, enc_dim);
-    attention: (T, B, attention_rnn_dim); decoder: (T, B, decoder_rnn_dim)."""
+    attention: (T, B, attention_rnn_dim); decoder: (T, B, decoder_rnn_dim).
+    teacher: (T,), True where a teacher-forced step reads the previous
+    target rather than the embedding of its own previous argmax, one choice
+    for the whole batch (step 0 always the target); None at ratio 1, every
+    step the target."""
     prenet: torch.Tensor
     encoder: Optional[torch.Tensor] = None
     attention: Optional[torch.Tensor] = None
     decoder: Optional[torch.Tensor] = None
+    teacher: Optional[torch.Tensor] = None
 
 
 def _keep(shape, p_keep: float, generator, device) -> torch.Tensor:
@@ -77,21 +85,35 @@ def _keep(shape, p_keep: float, generator, device) -> torch.Tensor:
 
 
 def draw_masks(cfg: T2UConfig, B: int, L: int, T: int, train: bool,
-               generator: Optional[torch.Generator], device) -> T2UMasks:
+               generator: Optional[torch.Generator], device,
+               teacher_forcing_ratio: float = 1.0) -> T2UMasks:
     """Every mask of one forward of T decoder steps, drawn in one call per
-    kind from `generator` (the device's default generator when None)."""
+    kind from `generator` (the device's default generator when None); below
+    ratio 1, then the teacher choices (`draw_teacher`)."""
     c = cfg
-    prenet = _keep((T, 2, B, c.prenet_dim), PRENET_KEEP, generator, device)
-    if not train:
-        return T2UMasks(prenet=prenet)
-    return T2UMasks(
-        prenet=prenet,
-        encoder=_keep((c.encoder_n_convolutions, B, L, c.encoder_embedding_dim),
-                      ENCODER_KEEP, generator, device),
-        attention=_keep((T, B, c.attention_rnn_dim), 1.0 - c.p_attention_dropout,
-                        generator, device),
-        decoder=_keep((T, B, c.decoder_rnn_dim), 1.0 - c.p_decoder_dropout,
-                      generator, device))
+    masks = T2UMasks(prenet=_keep((T, 2, B, c.prenet_dim), PRENET_KEEP, generator, device))
+    if train:
+        masks = masks._replace(
+            encoder=_keep((c.encoder_n_convolutions, B, L, c.encoder_embedding_dim),
+                          ENCODER_KEEP, generator, device),
+            attention=_keep((T, B, c.attention_rnn_dim), 1.0 - c.p_attention_dropout,
+                            generator, device),
+            decoder=_keep((T, B, c.decoder_rnn_dim), 1.0 - c.p_decoder_dropout,
+                          generator, device))
+    return masks._replace(teacher=draw_teacher(T, teacher_forcing_ratio, generator, device))
+
+
+def draw_teacher(T: int, ratio: float, generator: Optional[torch.Generator], device
+                 ) -> Optional[torch.Tensor]:
+    """The (T,) teacher choices of scheduled sampling: step t reads the
+    target where a uniform draw falls below `ratio`, step 0 always, as
+    fscl_tpu's scan decides it (one draw per step for the whole batch).
+    None at ratio 1 or above, with nothing drawn."""
+    if ratio >= 1.0:
+        return None
+    teacher = torch.rand((T,), generator=generator, device=device) < ratio
+    teacher[0] = True
+    return teacher
 
 
 def _drop(x: torch.Tensor, keep: Optional[torch.Tensor], p_keep: float) -> torch.Tensor:
@@ -266,17 +288,25 @@ class TacoT2U(nn.Module):
         self.memory_layer = nn.Linear(cfg.encoder_embedding_dim, cfg.attention_dim, bias=False)
 
     def forward(self, emb_text, src_lens, units, masks: Optional[T2UMasks] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                teacher_forcing_ratio: float = 1.0):
         """Teacher-forced forward over T_out = units.shape[1] steps, in the
-        module's mode (train: every dropout; eval: the prenet's alone). The
-        teacher-forcing ratio is fscl_tpu's only schedule value, 1
-        (`systems/t2u.py:schedule_f`): every step reads the previous target.
-        Returns (logits (B, T_out, n_units), alignments (B, T_out, L))."""
+        module's mode (train: every dropout; eval: the prenet's alone), with
+        scheduled sampling below `teacher_forcing_ratio` 1: a step whose
+        `masks.teacher` entry is False reads the embedding of the previous
+        step's argmax unit instead of the previous target (no gradient
+        through the argmax; the embedding's rows get theirs). Given masks
+        decide; without a `teacher` entry they are completed from
+        `generator` at a ratio below 1. Returns (logits (B, T_out, n_units),
+        alignments (B, T_out, L))."""
         B, L, _ = emb_text.shape
         T_out = units.shape[1]
         if masks is None:
             masks = draw_masks(self.cfg, B, L, T_out, self.training, generator,
-                               emb_text.device)
+                               emb_text.device, teacher_forcing_ratio)
+        elif masks.teacher is None:
+            masks = masks._replace(teacher=draw_teacher(T_out, teacher_forcing_ratio, generator,
+                                                        emb_text.device))
         src_valid, memory, processed = encode(self, emb_text, src_lens, masks.encoder)
         carry = zero_carry(self.cfg, memory)
         teacher_emb = self.unit_embedding(units)
@@ -284,9 +314,12 @@ class TacoT2U(nn.Module):
                                 teacher_emb[:, :-1]], 1)
         logits_all, aligns = [], []
         for t in range(T_out):
+            dec_in = teacher_in[:, t]
+            if masks.teacher is not None and t > 0:
+                sampled = self.unit_embedding(logits_all[-1].detach().argmax(dim=-1))
+                dec_in = torch.where(masks.teacher[t], dec_in, sampled)
             carry, logits, attn_w = self.decoder_cell(
-                carry, self.prenet(teacher_in[:, t], masks.prenet[t]), memory, processed,
-                src_valid,
+                carry, self.prenet(dec_in, masks.prenet[t]), memory, processed, src_valid,
                 None if masks.attention is None else masks.attention[t],
                 None if masks.decoder is None else masks.decoder[t])
             logits_all.append(logits)

@@ -18,6 +18,12 @@ def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return pos[None, :] < lengths[:, None]
 
 
+def attn_mask_from_valid(valid: torch.Tensor) -> torch.Tensor:
+    """(B, L) valid mask -> (B, L, L) attention mask, True where the key is
+    valid (a broadcast view; the reference masks keys only)."""
+    return valid[:, None, :].expand(valid.shape[0], valid.shape[1], valid.shape[1])
+
+
 def _expand_to(valid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     while valid.dim() < x.dim():
         valid = valid[..., None]

@@ -18,7 +18,7 @@ from fscl_tpu_torch.systems.pr import (
     TransHeadPRSystem,
 )
 from fscl_tpu_torch.systems.t2u import (
-    TacoT2USystem, TransEmbC2T2USystem, TransEmbCT2USystem, TransEmbT2USystem,
+    TacoT2USystem, TransEmbC2T2USystem, TransEmbCT2USystem, TransEmbT2USystem, schedule_f,
 )
 from fscl_tpu_torch.systems.t2u_tune import (
     DAE2ETuneSystem, DATuneSystem, E2ETuneSystem, T2UTuneSystem, t2u_tune_init,

@@ -34,7 +34,7 @@ from fscl_tpu_torch.core.stats import DEFAULT_STATS, GlobalStats
 from fscl_tpu_torch.data.batch import Batch, SupInfo
 from fscl_tpu_torch.models.fastspeech2 import FastSpeech2, FastSpeech2Output
 from fscl_tpu_torch.models.hubert import (
-    SSLUpstream, frozen_upstream_features, init_random_, make_upstream)
+    SSLUpstream, frozen_upstream_features, init_random_, load_torch_checkpoint, make_upstream)
 from fscl_tpu_torch.nn.embeddings import SoftMultiAttCodebook2
 from fscl_tpu_torch.nn.losses import fastspeech2_loss
 from fscl_tpu_torch.ops.masking import length_mask
@@ -91,10 +91,13 @@ class FrozenUpstream:
         self._store_upstream()
 
     def load_upstream(self, state_dict: Dict[str, torch.Tensor]) -> None:
-        """Install upstream weights (HF keys, `convert.hubert_state_dict`
-        gives them from JAX params), cast to the compute dtype."""
+        """Install upstream weights, cast to the compute dtype: a released
+        checkpoint in any layout `models.hubert.load_torch_checkpoint` reads
+        (HF, fairseq, s3prl), or HF keys from JAX params
+        (`convert.hubert_state_dict`, per-layer or scan layout)."""
         self.upstream.float()
-        self.upstream.load_state_dict(state_dict, strict=True)
+        self.upstream.load_state_dict(load_torch_checkpoint(state_dict, self.upstream),
+                                      strict=True)
         self._store_upstream()
 
     def train(self, mode: bool = True):

@@ -1,12 +1,15 @@
 """Text-to-unit (T2U) systems (port of `fscl_tpu/systems/t2u.py`).
 
 - `TacoT2USystem` ("tacot2u", `:63`): a MultilingualEmbedding feeding
-  TacoT2U, framewise cross-entropy and accuracy over the unit targets.
+  TacoT2U, framewise cross-entropy and accuracy over the unit targets;
+  `forward(..., tf_ratio)` runs scheduled sampling below 1.
 - `TransEmbT2USystem` ("fscl-t2u", `:121`): FSCL applied to T2U. Per
   episode, the frozen HuBERT upstream (PR 6's) encodes the support wavs,
   `Downstream1` turns the 25 hidden states into frame features, two-stage
   phoneme query extraction averages them into an (n_symbols, d) table, and
-  the query texts looked up in it go through TacoT2U.
+  the query texts looked up in it go through TacoT2U at the
+  teacher-forcing ratio `schedule_f(step)` (`:37`; constant 1, the
+  reference's linear decay kept as `linear_decay_schedule`, `:44`).
   `TransEmbCT2USystem` (`:245`) takes `Downstream2`'s codeformer features;
   `TransEmbC2T2USystem` (`:268`) a codebook attention over the table.
 - `GradientReversal` (`:297`), `UnitDiscriminator` (`:317`) and `DA`
@@ -43,6 +46,17 @@ from fscl_tpu_torch.systems.base import System
 from fscl_tpu_torch.systems.fscl import FrozenUpstream
 
 
+def schedule_f(step) -> float:
+    """The FSCL-T2U teacher-forcing schedule (TransEmb.py:213-217): constant
+    1.0; the reference's commented linear decay is `linear_decay_schedule`."""
+    return 1.0
+
+
+def linear_decay_schedule(step, floor: float = 0.5, span: float = 20000.0) -> float:
+    """1 - step / span, never below `floor`."""
+    return max(floor, 1.0 - step / span)
+
+
 class T2UBatch(NamedTuple):
     speaker_args: np.ndarray   # (B,)
     texts: np.ndarray          # (B, L) phoneme ids
@@ -72,11 +86,12 @@ class T2UBase(System):
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.model = TacoT2U(t2u_cfg)
 
-    def decode(self, emb_texts, src_lens, units, masks: Optional[T2UMasks] = None):
-        """Teacher-forced TacoT2U forward in the module's mode; returns
-        (logits, alignments)."""
+    def decode(self, emb_texts, src_lens, units, masks: Optional[T2UMasks] = None,
+               tf_ratio: float = 1.0):
+        """Teacher-forced TacoT2U forward in the module's mode, scheduled
+        sampling below `tf_ratio` 1; returns (logits, alignments)."""
         return self.model(emb_texts, src_lens, units.long(), masks=masks,
-                          generator=self.generator)
+                          generator=self.generator, teacher_forcing_ratio=tf_ratio)
 
 
 @SYSTEMS.register("tacot2u")
@@ -93,10 +108,12 @@ class TacoT2USystem(T2UBase):
         self.to(self.device)
         self.eval()
 
-    def forward(self, batch: T2UBatch, masks: Optional[T2UMasks] = None):
-        """(logits, alignments) of a batch on the device."""
+    def forward(self, batch: T2UBatch, masks: Optional[T2UMasks] = None,
+                tf_ratio: float = 1.0):
+        """(logits, alignments) of a batch on the device, at teacher-forcing
+        ratio `tf_ratio` (fscl_tpu's `TacoT2USystem.forward`, `:88`)."""
         return self.decode(self.embedding_model(batch.texts), batch.src_lens, batch.units,
-                           masks)
+                           masks, tf_ratio)
 
     def loss_and_metrics(self, batch: T2UBatch, masks: Optional[T2UMasks] = None):
         logits, _ = self(batch, masks)
@@ -162,12 +179,15 @@ class TransEmbT2USystem(FrozenUpstream, T2UBase):
                                           int(sup.n_symbols))[0, :, 0]
         return self.post_table(table_pre)
 
-    def forward(self, episode: T2UEpisode, masks: Optional[T2UMasks] = None):
+    def forward(self, episode: T2UEpisode, masks: Optional[T2UMasks] = None, step: int = 0):
+        """(logits, alignments) of the query batch, decoded at the
+        teacher-forcing ratio `schedule_f(step)` (fscl_tpu's `common_step`,
+        whose loss reads it at step 0)."""
         sup, qry = episode
         ssl_hidden, _ = self.extract_ssl(sup.wavs, sup.wav_lens)
         table = self.build_embedding_table(ssl_hidden, sup)
         emb = F.embedding(qry.texts, table).masked_fill((qry.texts == 0)[..., None], 0.0)
-        return self.decode(emb, qry.src_lens, qry.units, masks)
+        return self.decode(emb, qry.src_lens, qry.units, masks, schedule_f(step))
 
     def loss_and_metrics(self, episode: T2UEpisode, masks: Optional[T2UMasks] = None):
         logits, _ = self(episode, masks)

@@ -30,6 +30,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from fscl_tpu_torch.core.config import TrainConfig
 from fscl_tpu_torch.data.batch import to_device
@@ -97,6 +98,14 @@ def make_multi_train_step(system: System, k: int, mesh: Optional[Mesh] = None) -
             state, metrics = step(state, b)
         return state, metrics
     return multi
+
+
+def stack_batches(batches):
+    """Identically-shaped batches (NamedTuples of numpy arrays) stacked on a
+    new leading axis (fscl_tpu's `stack_batches`, the scan axis of its
+    `make_multi_train_step`; the port's takes the list itself). None fields
+    stay None."""
+    return tree_map(lambda *xs: None if xs[0] is None else np.stack(xs), *batches)
 
 
 def prefetch_batches(iterator: Iterable, size: int = 2,
