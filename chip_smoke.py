@@ -20,7 +20,10 @@ non-zero exit code when it fails:
    served at, a few edge lengths and HuBERT-large's head layout (at
    L = 1000 and at phase 10's (32, 16, 199, 64) and card-vs-CPU shapes), at
    phase 11's shapes (tasks folded into the batch included), at the head
-   dims 40 and 48 it pads and at phase 14's shapes, at each key split, held to f32 2e-5 / bf16 1e-2
+   dims 40 and 48 it pads, at head dims 192 (padded to the 256 instance)
+   and 256 at L = 64, 512 and 1000 and at the 384-wide base.yaml's shapes
+   of phase 8's Dh 192 check, and at phase 14's shapes, at each key split,
+   held to f32 2e-5 / bf16 1e-2
    and the all-invalid sample to the mean of V (timed in phase 9); phases
    4-14 fail if a main path launches it at a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
@@ -53,7 +56,11 @@ non-zero exit code when it fails:
    per step at shapes held to the plain version), 20 timed, one pass split
    into forward, backward and optimizer, peak memory, a traced step with
    --profile; 5 steps at B = 4 without dropout on the card and on the CPU;
-   the Function's forward + backward timed beside SDPA's.
+   the Function's forward + backward timed beside SDPA's. Then head dims
+   above 128 end to end: base.yaml at encoder and decoder width 384 with 2
+   heads (Dh 192, padded to the kernel's 256 instance), 3 train steps at
+   B = 4 card vs CPU (the bars above) and the last 8 of phase 4's lines
+   served card vs CPU (phase 5's bars).
 10. FSCL meta-episode: `TransEmbSystem` at config/model/fscl-fastspeech2.yaml
    width (base trunk, `speaker_emb: dvec`, a 128 x 4 codebook) with a
    HuBERT-large of random weights drawn on the card from --seed, at the
@@ -75,11 +82,11 @@ non-zero exit code when it fails:
    within 0.1 of f32's, upstream unchanged); `tune_init` into a
    `TransEmbTuneSystem` at fscl-fastspeech2.yaml width; the resident split
    adapted at B = 4, lr 1e-3 with SGD and with the tune Adam (10 steps
-   counted, 50 timed: steps/s; losses finite and falling, every GE2E
-   tensor moved); with --profile a traced adaptation step; 3 Adam steps
+   counted, 25 timed: steps/s; losses finite and falling, every GE2E
+   tensor moved); with --profile a traced adaptation step; 2 Adam steps
    card vs CPU (losses and parameters 1e-4 relative); `adapt_many_on_chip`
    at benchmarks/bench_adapt_many.py's configuration with N = 1 and 8 tasks
-   (aggregate steps/s, one attention launch per layer for all tasks) and
+   of 10 steps (aggregate steps/s, one attention launch per layer for all tasks) and
    with d-vector speakers at N = 2, each task held to its run alone
    (1e-4); `synthesize_bucketed` with the adapted parameters on 8 lines.
 12. The command line on a preprocessed corpus, through
@@ -102,16 +109,19 @@ non-zero exit code when it fails:
    d-vectors), config/algorithm/language/fscl.yaml (32 + 8) and
    config/train/fscl.yaml + an overlay, 6 episodes (no `upstream.` tensor
    in the checkpoint, the codebook moved, episodes/s beside phase 10's);
-   `tune --scan_adapt` (Adam, lr 1e-3, 50 steps) to a 32-utterance split
-   (adaptation.csv finite and falling, adaptation steps/s). Every attention
+   `tune --scan_adapt` (Adam, lr 1e-3, 20 steps) to a 32-utterance split
+   (adaptation.csv finite and falling, adaptation steps/s); `synth --text
+   --vocoder_ckpt` with `vocoder.model: MelGAN` and a melgan-neurips
+   checkpoint written from --seed (no MRF stage launch; the wav against the
+   same mel vocoded on the CPU at phase 7's bars; `--stream` refused). Every attention
    launch is held in phase 3; each stage shape phase 3 did not hold is held
    to the plain version right after the run that launched it.
-13. A raw corpus on the card: 64 utterances of 1.5-10 s in the LJSpeech
-   layout with TextGrids, written from --seed (about 6 minutes of audio,
+13. A raw corpus on the card: 32 utterances of 1.5-10 s in the LJSpeech
+   layout with TextGrids, written from --seed (about 3 minutes of audio,
    tests/torch_corpus.py:write_raw_corpus). `python -m fscl_tpu_torch.cli
    preprocess ... --parse_raw --preprocess --create_dataset --pitch_method
    world_device --n_workers 4` in a fresh subprocess (wall time per stage,
-   utterances/s, audio-s/s, every utterance ok); stage 2 in process on 64 of
+   utterances/s, audio-s/s, every utterance ok); stage 2 in process on 32 of
    its utterances with each of `world` (host C++), `world_device` and
    `yin_device` (host prepare / device / host finish ms, one contour-fix
    launch per DIO batch, audio-s/s; the CLI's run counted too) and each
@@ -124,7 +134,7 @@ non-zero exit code when it fails:
    one integer lag and explained by the refinement's detail; DIO with TF32
    on recorded beside it as a control; durations, phonemes and splits
    exactly); with --profile a traced DIO
-   chunk. Then `train` base.yaml 20 steps at B = 16 from the new store (the
+   chunk. Then `train` base.yaml 10 steps at B = 16 from the new store (the
    loss falls) and `synth --text --ref_wav <a corpus wav> --vocoder_ckpt
    <HiFi-GAN V1>` with a base.yaml `speaker_emb: dvec` copy trained 5 steps
    (a finite wav; the mel card vs CPU within 1e-3).
@@ -132,7 +142,11 @@ non-zero exit code when it fails:
    1.5-10 s written from --seed: `make-units --source hubert_large_ll60k
    --n_units 512` through the CLI (HuBERT-large drawn on the card; 24
    attention launches per batch of 8; utterances/s, upstream and k-means
-   ms); a seeded HuBERT-large written in five released layouts (HF with
+   ms); `make-units --source mel` (the CLI's default: no model) and
+   `--source hubert` (the base upstream, 12 launches per batch) at 64
+   units, every utterance with units, and the base upstream's 13 hidden
+   states card vs CPU on 2 wavs (1e-5 of each layer's max); a seeded
+   HuBERT-large written in five released layouts (HF with
    `weight_g` / `weight_v`, `masked_spec_embed` and `encoder.layer_norm`; HF
    with `parametrizations`; fairseq keys in `{"model", "cfg"}`; s3prl's
    `{"model_weight"}`; the `w2v_model.` prefix) and loaded back through
@@ -147,20 +161,30 @@ non-zero exit code when it fails:
    within 1e-3; with --profile a traced train step); the trained T2U at
    teacher-forcing ratios 0, 0.5 and 1 (B = 4, 64 steps) card vs CPU on
    the same masks and teacher choices within 1e-3, ratio 1 bit-equal to
-   the forward without it, one train step at 0.5 with a finite loss; a base.yaml u2s over
+   the forward without it, one train step at 0.5 with a finite loss;
+   `train --system fscl-t2u-da-tune` through the CLI (T2UDADataModule, 5
+   steps at B = 16, every loss finite); a base.yaml u2s over
    the unit symbols trained 10 steps from T2U2SDataModule, saved, and read
    back through its model card; `train --system fscl-t2u` through the CLI
    (config/model/fscl-t2u.yaml: HuBERT-large + Downstream1 at 256; the
    generic path's episodes of 4 + 2), then 10 episodes of 32 + 8 on the
-   same system (26 attention launches each, a falling loss, episodes/s) and
-   a small episode card vs CPU (table and loss 1e-4); `t2u_tune_init` of a
+   same system (26 attention launches each, a falling loss, episodes/s);
+   fscl-t2u-c (Downstream2) and fscl-t2u-c2 (a codebook attention over the
+   table) on the same upstream, 3 episodes of 32 + 8 each; a small episode
+   card vs CPU through each of the three (table and loss 1e-4); the upstream
+   stored in bf16: the episode's table and the 32-shot tune reference table
+   within 0.1 of the f32 upstream's, then 3 episodes; `t2u_tune_init` of a
    32-shot split into an E2ETuneSystem from the trained T2U, 10 steps at
    B = 4 on one batch through the frozen u2s (10 attention launches per
-   step, a falling loss, the u2s unchanged), then on one seed 20 steps on
-   the stream at config/train/tune-t2s-1500.yaml's optimizer beside 40 at
+   step, a falling loss, the u2s unchanged), then on one seed 6 steps on
+   the stream at config/train/tune-t2s-1500.yaml's optimizer beside 6 at
    lr 0 on the same batches and masks (the difference of their losses
    read; steps/s; the held val loss read after each); one step's loss
-   1e-4 and gradient norm 1e-3 card vs CPU; chained serving of the 32
+   1e-4 and gradient norm 1e-3 card vs CPU (the T2U side on its first 64
+   unit steps); DAE2ETuneSystem from the trained
+   T2U, 3 steps at B = 4 (every loss finite, 10 attention launches a step),
+   one step card vs CPU as the E2E one, and the discriminator's gradient
+   through GradientReversal against -scale times it without; chained serving of the 32
    lines of phase 4 in batches of 8, text -> units -> mel -> wav
    (`serve_t2u_batches`, `vocode_batches`: up to 2560 unit positions a
    batch, 14 attention and 4 stage launches per batch, units/s,
@@ -177,7 +201,7 @@ non-zero exit code when it fails:
    pr-ssl-protonet` through the CLI (config/model/fscl-fastspeech2.yaml:
    HuBERT-large drawn on the card, Downstream1 at 256 with 2 heads; the
    generic path's episodes of 4 + 2 from the shard; no upstream tensor in
-   the checkpoint); SSLProtoNetSystem and TransHeadPRSystem 10 episodes of
+   the checkpoint); SSLProtoNetSystem and TransHeadPRSystem 5 episodes of
    32 + 8 each through `Trainer.fit` (episodes/s, upstream / downstream /
    optimizer ms of one episode, a falling loss on one episode repeated);
    pr-ssl-linear, -baseline and -cluster 10 steps each at B = 8 through
@@ -192,7 +216,7 @@ non-zero exit code when it fails:
    rehearse --preset full`, each flow in a fresh interpreter (its `main`
    wrapped to report the attention shapes it launched) on synthetic
    corpora in one temporary cache: fscl at its defaults (40 episodes of
-   4 + 2, --adapt_steps 200: its three gates enforced), t2u with 5
+   4 + 2) with --adapt_steps 100 (its three gates enforced), t2u with 5
    episodes, 5 u2s and 5 tune steps and pr with 5 episodes (gates
    advisory, as fscl_tpu makes them below 100); each exits 0, and its
    phase seconds, per-phase kernel launches, rehearsal.json metrics and
@@ -201,7 +225,7 @@ non-zero exit code when it fails:
    (32 + 8, one second-order inner step), `imaml` (20 + 5, 20 inner
    steps, K = 5), `fscl_ada1`, `fscl_ada2`, `fscl_ssl_ada1` (phase 10's
    32 + 8 episodes, the SSL one with the query speech), `conti_ae` (B = 8)
-   and `semi_fscl` (a hand-built `SemiEpisode`), each 5 steps (imaml 3)
+   and `semi_fscl` (a hand-built `SemiEpisode`), each 5 steps (meta 3, imaml 2)
    on one episode repeated at lr 5e-4 (all but the last through
    `Trainer.fit`, the last split into upstream, inner loop, CG + HVPs and
    the rest): every loss finite
@@ -210,7 +234,7 @@ non-zero exit code when it fails:
    launches). Card vs
    CPU at a reduced size (the trunk at full width, a 3-layer custom
    upstream of dim 256, dropout off): one `meta` episode, one `imaml`
-   episode (3 inner steps, K = 2), one `fscl_ada1` step: losses 1e-4,
+   episode (1 inner step, K = 2), one `fscl_ada1` step: losses 1e-4,
    gradient norms 1e-3 relative; the MAML and iMAML steps leave the
    PostNet's running statistics unchanged on both devices. Every attention
    shape phase 3 did not hold is held to the plain version right after the
@@ -270,7 +294,8 @@ non-zero exit code when it fails:
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
-   (32, 16, 199, 64)), in float32 at every shape phases 14-16 launched and
+   (32, 16, 199, 64)), at (8, 2, 1000, 256) and (8, 2, 1000, 192), in
+   float32 at every shape phases 14-16 launched and
    in bf16 at phase 17's training shapes,
    beside its route's bound (split TF32 or bf16 tensor cores) and the f32
    FMA bound of the earlier design. The kernel also through its
@@ -337,6 +362,12 @@ GRAD_ATOL = 1e-5
 # training amplifies (tests/test_torch_train.py).
 CHECK_B, CARD_STEPS = 4, 5
 TRAIN_FIRST_RTOL, TRAIN_LATER_RTOL = 1e-5, 1e-3
+# Head dims above 128 end to end (after phase 8): base.yaml with both stacks
+# 384 wide at 2 heads (Dh 192, ESPnet's FastSpeech2 width; the wrapper pads
+# it to the kernel's 256 instance), DH192_STEPS train steps at B = CHECK_B
+# card vs CPU at phase 8's loss bars, then phase 5's card-vs-CPU serving of
+# the last 8 lines at its mel bar.
+DH192_WIDTH, DH192_HEADS, DH192_STEPS = 384, 2, 3
 # FSCL meta-episode (phase 10): the episode shape of
 # benchmarks/bench_fscl_fullsize.py:45-48 (32-shot support of 4 s wavs, 64
 # phonemes each, 100 symbols; an 8-line query batch at L = 128, T = 512) and
@@ -362,22 +393,24 @@ FSCL_BF16_TABLE_REL = 0.1
 # adapted at batch_size 4 (config/train/tune-1500.yaml:4) and the task lr
 # 1e-3 (fscl.yaml:28), steps counted, then timed.
 TUNE_K, TUNE_SUP_BATCH, TUNE_B, TUNE_LR, TUNE_SYMBOL = 32, 4, 4, 1e-3, "xx"
-TUNE_COUNTED, TUNE_TIMED = 10, 50
+TUNE_COUNTED, TUNE_TIMED = 10, 25
 # Task-parallel adaptation at benchmarks/bench_adapt_many.py:24-63's
 # configuration (base width, table speakers, n_speakers 8, B = 4, L = 64,
-# T = 256, lr 1e-4), N = 1 and 8 tasks of 20 steps; and GE2E d-vectors at
+# T = 256, lr 1e-4), N = 1 and 8 tasks of 10 steps (20 until the T2U
+# configurations came to phase 14); and GE2E d-vectors at
 # fscl-fastspeech2.yaml width under vmap, N = 2 tasks of 3 steps. Each task
 # against the same task adapted alone on the card: vmap batches the products
 # (and GE2E's written-out gates replace cuDNN's LSTM), so the sums run in
 # another order; losses 1e-4 relative (the bar of phase 10's loss).
-MANY_B, MANY_L, MANY_T, MANY_LR, MANY_STEPS, MANY_TASKS = 4, 64, 256, 1e-4, 20, (1, 8)
+MANY_B, MANY_L, MANY_T, MANY_LR, MANY_STEPS, MANY_TASKS = 4, 64, 256, 1e-4, 10, (1, 8)
 MANY_DVEC_TASKS, MANY_DVEC_STEPS = 2, 3
 TUNE_RTOL = 1e-4
-# Card vs CPU adaptation: 3 Adam steps of the d-vector trunk at B = 4, L = 64,
+# Card vs CPU adaptation: 2 Adam steps (3 until the T2U configurations came
+# to phase 14) of the d-vector trunk at B = 4, L = 64,
 # T = 256 (lr 1e-4, where an entry whose gradient sits at rounding level
 # moves by at most about lr per step in either direction): per-step losses
 # and the adapted parameters (relative L2 over all of them) within 1e-4.
-TUNE_CHECK_STEPS = 3
+TUNE_CHECK_STEPS = 2
 # The command line on a corpus (phase 12): two languages the frontend has
 # tables for, each 2 speakers with 64 train and 16 val utterances of 2-7.9 s
 # (mel T 172-680 at hop 256 / 22.05 kHz: the 256, 512 and 768 buckets; 16 kHz
@@ -390,7 +423,7 @@ CLI_LANGS = (("en", 0), ("zh", 1))
 CLI_SPEAKERS = ("spkA", "spkB")
 CLI_TRAIN, CLI_VAL, CLI_TUNE_K = 64, 16, 32
 CLI_FRAMES, CLI_PHONES = (172, 680), (30, 100)
-CLI_STEPS, CLI_RESUME_STEPS, CLI_FSCL_EPISODES, CLI_ADAPT_STEPS = 10, 15, 6, 50
+CLI_STEPS, CLI_RESUME_STEPS, CLI_FSCL_EPISODES, CLI_ADAPT_STEPS = 10, 15, 6, 20
 # Precision, remat and observability (phase 17): phase 8's batch shape at
 # base.yaml width with every dropout off (the PostNet's too), so that the
 # f32, bf16 and remat runs draw no masks and compute the same function; Adam
@@ -649,6 +682,12 @@ def phase_attention(seed: int):
     # phase 14: the T2U family (t2u_attention_shapes); phase 15: the PR family
     shapes += t2u_attention_shapes(H, Dh)
     shapes += pr_attention_shapes()
+    # head dims 129-256 (padded to the 256 instance) and 256 itself; the
+    # 384-wide base.yaml of phase 8's `attention_dh192_e2e` (2 heads of 192),
+    # served at B = 8 in every L and T bucket and trained at B = CHECK_B
+    shapes += [(8, 2, L, d) for d in (192, 256) for L in (64, 512, 1000)]
+    shapes += [(BATCH_SIZE, DH192_HEADS, L, DH192_WIDTH // DH192_HEADS) for L in lengths]
+    shapes += [(CHECK_B, DH192_HEADS, L, DH192_WIDTH // DH192_HEADS) for L in (TRAIN_L, TRAIN_T)]
     shapes = list(dict.fromkeys(shapes))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
@@ -672,11 +711,11 @@ LAUNCHED = {}     # what -> the (B, H, L, Dh, dtype) `attention_shapes` recorded
 
 
 @contextlib.contextmanager
-def attention_shapes(attn, checked, what: str):
+def attention_shapes(attn, checked, what: str, launches: bool = True):
     """Record the (B, H, L, Dh, dtype) of every `attention_cuda` call made
     inside (through `attend`, which looks the wrapper up at call time), in
     LAUNCHED too; on leaving, fail if one of them was not held to the plain
-    version."""
+    version, or if none was made where `launches` expects some."""
     launch = attn.attention_cuda
     seen = set()
 
@@ -690,7 +729,7 @@ def attention_shapes(attn, checked, what: str):
     finally:
         attn.attention_cuda = launch
         LAUNCHED.setdefault(what, set()).update(seen)
-    if not seen:
+    if not seen and launches:
         fail(f"{what}: no attention launch recorded")
     if seen - checked:
         fail(f"{what}: attention launched at {sorted(seen - checked)}, shapes phases 3 and 8 "
@@ -752,7 +791,9 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
         # bucket, HuBERT-large in make-units' batches of 8 at 10 s, the
         # u2s encoder over the 1280 unit positions of a served L = 128 batch
         (FSCL_T2U_SHOTS, 2, ssl_num_frames(8 * 16000), 128), (8, 16, ssl_num_frames(160000), 64),
-        (8, 2, 1280, 128)]
+        (8, 2, 1280, 128),
+        # the head-dim-256 instances: at 256 and at 192 padded to it
+        (8, 2, 1000, 256), (8, 2, 1000, 192)]
     timings = []
     extra = {torch.float32: sorted(set(extra_f32) - set(timed)),
              torch.bfloat16: sorted(set(extra_bf16) - set(timed))}
@@ -1267,7 +1308,7 @@ def phase_vocoder_card_vs_cpu(vocoder, records):
             "chunked_vs_full_rel": rel}
 
 
-def phase_card_vs_cpu(system, lines, attn_checked):
+def phase_card_vs_cpu(system, lines, attn_checked, what: str = "card vs CPU"):
     import torch
     from fscl_tpu_torch.frontend import text_to_sequence
     from fscl_tpu_torch.ops import attention as attn
@@ -1284,26 +1325,26 @@ def phase_card_vs_cpu(system, lines, attn_checked):
     cpu.load_state_dict(system.state_dict(), strict=True)
     outs = {}
     for name, s in (("cuda", system), ("cpu", cpu)):
-        shapes = (attention_shapes(attn, attn_checked, "card vs CPU") if name == "cuda"
+        shapes = (attention_shapes(attn, attn_checked, what) if name == "cuda"
                   else contextlib.nullcontext())
         t0 = time.perf_counter()
         with shapes:
             o = s.synthesize_bucketed(texts, src_lens, spk, lang, symbol_id="en")
         outs[name] = {k: getattr(o, k).cpu() for k in ("duration_rounded", "mel_len", "postnet_mel")}
-        log(f"card vs CPU: {name} run {time.perf_counter() - t0:.2f} s, "
+        log(f"{what}: {name} run {time.perf_counter() - t0:.2f} s, "
             f"T={o.postnet_mel.shape[1]}")
     a, b = outs["cuda"], outs["cpu"]
     for key in ("duration_rounded", "mel_len"):
         if not torch.equal(a[key], b[key]):
-            fail(f"card vs CPU: {key} differs")
+            fail(f"{what}: {key} differs")
     if a["postnet_mel"].shape != b["postnet_mel"].shape:
-        fail(f"card vs CPU: shapes {tuple(a['postnet_mel'].shape)} vs {tuple(b['postnet_mel'].shape)}")
+        fail(f"{what}: shapes {tuple(a['postnet_mel'].shape)} vs {tuple(b['postnet_mel'].shape)}")
     err = float((a["postnet_mel"] - b["postnet_mel"]).abs().max())
     scale = float(b["postnet_mel"].abs().max())
-    log(f"card vs CPU: durations and mel_len equal; max |postnet_mel| diff {err:.3g} "
+    log(f"{what}: durations and mel_len equal; max |postnet_mel| diff {err:.3g} "
         f"(atol {CARD_VS_CPU_ATOL}, mel range {scale:.3g})")
     if not err <= CARD_VS_CPU_ATOL:
-        fail(f"card vs CPU: postnet_mel differs by {err:.3g} > {CARD_VS_CPU_ATOL}")
+        fail(f"{what}: postnet_mel differs by {err:.3g} > {CARD_VS_CPU_ATOL}")
     return {"T": int(a["postnet_mel"].shape[1]), "max_abs_err": err, "mel_abs_max": scale}
 
 
@@ -1357,48 +1398,49 @@ def phase_train_kernel_grads(seed: int, attn_checked):
     """`attend` under autograd on the card (the Function: the kernel forward,
     the recompute backward) against autograd through the plain version, at
     the training phase's shapes: H = 2, Dh = 128, f32, B = 16 (and B = 4 of
-    the card-vs-CPU check) at L = 128 and T = 512, ragged keys and one sample
-    with none. The forward is first held at every key split as phase 3 holds
-    the served shapes; the shapes join the set the recorders accept."""
+    the card-vs-CPU check) at L = 128 and T = 512, and the Dh 192 check's
+    (B = 4, 2 heads of 192, padded to the 256 instance), ragged keys and one
+    sample with none. The forward is first held at every key split as phase
+    3 holds the served shapes; the shapes join the set the recorders accept."""
     import torch
     from fscl_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    H, Dh = 2, 128
+    shapes = [(B, 2, L, 128) for B in (TRAIN_B, CHECK_B) for L in (TRAIN_L, TRAIN_T)]
+    shapes += [(CHECK_B, DH192_HEADS, L, DH192_WIDTH // DH192_HEADS) for L in (TRAIN_L, TRAIN_T)]
     worst = {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
-    for B in (TRAIN_B, CHECK_B):
-        for L in (TRAIN_L, TRAIN_T):
-            q, k, v, valid = attention_inputs(gen, B, H, L, Dh, torch.float32)
-            auto = attn.choose_key_split(B * H, L, n_sm, torch.float32)
-            for s in attn.KEY_SPLITS:
-                check_attention(attn, q, k, v, valid, None if s == auto else s,
-                                f"train float32 B={B} L={L} key_split={s}")
-            attn_checked.add((B, H, L, Dh, "float32"))
-            g = torch.randn(q.shape, generator=gen, device="cuda")
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            out = attn.attend(*leaves, valid)
-            if out.grad_fn is None:
-                fail("attend on CUDA under autograd returned an output without grad_fn")
-            got = torch.autograd.grad(out, leaves, g)
-            ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            ref = attn.attention_reference(*ref_leaves, valid)
-            want = torch.autograd.grad(ref, ref_leaves, g)
-            torch.cuda.synchronize()
-            errs = {"fwd": float((out - ref).detach().abs().max())}
-            errs.update({f"d{n}": float((a - b).abs().max()) for n, a, b in zip("qkv", got, want)})
-            if not all(torch.isfinite(t).all() for t in got):
-                fail(f"attention gradients B={B} L={L}: non-finite")
-            # no gradient reaches a key of the sample that has none valid
-            dead = float(got[1][-1].abs().max())
-            log(f"attention Function B={B} H={H} L={L} Dh={Dh} f32: max |d| fwd {errs['fwd']:.3g} "
-                f"(bar {F32_ATOL}), dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv {errs['dv']:.3g} "
-                f"(bar {GRAD_ATOL}); dk of the all-invalid sample {dead:.3g}")
-            if errs["fwd"] > F32_ATOL or max(errs[n] for n in ("dq", "dk", "dv")) > GRAD_ATOL \
-                    or dead != 0.0:
-                fail(f"attention Function disagrees with autograd of the plain version at B={B} "
-                     f"L={L}: {errs}, dk of the all-invalid sample {dead:.3g}")
-            worst = {n: max(worst[n], errs[n]) for n in worst}
+    for B, H, L, Dh in shapes:
+        q, k, v, valid = attention_inputs(gen, B, H, L, Dh, torch.float32)
+        auto = attn.choose_key_split(B * H, L, n_sm, torch.float32)
+        for s in attn.KEY_SPLITS:
+            check_attention(attn, q, k, v, valid, None if s == auto else s,
+                            f"train float32 B={B} L={L} key_split={s}")
+        attn_checked.add((B, H, L, Dh, "float32"))
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attn.attend(*leaves, valid)
+        if out.grad_fn is None:
+            fail("attend on CUDA under autograd returned an output without grad_fn")
+        got = torch.autograd.grad(out, leaves, g)
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = attn.attention_reference(*ref_leaves, valid)
+        want = torch.autograd.grad(ref, ref_leaves, g)
+        torch.cuda.synchronize()
+        errs = {"fwd": float((out - ref).detach().abs().max())}
+        errs.update({f"d{n}": float((a - b).abs().max()) for n, a, b in zip("qkv", got, want)})
+        if not all(torch.isfinite(t).all() for t in got):
+            fail(f"attention gradients B={B} L={L}: non-finite")
+        # no gradient reaches a key of the sample that has none valid
+        dead = float(got[1][-1].abs().max())
+        log(f"attention Function B={B} H={H} L={L} Dh={Dh} f32: max |d| fwd {errs['fwd']:.3g} "
+            f"(bar {F32_ATOL}), dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv {errs['dv']:.3g} "
+            f"(bar {GRAD_ATOL}); dk of the all-invalid sample {dead:.3g}")
+        if errs["fwd"] > F32_ATOL or max(errs[n] for n in ("dq", "dk", "dv")) > GRAD_ATOL \
+                or dead != 0.0:
+            fail(f"attention Function disagrees with autograd of the plain version at B={B} "
+                 f"L={L}: {errs}, dk of the all-invalid sample {dead:.3g}")
+        worst = {n: max(worst[n], errs[n]) for n in worst}
     return worst
 
 
@@ -1663,42 +1705,90 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
     return summary
 
 
-def phase_train_card_vs_cpu(seed: int, attn_checked):
-    """CARD_STEPS train steps at B = 4 without dropout from the same weights
+def phase_train_card_vs_cpu(seed: int, attn_checked, cfg=None, steps: int = CARD_STEPS,
+                            what: str = "train card vs CPU"):
+    """`steps` train steps at B = 4 without dropout from the same weights
     on the card and on the CPU (where the plain versions run): the per-step
     losses against TRAIN_FIRST_RTOL at the first step and TRAIN_LATER_RTOL
-    after it."""
+    after it. `cfg`: base.yaml without dropout unless given."""
     import torch
     from fscl_tpu_torch.data.batch import to_device
     from fscl_tpu_torch.frontend.define import n_symbols
     from fscl_tpu_torch.ops import attention as attn
 
-    cfg = train_model_config(dropout=False)
+    cfg = cfg or train_model_config(dropout=False)
     card = build_train_system(cfg, seed, "cuda")
     cpu = build_train_system(cfg, seed, "cpu")
     cpu.load_state_dict(card.state_dict(), strict=True)
     stream = train_batches(seed + 7, CHECK_B, n_symbols("en"), cfg.variance)
-    batches = [next(stream) for _ in range(CARD_STEPS)]
+    batches = [next(stream) for _ in range(steps)]
     losses = {}
     for name, system in (("cuda", card), ("cpu", cpu)):
         system.model.postnet.dropout.p = 0.0
         state = system.init_state()
-        shapes = (attention_shapes(attn, attn_checked, "train card vs CPU") if name == "cuda"
+        shapes = (attention_shapes(attn, attn_checked, what) if name == "cuda"
                   else contextlib.nullcontext())
         t0 = time.perf_counter()
         with shapes:
             losses[name] = [float(system.train_step(state, to_device(b, name))[1]["Total Loss"])
                             for b in batches]
-        log(f"train card vs CPU: {name} {CARD_STEPS} steps in {time.perf_counter() - t0:.2f} s")
+        log(f"{what}: {name} {steps} steps in {time.perf_counter() - t0:.2f} s")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
-    log("train card vs CPU: losses " + ", ".join(
+    log(f"{what}: losses " + ", ".join(
         f"{a:.6f}/{b:.6f}" for a, b in zip(losses["cuda"], losses["cpu"]))
         + " (card/CPU), relative |d| " + ", ".join(f"{r:.3g}" for r in rel)
         + f" (bars {TRAIN_FIRST_RTOL} at step 1, {TRAIN_LATER_RTOL} after)")
     if not (rel[0] <= TRAIN_FIRST_RTOL and max(rel[1:]) <= TRAIN_LATER_RTOL):
-        fail(f"train card vs CPU: relative loss differences {rel}")
+        fail(f"{what}: relative loss differences {rel}")
     return {"B": CHECK_B, "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
             "rel": rel}
+
+
+def attention_dh192_e2e(seed: int, attn_checked):
+    """Head dims above 128 end to end: base.yaml with encoder and decoder
+    DH192_WIDTH wide at DH192_HEADS heads (Dh 192, padded by the wrapper to
+    the kernel's 256 instance). DH192_STEPS train steps at B = CHECK_B card
+    vs CPU (phase 8's loss bars), then the last 8 of phase 4's lines served
+    card vs CPU on a system with the duration head pinned as phase 4's
+    (phase 5's bars). Returns the card's attention launches."""
+    import torch
+    from dataclasses import replace
+    from fscl_tpu_torch.frontend.define import n_symbols
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+
+    t0 = time.perf_counter()
+    base = train_model_config(dropout=False)
+    cfg = replace(base, transformer=replace(
+        base.transformer, encoder_hidden=DH192_WIDTH, decoder_hidden=DH192_WIDTH,
+        encoder_head=DH192_HEADS, decoder_head=DH192_HEADS))
+    attn.LAUNCHES = 0
+    train = phase_train_card_vs_cpu(seed + 1, attn_checked, cfg, DH192_STEPS,
+                                    "attention Dh 192 train card vs CPU")
+    train_launches = attn.LAUNCHES
+    torch.manual_seed(seed + 2)
+    system = BaselineSystem(cfg, (("en", n_symbols("en")),), device="cuda")
+    with torch.no_grad():
+        head = system.model.variance_adaptor.duration_predictor.linear_layer
+        head.weight.mul_(0.1)
+        head.bias.add_(math.log(5.0))
+    attn.LAUNCHES = 0
+    serve = phase_card_vs_cpu(system, LINES[-8:], attn_checked,
+                              "attention Dh 192 serving card vs CPU")
+    launches = train_launches + attn.LAUNCHES
+    t = cfg.transformer
+    want = (DH192_STEPS * (t.encoder_layer + t.decoder_layer)
+            + 2 * t.encoder_layer + t.decoder_layer)
+    if launches != want:
+        fail(f"attention Dh 192: {launches} attention launches, expected {want}")
+    seconds = time.perf_counter() - t0
+    log(f"attention Dh 192 end to end ({DH192_WIDTH} wide, {DH192_HEADS} heads): {launches} "
+        f"attention launches at head dim {DH192_WIDTH // DH192_HEADS} (padded to 256); "
+        f"{seconds:.2f} s")
+    del system
+    torch.cuda.empty_cache()
+    return {"width": DH192_WIDTH, "heads": DH192_HEADS, "train": train, "serve": serve,
+            "attention_launches": launches, "seconds": seconds}
 
 
 def fscl_model_config(compute_dtype: str):
@@ -2786,11 +2876,80 @@ def cli_synth(root: Path, en: str, seed: int, attn_checked, stage_checked, ckpt:
         f"(atol {CARD_VS_CPU_ATOL})")
     if not err <= CARD_VS_CPU_ATOL:
         fail(f"cli synth card vs CPU: {err:.3g} > {CARD_VS_CPU_ATOL}")
-    return {"lines": len(mels), "batches": n_batches, "audio_seconds": audio_s, "wall_s": wall,
+    melgan = cli_synth_melgan(root, common, model, seed, attn_checked)
+    return {"melgan": melgan,
+            "lines": len(mels), "batches": n_batches, "audio_seconds": audio_s, "wall_s": wall,
             "audio_s_per_s": audio_s / wall, "batches_s": serving["seconds"],
             "batches_audio_s_per_s": audio_s / serving["seconds"], "mel_len": [int(m.shape[0]) for m in mels],
             "launches": launches, "card_vs_cpu": {"L": L, "T": T, "frames": got["cpu"].shape[0],
                                                   "max_abs_err": err}}
+
+
+def cli_synth_melgan(root: Path, common, model: str, seed: int, attn_checked):
+    """`synth --text --vocoder_ckpt` with the model YAML's `vocoder.model:
+    MelGAN` and a melgan-neurips checkpoint in its weight-norm layout,
+    written from the seed: no MRF stage launch; the card's wav against the
+    same mel vocoded on the CPU (phase 7's bars); `--stream` refused, as
+    fscl_tpu refuses it."""
+    import numpy as np
+    from fscl_tpu_torch.audio_out.vocoder import Vocoder
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops import mrf_stage as mrf
+    from torch_corpus import write_melgan_checkpoint
+
+    text = Path(model).read_text()
+    if text.count('model: "HifiGAN"') != 1:
+        fail(f"cli synth melgan: {model} names no single HifiGAN vocoder to replace")
+    melgan_model = root / "base-2spk-melgan.yaml"
+    melgan_model.write_text(text.replace('model: "HifiGAN"', 'model: "MelGAN"'))
+    voc = root / "melgan.pt"
+    write_melgan_checkpoint(str(voc), seed + 3)
+    args = [a if a != model else str(melgan_model) for a in common]
+    line, L, T = cli_synth_line()
+    wavs = []
+
+    def infer(orig):
+        def call(self, mel):
+            wav = orig(self, mel)
+            wavs.append((self.kind, wav))
+            return wav
+        return call
+
+    attn.LAUNCHES, mrf.LAUNCHES = 0, 0
+    with attention_shapes(attn, attn_checked, "cli synth melgan"), \
+            mock.patch.object(Vocoder, "infer", infer(Vocoder.infer)):
+        t0 = time.perf_counter()
+        (mel,) = cli(args + ["--text", line, "--vocoder_ckpt", str(voc), "--output",
+                             str(root / "melgan.wav")])
+        wall = time.perf_counter() - t0
+    launches = {"attention_fwd": attn.LAUNCHES, "mrf_stage": mrf.LAUNCHES}
+    kind, wav = wavs[-1]
+    cpu_wav = Vocoder.from_checkpoint(str(voc), kind="MelGAN", device="cpu").infer(mel)
+    err = np.abs(wav - cpu_wav) if wav.shape == cpu_wav.shape else np.full(1, np.inf)
+    try:
+        cli(args + ["--text", line, "--vocoder_ckpt", str(voc), "--stream", "--output",
+                    str(root / "melgan-stream.wav")])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(f"cli synth melgan ({kind}): {mel.shape[0]} frames -> {wav.shape[0]} samples in "
+        f"{wall:.2f} s, {launches['attention_fwd']} attention + {launches['mrf_stage']} stage "
+        f"launches; the card's wav vs the same mel vocoded on the CPU: mean |d| "
+        f"{float(err.mean()):.3g} (bar {GEN_MEAN}), max {float(err.max()):.3g} (bar {GEN_MAX}); "
+        f"--stream refused: {refused!r}")
+    if kind != "MelGAN" or launches["mrf_stage"] != 0 or not launches["attention_fwd"] \
+            or wav.shape != (mel.shape[0] * 256,) or not np_finite_bounded(wav):
+        fail(f"cli synth melgan: vocoder {kind}, launches {launches}, wav {wav.shape} for "
+             f"{mel.shape[0]} frames, or not finite")
+    if not (float(err.mean()) < GEN_MEAN and float(err.max()) < GEN_MAX):
+        fail(f"cli synth melgan card vs CPU: mean {float(err.mean()):.3g}, max "
+             f"{float(err.max()):.3g}")
+    if refused is None or "--stream" not in refused:
+        fail(f"cli synth melgan: --stream with MelGAN was not refused ({refused!r})")
+    return {"frames": int(mel.shape[0]), "wall_s": wall, "launches": launches,
+            "wav_mean_abs_err": float(err.mean()), "wav_max_abs_err": float(err.max()),
+            "stream_refused": refused}
 
 
 def hold_stage_shapes(stages, stage_checked, voc, what: str) -> None:
@@ -2936,18 +3095,19 @@ def cli_tune(root: Path, zh_tune: str, attn_checked, fscl_ckpt: str):
             "losses": written, "attention_launches": attn.LAUNCHES, "wall_s": wall}
 
 
-# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 64
-# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 6
+# Phase 13: a raw corpus in the LJSpeech layout written from --seed: 32
+# utterances of 1.5-10 s (LJSpeech: 1.1-10.1 s) at 22.05 kHz int16, about 3
 # minutes of audio over the 2-10 s wav buckets (256 until PR 12, cut to make
-# room for phase 16, then 128, cut for phase 18; tests/torch_corpus.py:
+# room for phase 16, then 128, cut for phase 18, then 64, cut for phase 14's
+# T2U configurations; tests/torch_corpus.py:
 # write_raw_corpus). `preprocess` runs once through the command line in a
 # subprocess (world_device, 4 workers for --parse_raw), then the three pitch
 # methods in process on RAW_INPROC of its utterances; the baseline trains
 # RAW_TRAIN_STEPS steps from the store and a d-vector copy RAW_DVEC_STEPS
 # steps before `synth --ref_wav`. RAW_UTTS is the depth to cut first.
-RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 64, (1.5, 10.0), 4
-RAW_INPROC, RAW_CPU_UTTS, RAW_CHECK_B = 64, 8, 4
-RAW_TRAIN_STEPS, RAW_DVEC_STEPS = 20, 5
+RAW_UTTS, RAW_SECONDS, RAW_WORKERS = 32, (1.5, 10.0), 4
+RAW_INPROC, RAW_CPU_UTTS, RAW_CHECK_B = 32, 8, 4
+RAW_TRAIN_STEPS, RAW_DVEC_STEPS = 10, 5
 # phase 13's device (a CPU rehearsal of the phase sets it to "cpu")
 CARD = "cuda"
 # The preprocessing bars, card against the CPU: tests/test_torch_preprocess.py's
@@ -3675,17 +3835,19 @@ E2E_B, E2E_COUNTED = 4, 10                  # config/train/tune-t2s-1500.yaml:4
 # 3.75e-4 the config's 1500 steps reach), from the same start on one seed
 # (the stream's draws and the dropout masks; two until PR 11, cut to keep
 # the script near half its time limit once phase 15 came; 40 steps until
-# PR 12, cut to 20 to make room for phase 16). Beside each run, a control at
+# PR 12, cut to 20 to make room for phase 16, and to 6 for the T2U
+# configurations added beside it). Beside each run, a control at
 # lr 0 on the same seed sees the same batches and masks, so the difference
 # of their losses step by step is what the tune learned: B = 4 batches of
-# 1.5-10 s utterances vary more from one to the next than 20 steps move the
-# loss. The held val batches' loss is read before and after each run, and
+# 1.5-10 s utterances vary more from one to the next than 6 steps move the
+# loss; it is read over the first and the last E2E_GAIN_STEPS. The held
+# val batches' loss is read before and after each run, and
 # after it with the T2U's BatchNorm statistics of the start. These are
 # readings: at this schedule the tune beats its control over its first
 # steps but not over its last 10 (at 40 steps, PR 10-11), as fscl_tpu's does
 # (tests/test_torch_t2u.py holds the trajectory to it; PERF.md section 7),
 # so the check that the chain learns is the one-batch fit at lr 2e-3.
-E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 20, 1, 1500
+E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS, E2E_GAIN_STEPS = 6, 1, 1500, 3
 # Card vs CPU: the teacher-forced logits of the T2U trained above through
 # its 1024-wide recurrences (cuBLAS and the CPU's BLAS sum in another
 # order, and the recurrence carries the differences step to step); the
@@ -3694,6 +3856,11 @@ E2E_STREAM, E2E_SEEDS, E2E_REF_STEPS = 20, 1, 1500
 # global norm of its gradient (a sum over every T2U parameter of products
 # through the u2s trunk's backward).
 T2U_LOGIT_ATOL, T2U_TABLE_REL, T2U_LOSS_RTOL, T2U_GRAD_NORM_RTOL = 1e-3, 1e-4, 1e-4, 1e-3
+# The E2E and DAE2E steps held card vs CPU run the T2U side on its first
+# E2E_CHECK_T unit steps (the CPU steps the 1024-wide decoder one unit at a
+# time, forward and backward: about 10 s a step over a whole batch); the
+# u2s side keeps its length (the soft units are zero-padded to it).
+E2E_CHECK_T = 64
 # Serving: the 32 lines the text -> mel phases serve, in batches of 8; the
 # two- and three-sentence lines take the L bucket 256, so the u2s runs over
 # 10 L = 2560 unit positions.
@@ -3718,22 +3885,55 @@ T2U_CKPT_UNIT_NAME = "hubert-512c-ckpt"
 # step whose predecessor's argmax differs between card and CPU, which must
 # be a near-tie (CPU top-2 margin below 2 * T2U_LOGIT_ATOL).
 T2U_SCHEDULE_T, T2U_RATIOS = 64, (0.0, 0.5, 1.0)
+# The FSCL-T2U configurations beside fscl-t2u, at fscl-t2u.yaml on the same
+# corpus: the codebook variants (fscl-t2u-c: Downstream2's codeformer
+# features; fscl-t2u-c2: Downstream1, then a codebook attention over the
+# table), sharing the fscl-t2u system's HuBERT-large, T2U_VARIANT_EPISODES
+# episodes of 32 + 8 each through Trainer.fit (every loss finite), each card
+# vs CPU on the 4 + 2 episode beside fscl-t2u's (T2U_TABLE_REL,
+# T2U_LOSS_RTOL); and the upstream stored in bf16 (`upstream.compute_dtype:
+# bfloat16`) with the f32 system's weights: its table of the first 32 + 8
+# episode and its 32-shot tune reference table each within
+# FSCL_BF16_TABLE_REL of the f32 upstream's, then T2U_VARIANT_EPISODES
+# episodes.
+T2U_VARIANTS = ("fscl-t2u-c", "fscl-t2u-c2")
+T2U_VARIANT_EPISODES = 3
+# The DA tunes: `train --system fscl-t2u-da-tune` through the CLI
+# (T2UDADataModule; T2UConfig's defaults, B = 16) for T2U_DA_STEPS steps;
+# DAE2ETuneSystem from the trained T2U through the frozen u2s at B = E2E_B,
+# DAE2E_STEPS steps through Trainer.fit, one step card vs CPU (the E2E
+# bars), and the discriminator's gradient into the unit probabilities
+# through GradientReversal against -scale times the gradient without it
+# (GRL_REL of its largest entry: the same backward in the same order).
+T2U_DA_STEPS, DAE2E_STEPS = 5, 3
+GRL_REL = 1e-6
+# make-units from the CLI's default source (`mel`: k-means over the stored
+# mel frames on the card, no model) and from the base upstream (`hubert`:
+# 768 wide, 12 heads of 64, post-LN, group-norm extractor, drawn from the
+# seed), each at the CLI's default 64 units; the base upstream's 13 hidden
+# states card vs CPU on T2U_BASE_CHECK_WAVS wavs (4 s and 3 s), its biases
+# and norm scales drawn too, within T2U_LAYOUT_REL of each layer's max.
+T2U_MEL_UNIT_NAME, T2U_BASE_UNIT_NAME = "mel-64c", "hubert-base-64c"
+T2U_BASE_CHECK_WAVS = 2
 
 
 def t2u_attention_shapes(H: int, Dh: int):
     """The (B, H, L, Dh) the T2U family launches the attention kernel at:
-    HuBERT-large (16 heads of 64) in make-units' batches of 8 at every SSL
-    wav bucket and over the FSCL-T2U support sets (32 shots, the generic
-    path's 4, the tune table's batches of 4) at every episode wav bucket;
-    Downstream1 (2 heads of 128) over the same support sets; the u2s trunk
-    at B = 4 (E2E) at every text and mel bucket, and in chained serving at
-    the 10 L unit positions of each served text bucket."""
+    HuBERT-large (16 heads of 64) and the base upstream (12 heads of 64) in
+    make-units' batches of 8 at every SSL wav bucket, the base upstream card
+    vs CPU on 2 wavs of 4 s; HuBERT-large over the FSCL-T2U support sets
+    (32 shots, the generic path's 4, the tune table's batches of 4) at every
+    episode wav bucket; Downstream1 and Downstream2's encoder block (2 heads
+    of 128) over the same support sets; the u2s trunk at B = 4 (E2E, DAE2E)
+    at every text and mel bucket, and in chained serving at the 10 L unit
+    positions of each served text bucket."""
     from fscl_tpu_torch.data.batch import MEL_BUCKETS as DATA_MEL_BUCKETS, TEXT_BUCKETS
     from fscl_tpu_torch.data.episodic import WAV_BUCKETS
     from fscl_tpu_torch.data.ssl_units import SSL_WAV_BUCKETS
     from fscl_tpu_torch.models.hubert import ssl_num_frames
     from fscl_tpu_torch.serve import L_BUCKETS
-    shapes = [(8, 16, ssl_num_frames(w), 64) for w in SSL_WAV_BUCKETS]
+    shapes = [(8, heads, ssl_num_frames(w), 64) for heads in (16, 12) for w in SSL_WAV_BUCKETS]
+    shapes.append((T2U_BASE_CHECK_WAVS, 12, ssl_num_frames(FSCL_WAV), 64))
     for S in (FSCL_T2U_SHOTS, 4):
         for w in WAV_BUCKETS:
             shapes += [(S, 16, ssl_num_frames(w), 64), (S, 2, ssl_num_frames(w), 128)]
@@ -3790,6 +3990,91 @@ def t2u_make_units(features: str, seed: int, attn_checked):
             "upstream_ms": 1e3 * sec["upstream"], "kmeans_ms": 1e3 * sec["kmeans"],
             "units_ms": 1e3 * sec["units"], "units_per_utterance": [min(counts), max(counts)],
             "attention_launches": attn.LAUNCHES}
+
+
+def t2u_make_units_sources(features: str, seed: int, attn_checked):
+    """`make-units --source mel` (the CLI's default: k-means over the stored
+    mel frames on the card, DPDP on the host, no model) and `--source
+    hubert` (the base upstream drawn on the card from the seed: 12 attention
+    launches per batch of 8) through the CLI at its default 64 units: every
+    utterance gets units. Then the base upstream's 13 hidden states card vs
+    CPU on T2U_BASE_CHECK_WAVS wavs."""
+    import torch
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.models.hubert import frozen_upstream_features, init_random_, make_upstream
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops.masking import length_mask
+
+    store = FeatureStore(features)
+    queries = store.load_metadata()
+    with torch.device("meta"):
+        n_layers = make_upstream("hubert").n_layers
+    out = {}
+    for source, name in (("mel", T2U_MEL_UNIT_NAME), ("hubert", T2U_BASE_UNIT_NAME)):
+        what = f"t2u make-units --source {source}"
+        attn.LAUNCHES = 0
+        with attention_shapes(attn, attn_checked, what, launches=source != "mel"):
+            t0 = time.perf_counter()
+            res = cli(["make-units", features, "--unit_name", name, "--source", source,
+                       "--seed", str(seed)])
+            wall = time.perf_counter() - t0
+        units = store.get_ssl_unit_store(name)
+        counts = [len(units.phoneme.read_from_query(q).split()) for q in queries]
+        launches_ok = (attn.LAUNCHES == 0 if source == "mel"
+                       else attn.LAUNCHES > 0 and attn.LAUNCHES % n_layers == 0)
+        if res["utterances"] != len(queries) or min(counts) < 1 or not launches_ok:
+            fail(f"{what}: {res}, min units {min(counts)}, {attn.LAUNCHES} attention launches")
+        sec = res["seconds"]
+        log(f"{what}: {res['utterances']} utterances in {wall:.2f} s = "
+            f"{res['utterances'] / wall:.2f} utterances/s (features {1e3 * sec['upstream']:.0f} "
+            f"ms, k-means {1e3 * sec['kmeans']:.0f} ms, logits + DPDP + store "
+            f"{1e3 * sec['units']:.0f} ms), {units.load_attrs().get('n_units')} units, "
+            f"{min(counts)}-{max(counts)} per utterance; {attn.LAUNCHES} attention launches")
+        out[source] = {"utterances": res["utterances"], "wall_s": wall,
+                       "utterances_per_s": res["utterances"] / wall,
+                       "units_per_utterance": [min(counts), max(counts)],
+                       "attention_launches": attn.LAUNCHES}
+    # the base upstream card vs CPU, biases and norm scales drawn too
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=CARD).manual_seed(seed + 160)
+    with torch.device("meta"):
+        shell = make_upstream("hubert")
+    card = shell.to_empty(device=CARD).eval().requires_grad_(False)
+    init_random_(card, gen)
+    with torch.no_grad():
+        for p in card.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=CARD))
+    with torch.device("meta"):
+        shell = make_upstream("hubert")
+    cpu = shell.to_empty(device="cpu").eval().requires_grad_(False)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    wavs, lens = query_speech(seed + 161, T2U_BASE_CHECK_WAVS + 2)
+    wavs, lens = wavs[1:1 + T2U_BASE_CHECK_WAVS], lens[1:1 + T2U_BASE_CHECK_WAVS]
+    hidden = {}
+    for dev, module in (("card", card), ("cpu", cpu)):
+        w = torch.from_numpy(wavs).to(CARD if dev == "card" else "cpu")
+        valid = length_mask(torch.from_numpy(lens).to(w.device), w.shape[1])
+        shapes = (attention_shapes(attn, attn_checked, "t2u base upstream card vs CPU")
+                  if dev == "card" else contextlib.nullcontext())
+        with shapes:
+            hidden[dev] = frozen_upstream_features(module, w, valid)[0].cpu()
+    peak = hidden["cpu"].abs().amax(dim=(0, 1, 3))
+    errs = ((hidden["card"] - hidden["cpu"]).abs().amax(dim=(0, 1, 3)) / peak)
+    seconds = time.perf_counter() - t0
+    log(f"t2u base upstream card vs CPU ({T2U_BASE_CHECK_WAVS} wavs of {lens.tolist()} samples, "
+        f"{hidden['cpu'].shape[2]} hidden states): max |d| / layer max {float(errs.max()):.3g} "
+        f"(bar {T2U_LAYOUT_REL}; by layer " + ", ".join(f"{e:.2g}" for e in errs.tolist())
+        + f"); {seconds:.2f} s")
+    if hidden["cpu"].shape[2] != n_layers + 1 or not float(errs.max()) <= T2U_LAYOUT_REL:
+        fail(f"t2u base upstream card vs CPU: {hidden['cpu'].shape[2]} hidden states, "
+             f"{errs.tolist()}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    out["base_card_vs_cpu"] = {"max_rel_err": float(errs.max()),
+                               "by_layer": errs.tolist(), "seconds": seconds}
+    return out
 
 
 def hubert_large_on_card():
@@ -4176,7 +4461,8 @@ def t2u_fscl(root: Path, t2u: str, attn_checked):
     HuBERT-large drawn on the card, Downstream1 at 256; the generic path's
     episodes of 4 + 2, ROADMAP Queue 3), then FSCL_T2U_EPISODES episodes of
     32 + 8 (config/algorithm/t2u/fscl.yaml) from T2UEpisodicDataModule on
-    the same system, counted and timed; then one small episode card vs CPU."""
+    the same system, counted and timed (`t2u_fscl_card_vs_cpu` holds it card
+    vs CPU beside the variants)."""
     import torch
     from fscl_tpu_torch.cli import main as cli
     from fscl_tpu_torch.core.checkpoint import CheckpointManager
@@ -4234,58 +4520,211 @@ def t2u_fscl(root: Path, t2u: str, attn_checked):
         f"{FSCL_T2U_EPISODES} episodes of {FSCL_T2U_SHOTS} + {FSCL_T2U_QUERIES} in {wall:.2f} s "
         f"= {FSCL_T2U_EPISODES / wall:.3f} episodes/s, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
         f"{per_episode} attention launches per episode, Downstream1 moved")
-    check = t2u_fscl_card_vs_cpu(system, dm, attn_checked)
     return system, {"cli_episodes": FSCL_T2U_CLI_EPISODES, "cli_losses": cli_losses,
                     "cli_attention_launches": cli_launches, "episodes": FSCL_T2U_EPISODES,
                     "episodes_per_s": FSCL_T2U_EPISODES / wall, "losses": losses,
-                    "attention_launches": attn.LAUNCHES, "card_vs_cpu": check}
+                    "attention_launches": attn.LAUNCHES}
 
 
-def t2u_fscl_card_vs_cpu(system, dm, attn_checked):
-    """One episode of 4 + 2 in eval mode on the card and on the CPU (the
-    same weights, the same prenet masks): the table and the loss."""
+def t2u_episodes(t2u: str, model_cfg, shots: int, queries: int):
+    """T2UEpisodicDataModule over the corpus at B = 8's train config."""
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.mix_datamodules import T2UEpisodicDataModule
+    train_cfg = t2u_train_config(8, log_step=1, save_step=10**9, val_step=10**9,
+                                 synth_step=10**9)
+    dm = T2UEpisodicDataModule([read_data_config(t2u)], model_cfg, train_cfg, shots=shots,
+                               queries=queries)
+    dm.setup()
+    return dm
+
+
+def t2u_fscl_card_vs_cpu(systems, t2u: str, attn_checked):
+    """One episode of 4 + 2 in eval mode through each FSCL-T2U system of
+    `systems` (name -> system, all on one upstream) on the card and on the
+    CPU (the same weights, the same prenet masks): the table and the loss.
+    On the CPU the shared upstream's hidden states are computed once and
+    given to every system."""
     import torch
     from fscl_tpu_torch.data.batch import to_device
-    from fscl_tpu_torch.data.mix_datamodules import T2UEpisodicDataModule
     from fscl_tpu_torch.models.hubert import make_upstream
     from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
     from fscl_tpu_torch.ops import attention as attn
-    from fscl_tpu_torch.systems.t2u import TransEmbT2USystem
 
-    small = T2UEpisodicDataModule(dm.data_configs, dm.model_cfg, dm.train_cfg, shots=4, queries=2)
-    small.setup()
-    ep = next(small.train_batches())
-    up = system.model_cfg.upstream
+    first = next(iter(systems.values()))
+    ep = next(t2u_episodes(t2u, first.model_cfg, 4, 2).train_batches())
+    up = first.model_cfg.upstream
     with torch.device("meta"):
         shell = make_upstream(up.name, up)
-    cpu = TransEmbT2USystem(system.model_cfg, system.n_symbols, system.t2u_cfg, device="cpu",
-                            upstream=shell.to_empty(device="cpu"))
-    cpu.load_state_dict(system.state_dict(), strict=True)
+    cpu_upstream = shell.to_empty(device="cpu")
+    cpu_upstream.load_state_dict({k: v.cpu() for k, v in first.upstream.state_dict().items()})
     B, L = ep.qry.texts.shape
-    masks = draw_masks(system.t2u_cfg, B, L, ep.qry.units.shape[1], False,
+    masks = draw_masks(first.t2u_cfg, B, L, ep.qry.units.shape[1], False,
                        torch.Generator().manual_seed(8), "cpu")
-    got = {}
-    for name, s, dev in (("card", system, CARD), ("cpu", cpu, "cpu")):
-        e = to_device(ep, dev)
-        m = type(masks)(*(None if x is None else x.to(dev) for x in masks))
-        shapes = (attention_shapes(attn, attn_checked, "t2u fscl card vs CPU") if name == "card"
-                  else contextlib.nullcontext())
-        with shapes, torch.no_grad():
-            s.eval()
-            hidden, _ = s.extract_ssl(e.sup.wavs, e.sup.wav_lens)
-            table = s.build_embedding_table(hidden, e.sup)
-            loss, _ = s.loss_and_metrics(e, masks=m)
-        got[name] = (table.cpu(), float(loss))
-    (t_card, l_card), (t_cpu, l_cpu) = got["card"], got["cpu"]
-    table_rel = float((t_card - t_cpu).abs().max() / t_cpu.abs().max())
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    log(f"t2u fscl card vs CPU (4 + 2, eval): table relative max |d| {table_rel:.3g} (bar "
-        f"{T2U_TABLE_REL}), loss {l_card:.6f} / {l_cpu:.6f}, relative {loss_rel:.3g} (bar "
-        f"{T2U_LOSS_RTOL})")
-    if not (table_rel <= T2U_TABLE_REL and loss_rel <= T2U_LOSS_RTOL):
-        fail(f"t2u fscl card vs CPU: table {table_rel:.3g}, loss {loss_rel:.3g}")
-    del cpu
-    return {"table_rel": table_rel, "loss_cuda": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel}
+    hidden_cpu = None
+    out = {}
+    for name, system in systems.items():
+        if system.upstream is not first.upstream:
+            fail(f"t2u {name} card vs CPU: the systems held here share one upstream")
+        t0 = time.perf_counter()
+        cpu = type(system)(system.model_cfg, system.n_symbols, system.t2u_cfg, device="cpu",
+                           upstream=cpu_upstream)
+        missing, unexpected = cpu.load_state_dict(
+            {k: v for k, v in system.state_dict().items() if not k.startswith("upstream.")},
+            strict=False)
+        if unexpected or any(not k.startswith("upstream.") for k in missing):
+            fail(f"t2u {name} card vs CPU: copying the weights left {missing[:3]} / "
+                 f"{unexpected[:3]}")
+        got = {}
+        for dev, s in (("card", system), ("cpu", cpu)):
+            e = to_device(ep, CARD if dev == "card" else "cpu")
+            m = type(masks)(*(None if x is None else x.to(e.qry.texts.device) for x in masks))
+            shapes = (attention_shapes(attn, attn_checked, f"t2u {name} card vs CPU")
+                      if dev == "card" else contextlib.nullcontext())
+            with shapes, torch.no_grad():
+                s.eval()
+                if dev == "cpu" and hidden_cpu is None:
+                    hidden_cpu = s.extract_ssl(e.sup.wavs, e.sup.wav_lens)
+                cached = (mock.patch.object(s, "extract_ssl", lambda wavs, wav_lens: hidden_cpu)
+                          if dev == "cpu" else contextlib.nullcontext())
+                with cached:
+                    hidden, _ = s.extract_ssl(e.sup.wavs, e.sup.wav_lens)
+                    table = s.build_embedding_table(hidden, e.sup)
+                    loss, _ = s.loss_and_metrics(e, masks=m)
+            got[dev] = (table.cpu(), float(loss))
+        (t_card, l_card), (t_cpu, l_cpu) = got["card"], got["cpu"]
+        table_rel = float((t_card - t_cpu).abs().max() / t_cpu.abs().max())
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        log(f"t2u {name} card vs CPU (4 + 2, eval): table relative max |d| {table_rel:.3g} (bar "
+            f"{T2U_TABLE_REL}), loss {l_card:.6f} / {l_cpu:.6f}, relative {loss_rel:.3g} (bar "
+            f"{T2U_LOSS_RTOL}); {time.perf_counter() - t0:.2f} s")
+        if not (table_rel <= T2U_TABLE_REL and loss_rel <= T2U_LOSS_RTOL):
+            fail(f"t2u {name} card vs CPU: table {table_rel:.3g}, loss {loss_rel:.3g}")
+        out[name] = {"table_rel": table_rel, "loss_cuda": l_card, "loss_cpu": l_cpu,
+                     "loss_rel": loss_rel}
+        del cpu
+    return out
+
+
+def t2u_fit_episodes(system, dm, n: int, what: str, attn_checked):
+    """`n` episodes of `dm` through `Trainer.fit` from a fresh state: every
+    loss finite, one attention launch per upstream layer and per downstream
+    encoder block an episode. Returns (losses, launches, seconds)."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    per_episode = system.upstream.n_layers + len(system.embedding_generator.layers)
+    rec = LossRecorder()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Trainer(system, dm.train_cfg, callbacks=[rec]).fit(system.init_state(),
+                                                           dm.train_batches(), max_steps=n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+    if len(losses) != n or not all(math.isfinite(x) for x in losses) \
+            or attn.LAUNCHES != per_episode * n:
+        fail(f"{what}: losses {losses}, {attn.LAUNCHES} attention launches (expected "
+             f"{per_episode} per episode)")
+    return losses, attn.LAUNCHES, wall
+
+
+def t2u_fscl_variants(t2u: str, fscl, seed: int, attn_checked):
+    """fscl-t2u-c and fscl-t2u-c2 (T2U_VARIANTS) at fscl-t2u.yaml, on the
+    fscl-t2u system's upstream: T2U_VARIANT_EPISODES episodes of 32 + 8
+    each. Returns the systems and their records."""
+    import torch
+    from fscl_tpu_torch.core.registry import SYSTEMS
+
+    dm = t2u_episodes(t2u, fscl.model_cfg, FSCL_T2U_SHOTS, FSCL_T2U_QUERIES)
+    systems, out = {}, {}
+    for i, kind in enumerate(T2U_VARIANTS):
+        torch.manual_seed(seed + 170 + i)
+        system = SYSTEMS.get(kind)(fscl.model_cfg, fscl.n_symbols, fscl.t2u_cfg, device=CARD,
+                                   optim_cfg=dm.train_cfg.optim, upstream=fscl.upstream)
+        losses, launches, wall = t2u_fit_episodes(system, dm, T2U_VARIANT_EPISODES,
+                                                  f"t2u {kind} episodes", attn_checked)
+        log(f"t2u {kind} ({type(system).__name__}, {type(system.embedding_generator).__name__}): "
+            f"{T2U_VARIANT_EPISODES} episodes of {FSCL_T2U_SHOTS} + {FSCL_T2U_QUERIES} in "
+            f"{wall:.2f} s = {T2U_VARIANT_EPISODES / wall:.3f} episodes/s, loss "
+            f"{' -> '.join(f'{x:.4f}' for x in losses)}, {launches} attention launches")
+        systems[kind] = system
+        out[kind] = {"episodes": T2U_VARIANT_EPISODES, "losses": losses,
+                     "episodes_per_s": T2U_VARIANT_EPISODES / wall, "attention_launches": launches}
+    return systems, out
+
+
+def t2u_bf16_upstream(t2u: str, fscl, attn_checked):
+    """The fscl-t2u system with its upstream stored in bf16 and the f32
+    system's weights: the table of the first 32 + 8 episode and the 32-shot
+    tune reference table (`t2u_build_reference_table`, SupInfo batches of
+    4) against the f32 upstream's (FSCL_BF16_TABLE_REL), then
+    T2U_VARIANT_EPISODES episodes of 32 + 8."""
+    import torch
+    from dataclasses import replace
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.data.datasets import FSCLDataset
+    from fscl_tpu_torch.data.episodic import collate_sup_info
+    from fscl_tpu_torch.data.feature_store import FeatureStore
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.t2u import TransEmbT2USystem
+    from fscl_tpu_torch.systems.t2u_tune import t2u_build_reference_table
+
+    t0 = time.perf_counter()
+    cfg = replace(fscl.model_cfg, upstream=replace(fscl.model_cfg.upstream,
+                                                   compute_dtype="bfloat16"))
+    dm = t2u_episodes(t2u, cfg, FSCL_T2U_SHOTS, FSCL_T2U_QUERIES)
+    bf16 = TransEmbT2USystem(cfg, fscl.n_symbols, fscl.t2u_cfg, device=CARD,
+                             optim_cfg=dm.train_cfg.optim)
+    bf16.load_upstream(fscl.upstream.state_dict())
+    missing, unexpected = bf16.load_state_dict(
+        {k: v for k, v in fscl.state_dict().items() if not k.startswith("upstream.")},
+        strict=False)
+    if unexpected or any(not k.startswith("upstream.") for k in missing) \
+            or next(bf16.upstream.parameters()).dtype != torch.bfloat16:
+        fail(f"t2u bf16 upstream: the copy left {missing[:3]} / {unexpected[:3]}, or its "
+             "upstream is not stored in bf16")
+    ep = to_device(next(dm.train_batches()), CARD)
+    tables, ref = {}, {}
+    dc = read_data_config(t2u)
+    ds = FSCLDataset(dc.subset_path("train"), FeatureStore(dc.data_dir), dc, cfg)
+    shots = [ds[i] for i in range(FSCL_T2U_SHOTS)]
+    sups = [collate_sup_info(shots[i:i + 4]) for i in range(0, FSCL_T2U_SHOTS, 4)]
+    for name, s in (("float32", fscl), ("bfloat16", bf16)):
+        s.eval()
+        with attention_shapes(attn, attn_checked, f"t2u fscl-t2u table {name} upstream"), \
+                torch.no_grad():
+            hidden, _ = s.extract_ssl(ep.sup.wavs, ep.sup.wav_lens)
+            tables[name] = s.build_embedding_table(hidden, ep.sup).float()
+        attn.LAUNCHES = 0
+        with attention_shapes(attn, attn_checked, f"t2u tune table {name} upstream"):
+            ref[name] = t2u_build_reference_table(s, sups).float()
+        ref_launches = attn.LAUNCHES
+    rel = {k: float((d["bfloat16"] - d["float32"]).abs().max() / d["float32"].abs().max())
+           for k, d in (("episode_table", tables), ("reference_table", ref))}
+    per_batch = bf16.upstream.n_layers + len(bf16.embedding_generator.layers)
+    log(f"t2u bf16 upstream: the {FSCL_T2U_SHOTS} + {FSCL_T2U_QUERIES} episode's table and the "
+        f"{FSCL_T2U_SHOTS}-shot reference table ({len(sups)} SupInfo batches, {ref_launches} "
+        f"attention launches) against the f32 upstream's, relative max |d| "
+        f"{rel['episode_table']:.3g} / {rel['reference_table']:.3g} (bar {FSCL_BF16_TABLE_REL})")
+    if not all(r <= FSCL_BF16_TABLE_REL for r in rel.values()) \
+            or ref_launches != per_batch * len(sups):
+        fail(f"t2u bf16 upstream: tables {rel}, {ref_launches} reference-table launches")
+    losses, launches, wall = t2u_fit_episodes(bf16, dm, T2U_VARIANT_EPISODES,
+                                              "t2u fscl-t2u bf16 upstream episodes", attn_checked)
+    seconds = time.perf_counter() - t0
+    log(f"t2u bf16 upstream: {T2U_VARIANT_EPISODES} episodes in {wall:.2f} s = "
+        f"{T2U_VARIANT_EPISODES / wall:.3f} episodes/s, loss "
+        f"{' -> '.join(f'{x:.4f}' for x in losses)}, {launches} attention launches; "
+        f"{seconds:.2f} s")
+    del bf16
+    torch.cuda.empty_cache()
+    return {"table_rel": rel, "reference_table_attention_launches": ref_launches,
+            "losses": losses, "episodes_per_s": T2U_VARIANT_EPISODES / wall,
+            "attention_launches": launches, "seconds": seconds}
 
 
 def e2e_held_batches(dm, dc):
@@ -4330,6 +4769,15 @@ def e2e_held_loss(system, held, buffers=None) -> dict:
     if own is not None:
         system.load_state_dict(own, strict=False)
     return out
+
+
+def e2e_check_batch(batch):
+    """An E2E or DAE2E batch with its T2U side cut to E2E_CHECK_T unit steps."""
+    import numpy as np
+    t2u = batch.t2u
+    T = min(E2E_CHECK_T, t2u.units.shape[1])
+    return batch._replace(t2u=t2u._replace(units=t2u.units[:, :T],
+                                           unit_lens=np.minimum(t2u.unit_lens, T)))
 
 
 def t2u_e2e(t2u: str, tacot2u, fscl, u2s, seed: int, attn_checked):
@@ -4433,7 +4881,8 @@ def t2u_e2e(t2u: str, tacot2u, fscl, u2s, seed: int, attn_checked):
                              "held_start_bn": e2e_held_loss(e2e, held, bn0)}
             gain = [a - b for a, b in zip(run["tune"]["stream_losses"],
                                           run["control"]["stream_losses"])]
-            run["gain_first10"], run["gain_last10"] = sum(gain[:10]) / 10, sum(gain[-10:]) / 10
+            n = E2E_GAIN_STEPS
+            run["gain_first"], run["gain_last"] = sum(gain[:n]) / n, sum(gain[-n:]) / n
             runs.append(run)
     unchanged = all(torch.equal(v, e2e.u2s_system.state_dict()[k]) for k, v in u2s0.items())
     finite = all(math.isfinite(x) for r in runs for k in ("tune", "control")
@@ -4444,7 +4893,7 @@ def t2u_e2e(t2u: str, tacot2u, fscl, u2s, seed: int, attn_checked):
              f"{counted_launches} attention launches (expected {per_step} per step: the u2s "
              f"trunk's forward); stream runs {runs}")
     # one step card vs CPU: the loss and the gradient's global norm
-    batch = next(stream.train_batches())
+    batch = e2e_check_batch(next(stream.train_batches()))
     B, L = batch.t2u.texts.shape
     masks = draw_masks(e2e.t2u_cfg, B, L, batch.t2u.units.shape[1], True,
                        torch.Generator().manual_seed(9), "cpu")
@@ -4469,16 +4918,17 @@ def t2u_e2e(t2u: str, tacot2u, fscl, u2s, seed: int, attn_checked):
         f"(lr 2e-3) through the frozen u2s, loss {fit_losses[0]:.3f} -> {fit_losses[-1]:.3f}, "
         f"u2s unchanged, {per_step} attention launches per step")
     fmt = "total {Total Loss:.5f} (T2U {T2U Loss:.5f}, U2S {U2S Loss:.7f})".format
+    n = E2E_GAIN_STEPS
     log(f"t2u e2e held val loss ({len(held)} batches) at the start: {fmt(**held0)}")
     for r in runs:
         t, c = r["tune"], r["control"]
         log(f"t2u e2e (tune-t2s-1500.yaml's optimizer, warm-up {ref_cfg.optim.warmup_step}, "
             f"seed {r['seed']}): {E2E_STREAM} stream steps at B={E2E_B} in {t['wall_s']:.2f} s "
-            f"= {t['steps_per_s']:.2f} steps/s; stream loss mean of the first / last 10 steps "
-            f"{sum(t['stream_losses'][:10]) / 10:.5f} / {sum(t['stream_losses'][-10:]) / 10:.5f}, "
-            f"the lr-0 control's {sum(c['stream_losses'][:10]) / 10:.5f} / "
-            f"{sum(c['stream_losses'][-10:]) / 10:.5f}: tune - control over the first / last "
-            f"10 {r['gain_first10']:+.5f} / {r['gain_last10']:+.5f} (read, not held to a fall: "
+            f"= {t['steps_per_s']:.2f} steps/s; stream loss mean of the first / last {n} steps "
+            f"{sum(t['stream_losses'][:n]) / n:.5f} / {sum(t['stream_losses'][-n:]) / n:.5f}, "
+            f"the lr-0 control's {sum(c['stream_losses'][:n]) / n:.5f} / "
+            f"{sum(c['stream_losses'][-n:]) / n:.5f}: tune - control over the first / last "
+            f"{n} {r['gain_first']:+.5f} / {r['gain_last']:+.5f} (read, not held to a fall: "
             f"PERF.md section 7)")
         for name in ("tune", "control"):
             log(f"t2u e2e held val loss after the {name} run (seed {r['seed']}): "
@@ -4495,6 +4945,147 @@ def t2u_e2e(t2u: str, tacot2u, fscl, u2s, seed: int, attn_checked):
                  "card_vs_cpu": {"loss_cuda": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
                                  "grad_norm_cuda": g_card, "grad_norm_cpu": g_cpu,
                                  "grad_norm_rel": grad_rel}}
+
+
+def t2u_da_tune_cli(root: Path, t2u: str, attn_checked):
+    """`train --system fscl-t2u-da-tune` through the CLI (T2UDADataModule:
+    a t2u stream and a real-unit stream for the discriminator; T2UConfig's
+    defaults, B = 16) for T2U_DA_STEPS steps: every loss finite. TacoT2U
+    runs no attention kernel: its launches are counted, not expected."""
+    from fscl_tpu_torch.cli import main as cli
+    from fscl_tpu_torch.ops import attention as attn
+
+    overlay = cli_train_overlay(root, "da-tune-overlay",
+                                "optimizer:\n  lr: 0.002\n  warm_up_step: 5\n  anneal_steps: []\n"
+                                f"step:\n  log_step: 1\n  save_step: {T2U_DA_STEPS}\n")
+    probe = CliProbe()
+    attn.LAUNCHES = 0
+    with probe.active(), attention_shapes(attn, attn_checked, "t2u fscl-t2u-da-tune cli",
+                                          launches=False):
+        t0 = time.perf_counter()
+        system, state = cli(["train", "--system", "fscl-t2u-da-tune", "--data_config", t2u,
+                             "--train_config", str(REPO / "config" / "train" / "baseline.yaml"),
+                             "--train_config", overlay, "--exp_dir", str(root / "exp-da-tune"),
+                             "--total_step", str(T2U_DA_STEPS)])
+        wall = time.perf_counter() - t0
+    losses = probe.read_losses()
+    if type(system).__name__ != "DATuneSystem" or state.step != T2U_DA_STEPS \
+            or len(losses) != T2U_DA_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"t2u fscl-t2u-da-tune cli: {type(system).__name__}, step {state.step}, "
+             f"losses {losses}")
+    fit = probe.fits[-1]
+    log(f"t2u fscl-t2u-da-tune cli ({type(system).__name__}): {T2U_DA_STEPS} steps at B=16 in "
+        f"{fit['seconds']:.2f} s = {fit['steps_per_s']:.2f} steps/s, loss "
+        f"{' -> '.join(f'{x:.3f}' for x in losses)}; {attn.LAUNCHES} attention launches; the "
+        f"CLI call {wall:.1f} s")
+    del system
+    return {"steps": T2U_DA_STEPS, "losses": losses, "steps_per_s": fit["steps_per_s"],
+            "wall_s": wall, "attention_launches": attn.LAUNCHES}
+
+
+def t2u_dae2e(t2u: str, tacot2u, u2s, seed: int, attn_checked):
+    """DAE2ETuneSystem (the E2E chain plus a gradient-reversal unit
+    discriminator) from the trained T2U through the frozen u2s:
+    DAE2E_STEPS steps at B = E2E_B on T2U2SDADataModule's stream through
+    `Trainer.fit` (every loss finite, the u2s trunk's attention launches per
+    step); one step card vs CPU (loss T2U_LOSS_RTOL, gradient norm
+    T2U_GRAD_NORM_RTOL); the gradient the discriminator sends into the unit
+    probabilities through GradientReversal against -scale times its
+    gradient without the reversal."""
+    import torch
+    from fscl_tpu_torch.core.config import read_data_config
+    from fscl_tpu_torch.data.batch import to_device
+    from fscl_tpu_torch.data.mix_datamodules import T2U2SDADataModule
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.systems.baseline import BaselineSystem
+    from fscl_tpu_torch.systems.t2u_tune import DAE2ETuneSystem
+    from fscl_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    fit_cfg = t2u_train_config(E2E_B, log_step=1, save_step=10**9, val_step=10**9,
+                               synth_step=10**9)
+
+    def build(u2s_system, device):
+        return DAE2ETuneSystem(u2s.model_cfg, id2symbols_of(tacot2u), tacot2u.t2u_cfg,
+                               u2s_system, device=device, optim_cfg=fit_cfg.optim,
+                               u2s_symbol_id=T2U_UNIT_NAME)
+
+    torch.manual_seed(seed + 180)
+    system = build(u2s, CARD)
+    missing, unexpected = system.load_state_dict(tacot2u.state_dict(), strict=False)
+    if unexpected or any(not k.startswith(("u2s_system.", "da.")) for k in missing):
+        fail(f"t2u dae2e: loading the trained T2U left {missing[:3]} / {unexpected[:3]}")
+    dm = T2U2SDADataModule([read_data_config(t2u)], u2s.model_cfg, fit_cfg)
+    dm.setup()
+    per_step = u2s.model_cfg.transformer.encoder_layer + u2s.model_cfg.transformer.decoder_layer
+    rec = LossRecorder()
+    attn.LAUNCHES = 0
+    with attention_shapes(attn, attn_checked, "t2u dae2e tune"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        Trainer(system, fit_cfg, callbacks=[rec]).fit(system.init_state(), dm.train_batches(),
+                                                      max_steps=DAE2E_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    launches = attn.LAUNCHES
+    losses = [float(m["Total Loss"]) for _, m, _ in rec.logs]
+    da_losses = [float(m["DA Loss"]) for _, m, _ in rec.logs]
+    if len(losses) != DAE2E_STEPS or not all(math.isfinite(x) for x in losses + da_losses) \
+            or launches != per_step * DAE2E_STEPS:
+        fail(f"t2u dae2e: losses {losses}, DA losses {da_losses}, {launches} attention launches "
+             f"(expected {per_step} per step)")
+    batch = e2e_check_batch(next(dm.train_batches()))
+    B, L = batch.t2u.texts.shape
+    masks = draw_masks(system.t2u_cfg, B, L, batch.t2u.units.shape[1], True,
+                       torch.Generator().manual_seed(9), "cpu")
+    cpu = build(BaselineSystem(u2s.model_cfg, id2symbols_of(u2s), device="cpu"), "cpu")
+    cpu.load_state_dict(system.state_dict(), strict=True)
+    got = {}
+    for name, s in (("card", system), ("cpu", cpu)):
+        m = type(masks)(*(None if x is None else x.to(s.device) for x in masks))
+        s.train()
+        loss, _ = s.loss_and_metrics(to_device(batch, s.device), masks=m)
+        params = [p for n, p in s.named_parameters() if s.trainable_mask()[n]]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        s.eval()
+        got[name] = (float(loss.detach()), float(torch.sqrt(sum((g.double() ** 2).sum()
+                                                       for g in grads if g is not None))))
+    (l_card, g_card), (l_cpu, g_cpu) = got["card"], got["cpu"]
+    loss_rel, grad_rel = abs(l_card - l_cpu) / abs(l_cpu), abs(g_card - g_cpu) / g_cpu
+    del cpu
+    # the discriminator's gradient into the soft units, with and without
+    # the reversal
+    b = to_device(batch, CARD)
+    with torch.no_grad():
+        logits, _ = system(b.t2u)
+    probs = torch.softmax(logits, dim=-1).requires_grad_()
+    valid = b.t2u.units != 0
+    (g_rev,) = torch.autograd.grad(system.da(probs, valid).sum(), probs)
+    (g_plain,) = torch.autograd.grad(system.da.discriminator(probs, valid).sum(), probs)
+    scale = system.da.grl.scale
+    peak = float(g_plain.abs().max())
+    grl_rel = float((g_rev + scale * g_plain).abs().max()) / peak if peak > 0 else math.inf
+    seconds = time.perf_counter() - t0
+    log(f"t2u dae2e ({DAE2E_STEPS} steps at B={E2E_B} through the frozen u2s in {wall:.2f} s = "
+        f"{DAE2E_STEPS / wall:.2f} steps/s): loss {' -> '.join(f'{x:.3f}' for x in losses)}, DA "
+        f"loss {' -> '.join(f'{x:.4f}' for x in da_losses)}, {per_step} attention launches per "
+        f"step; card vs CPU loss {l_card:.6f} / {l_cpu:.6f} ({loss_rel:.3g}, bar {T2U_LOSS_RTOL}), "
+        f"gradient norm {g_card:.6g} / {g_cpu:.6g} ({grad_rel:.3g}, bar {T2U_GRAD_NORM_RTOL}); "
+        f"gradient through the reversal + {scale} x the plain one: {grl_rel:.3g} of its max "
+        f"{peak:.3g} (bar {GRL_REL}); {seconds:.2f} s")
+    if not (loss_rel <= T2U_LOSS_RTOL and grad_rel <= T2U_GRAD_NORM_RTOL):
+        fail(f"t2u dae2e card vs CPU: loss {loss_rel:.3g}, gradient norm {grad_rel:.3g}")
+    if not grl_rel <= GRL_REL:
+        fail(f"t2u dae2e: the gradient through GradientReversal is {grl_rel:.3g} from -{scale} "
+             "times the gradient without it")
+    del system
+    return {"steps": DAE2E_STEPS, "losses": losses, "da_losses": da_losses,
+            "steps_per_s": DAE2E_STEPS / wall, "attention_launches": launches,
+            "card_vs_cpu": {"loss_cuda": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+                            "grad_norm_cuda": g_card, "grad_norm_cpu": g_cpu,
+                            "grad_norm_rel": grad_rel},
+            "gradient_reversal_rel": grl_rel, "seconds": seconds}
 
 
 def t2u_chained(e2e, seed: int, sr: int, attn_checked, stage_checked):
@@ -4559,8 +5150,10 @@ def t2u_chained(e2e, seed: int, sr: int, attn_checked, stage_checked):
 
 def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, out_dir):
     """Main path, the T2U family at full width on a corpus written from the
-    seed: make-units (HuBERT-large, 512 units), train tacot2u, a u2s and its
-    model card, FSCL-T2U episodes, the E2E tune, chained serving."""
+    seed: make-units (HuBERT-large, 512 units; the mel and base-upstream
+    sources), train tacot2u and the DA tune, a u2s and its model card,
+    FSCL-T2U episodes (the C and C2 variants, a bf16 upstream), the E2E and
+    DAE2E tunes, chained serving."""
     import shutil
     import tempfile
     import torch
@@ -4574,16 +5167,26 @@ def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, 
             f"{T2U_FRAMES[0]}-{T2U_FRAMES[1]} mel frames in {time.perf_counter() - t0:.2f} s")
         features = str(Path(data).parent / "features")
         summary["make_units"] = t2u_make_units(features, seed, attn_checked)
+        summary["make_units_sources"] = t2u_make_units_sources(features, seed, attn_checked)
         summary["upstream_layouts"] = t2u_upstream_layouts(seed, attn_checked)
         summary["make_units_ckpt"] = t2u_make_units_ckpt(root, features, seed, attn_checked)
         tacot2u, batch, summary["train"] = t2u_train(root, t2u, attn_checked, profile, out_dir)
         summary["train"]["card_vs_cpu"] = t2u_card_vs_cpu_logits(tacot2u, batch)
         summary["scheduled_sampling"] = t2u_scheduled_sampling(tacot2u, batch)
         u2s, summary["u2s"] = t2u_u2s(root, t2u, u2s_cfg, attn_checked)
+        summary["da_tune_cli"] = t2u_da_tune_cli(root, t2u, attn_checked)
         fscl, summary["fscl"] = t2u_fscl(root, t2u, attn_checked)
+        variants, summary["fscl_variants"] = t2u_fscl_variants(t2u, fscl, seed, attn_checked)
+        checks = t2u_fscl_card_vs_cpu({"fscl-t2u": fscl, **variants}, t2u, attn_checked)
+        summary["fscl"]["card_vs_cpu"] = checks.pop("fscl-t2u")
+        for kind, check in checks.items():
+            summary["fscl_variants"][kind]["card_vs_cpu"] = check
+        del variants
+        summary["bf16_upstream"] = t2u_bf16_upstream(t2u, fscl, attn_checked)
         e2e, summary["e2e"] = t2u_e2e(t2u, tacot2u, fscl, u2s, seed, attn_checked)
         del fscl
         torch.cuda.empty_cache()
+        summary["dae2e"] = t2u_dae2e(t2u, tacot2u, u2s, seed, attn_checked)
         summary["chained"] = t2u_chained(e2e, seed, 22050, attn_checked, stage_checked)
         del tacot2u, e2e, u2s
         torch.cuda.empty_cache()
@@ -4601,11 +5204,12 @@ def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, 
 # trims and frame pitch that `clean` reads). The model is
 # config/model/fscl-fastspeech2.yaml's: HuBERT-large in f32 drawn on the card,
 # Downstream1 and the heads at 256 with 2 heads (Dh 128), a 128-row codebook.
-# Depth, to cut first: the step, episode and task counts.
+# Depth, to cut first: the step, episode and task counts (the timed episodes
+# cut from 10 to 5 for phase 14's T2U configurations).
 PR_TRAIN, PR_VAL, PR_FRAMES, PR_PHONES = 64, 8, (130, 860), (30, 100)
 PR_TARGET_UTTS, PR_TARGET_PHONES = 40, (30, 60)
 PR_SHOTS, PR_QUERIES = 32, 8        # config/algorithm/phoneme_recognition/pr-fscl.yaml
-PR_CLI_STEPS, PR_EPISODES, PR_FIT_STEPS = 20, 10, 10
+PR_CLI_STEPS, PR_EPISODES, PR_FIT_STEPS = 20, 5, 10
 PR_SUP_B, PR_SUP_STEPS = 8, 10      # the supervised systems through PRDataModule
 PR_TASK_SHOTS, PR_TASK_QUERIES, PR_TASKS, PR_EVAL_BATCH = 8, 8, 2, 8
 PR_READ_BATCHES, PR_SHARD_STEPS = 10, 20
@@ -5053,6 +5657,20 @@ def pr_card_vs_cpu(systems, check_ep, check_task: Path, attn_checked):
     with torch.device("meta"):
         shell = make_upstream(up.name, up)
     cpu_up = shell.to_empty(device="cpu")
+    # the systems share the frozen upstream: on the CPU each distinct input
+    # runs through it once (the first system's forwards serve the second's)
+    if len({id(s.upstream) for s in systems.values()}) != 1:
+        fail("pr card vs CPU: the systems held here share one upstream")
+    memo, forward = {}, cpu_up.forward
+
+    def forward_once(wav, wav_valid=None):
+        key = tuple(None if t is None else (tuple(t.shape), t.dtype, t.numpy().tobytes())
+                    for t in (wav, wav_valid))
+        if key not in memo:
+            memo[key] = forward(wav, wav_valid)
+        return memo[key]
+
+    cpu_up.forward = forward_once
     out = {}
     for name, system in systems.items():
         cpu = type(system)(system.model_cfg, system.id2symbols, device="cpu",
@@ -5160,9 +5778,10 @@ def phase_pr(seed: int, card: str, attn_checked):
 
 # `rehearse --preset full` through the CLI, each flow in a fresh interpreter
 # on synthetic corpora in one cache: the fscl flow at its defaults (40
-# episodes, --adapt_steps 200: its gates enforced); the t2u and pr flows cut
+# episodes) but --adapt_steps 100 (200 by default; its gates are enforced
+# from 100, cut for phase 14's T2U configurations); the t2u and pr flows cut
 # in depth (their gates advisory below 100 steps or episodes, as in fscl_tpu).
-REHEARSE_FLOWS = (("fscl", ()),
+REHEARSE_FLOWS = (("fscl", ("--adapt_steps", "100")),
                   ("t2u", ("--episodes", "5", "--u2s_steps", "5", "--tune_steps", "5")),
                   ("pr", ("--episodes", "5")))
 # The meta systems at config/model/fscl-fastspeech2.yaml's widths with
@@ -5181,18 +5800,20 @@ META_SHOTS = {"meta": (32, 8), "imaml": (20, 5)}
 META_INNER_LR, IMAML_INNER, IMAML_K, IMAML_REG = 1e-3, 20, 5, 1.0
 META_KEYS = ("meta", "imaml", "fscl_ada1", "fscl_ada2", "fscl_ssl_ada1", "conti_ae", "semi_fscl")
 META_STEPS = 5
-# imaml takes 3 (its loss falls over them in every run; cut to make
-# room for phase 18: a step is 7-9 s, the CG's HVPs most of it)
-META_STEPS_BY_KEY = {"imaml": 3}
+# imaml takes 2 and meta 3 (the loss falls over them in every run: imaml's
+# first step to its second, meta's first to its third; cut to make room for
+# phase 18, then for phase 14's T2U configurations: an imaml step is 7-9 s,
+# the CG's HVPs most of it, a meta step 1.6-1.8 s)
+META_STEPS_BY_KEY = {"imaml": 2, "meta": 3}
 META_LR = 5e-4
 CONTI_B = 8
 # Card vs CPU at a reduced size (the trunk at full width, a 3-layer custom
 # upstream of dim 256 in place of HuBERT-large, dropout off, a small
-# episode: S, samples, B, L, T; iMAML's inner loop cut to 3 steps and K to
-# 2): losses 1e-4 relative, gradient norms 1e-3 relative (the bars of
-# phases 14 and 15).
+# episode: S, samples, B, L, T; iMAML's inner loop cut to 1 step (3 until
+# the T2U configurations came to phase 14) and K to 2): losses 1e-4
+# relative, gradient norms 1e-3 relative (the bars of phases 14 and 15).
 META_CHECK = (4, 32000, 4, 32, 128)
-META_CHECK_IMAML = (3, 2)
+META_CHECK_IMAML = (1, 2)
 META_LOSS_RTOL, META_GRAD_NORM_RTOL = 1e-4, 1e-3
 
 REHEARSE_CHILD = r"""
@@ -6740,35 +7361,59 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     card = phase_device()
     import torch
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     phase_build()
+    mark("1-2 device, build")
     max_err, attn_checked = phase_attention(args.seed)
+    mark("3 attention")
     stage_err, stage_timings, stage_checked = phase_mrf_stage(args.seed)
+    mark("3 mrf stage")
     system, main_path = phase_main_path(args.seed, card, attn_checked, args.profile, args.out)
+    mark("4 text -> mel")
     card_vs_cpu = phase_card_vs_cpu(system, LINES[-8:], attn_checked)
+    mark("5 card vs CPU")
     vocoder, wav_records, text_to_wav = phase_text_to_wav(
         system, args.seed, card, attn_checked, stage_checked, args.profile, args.out)
+    mark("6 text -> wav")
     vocoder_check = phase_vocoder_card_vs_cpu(vocoder, wav_records)
+    mark("7 vocoder card vs CPU")
     del system, vocoder, wav_records     # out of the training phase's peak memory
     train = phase_train(args.seed, card, attn_checked, args.profile, args.out)
+    mark("8 train")
+    train["attention_dh192_e2e"] = attention_dh192_e2e(args.seed, attn_checked)
+    mark("8 attention Dh 192 end to end")
     fscl = phase_fscl(args.seed, card, attn_checked, args.profile, args.out)
+    mark("10 fscl")
     tune = phase_tune(args.seed, card, attn_checked, args.profile, args.out)
+    mark("11 tune")
     cli = phase_cli(args.seed, card, attn_checked, stage_checked, train, fscl)
+    mark("12 cli")
     check_f32_precision("phase 12")
     pre = phase_preprocess(args.seed, card, attn_checked, stage_checked, args.profile, args.out)
+    mark("13 preprocess")
     check_f32_precision("phase 13")
     t2u = phase_t2u(args.seed, card, attn_checked, stage_checked, args.profile, args.out)
+    mark("14 t2u")
     check_f32_precision("phase 14")
     pr = phase_pr(args.seed, card, attn_checked)
+    mark("15 pr")
     check_f32_precision("phase 15")
     meta = phase_meta(args.seed, card, attn_checked, args.profile)
+    mark("16 meta")
     check_f32_precision("phase 16")
     prec = phase_precision(args.seed, card, attn_checked, stage_checked)
+    mark("17 precision")
     check_f32_precision("phase 17")
     par = phase_parallel(args.seed, attn_checked)
+    mark("18 parallel")
     check_f32_precision("phase 18")
     timings = phase_attention_timing(args.seed, {
         shape[:4] for what, seen in LAUNCHED.items()
@@ -6776,6 +7421,7 @@ def main(argv=None) -> int:
         for shape in seen if shape[4] == "float32"}, {
         shape[:4] for what, seen in LAUNCHED.items()
         if what.startswith("precision ") for shape in seen if shape[4] == "bfloat16"})
+    mark("9 attention timing")
 
     main_row = next(r for r in timings
                     if r["dtype"] == "float32" and r["L"] == 1000 and r["H"] == 2)
@@ -6789,6 +7435,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"text_to_mel": main_path["attention_launches"],
                              "text_to_wav": text_to_wav["launches"]["attention_fwd"],
                              "train": train["attention_launches"],
+                             "attention_dh192_e2e": train["attention_dh192_e2e"][
+                                 "attention_launches"],
                              "fscl_episode": fscl["float32"]["attention_launches"],
                              "fscl_episode_bf16_upstream": fscl["bfloat16"]["attention_launches"],
                              "tune_reference_table": tune["reference_table"]["float32"][
@@ -6809,12 +7457,23 @@ def main(argv=None) -> int:
                              "preprocess_synth_ref_wav": pre["synth"]["launches"][
                                  "attention_fwd"],
                              "t2u_make_units": t2u["make_units"]["attention_launches"],
+                             "t2u_make_units_hubert_base": t2u["make_units_sources"]["hubert"][
+                                 "attention_launches"],
                              "t2u_upstream_layouts": t2u["upstream_layouts"][
                                  "attention_launches"],
                              "t2u_make_units_ckpt": t2u["make_units_ckpt"]["attention_launches"],
                              "t2u_u2s_train": t2u["u2s"]["attention_launches"],
                              "t2u_fscl_cli": t2u["fscl"]["cli_attention_launches"],
                              "t2u_fscl_episodes": t2u["fscl"]["attention_launches"],
+                             "t2u_fscl_c": t2u["fscl_variants"]["fscl-t2u-c"][
+                                 "attention_launches"],
+                             "t2u_fscl_c2": t2u["fscl_variants"]["fscl-t2u-c2"][
+                                 "attention_launches"],
+                             "t2u_fscl_bf16_upstream": t2u["bf16_upstream"]["attention_launches"],
+                             "t2u_tune_table_bf16_upstream": t2u["bf16_upstream"][
+                                 "reference_table_attention_launches"],
+                             "t2u_da_tune_cli": t2u["da_tune_cli"]["attention_launches"],
+                             "t2u_dae2e_tune": t2u["dae2e"]["attention_launches"],
                              "t2u_tune_init": t2u["e2e"]["tune_init_attention_launches"],
                              "t2u_e2e_tune": t2u["e2e"]["attention_launches"],
                              "t2u_chained": t2u["chained"]["launches"]["attention_fwd"],
@@ -6875,6 +7534,7 @@ def main(argv=None) -> int:
                              "train": train["mrf_stage_launches"],
                              "tune": tune["mrf_stage_launches"],
                              "cli_synth": cli["synth"]["launches"]["mrf_stage"],
+                             "cli_synth_melgan": cli["synth"]["melgan"]["launches"]["mrf_stage"],
                              "preprocess_synth_ref_wav": pre["synth"]["launches"]["mrf_stage"],
                              "t2u_chained": t2u["chained"]["launches"]["mrf_stage"],
                              "synth_saver": prec["synth_saver"]["launches"]["mrf_stage"]},
@@ -6924,9 +7584,13 @@ def main(argv=None) -> int:
               "vocoder_check": vocoder_check, "train": train, "fscl": fscl, "tune": tune,
               "cli": cli, "preprocess": pre, "t2u": t2u, "pr": pr, "meta": meta,
               "precision": prec, "parallel": par,
+              "seconds_by_phase": {name: t - t_prev for (_, t_prev), (name, t)
+                                   in zip(marks, marks[1:])},
               "seconds": time.perf_counter() - t_start}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in record["seconds_by_phase"].items()))
     log(f"all phases passed in {record['seconds']:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,15 @@
 //   it stands.
 // - bf16: 4 warps (64 query rows), two blocks per SM; ldmatrix for K,
 //   ldmatrix.trans for V, and the standard accumulator-to-A repacking.
+// - Head dim 256 (the wrapper pads 129-255 to it): the same loops at twice
+//   the width. In f32 the split K and V of a 32-key stage would take 133 KB,
+//   so three stages would not fit: at DH 256 the ring keeps K and V as
+//   copied and each warp splits the elements it reads (8 warps split the same
+//   tile: more integer work, the same tensor-core work). A warp's Q (128
+//   floats a lane) and O accumulator (128) exceed the 255 registers a thread
+//   may hold, so ptxas spills part of them to local memory (L1); in bf16
+//   the ring (198 KB) leaves one block per SM. Right first, not fast:
+//   chip_smoke.py prints the registers and spills and times it.
 // - Grid: one block per (query tile of Lq, batch * head). Where full query
 //   tiles give too few blocks for the card (short Lq), the block's warps also split
 //   the key loop (key_split 2 or 4: each warp a slice of every key tile, the
@@ -68,6 +77,11 @@
 // exactly as the reference does. Scores are held in log2 units (scaled by
 // log2(e) / temperature) for exp2. Query rows past Lq are computed on zeros and
 // not stored.
+
+// Build: its 18 instances take ptxas about 20-27 s in one nvcc (the f32 DH
+// 256 ones most of it), so ops/cuda_lib.py compiles them in three parts at
+// once, one (type, head dim) family set each (FSCL_PART, below).
+// build parts: 3
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,6 +101,9 @@ template <typename T, int DH, int SPLIT>
 struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int HEAD_DIM = DH;
+  // f32: K and V split into TF32 (big, small) once per block as they land;
+  // at DH 256 they stay raw and each warp splits what it reads (see above)
+  static constexpr bool PRESPLIT = F32 && DH <= 128;
   static constexpr int WARPS = F32 ? 8 : 4;         // ops/attention.py QUERY_ROWS = 16 * WARPS
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int MIN_BLOCKS = F32 ? 1 : 2;      // per SM
@@ -99,10 +116,12 @@ struct Cfg {
   // f32 V, (big, small) pairs: 8-byte loads at rows 2t (+1), pair g,
   // conflict-free for a pitch of 2 mod 8 pairs. bf16: the 8 rows of an
   // ldmatrix 8x8 tile 16 bytes apart modulo 128.
+  // Raw f32 V (DH 256): scalar loads by lanes (g, t) at 2t * LDV + g,
+  // conflict-free for 2 * LDV = 8 mod 32 words.
   static constexpr int LDK = F32 ? DH + 16 : DH + 8;
-  static constexpr int LDV = F32 ? 2 * (DH + 2) : DH + 8;
+  static constexpr int LDV = PRESPLIT ? 2 * (DH + 2) : (F32 ? DH + 4 : DH + 8);
   static constexpr int K_ELEMS = STAGE_KEYS * LDK;
-  static constexpr int V_OFFSET = (F32 ? 2 : 1) * K_ELEMS;   // after K (and its small parts)
+  static constexpr int V_OFFSET = (PRESPLIT ? 2 : 1) * K_ELEMS;   // after K (and its small parts)
   static constexpr int STAGE_ELEMS = V_OFFSET + STAGE_KEYS * LDV;
   static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(T);
   static constexpr int CHUNKS = DH * (int)sizeof(T) / 16;   // 16-byte chunks per row
@@ -254,8 +273,8 @@ __device__ __forceinline__ void copy_slot(int u, int& r, int& c) {
   c = (i % C::CHUNKS) * (16 / (C::F32 ? 4 : 2));
 }
 
-// Start the copies of key tile `tile` into the stage at `st`. f32 V lands at
-// 2c in its pair row, where its (big, small) pairs will go.
+// Start the copies of key tile `tile` into the stage at `st`. Presplit f32 V
+// lands at 2c in its pair row, where its (big, small) pairs will go.
 template <class C, typename T>
 __device__ __forceinline__ void load_stage(T* st, const T* kb, const T* vb, int tile, int Lk) {
   const int n0 = tile * C::STAGE_KEYS;
@@ -266,7 +285,7 @@ __device__ __forceinline__ void load_stage(T* st, const T* kb, const T* vb, int 
     const bool in = n0 + r < Lk;
     const size_t off = in ? (size_t)(n0 + r) * C::HEAD_DIM + c : 0;
     cp_async16(st + r * C::LDK + c, kb + off, in);
-    cp_async16(st + C::V_OFFSET + r * C::LDV + (C::F32 ? 2 * c : c), vb + off, in);
+    cp_async16(st + C::V_OFFSET + r * C::LDV + (C::PRESPLIT ? 2 * c : c), vb + off, in);
   }
 }
 
@@ -300,7 +319,8 @@ __device__ __forceinline__ void split_stage(float* st) {
   }
 }
 
-// s[nt] += Q K^T for the warp's key slice: big K tile at kt, small at kt + K_ELEMS.
+// s[nt] += Q K^T for the warp's key slice: big K tile at kt, small at kt + K_ELEMS
+// (presplit), or the raw K tile at kt, split here.
 template <class C, int DH>
 __device__ __forceinline__ void scores(float (&s)[C::BN / 8][4], const QFrag<float, DH>& q,
                                        const float* kt, int lane) {
@@ -320,8 +340,17 @@ __device__ __forceinline__ void scores(float (&s)[C::BN / 8][4], const QFrag<flo
     }
 #pragma unroll
     for (int nt = 0; nt < C::BN / 8; ++nt) {
-      const uint4 kb = *reinterpret_cast<const uint4*>(k0 + nt * 8 * C::LDK + 16 * j);
-      const uint4 ks = *reinterpret_cast<const uint4*>(k0 + C::K_ELEMS + nt * 8 * C::LDK + 16 * j);
+      uint4 kb, ks;
+      if constexpr (C::PRESPLIT) {
+        kb = *reinterpret_cast<const uint4*>(k0 + nt * 8 * C::LDK + 16 * j);
+        ks = *reinterpret_cast<const uint4*>(k0 + C::K_ELEMS + nt * 8 * C::LDK + 16 * j);
+      } else {
+        const float4 x = *reinterpret_cast<const float4*>(k0 + nt * 8 * C::LDK + 16 * j);
+        split_tf32(x.x, kb.x, ks.x);
+        split_tf32(x.y, kb.y, ks.y);
+        split_tf32(x.z, kb.z, ks.z);
+        split_tf32(x.w, kb.w, ks.w);
+      }
       const uint32_t bb0[2] = {kb.x, kb.y}, bs0[2] = {ks.x, ks.y};
       const uint32_t bb1[2] = {kb.z, kb.w}, bs1[2] = {ks.z, ks.w};
       mma_3xtf32(s[nt], ab[0], as[0], bb0, bs0);
@@ -360,13 +389,25 @@ __device__ __forceinline__ void weighted_values(float (&o)[DH / 8][4], const flo
     split_tf32(p[kk][2], ab[1], as[1]);
     split_tf32(p[kk][1], ab[2], as[2]);
     split_tf32(p[kk][3], ab[3], as[3]);
-    const float* v0 = vt + (8 * kk + 2 * t) * C::LDV + 2 * g;
+    if constexpr (C::PRESPLIT) {
+      const float* v0 = vt + (8 * kk + 2 * t) * C::LDV + 2 * g;
 #pragma unroll
-    for (int dn = 0; dn < DH / 8; ++dn) {
-      const uint2 x0 = *reinterpret_cast<const uint2*>(v0 + 16 * dn);           // key 2t
-      const uint2 x1 = *reinterpret_cast<const uint2*>(v0 + C::LDV + 16 * dn);  // key 2t + 1
-      const uint32_t bb[2] = {x0.x, x1.x}, bs[2] = {x0.y, x1.y};
-      mma_3xtf32(o[dn], ab, as, bb, bs);
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        const uint2 x0 = *reinterpret_cast<const uint2*>(v0 + 16 * dn);           // key 2t
+        const uint2 x1 = *reinterpret_cast<const uint2*>(v0 + C::LDV + 16 * dn);  // key 2t + 1
+        const uint32_t bb[2] = {x0.x, x1.x}, bs[2] = {x0.y, x1.y};
+        mma_3xtf32(o[dn], ab, as, bb, bs);
+      }
+    } else {
+      // raw V: column g of each 8, keys 2t and 2t + 1, split here
+      const float* v0 = vt + (8 * kk + 2 * t) * C::LDV + g;
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        uint32_t bb[2], bs[2];
+        split_tf32(v0[8 * dn], bb[0], bs[0]);
+        split_tf32(v0[C::LDV + 8 * dn], bb[1], bs[1]);
+        mma_3xtf32(o[dn], ab, as, bb, bs);
+      }
     }
   }
 }
@@ -434,7 +475,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int it = 0; it < n_tiles; ++it) {
     T* st = ring + (it % STAGES) * C::STAGE_ELEMS;
     cp_async_wait<STAGES - 2>();   // this thread's copies of tile `it` have landed
-    if constexpr (C::F32) split_stage<C>(st);
+    if constexpr (C::PRESPLIT) split_stage<C>(st);
     __syncthreads();               // everyone's, split; and everyone is done with tile it - 1
     {
       const int next = it + STAGES - 1;   // refill the stage tile it - 1 used
@@ -591,8 +632,52 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
 
 }  // namespace
 
-// q, out: contiguous (B, H, Lq, Dh); k, v: contiguous (B, H, Lk, Dh);
-// key_valid: contiguous (B, Lk) bytes.
+// The (type, head dim) families, each compiled in one build part; without
+// FSCL_PART (one nvcc for the whole file) every family and the entry point.
+#ifndef FSCL_PART
+#define FSCL_PART -1
+#endif
+#define FSCL_OWNS(part) (FSCL_PART < 0 || FSCL_PART == (part))
+#define FSCL_ATTENTION_ARGS                                                                    \
+  const void *q, const void *k, const void *v, const void *key_valid, void *out, int B, int H, \
+      int Lq, int Lk, float scale_log2, int key_split, cudaStream_t stream
+#define FSCL_ATTENTION_CALL q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, key_split, stream
+
+cudaError_t fscl_attention_f32_64(FSCL_ATTENTION_ARGS);
+cudaError_t fscl_attention_f32_128(FSCL_ATTENTION_ARGS);
+cudaError_t fscl_attention_f32_256(FSCL_ATTENTION_ARGS);
+cudaError_t fscl_attention_bf16_64(FSCL_ATTENTION_ARGS);
+cudaError_t fscl_attention_bf16_128(FSCL_ATTENTION_ARGS);
+cudaError_t fscl_attention_bf16_256(FSCL_ATTENTION_ARGS);
+
+#if FSCL_OWNS(0)
+cudaError_t fscl_attention_f32_256(FSCL_ATTENTION_ARGS) {
+  return launch_split<float, 256>(FSCL_ATTENTION_CALL);
+}
+#endif
+#if FSCL_OWNS(1)
+cudaError_t fscl_attention_bf16_256(FSCL_ATTENTION_ARGS) {
+  return launch_split<__nv_bfloat16, 256>(FSCL_ATTENTION_CALL);
+}
+cudaError_t fscl_attention_f32_64(FSCL_ATTENTION_ARGS) {
+  return launch_split<float, 64>(FSCL_ATTENTION_CALL);
+}
+#endif
+#if FSCL_OWNS(2)
+cudaError_t fscl_attention_f32_128(FSCL_ATTENTION_ARGS) {
+  return launch_split<float, 128>(FSCL_ATTENTION_CALL);
+}
+cudaError_t fscl_attention_bf16_64(FSCL_ATTENTION_ARGS) {
+  return launch_split<__nv_bfloat16, 64>(FSCL_ATTENTION_CALL);
+}
+cudaError_t fscl_attention_bf16_128(FSCL_ATTENTION_ARGS) {
+  return launch_split<__nv_bfloat16, 128>(FSCL_ATTENTION_CALL);
+}
+#endif
+
+#if FSCL_OWNS(0)
+// q, out: contiguous (B, H, Lq, Dh); k, v: contiguous (B, H, Lk, Dh); Dh 64,
+// 128 or 256; key_valid: contiguous (B, Lk) bytes.
 // dtype: 0 = float32, 1 = bfloat16. key_split: warps of a block that share
 // the key loop (1, 2 or 4); a block owns 128 (f32) or 64 (bf16) query rows
 // divided by key_split. Returns a cudaError_t (0 on success).
@@ -604,15 +689,12 @@ extern "C" int fscl_attention_fwd(const void* q, const void* k, const void* v,
   if (Lq < 1 || Lq > MAX_LEN || Lk < 1 || Lk > MAX_LEN || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / (double)temperature);
-  if (dtype == 0 && Dh == 128)
-    return (int)launch_split<float, 128>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, key_split, s);
-  if (dtype == 0 && Dh == 64)
-    return (int)launch_split<float, 64>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, key_split, s);
-  if (dtype == 1 && Dh == 128)
-    return (int)launch_split<__nv_bfloat16, 128>(q, k, v, key_valid, out, B, H, Lq, Lk,
-                                                 scale_log2, key_split, s);
-  if (dtype == 1 && Dh == 64)
-    return (int)launch_split<__nv_bfloat16, 64>(q, k, v, key_valid, out, B, H, Lq, Lk,
-                                                scale_log2, key_split, s);
-  return (int)cudaErrorInvalidValue;
+  auto fn = dtype == 0 ? (Dh == 64 ? fscl_attention_f32_64 : Dh == 128 ? fscl_attention_f32_128
+                          : Dh == 256 ? fscl_attention_f32_256 : nullptr)
+          : dtype == 1 ? (Dh == 64 ? fscl_attention_bf16_64 : Dh == 128 ? fscl_attention_bf16_128
+                          : Dh == 256 ? fscl_attention_bf16_256 : nullptr)
+          : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fn(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, key_split, s);
 }
+#endif

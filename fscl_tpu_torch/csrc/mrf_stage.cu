@@ -83,6 +83,11 @@
 // memory once per conv, which bounds the C = 32 stage (T = 256000 at
 // T_mel = 1000) by memory, not operations.
 
+// Build: its 12 conv instances take ptxas about 28-40 s in one nvcc, so
+// ops/cuda_lib.py compiles them in four parts at once, each one set of
+// (kernel size, type) families (FSCL_PART, below).
+// build parts: 4
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -586,21 +591,53 @@ cudaError_t conv_k(const float* in, const uint32_t* wp, const float* bias, const
   return launch_conv<K, BF16, 32>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s);
 }
 
-template <bool BF16>
-cudaError_t conv_t(int k, const float* in, const uint32_t* wp, const float* bias, const float* res,
-                   const float* accin, float* out, int B, int C, int T, int dil, float scale,
-                   int vec, cudaStream_t s) {
-  switch (k) {
-    case 3: return conv_k<3, BF16>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s);
-    case 7: return conv_k<7, BF16>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s);
-    case 11: return conv_k<11, BF16>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
+
+// The (kernel size, type) families, each compiled in one build part; without
+// FSCL_PART (one nvcc for the whole file) every family and the entry points.
+#ifndef FSCL_PART
+#define FSCL_PART -1
+#endif
+#define FSCL_OWNS(part) (FSCL_PART < 0 || FSCL_PART == (part))
+#define FSCL_CONV_ARGS                                                                        \
+  const float *in, const uint32_t *wp, const float *bias, const float *res, const float *accin, \
+      float *out, int B, int C, int T, int dil, float scale, int vec, cudaStream_t s
+#define FSCL_CONV_CALL in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s
+
+cudaError_t fscl_mrf_conv_3_f32(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_7_f32(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_11_f32(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_3_bf16(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_7_bf16(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_11_bf16(FSCL_CONV_ARGS);
+
+#if FSCL_OWNS(0)
+cudaError_t fscl_mrf_conv_11_f32(FSCL_CONV_ARGS) { return conv_k<11, false>(FSCL_CONV_CALL); }
+#endif
+#if FSCL_OWNS(1)
+cudaError_t fscl_mrf_conv_11_bf16(FSCL_CONV_ARGS) { return conv_k<11, true>(FSCL_CONV_CALL); }
+#endif
+#if FSCL_OWNS(2)
+cudaError_t fscl_mrf_conv_3_f32(FSCL_CONV_ARGS) { return conv_k<3, false>(FSCL_CONV_CALL); }
+cudaError_t fscl_mrf_conv_7_f32(FSCL_CONV_ARGS) { return conv_k<7, false>(FSCL_CONV_CALL); }
+#endif
+#if FSCL_OWNS(3)
+cudaError_t fscl_mrf_conv_3_bf16(FSCL_CONV_ARGS) { return conv_k<3, true>(FSCL_CONV_CALL); }
+cudaError_t fscl_mrf_conv_7_bf16(FSCL_CONV_ARGS) { return conv_k<7, true>(FSCL_CONV_CALL); }
+#endif
+
+#if FSCL_OWNS(0)
+static cudaError_t conv_f32(int k, FSCL_CONV_ARGS) {
+  return k == 3 ? fscl_mrf_conv_3_f32(FSCL_CONV_CALL) : k == 7 ? fscl_mrf_conv_7_f32(FSCL_CONV_CALL)
+       : k == 11 ? fscl_mrf_conv_11_f32(FSCL_CONV_CALL) : cudaErrorInvalidValue;
+}
+
+static cudaError_t conv_bf16(int k, FSCL_CONV_ARGS) {
+  return k == 3 ? fscl_mrf_conv_3_bf16(FSCL_CONV_CALL) : k == 7 ? fscl_mrf_conv_7_bf16(FSCL_CONV_CALL)
+       : k == 11 ? fscl_mrf_conv_11_bf16(FSCL_CONV_CALL) : cudaErrorInvalidValue;
+}
 
 // The whole stage on `stream`. x, out, h, r: (B, C, T) f32 on the device
 // (h and r are work buffers; out holds the stage output, or the mean before
@@ -630,7 +667,7 @@ extern "C" int fscl_mrf_stage(const void* x, void* out, void* h, void* r, void* 
   float* fr = static_cast<float*>(r);
   const int vec = T % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(h) && aligned16(r);
   const float inv_n = 1.0f / (float)n_res;
-  auto conv = round_bf16 ? conv_t<true> : conv_t<false>;
+  auto conv = round_bf16 ? conv_bf16 : conv_f32;
   int ci = 0, di = 0;
   for (int j = 0; j < n_res; ++j) {
     for (int q = 0; q < n_dil[j]; ++q, ++di, ci += 2) {
@@ -663,3 +700,4 @@ extern "C" int fscl_mrf_post(const void* y, const void* post_w, const void* post
                    static_cast<const float*>(post_b), static_cast<float*>(wav), B, C, T,
                    round_bf16, static_cast<cudaStream_t>(stream));
 }
+#endif

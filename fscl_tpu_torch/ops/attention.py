@@ -13,11 +13,14 @@ to the input dtype. In bf16 the rounding matters: kept in f32, the weights
 put the plain version 3.9e-3 from `xla_attention` at (4, 2, 64, 32); rounded,
 2.4e-4.
 
-The kernel has instances for head dims 64 and 128; the wrapper zero-pads
-other head dims up to 128 to the next one (`_launch`). It takes Lq query rows
-against Lk keys: self-attention has Lq == Lk; the sequence-parallel upstream
-(`parallel/sequence_parallel.py`) attends a rank's T / S frames to all T
-gathered keys, a shape the JAX package sends to XLA (`attend`, `:160`).
+The kernel has instances for head dims 64, 128 and 256; the wrapper
+zero-pads other head dims up to 256 to the next one (`_launch`: the `mel`
+upstream's 40 to 64, a 384-wide FFT block's 192 to 256) and raises above
+256, where the JAX package computes with `xla_attention` (ROADMAP Queue 3).
+It takes Lq query rows against Lk keys: self-attention has Lq == Lk; the
+sequence-parallel upstream (`parallel/sequence_parallel.py`) attends a
+rank's T / S frames to all T gathered keys, a shape the JAX package sends
+to XLA (`attend`, `:160`).
 
 `attend` takes the plain version only for CPU tensors. For CUDA tensors it
 launches the kernel or raises: there is no fallback. The one exception is
@@ -44,7 +47,7 @@ import torch
 from fscl_tpu_torch.ops import cuda_lib
 
 NEG_INF = -1e9
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_LEN = 16384        # csrc/attention.cu: the key flags in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_SPLITS = (1, 2, 4)
@@ -115,8 +118,8 @@ def attention_cuda(
 ) -> torch.Tensor:
     """Launch the Hopper kernel. q: contiguous (B, H, Lq, Dh), k and v:
     contiguous (B, H, Lk, Dh) CUDA tensors of one dtype (float32 or
-    bfloat16), Dh <= 128 (the kernel's instances take 64 and 128; other head
-    dims are padded, see `_launch`), 1 <= Lq, Lk <= MAX_LEN; key_valid:
+    bfloat16), Dh <= 256 (the kernel's instances take 64, 128 and 256; other
+    head dims are padded, see `_launch`), 1 <= Lq, Lk <= MAX_LEN; key_valid:
     contiguous (B, Lk) bool on the same device."""
     return _launch(q, k, v, key_valid, temperature, None)
 
@@ -133,14 +136,19 @@ def _launch(
     `choose_key_split` picks when None. Tests and chip_smoke.py sweep every
     split through it.
 
-    A head dim below 128 that has no kernel instance (the `mel` upstream's
-    40, a custom upstream's 48 or 80) is zero-padded along Dh to the next
-    instance's, with the temperature kept at sqrt(the true Dh): zero columns
-    add nothing to q k^T, and v's zero columns only give output columns,
-    which are sliced off. The JAX package sends such shapes to XLA."""
+    A head dim up to 256 that has no kernel instance (the `mel` upstream's
+    40, a custom upstream's 48 or 80, a 384-wide FFT block's 192 at 2
+    heads) is zero-padded along Dh to the next instance's, with the
+    temperature kept at sqrt(the true Dh): zero columns add nothing to
+    q k^T, and v's zero columns only give output columns, which are sliced
+    off. The JAX package sends such shapes to XLA. Above 256 it raises."""
     Dh = q.shape[-1]
-    if Dh in HEAD_DIMS or Dh > HEAD_DIMS[-1] or q.dim() != 4:
+    if Dh in HEAD_DIMS or q.dim() != 4:
         return _launch_kernel(q, k, v, key_valid, temperature, key_split)
+    if Dh > HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {Dh} above {HEAD_DIMS[-1]}: the attention kernel has "
+                         f"instances for head dims {HEAD_DIMS} and pads smaller ones; fscl_tpu "
+                         f"computes such heads with xla_attention")
     pad = next(d for d in HEAD_DIMS if d > Dh) - Dh
     temp = temperature if temperature is not None else Dh ** 0.5
     q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))

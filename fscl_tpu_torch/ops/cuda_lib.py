@@ -5,12 +5,19 @@ Each `csrc/<name>.cu` file exposes a plain C entry point. It is compiled with
 library lands in `fscl_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged one
 is built once per checkout. Importing this module builds nothing.
+
+A source whose kernel instances take long to compile says so with a line
+`// build parts: N`: it is then compiled by N nvcc processes at once, the
+i-th with `-DFSCL_PART=i` (the source compiles the instances of part i in
+that unit, and part 0 also holds the entry points), and the N objects are
+linked into the one library. Without the macro the source compiles whole.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,10 +29,10 @@ from typing import Dict, NamedTuple
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
+PARTS = re.compile(r"^// build parts: (\d+)$", re.MULTILINE)
 
 
 class Built(NamedTuple):
@@ -54,6 +61,43 @@ def find_nvcc() -> str:
                        "CUDA toolkit's nvcc (put it on PATH or set CUDA_HOME)")
 
 
+def build_parts(source: str) -> int:
+    """How many nvcc processes compile `source` (its `// build parts: N`)."""
+    found = PARTS.search(source)
+    return int(found.group(1)) if found else 1
+
+
+def _nvcc(args) -> str:
+    """Run nvcc; its output (ptxas's registers and spills), or raise."""
+    proc = subprocess.run([find_nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(args)}):\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _compile(src: Path, out: str, out_dir: Path) -> str:
+    """`src` into the shared library `out`: one nvcc, or one per part at
+    once and a link. Returns nvcc's output."""
+    parts = build_parts(src.read_text())
+    if parts == 1:
+        return _nvcc([*NVCC_FLAGS, "-o", out, str(src)])
+    objs = []
+    try:
+        for _ in range(parts):
+            fd, obj = tempfile.mkstemp(suffix=".o", dir=out_dir)
+            os.close(fd)
+            objs.append(obj)
+        with ThreadPoolExecutor(max_workers=parts) as pool:
+            logs = list(pool.map(
+                lambda i: _nvcc([*COMPILE_FLAGS, f"-DFSCL_PART={i}", "-c", "-o", objs[i],
+                                 str(src)]), range(parts)))
+        return "".join(logs) + _nvcc([*GENCODE, "-shared", "-o", out, *objs])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
+
+
 def build(name: str) -> Built:
     """Compile `csrc/<name>.cu` unless this source was already built, then
     load it. Raises if nvcc fails."""
@@ -73,12 +117,7 @@ def build(name: str) -> Built:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-            log_path.write_text(proc.stdout + proc.stderr)
+            log_path.write_text(_compile(src, tmp, out_dir))
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):
@@ -91,7 +130,8 @@ def build(name: str) -> Built:
 
 
 def build_all() -> Dict[str, Built]:
-    """Build every `csrc/*.cu` at once, one nvcc process per source."""
+    """Build every `csrc/*.cu` at once, one nvcc process per source (per
+    part of a source built in parts)."""
     names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return dict(zip(names, pool.map(build, names)))

@@ -1,8 +1,8 @@
 """The attention kernel's CUDA route at head dims it has no instance for.
 
-The kernel has instances for head dims 64 and 128. `attention_cuda` (and so
-`attend` on the card, `AttentionFunction`'s forward and its vmap rule)
-zero-pads any other head dim up to 128 to the next instance and slices the
+The kernel has instances for head dims 64, 128 and 256. `attention_cuda`
+(and so `attend` on the card, `AttentionFunction`'s forward and its vmap
+rule) zero-pads any other head dim up to 256 to the next instance and slices the
 output back, keeping the temperature at sqrt(the true Dh), where the JAX
 package sends such shapes to XLA. There is no card here, so the launch
 itself (`_launch_kernel`) is swapped for the plain version, which must see
@@ -111,8 +111,13 @@ def test_padded_function_under_vmap_matches_plain_version(launches, dh):
 
 
 def test_head_dims_above_128_still_raise():
-    """No instance to pad to: the real launch refuses before it looks for a
-    card."""
+    """Above 128 the wrapper pads to the 256 instance, and the real launch
+    then refuses CPU tensors; above 256 there is no instance to pad to, and
+    it refuses before it pads (tests/test_torch_attention_dh256.py holds the
+    pad rule)."""
     q, k, v, valid, _ = _inputs(160)
-    with pytest.raises(ValueError, match="head dim 160 not supported"):
+    with pytest.raises(ValueError, match="attention_cuda takes CUDA tensors"):
+        tattn.attention_cuda(q, k, v, valid)
+    q, k, v, valid, _ = _inputs(300)
+    with pytest.raises(ValueError, match="head dim 300 above 256"):
         tattn.attention_cuda(q, k, v, valid)

@@ -146,7 +146,32 @@ def test_cuda_system_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh,L", [(128, 77), (64, 129), (128, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [192, 256])
+@pytest.mark.parametrize("L", [64, 200, 1000])
+def test_cuda_kernel_above_head_dim_128_matches_plain_version(cuda_device, dtype, Dh, L):
+    """The head-dim-256 instances (f32: raw K and V split by each warp; bf16)
+    and 192 padded to them, at every key split and through `attend`, with a
+    ragged mask and a sample with no valid key; the temperature is sqrt(the
+    true head dim)."""
+    q, k, v, valid = _inputs(21, 4, 2, L, Dh, dtype, cuda_device)
+    want = tattn.attention_reference(q, k, v, valid)
+    atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+    for key_split in (None, 1, 2, 4):
+        before = tattn.LAUNCHES
+        with torch.no_grad():
+            got = (tattn.attend(q, k, v, valid) if key_split is None
+                   else tattn._launch(q, k, v, valid, None, key_split))
+        torch.cuda.synchronize()
+        assert tattn.LAUNCHES == before + 1 and got.shape == q.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    with pytest.raises(ValueError, match="head dim 320 above 256"):
+        tattn.attention_cuda(*(torch.nn.functional.pad(t, (0, 320 - Dh)) for t in (q, k, v)),
+                             valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,L", [(128, 77), (64, 129), (128, 512), (192, 200)])
 def test_attention_function_grads_match_plain_autograd(cuda_device, Dh, L):
     q, k, v, valid = _inputs(7, 4, 2, L, Dh, torch.float32, cuda_device)
     g = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
@@ -639,6 +664,78 @@ def test_tacot2u_card_matches_cpu(cuda_device):
     upto = int(ties[0]) if len(ties) else wl.shape[1]
     assert upto > 8
     assert torch.equal(gp.cpu()[:, :upto], wp[:, :upto])
+
+
+@pytest.mark.cuda
+def test_gradient_reversal_on_card(cuda_device):
+    """Identity forward; the gradient through it is -scale times the
+    gradient without it, on the card as on the CPU."""
+    from fscl_tpu_torch.systems.t2u import GradientReversal
+    rng = np.random.default_rng(4)
+    x, w = (torch.from_numpy(rng.normal(size=(3, 9, 40)).astype(np.float32)) for _ in range(2))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaf = x.to(dev).requires_grad_()
+        out = GradientReversal(0.7)(leaf)
+        assert torch.equal(out.detach().cpu(), x)
+        (g,) = torch.autograd.grad((out * w.to(dev)).sum(), leaf)
+        grads[str(dev)] = g.cpu()
+    torch.testing.assert_close(grads["cuda"], -0.7 * w, atol=0, rtol=0)
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_transemb_c_t2u_episode_card_matches_cpu(cuda_device):
+    """A tiny fscl-t2u-c episode (a 2-layer custom upstream of dim 128,
+    Downstream2 at d_model 32: an encoder block through the kernel, then
+    the codeformer) in eval mode on the card and on the CPU with the same
+    weights and prenet masks: the table and the loss within 1e-4 relative
+    (chip_smoke.py's FSCL-T2U bars); then one train step on the card with a
+    finite loss."""
+    from fscl_tpu_torch.data.batch import SupInfo
+    from fscl_tpu_torch.models.tacotron2_t2u import draw_masks
+    from fscl_tpu_torch.systems.t2u import T2UBatch, T2UEpisode, TransEmbCT2USystem
+    cfg = C.ModelConfig(upstream=C.UpstreamConfig(name="custom", dim=128, n_layers=3),
+                        codebook=C.CodebookConfig(size=8, num_heads=2, dim=32))
+    t2u = _small_t2u_cfg()
+    n_sym = 12
+    torch.manual_seed(0)
+    cpu = TransEmbCT2USystem(cfg, n_sym, t2u, device="cpu", optim_cfg=C.OptimConfig(lr=1e-4))
+    card = TransEmbCT2USystem(cfg, n_sym, t2u, device=cuda_device,
+                              optim_cfg=C.OptimConfig(lr=1e-4))
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(5)
+    S, T_wav = 3, 16000
+    wav_lens = np.array([16000, 12000, 9000], np.int32)
+    wavs = (0.3 * rng.normal(size=(S, T_wav))) * (np.arange(T_wav)[None] < wav_lens[:, None])
+    avg_frames = rng.integers(1, 6, (S, 8)).astype(np.int32)
+    sup = SupInfo(np.round(wavs * 32767).astype(np.int16), wav_lens, avg_frames,
+                  rng.integers(1, n_sym, (S, 8)).astype(np.int32), n_sym)
+    B, L, T = 3, 10, 16
+    src_lens = np.array([10, 7, 3], np.int32)
+    texts = rng.integers(1, n_sym, (B, L)).astype(np.int32) * (np.arange(L)[None] < src_lens[:, None])
+    unit_lens = np.array([16, 11, 5], np.int32)
+    units = rng.integers(1, 40, (B, T)).astype(np.int32) * (np.arange(T)[None] < unit_lens[:, None])
+    ep = T2UEpisode(sup, T2UBatch(np.zeros(B, np.int32), texts, src_lens, units, unit_lens,
+                                  np.zeros(B, np.int32)))
+    masks = draw_masks(t2u, B, L, T, False, torch.Generator().manual_seed(2), "cpu")
+    got = {}
+    for name, s in (("card", card), ("cpu", cpu)):
+        e = to_device(ep, s.device)
+        m = type(masks)(*(None if x is None else x.to(s.device) for x in masks))
+        before = tattn.LAUNCHES
+        with torch.no_grad():
+            hidden, _ = s.extract_ssl(e.sup.wavs, e.sup.wav_lens)
+            table = s.build_embedding_table(hidden, e.sup)
+            loss, _ = s.loss_and_metrics(e, masks=m)
+        if name == "card":     # 2 upstream layers + Downstream2's encoder block, twice
+            assert tattn.LAUNCHES - before == 2 * (s.upstream.n_layers + 1)
+        got[name] = (table.cpu(), float(loss))
+    (t_card, l_card), (t_cpu, l_cpu) = got["card"], got["cpu"]
+    assert float((t_card - t_cpu).abs().max() / t_cpu.abs().max()) <= 1e-4
+    assert abs(l_card - l_cpu) / abs(l_cpu) <= 1e-4
+    state, metrics = card.train_step(card.init_state(), to_device(ep, cuda_device))
+    assert state.step == 1 and np.isfinite(float(metrics["Total Loss"]))
 
 
 @pytest.mark.cuda

@@ -134,6 +134,26 @@ def write_hifigan_checkpoint(path: str, seed: int) -> None:
     torch.save({"generator": sd}, path)
 
 
+def write_melgan_checkpoint(path: str, seed: int) -> None:
+    """A melgan-neurips generator with torch's init under `seed`, saved in
+    its released layout: the Generator's state_dict (`model.{i}.` keys) with
+    every conv's weight as a weight-norm pair (weight_g over dim 0,
+    weight_v)."""
+    import torch
+    from fscl_tpu_torch.models.melgan import MelGANGenerator
+
+    torch.manual_seed(seed)
+    sd = {}
+    for k, v in MelGANGenerator().state_dict().items():
+        if k.endswith(".weight") and v.dim() == 3:
+            norm = torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=1)
+            sd[k[:-len("weight")] + "weight_g"] = norm.reshape(-1, 1, 1)
+            sd[k[:-len("weight")] + "weight_v"] = v
+        else:
+            sd[k] = v
+    torch.save(sd, path)
+
+
 RAW_PHONES = ("HH", "AY1", "W", "ER1", "L", "D", "AH0", "N", "S", "IY1", "T", "R",
               "K", "AE1", "M", "OW1")
 
