@@ -12,7 +12,9 @@ non-zero exit code when it fails:
    (it sets neither flag itself; phases 12 and 13 check them again after
    their CLI runs, so they measure what a user gets).
 2. Build: compile every kernel under `fscl_tpu_torch/csrc/` with nvcc, one
-   nvcc per source, all at once.
+   nvcc per source (per build part), all at once; ptxas's registers and
+   spills are printed, and the attention kernel's wide route must spill
+   nothing in any of its 6 instances.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
@@ -20,9 +22,13 @@ non-zero exit code when it fails:
    served at, a few edge lengths and HuBERT-large's head layout (at
    L = 1000 and at phase 10's (32, 16, 199, 64) and card-vs-CPU shapes), at
    phase 11's shapes (tasks folded into the batch included), at the head
-   dims 40 and 48 it pads, at head dims 192 (padded to the 256 instance)
-   and 256 at L = 64, 512 and 1000 and at the 384-wide base.yaml's shapes
-   of phase 8's Dh 192 check, and at phase 14's shapes, at each key split,
+   dims 40 and 48 it pads, on its wide route at head dims 192, 200, 256,
+   320, 512 and 1024 at L = 64, 512 and 1000 and at Lq = 100 against
+   Lk = 200, at the 384- and 512-wide base.yaml's shapes of phase 8's wide
+   checks, at Lq = Lk = 16385 and 20000 (head dims 64 and 128), at
+   B * H = 70000, at 18000 keys whose V has a common part (V = 1 + 0.1
+   N(0, 1), head dims 64, 128 and 192), and at phase 14's shapes, at each
+   key split,
    held to f32 2e-5 / bf16 1e-2
    and the all-invalid sample to the mean of V (timed in phase 9); phases
    4-14 fail if a main path launches it at a shape not held here. The MRF stage
@@ -31,7 +37,9 @@ non-zero exit code when it fails:
    route's bound (split TF32 or bf16 tensor cores) and the f32 FMA bound,
    its plain version, its conv_post + tanh kernel alone, the stage's convs
    alone in cuDNN (no single library call computes a stage), and one conv
-   pair at each kernel size (time per tap and per conv launch).
+   pair at each kernel size (time per tap and per conv launch); then one
+   batch of 65540 samples, past the kernel's 65535-sample grid, which the
+   wrapper splits into two launches.
 4. Text -> mel: `serve_batches` through `BaselineSystem.synthesize_bucketed`
    at the full width of `config/model/base.yaml`, with random weights made
    from --seed; checks shapes, finiteness and that every batch launched the
@@ -57,10 +65,14 @@ non-zero exit code when it fails:
    into forward, backward and optimizer, peak memory, a traced step with
    --profile; 5 steps at B = 4 without dropout on the card and on the CPU;
    the Function's forward + backward timed beside SDPA's. Then head dims
-   above 128 end to end: base.yaml at encoder and decoder width 384 with 2
-   heads (Dh 192, padded to the kernel's 256 instance), 3 train steps at
-   B = 4 card vs CPU (the bars above) and the last 8 of phase 4's lines
-   served card vs CPU (phase 5's bars).
+   above 128 end to end on the kernel's wide route: base.yaml at encoder
+   and decoder width 384 with 2 heads (Dh 192), then at 512 with 1 head
+   (Dh 512), each 3 train steps at B = 4 card vs CPU (the bars above) and
+   the last 8 of phase 4's lines served card vs CPU (phase 5's bars). Then
+   one long upstream forward: the base HuBERT over a 360 s wav (about 18000
+   frames, past the 16384 keys of an earlier design) in f32 through the
+   kernel, against the same forward with the plain version as its
+   attention, each hidden state within 1e-5 of its layer's max.
 10. FSCL meta-episode: `TransEmbSystem` at config/model/fscl-fastspeech2.yaml
    width (base trunk, `speaker_emb: dvec`, a 128 x 4 codebook) with a
    HuBERT-large of random weights drawn on the card from --seed, at the
@@ -86,7 +98,7 @@ non-zero exit code when it fails:
    tensor moved); with --profile a traced adaptation step; 2 Adam steps
    card vs CPU (losses and parameters 1e-4 relative); `adapt_many_on_chip`
    at benchmarks/bench_adapt_many.py's configuration with N = 1 and 8 tasks
-   of 10 steps (aggregate steps/s, one attention launch per layer for all tasks) and
+   of 5 steps (aggregate steps/s, one attention launch per layer for all tasks) and
    with d-vector speakers at N = 2, each task held to its run alone
    (1e-4); `synthesize_bucketed` with the adapted parameters on 8 lines.
 12. The command line on a preprocessed corpus, through
@@ -170,10 +182,10 @@ non-zero exit code when it fails:
    generic path's episodes of 4 + 2), then 10 episodes of 32 + 8 on the
    same system (26 attention launches each, a falling loss, episodes/s);
    fscl-t2u-c (Downstream2) and fscl-t2u-c2 (a codebook attention over the
-   table) on the same upstream, 3 episodes of 32 + 8 each; a small episode
+   table) on the same upstream, 2 episodes of 32 + 8 each; a small episode
    card vs CPU through each of the three (table and loss 1e-4); the upstream
    stored in bf16: the episode's table and the 32-shot tune reference table
-   within 0.1 of the f32 upstream's, then 3 episodes; `t2u_tune_init` of a
+   within 0.1 of the f32 upstream's, then 2 episodes; `t2u_tune_init` of a
    32-shot split into an E2ETuneSystem from the trained T2U, 10 steps at
    B = 4 on one batch through the frozen u2s (10 attention launches per
    step, a falling loss, the u2s unchanged), then on one seed 6 steps on
@@ -201,10 +213,10 @@ non-zero exit code when it fails:
    pr-ssl-protonet` through the CLI (config/model/fscl-fastspeech2.yaml:
    HuBERT-large drawn on the card, Downstream1 at 256 with 2 heads; the
    generic path's episodes of 4 + 2 from the shard; no upstream tensor in
-   the checkpoint); SSLProtoNetSystem and TransHeadPRSystem 5 episodes of
+   the checkpoint); SSLProtoNetSystem and TransHeadPRSystem 3 episodes of
    32 + 8 each through `Trainer.fit` (episodes/s, upstream / downstream /
    optimizer ms of one episode, a falling loss on one episode repeated);
-   pr-ssl-linear, -baseline and -cluster 10 steps each at B = 8 through
+   pr-ssl-linear, -baseline and -cluster 5 steps each at B = 8 through
    PRDataModule (steps/s; losses recorded); `TaskGenerator` over the target
    corpus, `run_protonet_eval` and `run_trans_head_eval`, then `python -m
    fscl_tpu_torch.cli evaluate` (PER, FER; query utterances/s split into
@@ -272,16 +284,16 @@ non-zero exit code when it fails:
    Lq = Lk = 199. 18b: one spawn of 2 ranks sharing the card over gloo,
    every check against the same computation in one process on the card:
    the data-parallel and the tensor-parallel train step at phase 8's shape
-   (5 steps, dropout off: first loss 1e-5, its gradient norm 1e-4, each
+   (3 steps, dropout off: first loss 1e-5, its gradient norm 1e-4, each
    first gradient against float64 on the host within 1e-4 of its own max
    plus twice the one process's distance, later losses 1e-3 at Adam eps 1e-3,
    BatchNorm statistics 1e-5; the data-parallel steps again at phase 8's
    eps 1e-9 beside the one process on reversed rows, the parameters one
    step left apart named, no bar), the pipelined and the
-   sequence-parallel HuBERT-large over 8 wavs of 4 s (hidden states 1e-4 of
+   sequence-parallel HuBERT-large over 4 wavs of 4 s (hidden states 1e-4 of
    each layer's max), phase 10's episode through `attach_parallel_upstream`
    "pp" and "sp" (table and loss 1e-4), `adapt_many_sharded` at phase 11's
-   shape (8 tasks, 1e-4), phase 4's 32 lines through `make_parallel_synth`
+   shape (4 tasks, 1e-4), phase 4's 32 lines through `make_parallel_synth`
    (mels 1e-3, equal lengths); which collectives gloo takes on CUDA tensors;
    every attention shape the ranks launched held afterwards; each parallel
    call's attention launches (the count set to 0 just before it, read just
@@ -294,7 +306,8 @@ non-zero exit code when it fails:
    split, its plain version and SDPA (with SDPA's own error against the
    plain version), each in a CUDA graph, at the encoder's and decoder's
    lengths and HuBERT-large's head layout (L = 1000 and phase 10's
-   (32, 16, 199, 64)), at (8, 2, 1000, 256) and (8, 2, 1000, 192), in
+   (32, 16, 199, 64)), on the wide route at (8, 2, 1000, Dh) for Dh 192,
+   256 and 512 (bound: the minimal work, not the route's recompute), in
    float32 at every shape phases 14-16 launched and
    in bf16 at phase 17's training shapes,
    beside its route's bound (split TF32 or bf16 tensor cores) and the f32
@@ -368,6 +381,29 @@ TRAIN_FIRST_RTOL, TRAIN_LATER_RTOL = 1e-5, 1e-3
 # card vs CPU at phase 8's loss bars, then phase 5's card-vs-CPU serving of
 # the last 8 lines at its mel bar.
 DH192_WIDTH, DH192_HEADS, DH192_STEPS = 384, 2, 3
+# The same at head dim 512: base.yaml with both stacks 512 wide at 1 head (the
+# example of a head dim above 256; the wrapper launches the wide route at
+# 512 itself), DH192_STEPS train steps and the 8 served lines, card vs CPU at
+# the same bars.
+DH512_WIDTH, DH512_HEADS = 512, 1
+# Head dims the wide route is held at in phase 3 (192 and 256 the widths
+# above; 200 padded to 256; 320 and 512 ending in a half slice of 64 and in
+# whole slices; 1024 the widest), at L = 64, 512 and 1000, and at Lq = 100
+# against Lk = 200; and the lengths past the earlier 16384-key limit, the
+# B * H past the earlier 65535-block one.
+WIDE_DIMS = (192, 200, 256, 320, 512, 1024)
+LONG_KEYS = (16385, 20000)
+MANY_BH = (35000, 2, 16, 64)
+# Long keys with V = 1 + 0.1 N(0, 1), a common part as real features have
+# (phase 3 after the shapes above): both routes at BIASED_L keys.
+BIASED_L, BIASED_DIMS = 18000, (64, 128, 192)
+# One long upstream forward: the base HuBERT (`make-units --source hubert`'s
+# upstream) drawn on the card from the seed, over one wav of LONG_WAV_S
+# seconds (about 18000 frames at 50 a second) in f32 through the kernel,
+# against the same forward with its attention the plain version on the card
+# (head by head, to bound its score matrices): each hidden state within
+# T2U_LAYOUT_REL of its layer's max, phase 14's bar for the base upstream.
+LONG_WAV_S = 360
 # FSCL meta-episode (phase 10): the episode shape of
 # benchmarks/bench_fscl_fullsize.py:45-48 (32-shot support of 4 s wavs, 64
 # phonemes each, 100 symbols; an 8-line query batch at L = 128, T = 512) and
@@ -396,13 +432,14 @@ TUNE_K, TUNE_SUP_BATCH, TUNE_B, TUNE_LR, TUNE_SYMBOL = 32, 4, 4, 1e-3, "xx"
 TUNE_COUNTED, TUNE_TIMED = 10, 25
 # Task-parallel adaptation at benchmarks/bench_adapt_many.py:24-63's
 # configuration (base width, table speakers, n_speakers 8, B = 4, L = 64,
-# T = 256, lr 1e-4), N = 1 and 8 tasks of 10 steps (20 until the T2U
-# configurations came to phase 14); and GE2E d-vectors at
+# T = 256, lr 1e-4), N = 1 and 8 tasks of 5 steps (20 until the T2U
+# configurations came to phase 14, 10 until PR 17's attention checks); and
+# GE2E d-vectors at
 # fscl-fastspeech2.yaml width under vmap, N = 2 tasks of 3 steps. Each task
 # against the same task adapted alone on the card: vmap batches the products
 # (and GE2E's written-out gates replace cuDNN's LSTM), so the sums run in
 # another order; losses 1e-4 relative (the bar of phase 10's loss).
-MANY_B, MANY_L, MANY_T, MANY_LR, MANY_STEPS, MANY_TASKS = 4, 64, 256, 1e-4, 10, (1, 8)
+MANY_B, MANY_L, MANY_T, MANY_LR, MANY_STEPS, MANY_TASKS = 4, 64, 256, 1e-4, 5, (1, 8)
 MANY_DVEC_TASKS, MANY_DVEC_STEPS = 2, 3
 TUNE_RTOL = 1e-4
 # Card vs CPU adaptation: 2 Adam steps (3 until the T2U configurations came
@@ -572,7 +609,30 @@ def phase_build():
         for line in ptxas:
             log(f"  ptxas: {line}")
     log(f"build phase: {seconds:.1f} s")
+    spills = wide_route_spills(built["attention"].log)
+    log(f"attention wide route: {len(spills)} instances, spill bytes (stores, loads) "
+        + ", ".join(f"{v}" for v in spills.values()))
+    if len(spills) != 6 or any(v != (0, 0) for v in spills.values()):
+        fail(f"the attention kernel's wide route spills or is missing: {spills}")
     return built
+
+
+def wide_route_spills(log_text: str) -> dict:
+    """ptxas's spill stores and loads (bytes) of each instance of the
+    attention kernel's wide route, from `nvcc -Xptxas -v`'s log: a
+    "Function properties for <name>" line, then its "spill" line."""
+    import re
+    spills, name = {}, None
+    for line in log_text.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and name and "attention_wide_kernel" in name:
+            spills[name] = (int(found.group(1)), int(found.group(2)))
+            name = None
+    return spills
 
 
 def attention_inputs(gen, B, H, L, Dh, dtype):
@@ -682,12 +742,16 @@ def phase_attention(seed: int):
     # phase 14: the T2U family (t2u_attention_shapes); phase 15: the PR family
     shapes += t2u_attention_shapes(H, Dh)
     shapes += pr_attention_shapes()
-    # head dims 129-256 (padded to the 256 instance) and 256 itself; the
-    # 384-wide base.yaml of phase 8's `attention_dh192_e2e` (2 heads of 192),
-    # served at B = 8 in every L and T bucket and trained at B = CHECK_B
-    shapes += [(8, 2, L, d) for d in (192, 256) for L in (64, 512, 1000)]
-    shapes += [(BATCH_SIZE, DH192_HEADS, L, DH192_WIDTH // DH192_HEADS) for L in lengths]
-    shapes += [(CHECK_B, DH192_HEADS, L, DH192_WIDTH // DH192_HEADS) for L in (TRAIN_L, TRAIN_T)]
+    # the wide route (head dims above 128); the 384-wide (2 heads of 192) and
+    # 512-wide (1 head of 512) base.yaml of phase 8's `attention_wide_e2e`,
+    # served at B = 8 in every L and T bucket and trained at B = CHECK_B;
+    # keys past 16384 on the narrow route; B * H past 65535
+    shapes += [(8, 2, L, d) for d in WIDE_DIMS for L in (64, 512, 1000)]
+    for width, heads in ((DH192_WIDTH, DH192_HEADS), (DH512_WIDTH, DH512_HEADS)):
+        shapes += [(BATCH_SIZE, heads, L, width // heads) for L in lengths]
+        shapes += [(CHECK_B, heads, L, width // heads) for L in (TRAIN_L, TRAIN_T)]
+    shapes += [(1, 2, L, d) for d in attn.HEAD_DIMS for L in LONG_KEYS]
+    shapes += [MANY_BH]
     shapes = list(dict.fromkeys(shapes))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = set()
@@ -695,7 +759,7 @@ def phase_attention(seed: int):
         dname = str(dtype).split(".")[-1]
         for B, H, L, Dh in shapes:
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
-            auto = attn.choose_key_split(B * H, L, n_sm, dtype)
+            auto = attn.choose_key_split(B * H, L, n_sm, dtype, Dh)
             errs = {s: check_attention(attn, q, k, v, valid, None if s == auto else s,
                                        f"{dname} B={B} H={H} L={L} Dh={Dh} key_split={s}")
                     for s in attn.KEY_SPLITS}
@@ -704,6 +768,30 @@ def phase_attention(seed: int):
             log(f"attention {dname:8s} B={B} H={H:2d} L={L:4d} Dh={Dh:3d}: max |kernel - plain| "
                 + ", ".join(f"{e:.3g}" + ("*" if s == auto else "") for s, e in errs.items())
                 + " at key_split 1, 2, 4 (* the wrapper's choice) ok")
+            del q, k, v, valid
+    # the wide route at Lq != Lk, every head dim above, every key split
+    cross = hold_cross_shapes([(8, 2, 100, 200, d) for d in WIDE_DIMS], set(), "wide route")
+    for dname in max_err:
+        max_err[dname] = max(max_err[dname], cross[dname])
+    log(f"attention wide route at Lq=100, Lk=200, Dh {', '.join(map(str, WIDE_DIMS))}: max "
+        f"|kernel - plain| f32 {cross['float32']:.3g} (bar {F32_ATOL}), bf16 "
+        f"{cross['bfloat16']:.3g} at key_split 1, 2, 4 ok")
+    # long keys whose V has a common part (as a trunk's or an upstream's
+    # features do): o grows with the keys, and the tensor cores' truncating
+    # adds into it would show here where zero-mean V hides them
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for Dh in BIASED_DIMS:
+            q, k, v, valid = attention_inputs(gen, 2, 2, BIASED_L, Dh, dtype)
+            v = (1.0 + 0.1 * v.float()).to(dtype)
+            errs = [check_attention(attn, q, k, v, valid, s, f"{dname} biased V L={BIASED_L} "
+                                    f"Dh={Dh} key_split={s}") for s in attn.KEY_SPLITS]
+            max_err[dname] = max(max_err[dname], *errs)
+            log(f"attention {dname:8s} B=2 H=2 L={BIASED_L} Dh={Dh} V = 1 + 0.1 N(0, 1): max "
+                f"|kernel - plain| " + ", ".join(f"{e:.3g}" for e in errs)
+                + " at key_split 1, 2, 4 ok")
+            del q, k, v, valid
+    torch.cuda.empty_cache()
     return max_err, checked
 
 
@@ -767,7 +855,9 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
     timed at the encoder's and decoder's lengths of the served layout, at
     HuBERT-large's head layout (16 heads of 64) and at phase 11's and 14's
     shapes; and in float32 at the shapes of `extra_f32` (every shape phases
-    14-16 launched), in bf16 at those of `extra_bf16` (phase 17's training).
+    14-16 launched), in bf16 at those of `extra_bf16` (phase 17's training),
+    these at the wrapper's key split alone and without the events and host
+    readings below (PR 17's cut).
     Runs after the main path: the captures' cuBLAS workspace stays allocated
     and would count in its peak memory. The kernel is also timed through
     `attention_cuda` with CUDA events over 50 back-to-back calls, as earlier
@@ -792,23 +882,28 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
         # u2s encoder over the 1280 unit positions of a served L = 128 batch
         (FSCL_T2U_SHOTS, 2, ssl_num_frames(8 * 16000), 128), (8, 16, ssl_num_frames(160000), 64),
         (8, 2, 1280, 128),
-        # the head-dim-256 instances: at 256 and at 192 padded to it
-        (8, 2, 1000, 256), (8, 2, 1000, 192)]
+        # the wide route at 192, 256 and 512
+        (8, 2, 1000, 256), (8, 2, 1000, 192), (8, 2, 1000, 512)]
     timings = []
     extra = {torch.float32: sorted(set(extra_f32) - set(timed)),
              torch.bfloat16: sorted(set(extra_bf16) - set(timed))}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for B, H, L, Dh in timed + extra[dtype]:
+            # the shapes of later phases at the wrapper's key split alone
+            full = (B, H, L, Dh) in timed
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
             mask4 = valid[:, None, None, :]
             iters = 100 if L <= 256 else 20
+            key_split = attn.choose_key_split(B * H, L, n_sm, dtype, Dh)
             split_ms = {s: graph_time_ms(lambda: attn._launch(q, k, v, valid, None, s),
-                                         iters, stream) for s in attn.KEY_SPLITS}
-            key_split = attn.choose_key_split(B * H, L, n_sm, dtype)
+                                         iters, stream)
+                        for s in (attn.KEY_SPLITS if full else (key_split,))}
             kernel_ms = split_ms[key_split]
-            events_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), 50)
-            host_us = host_us_per_call(lambda: attn.attention_cuda(q, k, v, valid))
+            events_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), 50) if full \
+                else None
+            host_us = host_us_per_call(lambda: attn.attention_cuda(q, k, v, valid)) if full \
+                else None
             plain_ms = graph_time_ms(lambda: attn.attention_reference(q, k, v, valid), 10, stream)
             library_ms = graph_time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), iters, stream)
@@ -828,9 +923,10 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
                    "fma_bound_ms": fma_ms, "bound_share": bound_ms / kernel_ms}
             timings.append(row)
             log(f"attention {dname:8s} B={B} H={H:2d} L={L:4d} Dh={Dh}: kernel {kernel_ms:.4f} ms "
-                f"(key_split {row['key_split']}; 1/2/4: "
-                + "/".join(f"{split_ms[s]:.4f}" for s in attn.KEY_SPLITS)
-                + f"; events {events_ms:.4f} ms, host {host_us:.1f} us per call)"
+                f"(key_split {row['key_split']}"
+                + (("; 1/2/4: " + "/".join(f"{split_ms[s]:.4f}" for s in attn.KEY_SPLITS)
+                    + f"; events {events_ms:.4f} ms, host {host_us:.1f} us per call") if full
+                   else "") + ")"
                 f", plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max |SDPA - plain| "
                 f"{lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by}, {row['bound_route']}), "
                 f"{100 * bound_ms / kernel_ms:.1f}% of bound; f32 FMA bound {fma_ms:.4f} ms")
@@ -985,6 +1081,21 @@ def phase_mrf_stage(seed: int):
                     + f" ms: {tap_ms:.4f} ms per tap + {launch_ms:.4f} ms per conv")
                 del convs
                 del x
+        # past the kernel's 65535-sample grid: the wrapper splits the batch
+        # (`batch_splits`), here into two launches of the last V1 stage
+        rbs, conv_post = stage_args[-1]
+        C = V1_STAGES[-1][0]
+        B = mrf.MAX_BATCH + 5
+        x = torch.randn(B, C, 8, generator=gen_x, device="cuda")
+        before = mrf.LAUNCHES
+        err = check_stage(mrf, x, rbs, conv_post, torch.float32, "split launch")
+        splits = mrf.batch_splits(*x.shape)
+        if mrf.LAUNCHES - before != len(splits) or len(splits) != 2:
+            fail(f"MRF stage at B = {B}: {mrf.LAUNCHES - before} launches, splits {splits}")
+        log(f"mrf_stage float32 at B = {B} (past the grid's {mrf.MAX_BATCH}): {len(splits)} "
+            f"launches {splits}, held to the plain version")
+        max_err["float32"] = max(max_err["float32"], err)
+        del x
     return max_err, timings, checked
 
 
@@ -1398,9 +1509,9 @@ def phase_train_kernel_grads(seed: int, attn_checked):
     """`attend` under autograd on the card (the Function: the kernel forward,
     the recompute backward) against autograd through the plain version, at
     the training phase's shapes: H = 2, Dh = 128, f32, B = 16 (and B = 4 of
-    the card-vs-CPU check) at L = 128 and T = 512, and the Dh 192 check's
-    (B = 4, 2 heads of 192, padded to the 256 instance), ragged keys and one
-    sample with none. The forward is first held at every key split as phase
+    the card-vs-CPU check) at L = 128 and T = 512, and the wide checks'
+    (B = 4, 2 heads of 192 and 1 head of 512, the kernel's wide route),
+    ragged keys and one sample with none. The forward is first held at every key split as phase
     3 holds the served shapes; the shapes join the set the recorders accept."""
     import torch
     from fscl_tpu_torch.ops import attention as attn
@@ -1408,11 +1519,12 @@ def phase_train_kernel_grads(seed: int, attn_checked):
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [(B, 2, L, 128) for B in (TRAIN_B, CHECK_B) for L in (TRAIN_L, TRAIN_T)]
-    shapes += [(CHECK_B, DH192_HEADS, L, DH192_WIDTH // DH192_HEADS) for L in (TRAIN_L, TRAIN_T)]
+    shapes += [(CHECK_B, heads, L, width // heads) for L in (TRAIN_L, TRAIN_T)
+               for width, heads in ((DH192_WIDTH, DH192_HEADS), (DH512_WIDTH, DH512_HEADS))]
     worst = {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
     for B, H, L, Dh in shapes:
         q, k, v, valid = attention_inputs(gen, B, H, L, Dh, torch.float32)
-        auto = attn.choose_key_split(B * H, L, n_sm, torch.float32)
+        auto = attn.choose_key_split(B * H, L, n_sm, torch.float32, Dh)
         for s in attn.KEY_SPLITS:
             check_attention(attn, q, k, v, valid, None if s == auto else s,
                             f"train float32 B={B} L={L} key_split={s}")
@@ -1744,13 +1856,13 @@ def phase_train_card_vs_cpu(seed: int, attn_checked, cfg=None, steps: int = CARD
             "rel": rel}
 
 
-def attention_dh192_e2e(seed: int, attn_checked):
-    """Head dims above 128 end to end: base.yaml with encoder and decoder
-    DH192_WIDTH wide at DH192_HEADS heads (Dh 192, padded by the wrapper to
-    the kernel's 256 instance). DH192_STEPS train steps at B = CHECK_B card
-    vs CPU (phase 8's loss bars), then the last 8 of phase 4's lines served
-    card vs CPU on a system with the duration head pinned as phase 4's
-    (phase 5's bars). Returns the card's attention launches."""
+def attention_wide_e2e(seed: int, attn_checked, width: int, heads: int):
+    """Head dims above 128 end to end, on the kernel's wide route: base.yaml
+    with encoder and decoder `width` wide at `heads` heads (Dh 192 at 384 /
+    2, 512 at 512 / 1). DH192_STEPS train steps at B = CHECK_B card vs CPU
+    (phase 8's loss bars), then the last 8 of phase 4's lines served card vs
+    CPU on a system with the duration head pinned as phase 4's (phase 5's
+    bars). Returns the card's attention launches."""
     import torch
     from dataclasses import replace
     from fscl_tpu_torch.frontend.define import n_symbols
@@ -1758,13 +1870,14 @@ def attention_dh192_e2e(seed: int, attn_checked):
     from fscl_tpu_torch.systems.baseline import BaselineSystem
 
     t0 = time.perf_counter()
+    dh = width // heads
     base = train_model_config(dropout=False)
     cfg = replace(base, transformer=replace(
-        base.transformer, encoder_hidden=DH192_WIDTH, decoder_hidden=DH192_WIDTH,
-        encoder_head=DH192_HEADS, decoder_head=DH192_HEADS))
+        base.transformer, encoder_hidden=width, decoder_hidden=width,
+        encoder_head=heads, decoder_head=heads))
     attn.LAUNCHES = 0
     train = phase_train_card_vs_cpu(seed + 1, attn_checked, cfg, DH192_STEPS,
-                                    "attention Dh 192 train card vs CPU")
+                                    f"attention Dh {dh} train card vs CPU")
     train_launches = attn.LAUNCHES
     torch.manual_seed(seed + 2)
     system = BaselineSystem(cfg, (("en", n_symbols("en")),), device="cuda")
@@ -1774,21 +1887,92 @@ def attention_dh192_e2e(seed: int, attn_checked):
         head.bias.add_(math.log(5.0))
     attn.LAUNCHES = 0
     serve = phase_card_vs_cpu(system, LINES[-8:], attn_checked,
-                              "attention Dh 192 serving card vs CPU")
+                              f"attention Dh {dh} serving card vs CPU")
     launches = train_launches + attn.LAUNCHES
     t = cfg.transformer
     want = (DH192_STEPS * (t.encoder_layer + t.decoder_layer)
             + 2 * t.encoder_layer + t.decoder_layer)
     if launches != want:
-        fail(f"attention Dh 192: {launches} attention launches, expected {want}")
+        fail(f"attention Dh {dh}: {launches} attention launches, expected {want}")
     seconds = time.perf_counter() - t0
-    log(f"attention Dh 192 end to end ({DH192_WIDTH} wide, {DH192_HEADS} heads): {launches} "
-        f"attention launches at head dim {DH192_WIDTH // DH192_HEADS} (padded to 256); "
+    log(f"attention Dh {dh} end to end ({width} wide, {heads} heads): {launches} attention "
+        f"launches at head dim {dh} (the wide route at {attn.padded_head_dim(dh)}); "
         f"{seconds:.2f} s")
     del system
     torch.cuda.empty_cache()
-    return {"width": DH192_WIDTH, "heads": DH192_HEADS, "train": train, "serve": serve,
+    return {"width": width, "heads": heads, "train": train, "serve": serve,
             "attention_launches": launches, "seconds": seconds}
+
+
+def long_upstream_forward(seed: int):
+    """The base HuBERT over one LONG_WAV_S-second wav, f32, on the card: the
+    kernel (Lk past 16384) against the same forward with the plain version
+    as its attention (`models.hubert.attend` swapped for a head-by-head
+    plain call on the card for the control alone). Each of the 13 hidden
+    states within T2U_LAYOUT_REL of its layer's max |h|."""
+    import numpy as np
+    import torch
+    from fscl_tpu_torch.models import hubert
+    from fscl_tpu_torch.models.hubert import (frozen_upstream_features, init_random_,
+                                              make_upstream, ssl_num_frames)
+    from fscl_tpu_torch.ops import attention as attn
+    from fscl_tpu_torch.ops.masking import length_mask
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=CARD).manual_seed(seed + 170)
+    with torch.device("meta"):
+        shell = make_upstream("hubert")
+    model = shell.to_empty(device=CARD).eval().requires_grad_(False)
+    init_random_(model, gen)
+    n = LONG_WAV_S * 16000
+    wav = torch.from_numpy(
+        (0.1 * np.random.default_rng(seed + 171).standard_normal((1, n))).astype(np.float32))
+    wav = wav.to(CARD)
+    valid = length_mask(torch.tensor([n], device=CARD), n)
+    frames = ssl_num_frames(n)
+
+    def plain_by_head(q, k, v, key_valid=None, temperature=None, return_weights=False):
+        return torch.cat([attn.attention_reference(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1],
+                                                   key_valid, temperature)
+                          for h in range(q.shape[1])], dim=1)
+
+    attn.LAUNCHES = 0
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        got = frozen_upstream_features(model, wav, valid)[0]
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t1
+        launches = attn.LAUNCHES
+        kernel_attend = hubert.attend
+        hubert.attend = plain_by_head
+        try:
+            t1 = time.perf_counter()
+            want = frozen_upstream_features(model, wav, valid)[0]
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+        finally:
+            hubert.attend = kernel_attend
+    if attn.LAUNCHES != launches or launches != model.n_layers:
+        fail(f"long upstream forward: {launches} kernel launches ({model.n_layers} layers), "
+             f"{attn.LAUNCHES - launches} in the plain control")
+    peak = want.abs().amax(dim=(0, 1, 3))
+    errs = ((got - want).abs().amax(dim=(0, 1, 3)) / peak).cpu()
+    ok = bool(torch.isfinite(got).all()) and got.shape[1] == frames \
+        and got.shape[2] == model.n_layers + 1 and float(errs.max()) <= T2U_LAYOUT_REL
+    seconds = time.perf_counter() - t0
+    log(f"long upstream forward: base HuBERT over {LONG_WAV_S} s ({n} samples, {frames} frames, "
+        f"Lq = Lk = {frames}), {launches} attention launches at (1, {model.n_heads}, {frames}, "
+        f"{model.dim // model.n_heads}) f32: forward {kernel_s:.2f} s through the kernel, "
+        f"{plain_s:.2f} s with the plain version; max |d| / layer max {float(errs.max()):.3g} "
+        f"(bar {T2U_LAYOUT_REL}; by layer " + ", ".join(f"{e:.2g}" for e in errs.tolist())
+        + f"); {seconds:.2f} s")
+    if not ok:
+        fail(f"long upstream forward: shape {tuple(got.shape)}, errors {errs.tolist()}")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return {"seconds_of_audio": LONG_WAV_S, "frames": frames, "attention_launches": launches,
+            "kernel_s": kernel_s, "plain_s": plain_s, "max_rel_err": float(errs.max()),
+            "by_layer": errs.tolist(), "seconds": seconds}
 
 
 def fscl_model_config(compute_dtype: str):
@@ -3895,9 +4079,9 @@ T2U_SCHEDULE_T, T2U_RATIOS = 64, (0.0, 0.5, 1.0)
 # bfloat16`) with the f32 system's weights: its table of the first 32 + 8
 # episode and its 32-shot tune reference table each within
 # FSCL_BF16_TABLE_REL of the f32 upstream's, then T2U_VARIANT_EPISODES
-# episodes.
+# episodes (3 until PR 17's attention checks).
 T2U_VARIANTS = ("fscl-t2u-c", "fscl-t2u-c2")
-T2U_VARIANT_EPISODES = 3
+T2U_VARIANT_EPISODES = 2
 # The DA tunes: `train --system fscl-t2u-da-tune` through the CLI
 # (T2UDADataModule; T2UConfig's defaults, B = 16) for T2U_DA_STEPS steps;
 # DAE2ETuneSystem from the trained T2U through the frozen u2s at B = E2E_B,
@@ -5209,10 +5393,13 @@ def phase_t2u(seed: int, card: str, attn_checked, stage_checked, profile: bool, 
 PR_TRAIN, PR_VAL, PR_FRAMES, PR_PHONES = 64, 8, (130, 860), (30, 100)
 PR_TARGET_UTTS, PR_TARGET_PHONES = 40, (30, 60)
 PR_SHOTS, PR_QUERIES = 32, 8        # config/algorithm/phoneme_recognition/pr-fscl.yaml
-PR_CLI_STEPS, PR_EPISODES, PR_FIT_STEPS = 20, 5, 10
-PR_SUP_B, PR_SUP_STEPS = 8, 10      # the supervised systems through PRDataModule
+# (PR 17 cut the CLI's episodes 20 -> 10, the timed episodes 5 -> 3, the
+# supervised steps 10 -> 5, the host reads 10 -> 5 and the shard steps
+# 20 -> 10 for its attention checks.)
+PR_CLI_STEPS, PR_EPISODES, PR_FIT_STEPS = 10, 3, 10
+PR_SUP_B, PR_SUP_STEPS = 8, 5       # the supervised systems through PRDataModule
 PR_TASK_SHOTS, PR_TASK_QUERIES, PR_TASKS, PR_EVAL_BATCH = 8, 8, 2, 8
-PR_READ_BATCHES, PR_SHARD_STEPS = 10, 20
+PR_READ_BATCHES, PR_SHARD_STEPS = 5, 10
 # Card vs CPU on one small episode (the 4 + 2 shortest utterances, one wav
 # bucket): the protonet's and TransHead's logits (phase 14's logits bar),
 # the loss, one train step's gradient norm, one task's eval frame logits.
@@ -5849,7 +6036,7 @@ def hold_attention_shapes(shapes, checked, what: str) -> int:
     for B, H, L, Dh, dname in new:
         dtype = getattr(torch, dname)
         q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
-        auto = attn.choose_key_split(B * H, L, n_sm, dtype)
+        auto = attn.choose_key_split(B * H, L, n_sm, dtype, Dh)
         for s in attn.KEY_SPLITS:
             check_attention(attn, q, k, v, valid, None if s == auto else s,
                             f"{what}: {dname} B={B} H={H} L={L} Dh={Dh} key_split={s}")
@@ -6711,7 +6898,9 @@ PAR_TIMED = ((32, 16, 100, 200, 64), (32, 16, 199, 199, 64))
 # phase 11's adaptation shape, PAR_TASKS tasks of PAR_TASK_STEPS steps split
 # over the ranks (each task 1e-4 relative); phase 4's 32 lines in batches of
 # 8 (mels 1e-3, equal lengths).
-PAR_RANKS, PAR_STEPS, PAR_WAVS, PAR_TASKS, PAR_TASK_STEPS = 2, 5, 8, 8, 3
+# (PR 17 cut PAR_STEPS 5 -> 3, PAR_WAVS and PAR_TASKS 8 -> 4 for its
+# attention checks.)
+PAR_RANKS, PAR_STEPS, PAR_WAVS, PAR_TASKS, PAR_TASK_STEPS = 2, 3, 4, 4, 3
 PAR_LOSS_RTOL, PAR_GNORM_RTOL, PAR_STATS_REL, PAR_HIDDEN_REL = 1e-5, 1e-4, 1e-5, 1e-4
 PAR_GRAD_REL, PAR_F32_FACTOR, PAR_ZERO_ATOL = 1e-4, 10.0, 1e-6
 PAR_EPS, PHASE8_EPS = 1e-3, 1e-9
@@ -7388,8 +7577,14 @@ def main(argv=None) -> int:
     del system, vocoder, wav_records     # out of the training phase's peak memory
     train = phase_train(args.seed, card, attn_checked, args.profile, args.out)
     mark("8 train")
-    train["attention_dh192_e2e"] = attention_dh192_e2e(args.seed, attn_checked)
+    train["attention_dh192_e2e"] = attention_wide_e2e(args.seed, attn_checked, DH192_WIDTH,
+                                                      DH192_HEADS)
     mark("8 attention Dh 192 end to end")
+    train["attention_dh512_e2e"] = attention_wide_e2e(args.seed, attn_checked, DH512_WIDTH,
+                                                      DH512_HEADS)
+    mark("8 attention Dh 512 end to end")
+    train["long_upstream_forward"] = long_upstream_forward(args.seed)
+    mark("8 long upstream forward")
     fscl = phase_fscl(args.seed, card, attn_checked, args.profile, args.out)
     mark("10 fscl")
     tune = phase_tune(args.seed, card, attn_checked, args.profile, args.out)
@@ -7436,6 +7631,10 @@ def main(argv=None) -> int:
                              "text_to_wav": text_to_wav["launches"]["attention_fwd"],
                              "train": train["attention_launches"],
                              "attention_dh192_e2e": train["attention_dh192_e2e"][
+                                 "attention_launches"],
+                             "attention_dh512_e2e": train["attention_dh512_e2e"][
+                                 "attention_launches"],
+                             "long_upstream_forward": train["long_upstream_forward"][
                                  "attention_launches"],
                              "fscl_episode": fscl["float32"]["attention_launches"],
                              "fscl_episode_bf16_upstream": fscl["bfloat16"]["attention_launches"],

@@ -13,10 +13,16 @@ to the input dtype. In bf16 the rounding matters: kept in f32, the weights
 put the plain version 3.9e-3 from `xla_attention` at (4, 2, 64, 32); rounded,
 2.4e-4.
 
-The kernel has instances for head dims 64, 128 and 256; the wrapper
-zero-pads other head dims up to 256 to the next one (`_launch`: the `mel`
-upstream's 40 to 64, a 384-wide FFT block's 192 to 256) and raises above
-256, where the JAX package computes with `xla_attention` (ROADMAP Queue 3).
+The kernel has two routes. Head dims 64 and 128 take the narrow route's
+instances; the wrapper zero-pads smaller head dims to the next of them
+(`_launch`: the `mel` upstream's 40 to 64, 80 to 128). Head dims above 128
+take the wide route, which holds no warp's whole Q or O in registers and
+has no upper head dim: the wrapper zero-pads them to a multiple of 64 (a
+384-wide FFT block's 192 stays 192, 200 goes to 256). The JAX package sends
+every head dim its Pallas kernel does not take to `xla_attention` (`attend`,
+`:145-165`); with the two routes the port computes them all on the card.
+Any length and any B * H go too: the key flags travel with each key tile
+through the kernel's ring, and the grid is one x index.
 It takes Lq query rows against Lk keys: self-attention has Lq == Lk; the
 sequence-parallel upstream (`parallel/sequence_parallel.py`) attends a
 rank's T / S frames to all T gathered keys, a shape the JAX package sends
@@ -47,8 +53,9 @@ import torch
 from fscl_tpu_torch.ops import cuda_lib
 
 NEG_INF = -1e9
-HEAD_DIMS = (64, 128, 256)
-MAX_LEN = 16384        # csrc/attention.cu: the key flags in shared memory
+HEAD_DIMS = (64, 128)  # the narrow route's instances
+WIDE_STEP = 64         # the wide route takes multiples of 64 above 128
+WIDE_SLICE = 128       # O columns per block on the wide route (csrc/attention.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_SPLITS = (1, 2, 4)
 QUERY_ROWS = {torch.float32: 128, torch.bfloat16: 64}   # per block at key_split 1
@@ -88,7 +95,22 @@ def _load():
     return fn
 
 
-def choose_key_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype) -> int:
+def padded_head_dim(dh: int) -> int:
+    """The head dim the kernel computes `dh` at: 64 or 128 on the narrow
+    route, the next multiple of 64 on the wide route above 128."""
+    if dh <= HEAD_DIMS[-1]:
+        return next(d for d in HEAD_DIMS if d >= dh)
+    return -(-dh // WIDE_STEP) * WIDE_STEP
+
+
+def wide_slices(head_dim: int) -> int:
+    """Blocks per query tile along O's columns: 1 on the narrow route, one
+    per 128 columns of the (padded) head dim on the wide route."""
+    return 1 if head_dim <= HEAD_DIMS[-1] else -(-head_dim // WIDE_SLICE)
+
+
+def choose_key_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype,
+                     head_dim: int = 128) -> int:
     """Warps of a block that share the key loop. A block owns QUERY_ROWS
     query rows in warps of 16 (8 warps in f32, 4 in bf16); with key_split s
     it owns 1/s of them, and each warp takes a slice of every key tile. The
@@ -96,10 +118,13 @@ def choose_key_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype) ->
     that was the fastest split, or within 15 % of it, at B * H = 16 and
     L = 64 ... 1000 in both types (chip_smoke.py phase 3). L is the query
     length, which sets the grid; the key length only sets how many key
-    tiles each warp's slice runs through, so it does not enter."""
+    tiles each warp's slice runs through, so it does not enter. On the wide
+    route each query tile is `wide_slices(head_dim)` blocks, which count
+    toward the grid the same way."""
     rows = QUERY_ROWS[dtype]
+    blocks = batch_heads * wide_slices(padded_head_dim(head_dim))
     for split in KEY_SPLITS:
-        if 2 * -(-L // (rows // split)) * batch_heads >= n_sm:
+        if 2 * -(-L // (rows // split)) * blocks >= n_sm:
             return split
     return KEY_SPLITS[-1]
 
@@ -118,9 +143,9 @@ def attention_cuda(
 ) -> torch.Tensor:
     """Launch the Hopper kernel. q: contiguous (B, H, Lq, Dh), k and v:
     contiguous (B, H, Lk, Dh) CUDA tensors of one dtype (float32 or
-    bfloat16), Dh <= 256 (the kernel's instances take 64, 128 and 256; other
-    head dims are padded, see `_launch`), 1 <= Lq, Lk <= MAX_LEN; key_valid:
-    contiguous (B, Lk) bool on the same device."""
+    bfloat16), any Dh >= 1 (padded where the kernel does not take it, see
+    `_launch`), Lq, Lk >= 1; key_valid: contiguous (B, Lk) bool on the same
+    device."""
     return _launch(q, k, v, key_valid, temperature, None)
 
 
@@ -136,20 +161,16 @@ def _launch(
     `choose_key_split` picks when None. Tests and chip_smoke.py sweep every
     split through it.
 
-    A head dim up to 256 that has no kernel instance (the `mel` upstream's
-    40, a custom upstream's 48 or 80, a 384-wide FFT block's 192 at 2
-    heads) is zero-padded along Dh to the next instance's, with the
-    temperature kept at sqrt(the true Dh): zero columns add nothing to
-    q k^T, and v's zero columns only give output columns, which are sliced
-    off. The JAX package sends such shapes to XLA. Above 256 it raises."""
+    A head dim the kernel does not compute at (`padded_head_dim`: the
+    `mel` upstream's 40, a custom upstream's 48 or 80, 200 on the wide
+    route) is zero-padded along Dh to the one it does, with the temperature
+    kept at sqrt(the true Dh): zero columns add nothing to q k^T, and v's
+    zero columns only give output columns, which are sliced off. The JAX
+    package sends such shapes to XLA."""
     Dh = q.shape[-1]
-    if Dh in HEAD_DIMS or q.dim() != 4:
+    if q.dim() != 4 or Dh < 1 or padded_head_dim(Dh) == Dh:
         return _launch_kernel(q, k, v, key_valid, temperature, key_split)
-    if Dh > HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {Dh} above {HEAD_DIMS[-1]}: the attention kernel has "
-                         f"instances for head dims {HEAD_DIMS} and pads smaller ones; fscl_tpu "
-                         f"computes such heads with xla_attention")
-    pad = next(d for d in HEAD_DIMS if d > Dh) - Dh
+    pad = padded_head_dim(Dh) - Dh
     temp = temperature if temperature is not None else Dh ** 0.5
     q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     out = _launch_kernel(q, k, v, key_valid, temp, key_split)
@@ -164,8 +185,35 @@ def _launch_kernel(
     temperature: Optional[float],
     key_split: Optional[int],
 ) -> torch.Tensor:
-    """One launch of the kernel at a head dim it has an instance for."""
+    """One launch of the kernel at a head dim it computes at: 64, 128 or a
+    multiple of 64 above 128."""
     global LAUNCHES
+    _check_launch(q, k, v, key_valid, key_split)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
+    B, H, Lq, Dh = q.shape
+    temp = float(temperature if temperature is not None else Dh ** 0.5)
+    if key_split is None:
+        key_split = choose_key_split(B * H, Lq, _sm_count(q.device.index), q.dtype, Dh)
+
+    fn = _load()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+             out.data_ptr(), B, H, Lq, k.shape[2], Dh, _DTYPE_CODES[q.dtype], temp, key_split,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def _check_launch(q, k, v, key_valid, key_split) -> None:
+    """Raise on what the kernel does not take: shapes that disagree, a dtype
+    other than float32 and bfloat16, a head dim `_launch` would have padded,
+    an empty query or key axis, a key_valid that is not (B, Lk) bool on q's
+    device, layouts that are not contiguous or start off a 16-byte boundary,
+    an unknown key split. Any length and any B * H pass."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Lq, Dh), got {tuple(q.shape)}")
     B, H, Lq, Dh = q.shape
@@ -179,14 +227,12 @@ def _launch_kernel(
             raise ValueError(f"{name} must match q's dtype and device")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not supported: the kernel takes {HEAD_DIMS} "
-                         f"and pads smaller head dims")
+    if Dh < 1 or padded_head_dim(Dh) != Dh:
+        raise ValueError(f"head dim {Dh} not one the kernel computes at: 64, 128 or a "
+                         f"multiple of {WIDE_STEP} above 128 (`_launch` pads the others)")
     for L in (Lq, Lk):
-        if not 1 <= L <= MAX_LEN:
-            raise ValueError(f"length {L} outside 1..{MAX_LEN}")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid limit 65535")
+        if L < 1:
+            raise ValueError(f"length {L} outside 1.. (no query row or no key)")
     if key_valid.shape != (B, Lk) or key_valid.dtype != torch.bool \
             or key_valid.device != q.device:
         raise ValueError("key_valid must be a (B, Lk) bool tensor on q's device")
@@ -198,21 +244,6 @@ def _launch_kernel(
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if key_split is not None and key_split not in KEY_SPLITS:
         raise ValueError(f"key_split {key_split} not in {KEY_SPLITS}")
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
-    temp = float(temperature if temperature is not None else Dh ** 0.5)
-    if key_split is None:
-        key_split = choose_key_split(B * H, Lq, _sm_count(q.device.index), q.dtype)
-
-    fn = _load()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-             out.data_ptr(), B, H, Lq, Lk, Dh, _DTYPE_CODES[q.dtype], temp, key_split, stream)
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return out
 
 
 def attention_bwd(

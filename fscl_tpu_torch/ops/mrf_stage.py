@@ -16,7 +16,11 @@ Tensors are in torch's Conv1d layout, (B, C, T): the layout of the
 generator around the stage. The JAX function takes (B, T, C).
 
 `mrf_stage` takes the plain version only for CPU tensors. For CUDA tensors
-it launches the kernel or raises: there is no fallback.
+it launches the kernel or raises: there is no fallback. The kernel's grid
+takes at most 65535 samples and indexes a launch's B * C * T elements with
+32-bit ints, so `mrf_stage_cuda` splits the batch into launches within both
+(`batch_splits`), as fscl_tpu's XLA convs take any batch. A single sample of
+2^31 elements or more (over 8 GiB in float32) is refused.
 """
 from __future__ import annotations
 
@@ -38,6 +42,19 @@ POST_KERNEL = 7                # conv_post's kernel, the only one the kernel tak
 # whole chain of conv launches); chip_smoke.py reads it to show that the
 # main path went through the kernel.
 LAUNCHES = 0
+
+MAX_BATCH = 65535              # the kernel's grid: one block row per sample
+MAX_ELEMS = 2 ** 31 - 1        # a launch's B * C * T, indexed with 32-bit ints
+
+
+def batch_splits(B: int, C: int, T: int):
+    """The (start, stop) sample ranges of one stage's launches: at most
+    MAX_BATCH samples and MAX_ELEMS elements each."""
+    per = min(MAX_BATCH, MAX_ELEMS // (C * T))
+    if per < 1:
+        raise ValueError(f"one sample of ({C}, {T}) holds {C * T} elements, more than the "
+                         f"kernel's {MAX_ELEMS} a launch")
+    return [(b, min(B, b + per)) for b in range(0, B, per)]
 
 
 def _round(t: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -155,11 +172,11 @@ def _ptrs(tensors):
 
 def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1d] = None,
                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Launch the Hopper stage. x: contiguous float32 (B, C, T) CUDA tensor,
-    C a multiple of 32, T >= 1; every resblock kernel size in (3, 7, 11)
-    with (k - 1) // 2 * d <= 32; compute dtype float32 (or None) or
-    bfloat16; `post` a Conv1d C -> 1 with kernel 7."""
-    global LAUNCHES
+    """Launch the Hopper stage, once per `batch_splits` range of samples.
+    x: contiguous float32 (B, C, T) CUDA tensor, C a multiple of 32, B, T >=
+    1 and C * T < 2^31; every resblock kernel size in (3, 7, 11) with
+    (k - 1) // 2 * d <= 32; compute dtype float32 (or None) or bfloat16;
+    `post` a Conv1d C -> 1 with kernel 7."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, C, T), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
@@ -171,8 +188,9 @@ def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1
     B, C, T = x.shape
     if C < 32 or C % 32:
         raise ValueError(f"channels {C} not a multiple of 32")
-    if not 1 <= B <= 65535 or T < 1 or B * C * T >= 2 ** 31:
+    if B < 1 or T < 1:
         raise ValueError(f"shape {tuple(x.shape)} outside the kernel's range")
+    splits = batch_splits(B, C, T)
     if not resblocks:
         raise ValueError("a stage needs at least one resblock")
     ks, n_dil, dils, convs = [], [], [], []
@@ -193,25 +211,36 @@ def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1
                 convs.append(conv)
     if post is not None and tuple(post.weight.shape) != (1, C, POST_KERNEL):
         raise ValueError(f"post conv weight {tuple(post.weight.shape)} not (1, {C}, {POST_KERNEL})")
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_stage_cuda takes CUDA tensors, got {x.device}")
 
     round_bf16 = compute_dtype == torch.bfloat16
     packed = [_packed(conv, round_bf16) for conv in convs]
-    out = torch.empty_like(x)
-    h = torch.empty_like(x)
-    r = torch.empty_like(x)
-    wav = post_w = post_b = None
+    post_w = post_b = None
     if post is not None:
         post_w, post_b = _packed(post, round_bf16)                   # (7, C, 1)
-        wav = torch.empty(B, T, dtype=torch.float32, device=x.device)
+    out = torch.empty(B, T, dtype=torch.float32, device=x.device) if post is not None \
+        else torch.empty_like(x)
+    for b0, b1 in splits:
+        _launch_stage(x[b0:b1], out[b0:b1], ks, n_dil, dils, packed, post_w, post_b, round_bf16)
+    return out
+
+
+def _launch_stage(x, out, ks, n_dil, dils, packed, post_w, post_b, round_bf16: bool) -> None:
+    """One launch of the stage on x (B, C, T) within the kernel's limits,
+    into out: the stage output, or the wav (B, T) when post_w is given."""
+    global LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage_cuda takes CUDA tensors, got {x.device}")
+    B, C, T = x.shape
+    h = torch.empty_like(x)
+    r = torch.empty_like(x)
+    stage_out, wav = (torch.empty_like(x), out) if post_w is not None else (out, None)
 
     # The launches run after this returns. The work buffers may be freed then:
     # PyTorch's caching allocator hands their memory only to work queued later
     # on the same stream.
     fn = _load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), h.data_ptr(), r.data_ptr(),
+    err = fn(x.data_ptr(), stage_out.data_ptr(), h.data_ptr(), r.data_ptr(),
              wav.data_ptr() if wav is not None else None, B, C, T, len(ks),
              _ints(ks), _ints(n_dil), _ints(dils), _ptrs([w for w, _ in packed]),
              _ptrs([b for _, b in packed]),
@@ -220,7 +249,6 @@ def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1
     if err != 0:
         raise RuntimeError(f"MRF stage kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    return wav if post is not None else out
 
 
 def _launch_post(y: torch.Tensor, post: nn.Conv1d,

@@ -106,11 +106,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad, reason):
     q, k, v, valid = _torch(*_inputs(4, 2, 2, 16, 64))
     if bad == "shape":      # Lq != Lk is taken; heads that differ are not
         k = k[:, :1].contiguous()
-    elif bad == "dh":           # above 256: no instance to pad to (smaller ones are padded)
-        q, k, v = (torch.cat((t,) * 5, dim=-1).contiguous() for t in (q, k, v))
-    elif bad == "length":
-        q, k, v = (torch.zeros(1, 1, tattn.MAX_LEN + 1, 64) for _ in range(3))
-        valid = torch.ones(1, tattn.MAX_LEN + 1, dtype=torch.bool)
+    elif bad == "dh":           # no columns (any head dim from 1 up is padded or taken)
+        q, k, v = (t[..., :0].contiguous() for t in (q, k, v))
+    elif bad == "length":       # no keys (any length from 1 up is taken)
+        k, v = (t[:, :, :0].contiguous() for t in (k, v))
+        valid = valid[:, :0].contiguous()
     elif bad == "mask":
         valid = valid.int()
     elif bad == "layout":

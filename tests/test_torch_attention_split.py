@@ -84,7 +84,73 @@ def test_key_split_rule(dtype, batch_heads, L, want):
     assert tattn.choose_key_split(batch_heads, L, 132, dtype) == want
 
 
+# The wide route (head dims above 128): each query tile is one block per
+# 128 columns of the padded head dim, which count toward the grid as query
+# tiles do.
+@pytest.mark.parametrize("dtype,batch_heads,L,dh,want", [
+    (torch.float32, 16, 256, 192, 2), (torch.float32, 16, 256, 512, 1),
+    (torch.float32, 16, 512, 256, 1), (torch.float32, 2, 64, 1024, 4),
+    (torch.bfloat16, 16, 256, 200, 1), (torch.bfloat16, 16, 64, 320, 2),
+    (torch.bfloat16, 1, 16, 512, 4), (torch.float32, 16, 256, 128, 4)])
+def test_key_split_rule_counts_the_wide_route_s_slices(dtype, batch_heads, L, dh, want):
+    assert tattn.choose_key_split(batch_heads, L, 132, dtype, dh) == want
+
+
 def test_cuda_wrapper_refuses_an_unknown_key_split():
     q = torch.zeros(1, 2, 16, 64)
     with pytest.raises(ValueError, match="key_split"):
         tattn._launch(q, q, q, torch.ones(1, 16, dtype=torch.bool), None, 3)
+
+
+def _rz(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero: a truncating accumulator's result."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _pv_truncating(p, v, fresh_per_tile: bool, tile: int = 32):
+    """P V (rows x keys times keys x columns) by split TF32, each mma of 8
+    keys (its 8 products exact) added into its accumulator with truncation,
+    as the kernel's tensor cores do: either every product into o (the
+    earlier design) or each key tile's into a fresh accumulator added to o
+    rounded to nearest (`csrc/attention.cu:weighted_values`)."""
+    p_big, v_big = tf32_rna(p), tf32_rna(v)
+    p_small, v_small = tf32_rna(p - p_big), tf32_rna(v - v_big)
+    o = torch.zeros(p.shape[0], v.shape[1], dtype=torch.float32)
+    d = o.clone()
+    for k0 in range(0, p.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        acc = d if fresh_per_tile else o
+        for a, b in ((p_small, v_big), (p_big, v_small), (p_big, v_big)):
+            acc = _rz(acc.double() + a[:, ks].double() @ b[ks].double())
+        if not fresh_per_tile:
+            o = acc
+        elif (k0 + 8) % tile == 0 or k0 + 8 >= p.shape[1]:
+            o, d = o + acc, torch.zeros_like(d)
+        else:
+            d = acc
+    return o
+
+
+@pytest.mark.parametrize("L", [1024, 18000])
+def test_fresh_accumulators_per_key_tile_hold_long_keys_with_a_common_value(L):
+    """Under that truncating-accumulator model, L keys whose V has a common
+    part (V = 1 + 0.1 N(0, 1), as features have): accumulated into o, the
+    truncations grow with L, within the f32 bar up to the 1024 keys the
+    kernel sums so (`Cfg::DIRECT_TILES`) and past it at 18000; one fresh
+    accumulator per key tile, added rounded to nearest, stays far within it
+    (the design of `weighted_values`; chip_smoke.py phase 3 and the 360 s
+    upstream forward hold the kernel so on the card)."""
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.uniform(0.0, 1.0, (16, L)).astype(np.float32))
+    v = torch.from_numpy((1.0 + 0.1 * rng.normal(size=(L, 8))).astype(np.float32))
+    want = (p.double() @ v.double()) / p.double().sum(-1, keepdim=True)
+    l = p.sum(-1, keepdim=True)
+    direct = float(((_pv_truncating(p, v, False) / l).double() - want).abs().max())
+    fresh = float(((_pv_truncating(p, v, True) / l).double() - want).abs().max())
+    assert fresh <= F32_ATOL / 4, fresh
+    if L <= 1024:
+        assert direct <= F32_ATOL / 2, direct
+    else:
+        assert direct > F32_ATOL, direct

@@ -70,14 +70,15 @@ def _inputs(seed, B, H, L, Dh, dtype, device):
 # ring stages, each split across 1, 2 or 4 warps; B * H = 32 at L = 256; and
 # the served L bucket 32 (one full f32 ring stage) at the served B = 8; the
 # 10 L = 2560 unit positions chained serving decodes for the L bucket 256;
-# the longest L, whose key flags fill the f32 instance's shared memory.
+# L = 20000, past the 16384 keys an earlier design's shared memory held (the
+# key flags now travel with each ring stage).
 @pytest.mark.cuda
 @pytest.mark.parametrize("key_split", [None, 1, 2, 4], ids=["auto", "ks1", "ks2", "ks4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dh,L,B,H", [
     (128, 16, 3, 2), (128, 1000, 3, 2), (64, 2048, 3, 2), (128, 77, 3, 2), (128, 1, 3, 2),
     (128, 63, 3, 2), (128, 65, 3, 2), (128, 129, 3, 2), (64, 2047, 3, 2), (128, 256, 4, 8),
-    (128, 32, 8, 2), (128, 2560, 3, 2), (128, tattn.MAX_LEN, 3, 1)])
+    (128, 32, 8, 2), (128, 2560, 3, 2), (128, 20000, 3, 1)])
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, Dh, L, B, H, key_split):
     q, k, v, valid = _inputs(5, B, H, L, Dh, dtype, cuda_device)
     before = tattn.LAUNCHES
@@ -147,13 +148,13 @@ def test_cuda_system_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh", [192, 256])
+@pytest.mark.parametrize("Dh", [192, 256, 200, 320, 512, 1024])
 @pytest.mark.parametrize("L", [64, 200, 1000])
 def test_cuda_kernel_above_head_dim_128_matches_plain_version(cuda_device, dtype, Dh, L):
-    """The head-dim-256 instances (f32: raw K and V split by each warp; bf16)
-    and 192 padded to them, at every key split and through `attend`, with a
-    ragged mask and a sample with no valid key; the temperature is sqrt(the
-    true head dim)."""
+    """The wide route (head dims above 128, 200 padded to 256; 320 ends in a
+    half slice of O's columns), at every key split and through `attend`,
+    with a ragged mask and a sample with no valid key; the temperature is
+    sqrt(the true head dim)."""
     q, k, v, valid = _inputs(21, 4, 2, L, Dh, dtype, cuda_device)
     want = tattn.attention_reference(q, k, v, valid)
     atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
@@ -165,13 +166,45 @@ def test_cuda_kernel_above_head_dim_128_matches_plain_version(cuda_device, dtype
         torch.cuda.synchronize()
         assert tattn.LAUNCHES == before + 1 and got.shape == q.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-    with pytest.raises(ValueError, match="head dim 320 above 256"):
-        tattn.attention_cuda(*(torch.nn.functional.pad(t, (0, 320 - Dh)) for t in (q, k, v)),
-                             valid)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh,L", [(128, 77), (64, 129), (128, 512), (192, 200)])
+@pytest.mark.parametrize("Dh", [64, 128, 192])
+def test_cuda_kernel_long_keys_with_a_common_value(cuda_device, Dh):
+    """18000 keys whose V is 1 + 0.1 N(0, 1): o grows with the keys, where
+    the tensor cores' truncating adds would show (zero-mean V hides them).
+    f32 at every key split, at the f32 bar."""
+    q, k, v, valid = _inputs(24, 1, 2, 18000, Dh, torch.float32, cuda_device)
+    v = 1.0 + 0.1 * v
+    want = tattn.attention_reference(q, k, v, valid)
+    for key_split in (None, 1, 2, 4):
+        with torch.no_grad():
+            got = (tattn.attend(q, k, v, valid) if key_split is None
+                   else tattn._launch(q, k, v, valid, None, key_split))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_past_65535_heads(cuda_device, dtype):
+    """B * H = 70000, past the 65535 blocks an earlier grid took along y:
+    one launch, every key split, held to the plain version."""
+    q, k, v, valid = _inputs(23, 35000, 2, 16, 64, dtype, cuda_device)
+    want = tattn.attention_reference(q, k, v, valid)
+    atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+    for key_split in (None, 1, 2, 4):
+        before = tattn.LAUNCHES
+        with torch.no_grad():
+            got = (tattn.attend(q, k, v, valid) if key_split is None
+                   else tattn._launch(q, k, v, valid, None, key_split))
+        torch.cuda.synchronize()
+        assert tattn.LAUNCHES == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,L", [(128, 77), (64, 129), (128, 512), (192, 200), (512, 200)])
 def test_attention_function_grads_match_plain_autograd(cuda_device, Dh, L):
     q, k, v, valid = _inputs(7, 4, 2, L, Dh, torch.float32, cuda_device)
     g = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
