@@ -14,7 +14,8 @@ non-zero exit code when it fails:
 2. Build: compile every kernel under `fscl_tpu_torch/csrc/` with nvcc, one
    nvcc per source (per build part), all at once; ptxas's registers and
    spills are printed, and the attention kernel's wide route must spill
-   nothing in any of its 6 instances.
+   nothing in any of its 6 instances, nor the attention backward kernel in
+   any of its 8 (dQ and dK/dV for f32 / bf16 at head dims 64 / 128).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
@@ -39,7 +40,10 @@ non-zero exit code when it fails:
    alone in cuDNN (no single library call computes a stage), and one conv
    pair at each kernel size (time per tap and per conv launch); then one
    batch of 65540 samples, past the kernel's 65535-sample grid, which the
-   wrapper splits into two launches.
+   wrapper splits into two launches; then one sample of C * T = 1.5 x 2^31
+   elements (C = 64, 12 GiB of f32 a tensor) in one launch, held on its
+   first, middle and last 4096 samples against the plain version run on
+   each window with 64 samples of halo (the stage's receptive field is 60).
 4. Text -> mel: `serve_batches` through `BaselineSystem.synthesize_bucketed`
    at the full width of `config/model/base.yaml`, with random weights made
    from --seed; checks shapes, finiteness and that every batch launched the
@@ -56,15 +60,24 @@ non-zero exit code when it fails:
 7. Card vs CPU, vocoder: one mel vocoded on the card and on the CPU with the
    same weights; then `chunked_vocode` on the card against the full vocode.
 8. Training: `attend` under autograd (the kernel forward through a
-   `torch.autograd.Function`, the recompute backward) against autograd
-   through the plain version at B = 16 and 4, L = 128 and 512; then
-   `Trainer.fit` on `BaselineSystem` at base.yaml width, B = 16, L = 128,
-   T = 512, f32, with batches from `collate_batch`: 30 steps counted (every
-   loss finite, the last five below the first five, 10 attention launches
-   per step at shapes held to the plain version), 20 timed, one pass split
-   into forward, backward and optimizer, peak memory, a traced step with
-   --profile; 5 steps at B = 4 without dropout on the card and on the CPU;
-   the Function's forward + backward timed beside SDPA's. Then head dims
+   `torch.autograd.Function`, the backward kernel of csrc/attention_bwd.cu
+   at head dims up to 128, two launches a call) against autograd through the
+   plain version at B = 16 and 4, L = 128 and 512 (dq, dk, dv within
+   GRAD_ATOL; the all-invalid sample's dk exactly 0, its dv within the bar);
+   then `Trainer.fit` on `BaselineSystem` at base.yaml width, B = 16,
+   L = 128, T = 512, f32, with batches from `collate_batch`: 30 steps counted
+   (every loss finite, the last five below the first five, 10 attention and
+   20 backward kernel launches per step at shapes held to the plain
+   versions), 20 timed, one pass split into forward, backward and optimizer,
+   peak memory, a traced step with --profile; 5 steps at B = 4 without
+   dropout on the card and on the CPU; the Function's forward + backward
+   timed beside SDPA's, and the backward kernel alone (by events and in a
+   CUDA graph) beside the plain recompute backward and its bound. Every
+   path's backward kernel launches are counted (`attention_shapes`), each
+   (B, H, Lq, Lk, Dh, dtype) they launched at is held to `attention_bwd`
+   right after the run (f32 GRAD_ATOL, bf16 BF16_GRAD_REL; one sample with
+   one valid key, one with none), and the script
+   fails if the train, FSCL and tune paths launched none. Then head dims
    above 128 end to end on the kernel's wide route: base.yaml at encoder
    and decoder width 384 with 2 heads (Dh 192), then at 512 with 1 head
    (Dh 512), each 3 train steps at B = 4 card vs CPU (the bars above) and
@@ -254,8 +267,8 @@ non-zero exit code when it fails:
 17. Precision, remat and observability. The attention kernel in bf16 under
    `AttentionFunction` at the training shapes (B = 16, H = 2, L = 128 and
    512, Dh = 128): forward at every key split against the plain version
-   (bf16 bars), gradients against autograd of the plain version within 1e-2
-   of each one's largest entry. Then four runs of 20 steps through
+   (bf16 bars), gradients (the backward kernel, two launches) against autograd
+   of the plain version within 1e-2 of each one's largest entry. Then four runs of 20 steps through
    `Trainer.fit` at base.yaml width on phase 8's batch shape (B = 16,
    L = 128, T = 512; every dropout off, Adam at lr 1e-4, eps 1e-3): f32,
    bf16 (`compute_dtype: bfloat16`), f32 + remat and bf16 + remat; each
@@ -316,7 +329,8 @@ non-zero exit code when it fails:
    path calls it, and how earlier versions of this script timed it), and
    the wrapper's host time per call.
 
-The line before the last holds the three kernels' numbers; the last line is
+The line before the last holds the four kernels' numbers (the attention
+forward, its backward, the MRF stage, the contour fix); the last line is
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or `fscl_tpu`.
 """
 from __future__ import annotations
@@ -492,6 +506,11 @@ SAVER_MEL_ATOL, SAVER_ATTN_ATOL = 1e-3, 1e-5
 TACO_B, TACO_L, TACO_T, TACO_INFER_STEPS, TACO_REL = 4, 48, 240, 50, 1e-4
 # HiFiGAN V1 stages: (channels, upsampling so far, conv_post fused)
 V1_STAGES = ((256, 8, False), (128, 64, False), (64, 128, False), (32, 256, True))
+# One MRF stage sample past 2^31 elements (phase 3): V1's third stage width
+# over 3 x 2^24 samples (C * T = 1.5 x 2^31, 12 GiB of f32 a tensor), held on
+# windows of MRF_WINDOW samples with MRF_HALO of real input on each side
+# (the stage's receptive field is 60).
+MRF_BIG_C, MRF_BIG_T, MRF_WINDOW, MRF_HALO = 64, 3 * 2 ** 24 + 100, 4096, 64
 
 # Serving input: four batches of eight English lines, from a few symbols to
 # about 200, so that several L and T buckets are hit.
@@ -609,17 +628,24 @@ def phase_build():
         for line in ptxas:
             log(f"  ptxas: {line}")
     log(f"build phase: {seconds:.1f} s")
-    spills = wide_route_spills(built["attention"].log)
+    spills = kernel_spills(built["attention"].log, "attention_wide_kernel")
     log(f"attention wide route: {len(spills)} instances, spill bytes (stores, loads) "
         + ", ".join(f"{v}" for v in spills.values()))
     if len(spills) != 6 or any(v != (0, 0) for v in spills.values()):
         fail(f"the attention kernel's wide route spills or is missing: {spills}")
+    # the backward kernel: a dQ and a dK/dV kernel for each of f32 / bf16 x
+    # head dims 64 / 128
+    spills = kernel_spills(built["attention_bwd"].log, "attention_bwd_")
+    log(f"attention backward: {len(spills)} instances, spill bytes (stores, loads) "
+        + ", ".join(f"{v}" for v in spills.values()))
+    if len(spills) != 8 or any(v != (0, 0) for v in spills.values()):
+        fail(f"the attention backward kernel spills or is missing instances: {spills}")
     return built
 
 
-def wide_route_spills(log_text: str) -> dict:
-    """ptxas's spill stores and loads (bytes) of each instance of the
-    attention kernel's wide route, from `nvcc -Xptxas -v`'s log: a
+def kernel_spills(log_text: str, kernel: str) -> dict:
+    """ptxas's spill stores and loads (bytes) of each instance of a kernel
+    whose mangled name contains `kernel`, from `nvcc -Xptxas -v`'s log: a
     "Function properties for <name>" line, then its "spill" line."""
     import re
     spills, name = {}, None
@@ -629,7 +655,7 @@ def wide_route_spills(log_text: str) -> dict:
             name = found.group(1)
             continue
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if found and name and "attention_wide_kernel" in name:
+        if found and name and kernel in name:
             spills[name] = (int(found.group(1)), int(found.group(2)))
             name = None
     return spills
@@ -796,6 +822,9 @@ def phase_attention(seed: int):
 
 
 LAUNCHED = {}     # what -> the (B, H, L, Dh, dtype) `attention_shapes` recorded
+BWD_BY_PATH = {}  # what -> the backward kernel's launches inside `attention_shapes`
+BWD_CHECKED = set()   # (B, H, Lq, Lk, Dh, dtype) the backward kernel was held at
+BWD_MAX_ERR = {"float32": 0.0, "bfloat16": 0.0}   # f32 absolute, bf16 relative to max
 
 
 @contextlib.contextmanager
@@ -803,26 +832,108 @@ def attention_shapes(attn, checked, what: str, launches: bool = True):
     """Record the (B, H, L, Dh, dtype) of every `attention_cuda` call made
     inside (through `attend`, which looks the wrapper up at call time), in
     LAUNCHED too; on leaving, fail if one of them was not held to the plain
-    version, or if none was made where `launches` expects some."""
-    launch = attn.attention_cuda
-    seen = set()
+    version, or if none was made where `launches` expects some. The backward
+    kernel's calls (`attention_bwd_cuda`, from `AttentionGradFunction`) are
+    recorded too: their count inside goes into BWD_BY_PATH[what], and each
+    (B, H, Lq, Lk, Dh, dtype) not held before is held to `attention_bwd`
+    on leaving, right after the run that launched it."""
+    launch, launch_bwd = attn.attention_cuda, attn.attention_bwd_cuda
+    seen, seen_bwd = set(), set()
+    bwd_before = attn.BWD_LAUNCHES
 
     def recording(q, *args):
         seen.add((*q.shape, str(q.dtype).split(".")[-1]))
         return launch(q, *args)
 
+    def recording_bwd(q, k, *args):
+        seen_bwd.add((*q.shape[:3], k.shape[2], q.shape[3], str(q.dtype).split(".")[-1]))
+        return launch_bwd(q, k, *args)
+
     attn.attention_cuda = recording
+    attn.attention_bwd_cuda = recording_bwd
     try:
         yield seen
     finally:
-        attn.attention_cuda = launch
+        attn.attention_cuda, attn.attention_bwd_cuda = launch, launch_bwd
         LAUNCHED.setdefault(what, set()).update(seen)
+        BWD_BY_PATH[what] = BWD_BY_PATH.get(what, 0) + attn.BWD_LAUNCHES - bwd_before
     if not seen and launches:
         fail(f"{what}: no attention launch recorded")
     if seen - checked:
         fail(f"{what}: attention launched at {sorted(seen - checked)}, shapes phases 3 and 8 "
              f"did not hold to the plain version")
     log(f"{what}: attention launched at {sorted(seen)}, all held to the plain version")
+    if seen_bwd:
+        hold_backward_shapes(seen_bwd, what)
+
+
+def backward_inputs(gen, B, H, Lq, Lk, Dh, dtype):
+    """q, g (B, H, Lq, Dh), k, v (B, H, Lk, Dh) from `gen`; keys all valid,
+    one, none, ragged, cycled over the batch. With one valid key every
+    query's weight sits on it and dv there sums g over the query rows (tens
+    at L = 512), held to the same bar: the kernel's weight there is exactly
+    1 and it sums dv in cuBLAS's order."""
+    import torch
+    q, g = (torch.randn(B, H, Lq, Dh, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, H, Lk, Dh, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    pattern = torch.tensor([Lk, 1, 0, max(2, Lk - Lk // 3)], device="cuda")
+    lens = pattern[torch.arange(B, device="cuda") % 4]
+    valid = torch.arange(Lk, device="cuda")[None, :] < lens[:, None]
+    return q, k, v, valid, g
+
+
+def check_backward(attn, q, k, v, valid, g, label) -> float:
+    """The backward kernel (from the forward kernel's row stats) against
+    `attention_bwd`: f32 within GRAD_ATOL, bf16 within BF16_GRAD_REL of each
+    gradient's max; the sample with no valid key (the third) gets dk 0 and
+    the plain dv. Fails on a miss; returns the largest error."""
+    import torch
+    stats = torch.empty(*q.shape[:3], 2, device=q.device)
+    attn.attention_cuda(q, k, v, valid, None, stats)
+    got = attn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+    want = attn.attention_bwd(q, k, v, valid, None, g)
+    torch.cuda.synchronize()
+    f32 = q.dtype == torch.float32
+    errs = {}
+    for name, a, b in zip("qkv", got, want):
+        if a.dtype != q.dtype or a.shape != b.shape or not torch.isfinite(a.float()).all():
+            fail(f"attention backward {label}: d{name} {a.dtype} {tuple(a.shape)} or non-finite")
+        err = float((a.float() - b.float()).abs().max())
+        errs[name] = err if f32 else err / max(float(b.float().abs().max()), 1e-30)
+    bar = GRAD_ATOL if f32 else BF16_GRAD_REL
+    dead = q.shape[0] >= 3 and not bool(valid[2].any())
+    dead_dk = float(got[1][2].float().abs().max()) if dead else 0.0
+    dead_dv = float((got[2][2].float() - want[2][2].float()).abs().max()) if dead else 0.0
+    dv_bar = bar if f32 else BF16_GRAD_REL * float(want[2].float().abs().max())
+    if max(errs.values()) > bar or dead_dk != 0.0 or dead_dv > dv_bar:
+        fail(f"attention backward kernel disagrees with its plain version ({label}: {errs}, "
+             f"the all-invalid sample's dk {dead_dk:.3g}, dv {dead_dv:.3g})")
+    dname = str(q.dtype).split(".")[-1]
+    BWD_MAX_ERR[dname] = max(BWD_MAX_ERR[dname], *errs.values())
+    return max(errs.values())
+
+
+def hold_backward_shapes(shapes, what: str) -> int:
+    """Hold the backward kernel to `attention_bwd` at each (B, H, Lq, Lk,
+    Dh, dtype) of `shapes` not held before; these comparison launches are
+    not counted (each wrapper's count is put back). Returns how many."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    new = sorted(set(shapes) - BWD_CHECKED)
+    counts = attn.LAUNCHES, attn.BWD_LAUNCHES
+    gen = torch.Generator(device="cuda").manual_seed(len(BWD_CHECKED))
+    worst = 0.0
+    for B, H, Lq, Lk, Dh, dname in new:
+        dtype = getattr(torch, dname)
+        worst = max(worst, check_backward(attn, *backward_inputs(gen, B, H, Lq, Lk, Dh, dtype),
+                                          f"{what}: {dname} B={B} H={H} Lq={Lq} Lk={Lk} Dh={Dh}"))
+        BWD_CHECKED.add((B, H, Lq, Lk, Dh, dname))
+    attn.LAUNCHES, attn.BWD_LAUNCHES = counts
+    if new:
+        log(f"{what}: held the attention backward kernel to its plain version at {len(new)} "
+            f"new shapes {new} (largest error {worst:.3g}; f32 absolute, bar {GRAD_ATOL}, bf16 "
+            f"relative to each gradient's max, bar {BF16_GRAD_REL})")
+    return len(new)
 
 
 def export_trace(prof, path: Path) -> None:
@@ -1096,7 +1207,64 @@ def phase_mrf_stage(seed: int):
             f"launches {splits}, held to the plain version")
         max_err["float32"] = max(max_err["float32"], err)
         del x
-    return max_err, timings, checked
+    big = mrf_stage_past_2_31(mrf, gen_x)
+    max_err["float32"] = max(max_err["float32"], big["max_abs_err"])
+    torch.cuda.empty_cache()
+    return max_err, timings, checked, big
+
+
+def mrf_stage_past_2_31(mrf, gen_x) -> dict:
+    """One sample of C * T > 2^31 elements in f32, in one launch: HiFi-GAN
+    V1's third stage (C = 64, kernels 3 / 7 / 11 at dilations 1 / 3 / 5) over
+    T = MRF_BIG_T samples, 12 GiB a tensor (x, the stage's two work buffers
+    and its output: 48 GiB of the card's 80 GB). The plain version cannot run
+    whole at that size, so each checked window's plain version runs on the
+    window plus MRF_HALO samples of real input on each side that exist (the
+    stage's receptive field is 60: sum over resblocks and dilations of
+    (k - 1) / 2 (d + 1)), and the kernel's output on the window is held to
+    it at the stage's f32 bars. Windows: the first, one in the middle and the
+    last (rows of channels 43 and up lie past element 2^31 everywhere)."""
+    import torch
+    from fscl_tpu_torch.models.hifigan import ResBlock1
+    C, T = MRF_BIG_C, MRF_BIG_T
+    torch.manual_seed(0)
+    # made outside inference mode: the weight packing reads version counters
+    rbs = [ResBlock1(C, k, (1, 3, 5)).to("cuda") for k in (3, 7, 11)]
+    if mrf.batch_splits(1, C, T) != [(0, 1)]:
+        fail(f"MRF stage past 2^31: batch_splits(1, {C}, {T}) = {mrf.batch_splits(1, C, T)}")
+    with torch.inference_mode():
+        x = torch.randn(1, C, T, generator=gen_x, device="cuda")
+        before = mrf.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mrf.mrf_stage(x, rbs, None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = mrf.LAUNCHES - before
+        if launches != 1 or out.shape != x.shape:
+            fail(f"MRF stage past 2^31: {launches} launches, output {tuple(out.shape)}")
+        worst_mean = worst_max = 0.0
+        for a in (0, T // 2 - MRF_WINDOW // 2, T - MRF_WINDOW):
+            b = a + MRF_WINDOW
+            lo, hi = max(0, a - MRF_HALO), min(T, b + MRF_HALO)
+            want = mrf.mrf_stage_reference(x[:, :, lo:hi], rbs)[:, :, a - lo:b - lo]
+            got = out[:, :, a:b]
+            if not torch.isfinite(got).all():
+                fail(f"MRF stage past 2^31: non-finite output in [{a}, {b})")
+            err = (got - want).abs()
+            worst_mean, worst_max = max(worst_mean, float(err.mean())), max(worst_max,
+                                                                            float(err.max()))
+        if worst_mean >= STAGE_F32_MEAN or worst_max >= STAGE_F32_MAX:
+            fail(f"MRF stage past 2^31 disagrees with its plain version on a window: mean "
+                 f"{worst_mean:.3g} (bar {STAGE_F32_MEAN}), max {worst_max:.3g} (bar "
+                 f"{STAGE_F32_MAX})")
+        del x, out
+    log(f"mrf_stage float32 B=1 C={C} T={T} ({C * T} elements, {C * T / 2**31:.2f} x 2^31; "
+        f"{4 * C * T / 2**30:.1f} GiB a tensor): 1 launch in {seconds:.3f} s, windows of "
+        f"{MRF_WINDOW} (first, middle, last) with {MRF_HALO}-sample halos against the plain "
+        f"version: mean |d| {worst_mean:.3g}, max {worst_max:.3g} ok")
+    return {"C": C, "T": T, "elements": C * T, "launches": launches, "seconds": seconds,
+            "mean_abs_err": worst_mean, "max_abs_err": worst_max}
 
 
 def build_system(seed: int, device: str):
@@ -1507,12 +1675,14 @@ def train_attention_bound(B, H, L, Dh):
 
 def phase_train_kernel_grads(seed: int, attn_checked):
     """`attend` under autograd on the card (the Function: the kernel forward,
-    the recompute backward) against autograd through the plain version, at
-    the training phase's shapes: H = 2, Dh = 128, f32, B = 16 (and B = 4 of
-    the card-vs-CPU check) at L = 128 and T = 512, and the wide checks'
-    (B = 4, 2 heads of 192 and 1 head of 512, the kernel's wide route),
-    ragged keys and one sample with none. The forward is first held at every key split as phase
-    3 holds the served shapes; the shapes join the set the recorders accept."""
+    the backward kernel at head dims up to 128, the recompute backward above)
+    against autograd through the plain version, at the training phase's
+    shapes: H = 2, Dh = 128, f32, B = 16 (and B = 4 of the card-vs-CPU
+    check) at L = 128 and T = 512, and the wide checks' (B = 4, 2 heads of
+    192 and 1 head of 512, the kernel's wide route), ragged keys and one
+    sample with none (its dk exactly 0, its dv within the bar). The forward
+    is first held at every key split as phase 3 holds the served shapes; the
+    shapes join the sets the recorders accept."""
     import torch
     from fscl_tpu_torch.ops import attention as attn
 
@@ -1531,10 +1701,15 @@ def phase_train_kernel_grads(seed: int, attn_checked):
         attn_checked.add((B, H, L, Dh, "float32"))
         g = torch.randn(q.shape, generator=gen, device="cuda")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        bwd_before = attn.BWD_LAUNCHES
         out = attn.attend(*leaves, valid)
         if out.grad_fn is None:
             fail("attend on CUDA under autograd returned an output without grad_fn")
         got = torch.autograd.grad(out, leaves, g)
+        kernel_bwd = attn.BWD_LAUNCHES - bwd_before
+        if kernel_bwd != (2 if Dh <= attn.HEAD_DIMS[-1] else 0):
+            fail(f"attention Function B={B} L={L} Dh={Dh}: {kernel_bwd} backward kernel "
+                 f"launches (two at head dims up to {attn.HEAD_DIMS[-1]}, none above)")
         ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         ref = attn.attention_reference(*ref_leaves, valid)
         want = torch.autograd.grad(ref, ref_leaves, g)
@@ -1543,30 +1718,55 @@ def phase_train_kernel_grads(seed: int, attn_checked):
         errs.update({f"d{n}": float((a - b).abs().max()) for n, a, b in zip("qkv", got, want)})
         if not all(torch.isfinite(t).all() for t in got):
             fail(f"attention gradients B={B} L={L}: non-finite")
-        # no gradient reaches a key of the sample that has none valid
+        # no gradient reaches a key of the sample that has none valid; its
+        # keys' values get the uniform weights' gradient
         dead = float(got[1][-1].abs().max())
-        log(f"attention Function B={B} H={H} L={L} Dh={Dh} f32: max |d| fwd {errs['fwd']:.3g} "
-            f"(bar {F32_ATOL}), dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv {errs['dv']:.3g} "
-            f"(bar {GRAD_ATOL}); dk of the all-invalid sample {dead:.3g}")
+        dead_dv = float((got[2][-1] - want[2][-1]).abs().max())
+        log(f"attention Function B={B} H={H} L={L} Dh={Dh} f32 "
+            f"({'backward kernel' if kernel_bwd else 'recompute backward'}): max |d| fwd "
+            f"{errs['fwd']:.3g} (bar {F32_ATOL}), dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv "
+            f"{errs['dv']:.3g} (bar {GRAD_ATOL}); the all-invalid sample's dk {dead:.3g}, dv "
+            f"{dead_dv:.3g}")
         if errs["fwd"] > F32_ATOL or max(errs[n] for n in ("dq", "dk", "dv")) > GRAD_ATOL \
-                or dead != 0.0:
+                or dead != 0.0 or dead_dv > GRAD_ATOL:
             fail(f"attention Function disagrees with autograd of the plain version at B={B} "
-                 f"L={L}: {errs}, dk of the all-invalid sample {dead:.3g}")
+                 f"L={L}: {errs}, the all-invalid sample's dk {dead:.3g}, dv {dead_dv:.3g}")
+        if kernel_bwd:
+            BWD_CHECKED.add((B, H, L, L, Dh, "float32"))
+            BWD_MAX_ERR["float32"] = max(BWD_MAX_ERR["float32"],
+                                         *(errs[n] for n in ("dq", "dk", "dv")))
         worst = {n: max(worst[n], errs[n]) for n in worst}
     return worst
 
 
+def backward_bound(B, H, Lq, Lk, Dh, dtype_name, itemsize):
+    """Least time for one backward call (its two launches): its five products
+    (10 B H Lq Lk Dh operations; f32 by split TF32, three TF32 products per
+    f32 product, bf16 on the tensor cores) against q, g and the row stats
+    read and dq written (3 Lq rows), k and v read and dk, dv written (4 Lk
+    rows), and the key mask."""
+    flops = 10 * B * H * Lq * Lk * Dh
+    t_ops = (3 * flops / PEAK_TF32_FLOPS if dtype_name == "float32"
+             else flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    nbytes = (3 * B * H * Lq * Dh + 4 * B * H * Lk * Dh) * itemsize + 8 * B * H * Lq + B * Lk
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_train_attention():
-    """The Function's forward + backward, its backward alone, autograd
-    through the plain version and SDPA's forward + backward (the yardstick),
-    each by CUDA events over back-to-back calls, at B = 16, H = 2, Dh = 128,
-    f32, L = 128 and 512; every sample has a valid key (SDPA gives NaN for a
-    row with none)."""
+    """The Function's forward + backward, the backward kernel alone (CUDA
+    events over back-to-back calls, as the Function calls it, and in a CUDA
+    graph: its device time), the plain recompute backward (what the
+    Function ran before the backward kernel), autograd through the plain
+    version and SDPA's forward + backward (the yardstick), at B = 16, H = 2,
+    Dh = 128, f32, L = 128 and 512; every sample has a valid key (SDPA gives
+    NaN for a row with none)."""
     import torch
     import torch.nn.functional as F
     from fscl_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    stream = torch.cuda.Stream()
     rows = []
     for L in (TRAIN_L, TRAIN_T):
         B, H, Dh = TRAIN_B, 2, 128
@@ -1575,28 +1775,54 @@ def time_train_attention():
         g = torch.randn(q.shape, generator=gen, device="cuda")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         mask4 = valid[:, None, None, :]
+        stats = torch.empty(B, H, L, 2, device="cuda")
+        attn.attention_cuda(q, k, v, valid, None, stats)
+        # the forward's row max against the plain scores' (log2 units): what
+        # its 16-column sums leave of the tensor cores' truncation
+        scores = torch.matmul(q, k.transpose(-1, -2)) * (1.4426950408889634 / Dh ** 0.5)
+        m_err = float((stats[..., 0] - scores.masked_fill(
+            ~valid[:, None, None, :], -1e9 * 1.4426950408889634).amax(-1)).abs().max())
+        del scores
 
         def fwd_bwd(f):
             return lambda: torch.autograd.grad(f(*leaves), leaves, g)
 
+        def kernel_bwd():
+            return attn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+
         iters = 50 if L <= 128 else 20
+        counts = attn.LAUNCHES, attn.BWD_LAUNCHES
         kernel_ms = cuda_time_ms(fwd_bwd(lambda a, b, c: attn.attend(a, b, c, valid)), iters)
         fwd_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), iters)
+        # with the row stats the backward reads: scores summed as it recomputes them
+        fwd_stats_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid, None, stats), iters)
+        bwd_kernel_ms = cuda_time_ms(kernel_bwd, iters)
+        bwd_kernel_graph_ms = graph_time_ms(kernel_bwd, iters, stream)
         bwd_ms = cuda_time_ms(lambda: attn.attention_bwd(q, k, v, valid, None, g), iters)
         plain_ms = cuda_time_ms(
             fwd_bwd(lambda a, b, c: attn.attention_reference(a, b, c, valid)), iters)
         library_ms = cuda_time_ms(fwd_bwd(
             lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask4)), iters)
+        attn.LAUNCHES, attn.BWD_LAUNCHES = counts      # timing launches are not the path's
         bound_ms, bound_by, fma_ms = train_attention_bound(B, H, L, Dh)
+        bwd_bound_ms, bwd_bound_by = backward_bound(B, H, L, L, Dh, "float32", 4)
         row = {"B": B, "H": H, "L": L, "Dh": Dh, "dtype": "float32", "ms": kernel_ms,
-               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "fma_bound_ms": fma_ms}
+               "fwd_ms": fwd_ms, "fwd_stats_ms": fwd_stats_ms, "bwd_kernel_ms": bwd_kernel_ms,
+               "bwd_kernel_graph_ms": bwd_kernel_graph_ms, "bwd_ms": bwd_ms,
+               "bwd_bound_ms": bwd_bound_ms, "bwd_bound_by": bwd_bound_by,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "fma_bound_ms": fma_ms,
+               "beats_sdpa": kernel_ms <= library_ms, "fwd_row_max_err_log2": m_err}
         rows.append(row)
         log(f"attention fwd + bwd B={B} H={H} L={L} Dh={Dh} f32: Function {kernel_ms:.4f} ms "
-            f"(kernel forward {fwd_ms:.4f} + recompute backward {bwd_ms:.4f}), plain autograd "
-            f"{plain_ms:.4f} ms, SDPA fwd + bwd {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; f32 FMA bound {fma_ms:.4f} ms)")
+            f"(kernel forward {fwd_ms:.4f}, {fwd_stats_ms:.4f} with the row stats; backward "
+            f"kernel {bwd_kernel_ms:.4f} ms by events, "
+            f"{bwd_kernel_graph_ms:.4f} ms in a graph, bound {bwd_bound_ms:.4f} ms "
+            f"({bwd_bound_by}); plain recompute backward {bwd_ms:.4f} ms), plain autograd "
+            f"{plain_ms:.4f} ms, SDPA fwd + bwd {library_ms:.4f} ms "
+            f"({'at or above' if kernel_ms <= library_ms else 'below'} the Function), bound "
+            f"{bound_ms:.4f} ms ({bound_by}; f32 FMA bound {fma_ms:.4f} ms); the forward's row "
+            f"max {m_err:.3g} (log2 units) from the plain scores'")
     return rows
 
 
@@ -1737,12 +1963,14 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attn.LAUNCHES = 0
+    attn.BWD_LAUNCHES = 0
     mrf.LAUNCHES = 0
     with attention_shapes(attn, attn_checked, "train"):
         t0 = time.perf_counter()
         state = Trainer(system, train_cfg, [rec]).fit(state, iter(counted))
         torch.cuda.synchronize()
         counted_s = time.perf_counter() - t0
+        bwd_launches = attn.BWD_LAUNCHES
     launches, stage_launches = attn.LAUNCHES, mrf.LAUNCHES
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [mt["Total Loss"] for _, mt, _ in rec.logs]
@@ -1756,11 +1984,14 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
     if launches != per_step * TRAIN_STEPS:
         fail(f"train: {launches} attention launches in {TRAIN_STEPS} steps, expected "
              f"{per_step} per step")
+    if bwd_launches != 2 * per_step * TRAIN_STEPS:
+        fail(f"train: {bwd_launches} attention backward kernel launches in {TRAIN_STEPS} "
+             f"steps, expected {2 * per_step} per step (two a call)")
     log(f"train: {TRAIN_STEPS} steps through Trainer.fit at B={TRAIN_B} L={TRAIN_L} "
         f"T={TRAIN_T} ({n_params / 1e6:.2f} M parameters), loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} (first 5 mean {head:.4f}, last 5 mean {tail:.4f}), {launches} "
-        f"attention launches ({per_step} per step), {counted_s:.2f} s with a loss read per "
-        f"step, peak {peak:.2f} GiB")
+        f"attention launches ({per_step} per step) and {bwd_launches} of its backward kernels, "
+        f"{counted_s:.2f} s with a loss read per step, peak {peak:.2f} GiB")
 
     # the timed run: no read of the loss until its end
     timed_cfg = TrainConfig(optim=system.optim_cfg, total_step=TRAIN_STEPS + TIMED_STEPS,
@@ -1801,7 +2032,7 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
     summary = {
         "B": TRAIN_B, "L": TRAIN_L, "T": TRAIN_T, "parameters": n_params,
         "steps": TRAIN_STEPS, "losses": losses, "attention_launches": launches,
-        "mrf_stage_launches": stage_launches,
+        "attention_bwd_launches": bwd_launches, "mrf_stage_launches": stage_launches,
         "counted_seconds": counted_s, "peak_mem_gib": peak,
         "timed_steps": TIMED_STEPS, "timed_seconds": timed_s,
         "steps_per_s": TIMED_STEPS / timed_s, "ms_per_step": step_ms,
@@ -6366,8 +6597,9 @@ def phase_precision_kernel(seed: int, attn_checked):
     within BF16_GRAD_REL of that gradient's largest |entry| (the Function's
     backward recomputes in f32 and rounds each gradient to bf16; the plain
     version's autograd rounds the weights to bf16 first; measured on the CPU
-    about 5e-3); dk of the sample with no valid key exactly 0. The shapes
-    join the set the recorders accept."""
+    about 5e-3); dk of the sample with no valid key exactly 0. The backward
+    is the backward kernel (one launch each). The shapes join the sets the
+    recorders accept."""
     import torch
     from fscl_tpu_torch.ops import attention as attn
 
@@ -6383,10 +6615,14 @@ def phase_precision_kernel(seed: int, attn_checked):
         attn_checked.add((TRAIN_B, H, L, Dh, "bfloat16"))
         g = torch.randn(q.shape, generator=gen, device=CARD).to(torch.bfloat16)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        bwd_before = attn.BWD_LAUNCHES
         out = attn.attend(*leaves, valid)
         if out.grad_fn is None or out.dtype != torch.bfloat16:
             fail("attend in bf16 under autograd: no grad_fn or not bf16")
         got = torch.autograd.grad(out, leaves, g)
+        if attn.BWD_LAUNCHES - bwd_before != 2:
+            fail(f"precision Function at L={L}: {attn.BWD_LAUNCHES - bwd_before} backward "
+                 f"kernel launches, expected 2")
         ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(attn.attention_reference(*ref_leaves, valid), ref_leaves, g)
         for n, a, b in zip("qkv", got, want):
@@ -6400,6 +6636,9 @@ def phase_precision_kernel(seed: int, attn_checked):
             f"dv {errs['dv']:.3g} (bar {BF16_GRAD_REL}); dk of the all-invalid sample {dead:.3g}")
         if max(errs[n] for n in ("dq", "dk", "dv")) > BF16_GRAD_REL or dead != 0.0:
             fail(f"precision: bf16 Function gradients at L={L}: {errs}, dead {dead}")
+        BWD_CHECKED.add((TRAIN_B, H, L, L, Dh, "bfloat16"))
+        BWD_MAX_ERR["bfloat16"] = max(BWD_MAX_ERR["bfloat16"],
+                                      *(errs[n] for n in ("dq", "dk", "dv")))
         worst = {n: max(worst[n], errs[n]) for n in worst}
     return worst
 
@@ -7170,13 +7409,20 @@ def par_rank(rank: int, device, seed: int):
     lead = rank == 0
     out = {"backend": torch.distributed.get_backend(), "seconds": {}, "launches": {},
            "shapes": set()}
-    launch = attn.attention_cuda
+    out["bwd_shapes"], out["bwd_launches"] = set(), {}
+    launch, launch_bwd = attn.attention_cuda, attn.attention_bwd_cuda
 
     def recording(q, k, *a):
         out["shapes"].add((*q.shape, k.shape[2], str(q.dtype).split(".")[-1]))
         return launch(q, k, *a)
 
+    def recording_bwd(q, k, *a):
+        out["bwd_shapes"].add((*q.shape[:3], k.shape[2], q.shape[3],
+                               str(q.dtype).split(".")[-1]))
+        return launch_bwd(q, k, *a)
+
     attn.attention_cuda = recording
+    attn.attention_bwd_cuda = recording_bwd
     out["gloo_cuda"] = par_probe_gloo(device)
     dp, tp = make_mesh(PAR_RANKS, 1, device), make_mesh(1, PAR_RANKS, device)
 
@@ -7188,11 +7434,13 @@ def par_rank(rank: int, device, seed: int):
         torch.distributed.barrier()
         t0 = time.perf_counter()
         attn.LAUNCHES = 0
+        attn.BWD_LAUNCHES = 0
         res = fn(*args)
-        n = attn.LAUNCHES
+        n, n_bwd = attn.LAUNCHES, attn.BWD_LAUNCHES
         torch.cuda.synchronize()
         out["seconds"][name] = out["seconds"].get(name, 0.0) + time.perf_counter() - t0
         out["launches"][name] = out["launches"].get(name, 0) + n
+        out["bwd_launches"][name] = out["bwd_launches"].get(name, 0) + n_bwd
         return res
 
     def rel(a, b):
@@ -7334,7 +7582,7 @@ def par_rank(rank: int, device, seed: int):
             same_len = same_len and bool(torch.equal(mel_len, want.mel_len))
     if lead:
         out["serving"] = {"mel_max_abs_err": worst, "same_mel_len": same_len}
-    attn.attention_cuda = launch
+    attn.attention_cuda, attn.attention_bwd_cuda = launch, launch_bwd
     return out
 
 
@@ -7417,6 +7665,7 @@ def phase_parallel_ranks(seed: int, attn_checked, cross_checked):
     n_held = hold_attention_shapes(same, attn_checked, "parallel ranks")
     errs = hold_cross_shapes([(B, H, Lq, Lk, Dh, d) for B, H, Lq, Dh, Lk, d in cross],
                              cross_checked, "parallel ranks")
+    hold_backward_shapes(set().union(*(r["bwd_shapes"] for r in res)), "parallel ranks")
     log(f"parallel ranks: backend {r0['backend']} ({PAR_LABEL}); gloo on CUDA tensors: "
         f"{r0['gloo_cuda']}; attention launches of each parallel call, per rank "
         f"{per_rank[0]}; {len(shapes)} attention shapes, {n_held} + "
@@ -7428,6 +7677,8 @@ def phase_parallel_ranks(seed: int, attn_checked, cross_checked):
             "seconds": r0["seconds"], "spawn_s": wall,
             "launches_per_rank": per_rank[0],
             "launches": {p: sum(r[p] for r in per_rank) for p in per_rank[0]},
+            "bwd_launches": {p: sum(r["bwd_launches"].get(p, 0) for r in res)
+                             for p in res[0]["bwd_launches"]},
             "shapes": sorted(shapes), "cross_err_after": errs,
             "eps_1e-9": {n: {k: r0[n][k] for k in ("losses", "ref_losses", "later_loss_rel",
                                                    "grads_rel", "grads_worst",
@@ -7563,7 +7814,7 @@ def main(argv=None) -> int:
     mark("1-2 device, build")
     max_err, attn_checked = phase_attention(args.seed)
     mark("3 attention")
-    stage_err, stage_timings, stage_checked = phase_mrf_stage(args.seed)
+    stage_err, stage_timings, stage_checked, stage_big = phase_mrf_stage(args.seed)
     mark("3 mrf stage")
     system, main_path = phase_main_path(args.seed, card, attn_checked, args.profile, args.out)
     mark("4 text -> mel")
@@ -7618,8 +7869,16 @@ def main(argv=None) -> int:
         if what.startswith("precision ") for shape in seen if shape[4] == "bfloat16"})
     mark("9 attention timing")
 
+    # the backward kernel's launches on each path, counted by `attention_shapes`
+    for path in ("train", "fscl episode float32", "fscl episode bfloat16", "tune adapt sgd",
+                 "tune adapt adam", f"tune adapt_many N={max(MANY_TASKS)}"):
+        if BWD_BY_PATH.get(path, 0) == 0:
+            fail(f"{path}: the attention backward kernel was not launched")
+    log("attention backward kernel launches by path: "
+        + ", ".join(f"{k} {v}" for k, v in BWD_BY_PATH.items() if v))
     main_row = next(r for r in timings
                     if r["dtype"] == "float32" and r["L"] == 1000 and r["H"] == 2)
+    bwd_row = next(r for r in train["attention_fwd_bwd"] if r["L"] == TRAIN_T)
     f32_stages = [r for r in stage_timings if r["dtype"] == "float32"]
     kernels = [{
         "name": "attention_fwd",
@@ -7724,6 +7983,39 @@ def main(argv=None) -> int:
         "lq_ne_lk_max_abs_err": par["kernel"]["max_abs_err"],
         "lq_ne_lk_by_shape": par["kernel"]["timed"],
     }, {
+        "name": "attention_bwd",
+        "route": "cuda",
+        "source": "fscl_tpu_torch/csrc/attention_bwd.cu",
+        # no Pallas kernel: _pallas_attention_bwd is jax.vjp of xla_attention,
+        # which XLA fuses outside any Pallas call
+        "replaces": "fscl_tpu/ops/attention.py:120",
+        "launches": train["attention_bwd_launches"],
+        # every path's launches, read inside `attention_shapes`; phase 18's
+        # summed over the 2 ranks sharing the card
+        "launches_by_path": {**{k: v for k, v in BWD_BY_PATH.items()},
+                             **{f"parallel_{part}": n
+                                for part, n in par["ranks"]["bwd_launches"].items()}},
+        # against `attention_bwd` (and the Function's against autograd of the
+        # plain version): f32 absolute; bf16 relative to each gradient's max
+        "max_abs_err": BWD_MAX_ERR["float32"],
+        "max_rel_err_bf16": BWD_MAX_ERR["bfloat16"],
+        "shapes_checked": sorted(BWD_CHECKED),
+        # the train step's decoder shape (B = 16, H = 2, T = 512, Dh = 128,
+        # f32): the kernel's device time in a CUDA graph; by CUDA events over
+        # back-to-back calls (the host's per-call cost included) as call_ms
+        "ms": bwd_row["bwd_kernel_graph_ms"],
+        "call_ms": bwd_row["bwd_kernel_ms"],
+        "plain_ms": bwd_row["bwd_ms"],
+        "bound_ms": bwd_row["bwd_bound_ms"],
+        "bound_by": bwd_row["bwd_bound_by"],
+        # no single PyTorch call computes the backward alone; SDPA's forward
+        # + backward beside the Function's is in by_shape
+        "library_ms": None,
+        "timed_at": {k: bwd_row[k] for k in ("B", "H", "L", "Dh", "dtype")},
+        "function_fwd_bwd_ms": bwd_row["ms"],
+        "sdpa_fwd_bwd_ms": bwd_row["library_ms"],
+        "by_shape": train["attention_fwd_bwd"],
+    }, {
         "name": "mrf_stage",
         "route": "cuda",
         "source": "fscl_tpu_torch/csrc/mrf_stage.cu",
@@ -7753,6 +8045,8 @@ def main(argv=None) -> int:
         # (f32 with TF32 off, and bf16 tensors) as the yardstick instead
         "cudnn_convs_ms": {d: sum(r["cudnn_convs_ms"] for r in stage_timings if r["dtype"] == d)
                            for d in ("float32", "bfloat16")},
+        # one sample of C * T > 2^31 elements in one launch, held on windows
+        "past_2_31": stage_big,
         "ms_bf16": sum(r["ms"] for r in stage_timings if r["dtype"] == "bfloat16"),
         "bound_ms_bf16": sum(r["bound_ms"] for r in stage_timings if r["dtype"] == "bfloat16"),
         "post_ms": {r["dtype"]: r["post_ms"] for r in stage_timings if r["post"]},

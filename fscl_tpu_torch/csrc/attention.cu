@@ -35,7 +35,11 @@
 // - A block of warps owns a tile of query rows; each warp owns 16 of them and
 //   keeps its Q fragments in registers for the whole key loop. S = Q K^T and
 //   O += P V accumulate in f32 registers with mma.sync (m16n8k16 bf16,
-//   m16n8k8 tf32). The online softmax runs on the S accumulator in registers
+//   m16n8k8 tf32). With `stats` (training) f32 S goes into a fresh
+//   accumulator every 16 columns of the head dim (scores_tf32), whose bits
+//   the backward kernel recomputes, and each row's max and sum go out for
+//   it (`finish`). The online
+//   softmax runs on the S accumulator in registers
 //   (row max and sum across the 4 lanes of a quad), and P goes from the S
 //   accumulator into the A operand of P V without touching shared memory.
 //   mma.sync rather than wgmma: its fragments belong to one warp, so all of
@@ -387,8 +391,16 @@ __device__ __forceinline__ void split_stage(float* st) {
 // each): the big K tile at kt, the small one K_ELEMS on. The A fragments of
 // pair j come from `qa(j, x, y)`, which gives row g's and row g + 8's four
 // floats. FRESH: each pair's products go into a fresh accumulator, added to
-// s[nt] rounded to nearest (the wide route, scores_chunk).
-template <class C, int NJ, bool FRESH, class QA>
+// s[nt] rounded to nearest (the tensor cores' truncating adds then never
+// hold more than 16 columns): the wide route, and the narrow route when it
+// writes `stats`, whose scores the backward kernel (csrc/attention_bwd.cu)
+// recomputes with the same k-steps, passes and sums, so that the row max
+// and sum `finish` stores hold for its scores exactly. Without (serving),
+// the narrow route adds every pair into s[nt] directly, which is faster at
+// a key split of 1 (chip_smoke.py phase 8 times both). ONE_PAIR: the pairs
+// in a loop that is not unrolled (the wide route, whose Q comes from shared
+// memory).
+template <class C, int NJ, bool FRESH, bool ONE_PAIR, class QA>
 __device__ __forceinline__ void scores_tf32(float (&s)[C::BN / 8][4], QA qa, const float* kt,
                                             int lane) {
   const int g = lane / 4, t = lane % 4;
@@ -425,7 +437,7 @@ __device__ __forceinline__ void scores_tf32(float (&s)[C::BN / 8][4], QA qa, con
       }
     }
   };
-  if constexpr (FRESH) {
+  if constexpr (ONE_PAIR) {
     // one pair at a time: the registers the fresh accumulators take come
     // from loads the compiler would otherwise hoist from later pairs
 #pragma unroll 1
@@ -436,16 +448,16 @@ __device__ __forceinline__ void scores_tf32(float (&s)[C::BN / 8][4], QA qa, con
   }
 }
 
-template <class C, int DH>
+template <class C, int DH, bool FRESH>
 __device__ __forceinline__ void scores(float (&s)[C::BN / 8][4], const QFrag<float, DH>& q,
                                        const float* kt, int lane) {
-  scores_tf32<C, DH / 16, false>(s, [&](int j, float4& x, float4& y) {
+  scores_tf32<C, DH / 16, FRESH, false>(s, [&](int j, float4& x, float4& y) {
     x = make_float4(q.a[j][0], q.a[j][1], q.a[j][2], q.a[j][3]);
     y = make_float4(q.b[j][0], q.b[j][1], q.b[j][2], q.b[j][3]);
   }, kt, lane);
 }
 
-template <class C, int DH>
+template <class C, int DH, bool>
 __device__ __forceinline__ void scores(float (&s)[C::BN / 8][4], const QFrag<__nv_bfloat16, DH>& q,
                                        const __nv_bfloat16* kt, int lane) {
   // ldmatrix x4 over 8 keys x 32 columns: B of k-steps 2j and 2j + 1
@@ -590,7 +602,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[C::BN / 8][4], float (&a
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float& x = s[nt][2 * r + c];
-        x = ok ? x * scale_log2 : (in ? MASK_FILL_LOG2 : -INFINITY);
+        // unfused, as the backward kernel scales and subtracts
+        x = ok ? __fmul_rn(x, scale_log2) : (in ? MASK_FILL_LOG2 : -INFINITY);
         mx[r] = fmaxf(mx[r], x);
       }
     }
@@ -606,7 +619,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[C::BN / 8][4], float (&a
   for (int nt = 0; nt < C::BN / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[nt][e] = exp2f(s[nt][e] - m_run[e / 2]);
+      s[nt][e] = exp2f(__fsub_rn(s[nt][e], m_run[e / 2]));
       rs[e / 2] += s[nt][e];
     }
 #pragma unroll
@@ -616,11 +629,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[C::BN / 8][4], float (&a
 // The end of a block: merge the key slices (warps wn > 0 hand (o, m, l) to
 // warp wn = 0 of their query rows through the now idle ring, in fragment
 // order), normalise, and store the warp's rows from row0 (below Lq) at
-// `dst` + row * pitch, the first `width` of the DH columns.
+// `dst` + row * pitch, the first `width` of the DH columns. With `stats`,
+// also each row's max m (log2 units) and sum l at stats[2 row], [2 row + 1]:
+// the backward kernel (csrc/attention_bwd.cu) takes its weights from them.
 template <class C, int DH, int SPLIT, typename T>
 __device__ __forceinline__ void finish(float (&o)[DH / 8][4], float (&m_run)[2], float (&l_run)[2],
                                        unsigned char* smem, int wm, int wn, int lane, T* dst,
-                                       int row0, int Lq, int pitch, int width) {
+                                       int row0, int Lq, int pitch, int width,
+                                       float* stats = nullptr) {
   const int g = lane / 4, t = lane % 4;
   if constexpr (SPLIT > 1) {
     cp_async_wait<0>();
@@ -666,7 +682,15 @@ __device__ __forceinline__ void finish(float (&o)[DH / 8][4], float (&m_run)[2],
 
   float inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l_run[r]);
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    inv[r] = 1.f / l;
+    const int row = row0 + g + 8 * r;
+    if (stats != nullptr && t == 0 && row < Lq) {
+      stats[2 * row] = m_run[r];
+      stats[2 * row + 1] = l;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
@@ -701,7 +725,8 @@ template <typename T, int DH, int SPLIT>
 __global__ void __launch_bounds__(Cfg<T, DH, SPLIT>::THREADS, Cfg<T, DH, SPLIT>::MIN_BLOCKS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const uint8_t* __restrict__ key_valid, T* __restrict__ out,
-                     int H, int Lq, int Lk, int tiles, float scale_log2) {
+                     float* __restrict__ stats, int H, int Lq, int Lk, int tiles,
+                     float scale_log2) {
   using C = Cfg<T, DH, SPLIT>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
@@ -767,7 +792,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int nt = 0; nt < C::BN / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    scores<C, DH>(s, qf, st + wn * C::BN * C::LDK, lane);
+    // f32 with `stats`: the fresh sums the backward kernel recomputes
+    if (stats != nullptr) scores<C, DH, true>(s, qf, st + wn * C::BN * C::LDK, lane);
+    else scores<C, DH, false>(s, qf, st + wn * C::BN * C::LDK, lane);
     float alpha[2];
     softmax_tile<C>(s, alpha, m_run, l_run, flags + (it % STAGES) * C::STAGE_KEYS + wn * C::BN,
                     key0, Lk, scale_log2, t);
@@ -775,7 +802,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                            n_tiles > C::DIRECT_TILES);
   }
 
-  finish<C, DH, SPLIT>(o, m_run, l_run, smem, wm, wn, lane, out + q_base, row0, Lq, DH, DH);
+  finish<C, DH, SPLIT>(o, m_run, l_run, smem, wm, wn, lane, out + q_base, row0, Lq, DH, DH,
+                       stats != nullptr ? stats + (size_t)place.bh * Lq * 2 : nullptr);
 }
 
 // Wide route: ring step `step` of a block is, for key tile step / (NC + 1),
@@ -847,7 +875,7 @@ template <class C>
 __device__ __forceinline__ void scores_chunk(float (&s)[C::BN / 8][4], const float* qt,
                                              const float* kt, int lane) {
   const float* q0 = qt + (lane / 4) * C::LDK + 4 * (lane % 4);
-  scores_tf32<C, C::CHUNK / 16, true>(s, [&](int j, float4& x, float4& y) {
+  scores_tf32<C, C::CHUNK / 16, true, true>(s, [&](int j, float4& x, float4& y) {
     x = *reinterpret_cast<const float4*>(q0 + 16 * j);
     y = *reinterpret_cast<const float4*>(q0 + 8 * C::LDK + 16 * j);
   }, kt, lane);
@@ -985,7 +1013,8 @@ inline bool grid_fits(int B, int H, int tiles, int slices) {
 
 template <typename T, int DH, int SPLIT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid, void* out,
-                   int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t stream) {
+                   float* stats, int B, int H, int Lq, int Lk, float scale_log2,
+                   cudaStream_t stream) {
   using C = Cfg<T, DH, SPLIT>;
   auto kernel = attention_fwd_kernel<T, DH, SPLIT>;
   static bool allowed[64] = {};
@@ -995,7 +1024,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   if (!grid_fits(B, H, tiles, 1)) return cudaErrorInvalidValue;
   kernel<<<B * H * tiles, C::THREADS, C::SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), H, Lq, Lk, tiles, scale_log2);
+      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), stats, H, Lq, Lk, tiles,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -1030,17 +1060,19 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 
 template <typename T, int DH>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const void* key_valid,
-                         void* out, int B, int H, int Lq, int Lk, int Dh, float scale_log2,
-                         int key_split, cudaStream_t stream) {
-#define FSCL_NARROW(s) launch<T, DH, s>(q, k, v, key_valid, out, B, H, Lq, Lk, scale_log2, stream)
+                         void* out, float* stats, int B, int H, int Lq, int Lk, int Dh,
+                         float scale_log2, int key_split, cudaStream_t stream) {
+#define FSCL_NARROW(s) \
+  launch<T, DH, s>(q, k, v, key_valid, out, stats, B, H, Lq, Lk, scale_log2, stream)
   FSCL_SPLITS(FSCL_NARROW)
 #undef FSCL_NARROW
 }
 
 template <typename T>
 cudaError_t launch_wide_split(const void* q, const void* k, const void* v, const void* key_valid,
-                              void* out, int B, int H, int Lq, int Lk, int Dh, float scale_log2,
-                              int key_split, cudaStream_t stream) {
+                              void* out, float* stats, int B, int H, int Lq, int Lk, int Dh,
+                              float scale_log2, int key_split, cudaStream_t stream) {
+  if (stats != nullptr) return cudaErrorInvalidValue;   // the narrow route's alone
 #define FSCL_WIDE(s) \
   launch_wide<T, s>(q, k, v, key_valid, out, B, H, Lq, Lk, Dh, scale_log2, stream)
   FSCL_SPLITS(FSCL_WIDE)
@@ -1056,9 +1088,10 @@ cudaError_t launch_wide_split(const void* q, const void* k, const void* v, const
 #endif
 #define FSCL_OWNS(part) (FSCL_PART < 0 || FSCL_PART == (part))
 #define FSCL_ATTENTION_ARGS                                                                    \
-  const void *q, const void *k, const void *v, const void *key_valid, void *out, int B, int H, \
-      int Lq, int Lk, int Dh, float scale_log2, int key_split, cudaStream_t stream
-#define FSCL_ATTENTION_CALL q, k, v, key_valid, out, B, H, Lq, Lk, Dh, scale_log2, key_split, stream
+  const void *q, const void *k, const void *v, const void *key_valid, void *out, float *stats, \
+      int B, int H, int Lq, int Lk, int Dh, float scale_log2, int key_split, cudaStream_t stream
+#define FSCL_ATTENTION_CALL \
+  q, k, v, key_valid, out, stats, B, H, Lq, Lk, Dh, scale_log2, key_split, stream
 
 cudaError_t fscl_attention_f32_64(FSCL_ATTENTION_ARGS);
 cudaError_t fscl_attention_f32_128(FSCL_ATTENTION_ARGS);
@@ -1098,11 +1131,14 @@ cudaError_t fscl_attention_bf16_128(FSCL_ATTENTION_ARGS) {
 // key_valid: contiguous (B, Lk) bytes. Lq, Lk >= 1.
 // dtype: 0 = float32, 1 = bfloat16. key_split: warps of a block that share
 // the key loop (1, 2 or 4); a block owns 128 (f32) or 64 (bf16) query rows
-// divided by key_split. Returns a cudaError_t (0 on success).
+// divided by key_split. stats: null, or (narrow route only) a contiguous
+// (B, H, Lq, 2) f32 output for each query row's max (log2 units of the
+// scores) and sum, which the backward kernel reads. Returns a cudaError_t (0
+// on success).
 extern "C" int fscl_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* key_valid, void* out, int B, int H, int Lq,
                                   int Lk, int Dh, int dtype, float temperature, int key_split,
-                                  void* stream) {
+                                  void* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Lq < 1 || Lk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / (double)temperature);
@@ -1113,6 +1149,7 @@ extern "C" int fscl_attention_fwd(const void* q, const void* k, const void* v,
                           : wide ? fscl_attention_bf16_wide : nullptr)
           : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)fn(q, k, v, key_valid, out, B, H, Lq, Lk, Dh, scale_log2, key_split, s);
+  return (int)fn(q, k, v, key_valid, out, static_cast<float*>(stats), B, H, Lq, Lk, Dh,
+                 scale_log2, key_split, s);
 }
 #endif

@@ -82,6 +82,13 @@
 // The chain's traffic stays: each (B, C, T) tensor goes through device
 // memory once per conv, which bounds the C = 32 stage (T = 256000 at
 // T_mel = 1000) by memory, not operations.
+// - Every global offset is 64-bit (size_t): a sample's C * T and a launch's
+//   B * C * T may pass 2^31 (a sample at C = 64, T = 2^25 is 8 GiB of f32).
+//   T, B, the channel and the time of a row, and the tile index stay int: T
+//   up to INT_MAX - 1024 (so that a window's last row, T plus the halo and a
+//   tile, still fits), B up to 65535 (the wrapper splits larger batches),
+//   and a launch's tiles below 2^31 (checked at launch: about 2^40 f32
+//   elements at C = 512, more than any card holds).
 
 // Build: its 12 conv instances take ptxas about 28-40 s in one nvcc, so
 // ops/cuda_lib.py compiles them in four parts at once, each one set of
@@ -90,6 +97,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -100,6 +108,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int RMAX = 32;            // largest reach (k - 1) / 2 * dilation taken
 constexpr int MAX_SMEM = 232448;    // a block's shared memory on sm_90
 constexpr int MAX_STAGES = 8;
+constexpr int MAX_T = INT_MAX - 1024;   // T + halo + a tile's rows fit an int
 constexpr float SLOPE = 0.1f;
 
 // A block owns BM output channels and BT = 512 time rows; each warp a 32 x
@@ -266,7 +275,7 @@ conv_kernel(const float* __restrict__ in, const uint32_t* __restrict__ wp,
   const int r4 = (reach + 3) & ~3;             // window rows before t0, a multiple of 4
   const int rows = G::BT + 2 * r4;             // window rows staged
   const int n_chunks = C / G::KC;
-  const int n_tiles = (C / BM) * ((T + G::BT - 1) / G::BT) * B;
+  const int n_tiles = (C / BM) * ((T + G::BT - 1) / G::BT) * B;   // < 2^31, checked at launch
   const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int n_steps = my_tiles * n_chunks;     // (tile, chunk) steps of this block
 
@@ -575,7 +584,7 @@ cudaError_t launch_conv(const float* in, const uint32_t* wp, const float* bias, 
     slots = sms * per_sm;
     if (dev < MAX_DEVICES) resident[dev] = slots;
   }
-  const long long tiles = (long long)(C / BM) * ((T + G::BT - 1) / G::BT) * B;
+  const long long tiles = (long long)(C / BM) * (((long long)T + G::BT - 1) / G::BT) * B;
   if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
   const int grid = tiles < slots ? (int)tiles : slots;
   kernel<<<grid, THREADS, G::BYTES, s>>>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec);
@@ -654,7 +663,7 @@ extern "C" int fscl_mrf_stage(const void* x, void* out, void* h, void* r, void* 
                               const void* const* biases, const void* post_w,
                               const void* post_b, int round_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || T < 1 || C < 32 || C % 32 || n_res < 1 || B > 65535 || C / 32 > 65535)
+  if (B < 1 || T < 1 || T > MAX_T || C < 32 || C % 32 || n_res < 1 || B > 65535 || C / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   for (int j = 0, di = 0; j < n_res; ++j) {
     if ((ks[j] != 3 && ks[j] != 7 && ks[j] != 11) || n_dil[j] < 1) return (int)cudaErrorInvalidValue;
@@ -695,7 +704,7 @@ extern "C" int fscl_mrf_stage(const void* x, void* out, void* h, void* r, void* 
 // kernel of a stage with `post`, launched by itself to time it apart.
 extern "C" int fscl_mrf_post(const void* y, const void* post_w, const void* post_b, void* wav,
                              int B, int C, int T, int round_bf16, void* stream) {
-  if (B < 1 || T < 1 || C < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || T > MAX_T || C < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   return (int)post(static_cast<const float*>(y), static_cast<const float*>(post_w),
                    static_cast<const float*>(post_b), static_cast<float*>(wav), B, C, T,
                    round_bf16, static_cast<cudaStream_t>(stream));

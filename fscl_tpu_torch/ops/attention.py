@@ -37,8 +37,25 @@ autograd or a `torch.func` transform may be tracing) it launches the kernel
 through `AttentionFunction`, the port of `_pallas_attention_ad` (`:106-130`), whose
 backward `attention_bwd` recomputes the weights from q, k and v as
 `_pallas_attention_bwd` (`:120-127`) does. The JAX package has no backward
-kernel (its backward is XLA code outside any Pallas call), so the backward
-here is plain PyTorch: two products recompute P, three give the gradients.
+kernel (its backward is `jax.vjp(xla_attention)`, which XLA fuses outside any
+Pallas call). The port's backward on the narrow route (padded head dim <= 128,
+CUDA tensors) is the Hopper kernel of `csrc/attention_bwd.cu`
+(`attention_bwd_cuda`): the forward kernel also writes each query row's max
+and sum (`stats`), and the backward kernel recomputes the forward's scores
+bit for bit and takes the weights from them, in two launches. `attention_bwd`
+stays its plain version: the tests and the CPU use it, and it is what the
+backward is differentiated as.
+
+Which path takes which backward (`AttentionFunction.backward`):
+- CUDA tensors at a padded head dim <= 128, every first-order backward
+  (training, FSCL episodes, tune adaptation, vmapped adaptation, remat's
+  recompute, bf16): the kernel, through `AttentionGradFunction`.
+- A backward that is itself differentiated (second-order MAML, iMAML's
+  Hessian-vector products, the ADA systems): the kernel still gives the
+  first-order gradients; their derivative is that of `attention_bwd`
+  (`AttentionGradFunction.backward`, a `torch.func.vjp` of the plain
+  recompute), so the second-order gradients are the plain version's.
+- Head dims above 128 (the wide route) and CPU tensors: `attention_bwd`.
 Like the JAX custom VJP, the Function can be differentiated twice and
 transformed by `torch.func.grad` and `torch.func.vmap`.
 """
@@ -63,6 +80,9 @@ QUERY_ROWS = {torch.float32: 128, torch.bfloat16: 64}   # per block at key_split
 # Launches of the CUDA kernel; chip_smoke.py reads it to show that the main
 # path went through the kernel.
 LAUNCHES = 0
+# Launches of the backward kernels (`attention_bwd_cuda`: two a call, dQ then
+# dK and dV).
+BWD_LAUNCHES = 0
 
 
 def attention_reference(
@@ -90,7 +110,17 @@ def _load():
     fn = built.lib.fscl_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _load_bwd():
+    built = cuda_lib.build("attention_bwd")
+    fn = built.lib.fscl_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -140,13 +170,17 @@ def attention_cuda(
     v: torch.Tensor,
     key_valid: torch.Tensor,
     temperature: Optional[float] = None,
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the Hopper kernel. q: contiguous (B, H, Lq, Dh), k and v:
     contiguous (B, H, Lk, Dh) CUDA tensors of one dtype (float32 or
     bfloat16), any Dh >= 1 (padded where the kernel does not take it, see
     `_launch`), Lq, Lk >= 1; key_valid: contiguous (B, Lk) bool on the same
-    device."""
-    return _launch(q, k, v, key_valid, temperature, None)
+    device. stats: None, or on the narrow route (padded head dim <= 128) a
+    contiguous float32 (B, H, Lq, 2) tensor that receives each query row's
+    score max (in log2 units: scores times log2(e) / temperature) and the
+    sum of its unnormalised weights, for `attention_bwd_cuda`."""
+    return _launch(q, k, v, key_valid, temperature, None, stats)
 
 
 def _launch(
@@ -156,6 +190,7 @@ def _launch(
     key_valid: torch.Tensor,
     temperature: Optional[float],
     key_split: Optional[int],
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`attention_cuda` at a given key split (1, 2 or 4), or at the one
     `choose_key_split` picks when None. Tests and chip_smoke.py sweep every
@@ -166,14 +201,15 @@ def _launch(
     route) is zero-padded along Dh to the one it does, with the temperature
     kept at sqrt(the true Dh): zero columns add nothing to q k^T, and v's
     zero columns only give output columns, which are sliced off. The JAX
-    package sends such shapes to XLA."""
+    package sends such shapes to XLA. The padding leaves the scores, and
+    so `stats`, unchanged."""
     Dh = q.shape[-1]
     if q.dim() != 4 or Dh < 1 or padded_head_dim(Dh) == Dh:
-        return _launch_kernel(q, k, v, key_valid, temperature, key_split)
+        return _launch_kernel(q, k, v, key_valid, temperature, key_split, stats)
     pad = padded_head_dim(Dh) - Dh
     temp = temperature if temperature is not None else Dh ** 0.5
     q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
-    out = _launch_kernel(q, k, v, key_valid, temp, key_split)
+    out = _launch_kernel(q, k, v, key_valid, temp, key_split, stats)
     return out[..., :Dh].contiguous()
 
 
@@ -184,11 +220,14 @@ def _launch_kernel(
     key_valid: torch.Tensor,
     temperature: Optional[float],
     key_split: Optional[int],
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One launch of the kernel at a head dim it computes at: 64, 128 or a
     multiple of 64 above 128."""
     global LAUNCHES
     _check_launch(q, k, v, key_valid, key_split)
+    if stats is not None:
+        _check_stats(stats, q)
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
     B, H, Lq, Dh = q.shape
@@ -201,11 +240,23 @@ def _launch_kernel(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
              out.data_ptr(), B, H, Lq, k.shape[2], Dh, _DTYPE_CODES[q.dtype], temp, key_split,
-             stream)
+             None if stats is None else stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
+    """Raise unless `stats` is a contiguous float32 (B, H, Lq, 2) tensor on
+    q's device and q's head dim is on the narrow route (64 or 128)."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"row stats come from the narrow route (head dims {HEAD_DIMS}), "
+                         f"not head dim {q.shape[-1]}")
+    if stats.shape != (*q.shape[:3], 2) or stats.dtype != torch.float32 \
+            or stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"stats must be a contiguous float32 {(*q.shape[:3], 2)} tensor on "
+                         f"{q.device}, got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
 
 
 def _check_launch(q, k, v, key_valid, key_split) -> None:
@@ -290,26 +341,115 @@ def attention_bwd(
     return tuple(d.view(t.shape).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
 
 
+def attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: torch.Tensor,
+    temperature: Optional[float],
+    g: torch.Tensor,
+    stats: torch.Tensor,
+):
+    """(dq, dk, dv) by the Hopper backward kernels (`csrc/attention_bwd.cu`):
+    `attention_bwd`'s gradients, with the weights exp2(scores - m) / l from
+    each query row's max m and sum l (`stats`, written by `attention_cuda(q,
+    k, v, key_valid, temperature, stats)`; the kernels recompute its scores
+    bit for bit). q, g: contiguous (B, H, Lq, Dh); k, v: contiguous (B, H,
+    Lk, Dh), all one dtype (float32 or bfloat16) on one CUDA device; a
+    padded head dim of 64 or 128 (smaller ones are zero-padded as `_launch`
+    pads them); key_valid (B, Lk) bool; stats contiguous float32 (B, H, Lq,
+    2). Gradients in the input dtype."""
+    Dh = q.shape[-1]
+    if q.dim() != 4 or Dh < 1 or padded_head_dim(Dh) > HEAD_DIMS[-1]:
+        raise ValueError(f"the backward kernel takes (B, H, L, Dh) at head dims up to "
+                         f"{HEAD_DIMS[-1]}, got {tuple(q.shape)}")
+    if padded_head_dim(Dh) == Dh:
+        return _launch_bwd(q, k, v, key_valid, temperature, g, stats)
+    pad = padded_head_dim(Dh) - Dh
+    temp = temperature if temperature is not None else Dh ** 0.5
+    q, k, v, g = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v, g))
+    grads = _launch_bwd(q, k, v, key_valid, temp, g, stats)
+    return tuple(d[..., :Dh].contiguous() for d in grads)
+
+
+def _launch_bwd(q, k, v, key_valid, temperature, g, stats):
+    """The backward kernels' two launches at a head dim of 64 or 128."""
+    global BWD_LAUNCHES
+    _check_launch(q, k, v, key_valid, None)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device \
+            or not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError(f"g must be a contiguous {q.dtype} {tuple(q.shape)} tensor on "
+                         f"{q.device} starting on a 16-byte boundary")
+    _check_stats(stats, q)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd_cuda takes CUDA tensors, got {q.device}")
+    B, H, Lq, Dh = q.shape
+    temp = float(temperature if temperature is not None else Dh ** 0.5)
+    fn = _load_bwd()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rowstats = torch.empty(B * H * Lq * 4, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), g.data_ptr(),
+             stats.data_ptr(), rowstats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B, H, Lq, k.shape[2], Dh, _DTYPE_CODES[q.dtype], temp, stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    BWD_LAUNCHES += 2
+    return dq, dk, dv
+
+
+def kernel_backward(q: torch.Tensor) -> bool:
+    """Whether `AttentionFunction` takes the backward kernel for q: CUDA
+    tensors whose padded head dim is on the narrow route (<= 128)."""
+    return q.device.type == "cuda" and padded_head_dim(q.shape[-1]) <= HEAD_DIMS[-1]
+
+
+def _fold(t: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """A vmapped input with its vmapped dim folded into its first: (N, B, ...)
+    -> (N * B, ...), contiguous; an input without the dim is expanded to it."""
+    t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+    return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.view(n, t.shape[0] // n, *t.shape[1:])
+
+
 class AttentionFunction(torch.autograd.Function):
-    """The kernel under autograd: forward `attention_cuda`, backward
-    `attention_bwd` from the saved q, k, v and key_valid. Written in the
-    `setup_context` form with a `vmap` rule, so that `torch.func.grad`,
-    `torch.func.vmap` and double backwards run through it."""
+    """The kernel under autograd: forward `attention_cuda`, which returns
+    (out, stats): on the narrow route each query row's max and sum, which
+    the backward kernel reads (marked non-differentiable), else a (B, H,
+    Lq, 0) placeholder. Backward: `AttentionGradFunction` (the backward
+    kernel) where `kernel_backward` holds, else `attention_bwd` from the
+    saved q, k, v and key_valid (the wide route, and CPU tensors in the
+    tests). Written in the `setup_context` form with a `vmap` rule, so
+    that `torch.func.grad`, `torch.func.vmap` and double backwards run
+    through it."""
 
     @staticmethod
     def forward(q, k, v, key_valid, temperature):
-        return attention_cuda(q, k, v, key_valid, temperature)
+        if not kernel_backward(q):
+            return (attention_cuda(q, k, v, key_valid, temperature),
+                    q.new_empty((*q.shape[:3], 0), dtype=torch.float32))
+        stats = torch.empty((*q.shape[:3], 2), dtype=torch.float32, device=q.device)
+        return attention_cuda(q, k, v, key_valid, temperature, stats), stats
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, key_valid, temperature = inputs
-        ctx.save_for_backward(q, k, v, key_valid)
+        stats = output[1]
+        ctx.mark_non_differentiable(stats)
+        ctx.save_for_backward(q, k, v, key_valid, stats)
         ctx.temperature = temperature
 
     @staticmethod
-    def backward(ctx, g):
-        q, k, v, key_valid = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, key_valid, ctx.temperature, g)
+    def backward(ctx, g, _):
+        q, k, v, key_valid, stats = ctx.saved_tensors
+        if stats.shape[-1] == 0:
+            dq, dk, dv = attention_bwd(q, k, v, key_valid, ctx.temperature, g)
+        else:
+            dq, dk, dv = AttentionGradFunction.apply(q, k, v, key_valid, ctx.temperature,
+                                                     g.contiguous(), stats)
         return dq, dk, dv, None, None
 
     @staticmethod
@@ -319,14 +459,51 @@ class AttentionFunction(torch.autograd.Function):
         one launch for all N. An input without the vmapped dim (key_valid
         when only q, k and v are vmapped) is expanded to it."""
         n = info.batch_size
+        args = [_fold(t, d, n) for t, d in zip((q, k, v, key_valid), in_dims[:4])]
+        out, stats = AttentionFunction.apply(*args, temperature)
+        return (_unfold(out, n), _unfold(stats, n)), (0, 0)
 
-        def fold(t, dim):
-            t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
-            return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
 
-        args = [fold(t, d) for t, d in zip((q, k, v, key_valid), in_dims[:4])]
-        out = AttentionFunction.apply(*args, temperature)
-        return out.view(n, out.shape[0] // n, *out.shape[1:]), 0
+class AttentionGradFunction(torch.autograd.Function):
+    """The backward kernel under autograd: forward `attention_bwd_cuda`
+    (q, k, v, key_valid, temperature, g, stats) -> (dq, dk, dv). Its own
+    backward, which only a differentiated backward reaches (MAML, iMAML,
+    the ADA systems), is the vector-Jacobian product of the plain
+    `attention_bwd` recompute in q, k, v and g, so second-order gradients
+    are those of the plain version; stats, a function of q and k, gets
+    none. `setup_context` form with a `vmap` rule, as `AttentionFunction`."""
+
+    @staticmethod
+    def forward(q, k, v, key_valid, temperature, g, stats):
+        return attention_bwd_cuda(q, k, v, key_valid, temperature, g, stats)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_valid, temperature, g, _ = inputs
+        ctx.save_for_backward(q, k, v, key_valid, g)
+        ctx.temperature = temperature
+
+    @staticmethod
+    def backward(ctx, gdq, gdk, gdv):
+        q, k, v, key_valid, g = ctx.saved_tensors
+
+        def recompute(q_, k_, v_, g_):
+            return attention_bwd(q_, k_, v_, key_valid, ctx.temperature, g_)
+
+        _, vjp = torch.func.vjp(recompute, q, k, v, g)
+        dq, dk, dv, dg = vjp((gdq, gdk, gdv))
+        return dq, dk, dv, None, None, dg, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, key_valid, temperature, g, stats):
+        """Fold the vmapped dim into B as `AttentionFunction.vmap` does: one
+        kernel call for all N."""
+        n = info.batch_size
+        tensors = (q, k, v, key_valid, g, stats)
+        dims = (*in_dims[:4], *in_dims[5:])
+        q, k, v, key_valid, g, stats = (_fold(t, d, n) for t, d in zip(tensors, dims))
+        grads = AttentionGradFunction.apply(q, k, v, key_valid, temperature, g, stats)
+        return tuple(_unfold(d, n) for d in grads), (0, 0, 0)
 
 
 def attend(
@@ -344,5 +521,5 @@ def attend(
     if key_valid is None:
         key_valid = torch.ones(q.shape[0], k.shape[2], dtype=torch.bool, device=q.device)
     if torch.is_grad_enabled():     # autograd or a torch.func transform may be tracing
-        return AttentionFunction.apply(q, k, v, key_valid, temperature)
+        return AttentionFunction.apply(q, k, v, key_valid, temperature)[0]
     return attention_cuda(q, k, v, key_valid, temperature)

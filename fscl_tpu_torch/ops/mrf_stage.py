@@ -17,10 +17,11 @@ generator around the stage. The JAX function takes (B, T, C).
 
 `mrf_stage` takes the plain version only for CPU tensors. For CUDA tensors
 it launches the kernel or raises: there is no fallback. The kernel's grid
-takes at most 65535 samples and indexes a launch's B * C * T elements with
-32-bit ints, so `mrf_stage_cuda` splits the batch into launches within both
-(`batch_splits`), as fscl_tpu's XLA convs take any batch. A single sample of
-2^31 elements or more (over 8 GiB in float32) is refused.
+takes at most 65535 samples, so `mrf_stage_cuda` splits the batch into
+launches of at most that many (`batch_splits`), as fscl_tpu's XLA convs take
+any batch. Its offsets are 64-bit: a sample or a launch of 2^31 elements or
+more (over 8 GiB in float32) runs in one launch. T is an int up to
+MAX_T.
 """
 from __future__ import annotations
 
@@ -44,17 +45,14 @@ POST_KERNEL = 7                # conv_post's kernel, the only one the kernel tak
 LAUNCHES = 0
 
 MAX_BATCH = 65535              # the kernel's grid: one block row per sample
-MAX_ELEMS = 2 ** 31 - 1        # a launch's B * C * T, indexed with 32-bit ints
+MAX_T = 2 ** 31 - 1 - 1024     # csrc/mrf_stage.cu MAX_T: T and a window's rows are ints
 
 
 def batch_splits(B: int, C: int, T: int):
     """The (start, stop) sample ranges of one stage's launches: at most
-    MAX_BATCH samples and MAX_ELEMS elements each."""
-    per = min(MAX_BATCH, MAX_ELEMS // (C * T))
-    if per < 1:
-        raise ValueError(f"one sample of ({C}, {T}) holds {C * T} elements, more than the "
-                         f"kernel's {MAX_ELEMS} a launch")
-    return [(b, min(B, b + per)) for b in range(0, B, per)]
+    MAX_BATCH samples each. C and T do not enter: the kernel's offsets are
+    64-bit."""
+    return [(b, min(B, b + MAX_BATCH)) for b in range(0, B, MAX_BATCH)]
 
 
 def _round(t: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -173,8 +171,8 @@ def _ptrs(tensors):
 def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1d] = None,
                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch the Hopper stage, once per `batch_splits` range of samples.
-    x: contiguous float32 (B, C, T) CUDA tensor, C a multiple of 32, B, T >=
-    1 and C * T < 2^31; every resblock kernel size in (3, 7, 11) with
+    x: contiguous float32 (B, C, T) CUDA tensor, C a multiple of 32, B >= 1,
+    1 <= T <= MAX_T; every resblock kernel size in (3, 7, 11) with
     (k - 1) // 2 * d <= 32; compute dtype float32 (or None) or bfloat16;
     `post` a Conv1d C -> 1 with kernel 7."""
     if x.dim() != 3:
@@ -188,8 +186,8 @@ def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1
     B, C, T = x.shape
     if C < 32 or C % 32:
         raise ValueError(f"channels {C} not a multiple of 32")
-    if B < 1 or T < 1:
-        raise ValueError(f"shape {tuple(x.shape)} outside the kernel's range")
+    if B < 1 or T < 1 or T > MAX_T:
+        raise ValueError(f"shape {tuple(x.shape)} outside the kernel's range (T up to {MAX_T})")
     splits = batch_splits(B, C, T)
     if not resblocks:
         raise ValueError("a stage needs at least one resblock")

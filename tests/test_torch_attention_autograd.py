@@ -47,7 +47,7 @@ def _inputs(dtype, seed=0, tasks=None):
 
 
 def _function(q, k, v, valid):
-    return tattn.AttentionFunction.apply(q, k, v, valid, None)
+    return tattn.AttentionFunction.apply(q, k, v, valid, None)[0]
 
 
 def _reference(q, k, v, valid):

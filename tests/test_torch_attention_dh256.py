@@ -102,7 +102,7 @@ def launches(monkeypatch):
     temperature it is given, and computes the plain version."""
     seen = []
 
-    def plain_launch(q, k, v, key_valid, temperature, key_split):
+    def plain_launch(q, k, v, key_valid, temperature, key_split, stats=None):
         tattn._check_launch(q, k, v, key_valid, key_split)
         seen.append((q.shape[-1], temperature))
         return tattn.attention_reference(q, k, v, key_valid, temperature)
@@ -157,7 +157,7 @@ def test_wrapper_takes_long_keys_and_many_heads(monkeypatch, B_, H_, Lq, Lk, Dh)
     stand-in computes nothing."""
     seen = []
 
-    def recording(q, k, v, key_valid, temperature, key_split):
+    def recording(q, k, v, key_valid, temperature, key_split, stats=None):
         tattn._check_launch(q, k, v, key_valid, key_split)
         seen.append((*q.shape, k.shape[2], key_split))
         return torch.empty_like(q)

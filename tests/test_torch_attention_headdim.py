@@ -30,7 +30,7 @@ def launches(monkeypatch):
     """The kernel launch runs the plain version and records each head dim."""
     seen = []
 
-    def plain_launch(q, k, v, key_valid, temperature, key_split):
+    def plain_launch(q, k, v, key_valid, temperature, key_split, stats=None):
         assert q.shape[-1] in tattn.HEAD_DIMS and q.shape == k.shape == v.shape
         seen.append((q.shape[-1], temperature))
         return tattn.attention_reference(q, k, v, key_valid, temperature)
@@ -51,7 +51,7 @@ def _inputs(dh, seed=0, tasks=None):
 
 
 def _function(q, k, v, valid):
-    return tattn.AttentionFunction.apply(q, k, v, valid, None)
+    return tattn.AttentionFunction.apply(q, k, v, valid, None)[0]
 
 
 @HEAD_DIMS

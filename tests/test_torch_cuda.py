@@ -10,11 +10,14 @@ kernel is held to its plain version at f32 atol 2e-5 and bf16 atol/rtol
 1e-2, at each key split and at the edges of its tiles; a small system on the card is held to the same system on the CPU as
 chip_smoke.py holds the full-width one: durations exact, mels at atol 1e-3.
 Under autograd `attend` runs the kernel through a `torch.autograd.Function`
-whose backward recomputes the weights; its gradients are held to autograd
-through the plain version at atol 1e-5 (the same f32 products, TF32 off, in
+whose backward is the backward kernel (csrc/attention_bwd.cu) at head dims up
+to 128 and the recompute `attention_bwd` above; its gradients are held to
+autograd through the plain version at atol 1e-5 (f32 products, TF32 off, in
 another order), and a small system's train steps on the card to the same
 steps on the CPU (losses 1e-5 relative at the first step, 1e-3 after it:
-Adam at eps 1e-9 amplifies rounding differences).
+Adam at eps 1e-9 amplifies rounding differences). The backward kernel is
+held to `attention_bwd` at the training, FSCL, tune and vmapped shapes in
+f32 (atol 1e-5) and bf16 (1e-2 of each gradient's max).
 The MRF stage kernel is held to its plain version at the four HiFiGAN V1
 stage widths, at a ragged T and at the edges of its time tile (f32: mean
 |d| < 1e-5, max < 5e-3, the bars of
@@ -210,10 +213,12 @@ def test_attention_function_grads_match_plain_autograd(cuda_device, Dh, L):
     g = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
     g = g.to(cuda_device)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    before = tattn.LAUNCHES
+    before, bwd_before = tattn.LAUNCHES, tattn.BWD_LAUNCHES
     out = tattn.attend(*leaves, valid)
     got = torch.autograd.grad(out, leaves, g)
-    assert tattn.LAUNCHES == before + 1          # the backward launches nothing
+    assert tattn.LAUNCHES == before + 1          # the backward launches no forward
+    # the backward kernels (two launches) at head dims up to 128, the recompute above
+    assert tattn.BWD_LAUNCHES == bwd_before + 2 * (Dh <= 128)
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = tattn.attention_reference(*ref_leaves, valid)
     want = torch.autograd.grad(ref, ref_leaves, g)
@@ -242,8 +247,9 @@ def test_attend_at_hubert_large_episode_shape(cuda_device, dtype):
 @pytest.mark.cuda
 def test_attention_function_twice_differentiable_on_card(cuda_device):
     """A double backward, torch.func.grad and vmap(grad) over a task axis
-    through `attend` on the card (the kernel forward, the recompute backward
-    differentiated again), against the same through the plain version."""
+    through `attend` on the card (the kernel forward, the backward kernel,
+    whose derivative is the recompute's), against the same through the plain
+    version."""
     from torch.func import grad, vmap
     q, k, v, valid = _inputs(12, 4, 2, 77, 64, torch.float32, cuda_device)
     rng = np.random.default_rng(13)
@@ -1030,8 +1036,8 @@ BF16_GRAD_REL = 1e-2
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [77, 512])
 def test_bf16_attention_function_grads_match_plain_autograd(cuda_device, L):
-    """`attend` in bf16 under autograd (the kernel forward, the recompute
-    backward in f32, each gradient rounded to bf16) against autograd through
+    """`attend` in bf16 under autograd (the kernel forward, the backward
+    kernel in f32, each gradient rounded to bf16) against autograd through
     the plain version (which rounds its weights to bf16): the forward within
     the bf16 bars, each gradient within 1e-2 of its largest |entry|."""
     q, k, v, valid = _inputs(12, 4, 2, L, 128, torch.bfloat16, cuda_device)
@@ -1201,3 +1207,136 @@ def _card_dp(rank, device, inp):
         state, m = step(state, to_device(shard_batch(b, mesh), device))
         losses.append(float(m["Total Loss"]))
     return {"losses": losses, "backend": torch.distributed.get_backend()}
+
+
+# -- the backward kernel (csrc/attention_bwd.cu) ------------------------------
+
+def _bwd_inputs(seed, B, H, Lq, Lk, Dh, dtype, device):
+    """q, g (B, H, Lq, Dh), k, v (B, H, Lk, Dh); keys all valid, one, none,
+    ragged (B cycles through them)."""
+    rng = np.random.default_rng(seed)
+    q, g = (torch.from_numpy(a).to(device, dtype)
+            for a in rng.normal(size=(2, B, H, Lq, Dh)).astype(np.float32))
+    k, v = (torch.from_numpy(a).to(device, dtype)
+            for a in rng.normal(size=(2, B, H, Lk, Dh)).astype(np.float32))
+    lens = np.resize(np.array([Lk, 1, 0, max(2, Lk - Lk // 3)]), B)
+    valid = torch.from_numpy(np.arange(Lk)[None, :] < lens[:, None]).to(device)
+    return q, k, v, valid, g
+
+
+# (B, H, Lq, Lk, Dh): the train step's encoder and decoder (B = 16, L = 128
+# and T = 512), an FSCL episode's query batch (B = 8), the tune adaptation
+# (B = 4), the vmapped adaptation's 8 tasks folded (B = 32, L = 64, T = 256),
+# the sequence-parallel Lq != Lk, a padded head dim, HuBERT-large's heads.
+BWD_SHAPES = [(16, 2, 128, 128, 128), (16, 2, 512, 512, 128), (8, 2, 128, 128, 128),
+              (8, 2, 512, 512, 128), (4, 2, 128, 128, 128), (4, 2, 512, 512, 128),
+              (32, 2, 64, 64, 128), (32, 2, 256, 256, 128), (4, 2, 100, 200, 64),
+              (4, 2, 77, 77, 40), (4, 16, 199, 199, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh", BWD_SHAPES)
+def test_backward_kernel_matches_plain_version(cuda_device, dtype, B, H, Lq, Lk, Dh):
+    """The kernel's (dq, dk, dv) from the forward's row stats against `attention_bwd`: f32 within GRAD_ATOL, bf16 within BF16_GRAD_REL
+    of each gradient's largest |entry| (with one valid key, sample 1, dv sums
+    g over every query row); the sample with no valid key gets dk exactly 0
+    and the plain version's dv."""
+    q, k, v, valid, g = _bwd_inputs(B * Lq + Dh, B, H, Lq, Lk, Dh, dtype, cuda_device)
+    stats = torch.empty(B, H, Lq, 2, device=cuda_device)
+    tattn.attention_cuda(q, k, v, valid, None, stats)
+    before = tattn.BWD_LAUNCHES
+    got = tattn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+    torch.cuda.synchronize()
+    assert tattn.BWD_LAUNCHES == before + 2
+    want = tattn.attention_bwd(q, k, v, valid, None, g)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0, msg=f"d{name}")
+        else:
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= BF16_GRAD_REL * float(b.float().abs().max()), (name, err)
+    assert float(got[1][2].float().abs().max()) == 0.0
+    bar = GRAD_ATOL if dtype == torch.float32 else BF16_GRAD_REL * float(want[2].float().abs().max())
+    assert float((got[2][2].float() - want[2][2].float()).abs().max()) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [512, 2000])
+def test_backward_kernel_with_one_valid_key_sums_dv_as_the_plain_version(cuda_device, L):
+    """One valid key: every query row's weight is on it and dv there sums g
+    over every query row (tens), where f32 sums in different orders differ
+    past 1e-5. The kernel's weights are the forward's exactly (1 at that
+    key) and it sums dv over the query rows in ascending order, as cuBLAS's
+    f32 product does: dv is the plain version's bits, dk exactly 0 (D is
+    that key's dP), dq within GRAD_ATOL. A sample with no valid key beside
+    it: dk exactly 0, dv (g's mean) within GRAD_ATOL."""
+    q, k, v, _, g = _bwd_inputs(31, 2, 2, L, L, 128, torch.float32, cuda_device)
+    valid = torch.arange(L, device=cuda_device)[None] < torch.tensor([[1], [0]], device=cuda_device)
+    stats = torch.empty(2, 2, L, 2, device=cuda_device)
+    tattn.attention_cuda(q, k, v, valid, None, stats)
+    got = tattn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+    plain = tattn.attention_bwd(q, k, v, valid, None, g)
+    assert float(plain[2][0].abs().max()) > 20
+    assert torch.equal(got[2][0], plain[2][0])
+    assert float(got[1].abs().max()) == 0.0
+    torch.testing.assert_close(got[0], plain[0], atol=GRAD_ATOL, rtol=0)
+    torch.testing.assert_close(got[2][1], plain[2][1], atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_function_takes_the_backward_kernel_twice_differentiable(cuda_device):
+    """Through `attend` on the card at the train shape: a first-order
+    backward launches the backward kernels once (two launches); a double
+    backward (MAML's
+    create_graph), grad of grad and vmap(grad) over 3 tasks (one kernel call
+    for all) match the same through the plain version."""
+    from torch.func import grad, vmap
+    q, k, v, valid, w = _bwd_inputs(32, 4, 2, 128, 128, 128, torch.float32, cuda_device)
+    before = tattn.BWD_LAUNCHES
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(tattn.attend(*leaves, valid), leaves, w)
+    assert tattn.BWD_LAUNCHES == before + 2
+
+    us = _bwd_inputs(34, 4, 2, 128, 128, 128, torch.float32, cuda_device)[:3]
+
+    def second(attn):          # the first gradient against u, differentiated again
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        first = torch.autograd.grad((attn(*leaves, valid) * w).sum(), leaves, create_graph=True)
+        return torch.autograd.grad(sum((d * u).sum() for d, u in zip(first, us)), leaves)
+
+    for a, b in zip(second(tattn.attend), second(tattn.attention_reference)):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+    def loss(attn):
+        return lambda q_, k_, v_: (attn(q_, k_, v_, valid) * w).sum()
+
+    tasks = [t.expand(3, *t.shape).contiguous() for t in (q, k, v)]
+    before = tattn.BWD_LAUNCHES
+    got = vmap(grad(loss(tattn.attend), argnums=(0, 1, 2)))(*tasks)
+    assert tattn.BWD_LAUNCHES == before + 2      # the tasks folded into one call
+    want = vmap(grad(loss(tattn.attention_reference), argnums=(0, 1, 2)))(*tasks)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_folded_tasks_same_bits_as_alone(cuda_device):
+    """The backward kernels' tiles do not depend on B * H: 8 tasks of B = 4
+    folded into one call give each task the bits of its own call, from the
+    same row stats (the forward's key split, which does depend on B * H,
+    may move the last bits of its row sums)."""
+    q, k, v, valid, g = _bwd_inputs(33, 32, 2, 64, 64, 128, torch.float32, cuda_device)
+    stats = torch.empty(32, 2, 64, 2, device=cuda_device)
+    tattn.attention_cuda(q, k, v, valid, None, stats)
+
+    def grads(*t):
+        return tattn.attention_bwd_cuda(*t[:4], None, *t[4:])
+
+    folded = grads(q, k, v, valid, g, stats)
+    for n in range(8):
+        rows = slice(4 * n, 4 * n + 4)
+        alone = grads(*(t[rows].contiguous() for t in (q, k, v, valid, g, stats)))
+        for a, b in zip(folded, alone):
+            assert torch.equal(a[rows], b)

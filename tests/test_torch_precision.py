@@ -421,7 +421,7 @@ def function_attention(monkeypatch):
     def attend(q, k, v, key_valid=None, temperature=None, return_weights=False):
         if key_valid is None:
             key_valid = torch.ones(q.shape[0], q.shape[2], dtype=torch.bool)
-        return tattn.AttentionFunction.apply(q, k, v, key_valid, temperature)
+        return tattn.AttentionFunction.apply(q, k, v, key_valid, temperature)[0]
 
     monkeypatch.setattr(tfft, "attend", attend)
     return calls
