@@ -15,7 +15,8 @@ non-zero exit code when it fails:
    nvcc per source (per build part), all at once; ptxas's registers and
    spills are printed, and the attention kernel's wide route must spill
    nothing in any of its 6 instances, nor the attention backward kernel in
-   any of its 8 (dQ and dK/dV for f32 / bf16 at head dims 64 / 128).
+   any of its 8 (dQ and dK/dV for f32 / bf16 at head dims 64 / 128) or its
+   two score-bits probes (f32, bf16).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
@@ -59,7 +60,15 @@ non-zero exit code when it fails:
    vocoder times and launches.
 7. Card vs CPU, vocoder: one mel vocoded on the card and on the CPU with the
    same weights; then `chunked_vocode` on the card against the full vocode.
-8. Training: `attend` under autograd (the kernel forward through a
+8. Training: first the backward kernel's score-bits probe (its wgmma
+   scores, both ways round, in f32 and bf16, against a copy of the
+   forward's mma.sync arithmetic: no bit may differ), the kernel held to
+   `attention_bwd` at BACKWARD_SHAPES in f32 and bf16 (tests/test_torch_cuda.py's,
+   ragged 64-row blocks and 32-row tiles, one row, B * H past one wave at
+   L = 2000; the one-valid-key sample's dk exactly 0, which holds the
+   forward kernel's own score bits), and with 2, 3 and 8 valid keys
+   at L = 2000 its dk and dv against float64 (GRAD_ATOL of each gradient's
+   max). Then `attend` under autograd (the kernel forward through a
    `torch.autograd.Function`, the backward kernel of csrc/attention_bwd.cu
    at head dims up to 128, two launches a call) against autograd through the
    plain version at B = 16 and 4, L = 128 and 512 (dq, dk, dv within
@@ -72,7 +81,8 @@ non-zero exit code when it fails:
    peak memory, a traced step with --profile; 5 steps at B = 4 without
    dropout on the card and on the CPU; the Function's forward + backward
    timed beside SDPA's, and the backward kernel alone (by events and in a
-   CUDA graph) beside the plain recompute backward and its bound. Every
+   CUDA graph) beside the plain recompute backward, its bound and the
+   library's backward alone (SDPA's efficient-attention backward). Every
    path's backward kernel launches are counted (`attention_shapes`), each
    (B, H, Lq, Lk, Dh, dtype) they launched at is held to `attention_bwd`
    right after the run (f32 GRAD_ATOL, bf16 BF16_GRAD_REL; one sample with
@@ -634,11 +644,14 @@ def phase_build():
     if len(spills) != 6 or any(v != (0, 0) for v in spills.values()):
         fail(f"the attention kernel's wide route spills or is missing: {spills}")
     # the backward kernel: a dQ and a dK/dV kernel for each of f32 / bf16 x
-    # head dims 64 / 128
+    # head dims 64 / 128, and the score-bits probe of phase 8 (f32, bf16)
     spills = kernel_spills(built["attention_bwd"].log, "attention_bwd_")
-    log(f"attention backward: {len(spills)} instances, spill bytes (stores, loads) "
-        + ", ".join(f"{v}" for v in spills.values()))
-    if len(spills) != 8 or any(v != (0, 0) for v in spills.values()):
+    kernels = [name for name in spills if "_q_kernel" in name or "_kv_kernel" in name]
+    probes = [name for name in spills if "score_probe" in name]
+    log(f"attention backward: {len(kernels)} instances and {len(probes)} probes, spill bytes "
+        "(stores, loads) " + ", ".join(f"{v}" for v in spills.values()))
+    if len(kernels) != 8 or len(probes) != 2 or len(spills) != 10 \
+            or any(v != (0, 0) for v in spills.values()):
         fail(f"the attention backward kernel spills or is missing instances: {spills}")
     return built
 
@@ -886,7 +899,11 @@ def check_backward(attn, q, k, v, valid, g, label) -> float:
     """The backward kernel (from the forward kernel's row stats) against
     `attention_bwd`: f32 within GRAD_ATOL, bf16 within BF16_GRAD_REL of each
     gradient's max; the sample with no valid key (the third) gets dk 0 and
-    the plain dv. Fails on a miss; returns the largest error."""
+    the plain dv. The sample with one valid key (the second) gets dk exactly
+    0: its weight there is exactly 1 only if the kernel recomputes the
+    forward kernel's scores bit for bit, so this holds csrc/attention.cu
+    itself where the score-bits probe holds a copy of its arithmetic. Fails
+    on a miss; returns the largest error."""
     import torch
     stats = torch.empty(*q.shape[:3], 2, device=q.device)
     attn.attention_cuda(q, k, v, valid, None, stats)
@@ -905,9 +922,12 @@ def check_backward(attn, q, k, v, valid, g, label) -> float:
     dead_dk = float(got[1][2].float().abs().max()) if dead else 0.0
     dead_dv = float((got[2][2].float() - want[2][2].float()).abs().max()) if dead else 0.0
     dv_bar = bar if f32 else BF16_GRAD_REL * float(want[2].float().abs().max())
-    if max(errs.values()) > bar or dead_dk != 0.0 or dead_dv > dv_bar:
+    one = q.shape[0] >= 2 and int(valid[1].sum()) == 1
+    one_dk = float(got[1][1].float().abs().max()) if one else 0.0
+    if max(errs.values()) > bar or dead_dk != 0.0 or dead_dv > dv_bar or one_dk != 0.0:
         fail(f"attention backward kernel disagrees with its plain version ({label}: {errs}, "
-             f"the all-invalid sample's dk {dead_dk:.3g}, dv {dead_dv:.3g})")
+             f"the all-invalid sample's dk {dead_dk:.3g}, dv {dead_dv:.3g}, the one-valid-key "
+             f"sample's dk {one_dk:.3g})")
     dname = str(q.dtype).split(".")[-1]
     BWD_MAX_ERR[dname] = max(BWD_MAX_ERR[dname], *errs.values())
     return max(errs.values())
@@ -1673,6 +1693,111 @@ def train_attention_bound(B, H, L, Dh):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_fma
 
 
+# (B, H, Lq, Lk, Dh) the backward kernel is held at in phase 8 besides the
+# main paths' shapes, in f32 and bf16: tests/test_torch_cuda.py's
+# BWD_SHAPES, then Lq and Lk that cut its 64-row blocks and 32-row tiles
+# raggedly, one query row against one key (f32 only: there every gradient
+# but dv is 0, so the bf16 bar, relative to the plain gradient's max, is 0,
+# and dq = ((P * dP) K - D (P K)) / temp is a difference of two rounded
+# products; tests/test_torch_cuda.py holds the bf16 case: dk exactly 0, dv
+# the plain version's, dq within GRAD_ATOL), and B * H past one wave of
+# blocks at L = 2000
+BACKWARD_SHAPES = [(16, 2, 128, 128, 128), (16, 2, 512, 512, 128), (8, 2, 128, 128, 128),
+                   (8, 2, 512, 512, 128), (4, 2, 128, 128, 128), (4, 2, 512, 512, 128),
+                   (32, 2, 64, 64, 128), (32, 2, 256, 256, 128), (4, 2, 100, 200, 64),
+                   (4, 2, 77, 77, 40), (4, 16, 199, 199, 64), (8, 2, 1000, 1000, 128),
+                   (4, 2, 65, 130, 64), (2, 2, 1, 1, 128), (4, 2, 2000, 2000, 128)]
+FEW_KEYS = (2, 3, 8)      # valid keys of each sample at L = 2000, held against float64
+
+
+def score_bits_probe():
+    """The backward kernel recomputes the forward's scores bit for bit:
+    `fscl_attention_bwd_score_probe` sums 64 x 64 scores over head dim 128 by
+    mma.sync as the forward does (f32: split TF32 m16n8k8 with a fresh sum
+    every 16 columns; bf16: m16n8k16) and by the backward's wgmma in both
+    orientations (Q as A, and K as A), on normal and on wide-range
+    (e^N(0, 2)-scaled) inputs, in f32 and bf16. Fails on any differing bit.
+    The mma.sync side is a copy of the forward's arithmetic in
+    attention_bwd.cu, not csrc/attention.cu's code: `check_backward`'s
+    one-valid-key dk holds the forward kernel itself."""
+    import ctypes
+    import torch
+    from fscl_tpu_torch.ops import cuda_lib
+    fn = cuda_lib.build("attention_bwd").lib.fscl_attention_bwd_score_probe
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for code, dtype in enumerate((torch.float32, torch.bfloat16)):
+        for trial in range(4):
+            q, k = (torch.randn(64, 128, generator=gen, device="cuda") for _ in range(2))
+            if trial >= 2:
+                q, k = (x * torch.exp(2 * torch.randn(64, 128, generator=gen, device="cuda"))
+                        for x in (q, k))
+            q, k = q.to(dtype), k.to(dtype)
+            s_mma, s_wg, st_wg = (torch.full((64, 64), float("nan"), device="cuda")
+                                  for _ in range(3))
+            err = fn(q.data_ptr(), k.data_ptr(), s_mma.data_ptr(), s_wg.data_ptr(),
+                     st_wg.data_ptr(), code, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err != 0:
+                fail(f"score-bits probe: launch failed, cudaError {err}")
+            bits = s_mma.view(torch.int32)
+            exact = q.double() @ k.double().T
+            rows.append({
+                "dtype": str(dtype).split(".")[-1], "wide_range": trial >= 2,
+                "wgmma_bits_differ": int((s_wg.view(torch.int32) != bits).sum()),
+                "wgmma_transposed_bits_differ": int((st_wg.T.contiguous().view(torch.int32)
+                                                     != bits).sum()),
+                "rel_err_vs_f64": float((s_mma.double() - exact).abs().max()
+                                        / exact.abs().max())})
+    log("score-bits probe (64 x 64 scores, head dim 128): wgmma (m64n32k8 split TF32 in f32, "
+        "m64n32k16 in bf16) vs the forward's mma.sync, bits that differ: "
+        + ", ".join(f"{r['dtype']} {r['wgmma_bits_differ']} (S) / "
+                    f"{r['wgmma_transposed_bits_differ']} (S^T)"
+                    f"{' wide-range' if r['wide_range'] else ''}" for r in rows)
+        + f"; the sums {max(r['rel_err_vs_f64'] for r in rows):.3g} of their max from float64")
+    if any(r["wgmma_bits_differ"] or r["wgmma_transposed_bits_differ"] for r in rows):
+        fail("score-bits probe: wgmma's scores differ from the forward's mma.sync ones")
+    return rows
+
+
+def backward_few_keys(seed: int):
+    """With FEW_KEYS valid keys per sample at L = 2000 every query row's
+    weight sits on a few keys, whose dv and dk sum tens over the rows: the
+    kernel's dk and dv against float64 on the host (the card test's
+    reference, tests/attention_grads_f64.py) within GRAD_ATOL of each
+    gradient's largest |entry|; the plain version's distance beside them.
+    These launches are not counted as a path's."""
+    import torch
+    from fscl_tpu_torch.ops import attention as attn
+    sys.path.insert(0, str(REPO / "tests"))
+    from attention_grads_f64 import distance_from_float64
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    B, H, L, Dh = 2, 2, 2000, 128
+    counts = attn.LAUNCHES, attn.BWD_LAUNCHES
+    rows = []
+    for n in FEW_KEYS:
+        q, k, v, g = (torch.randn(B, H, L, Dh, generator=gen, device="cuda") for _ in range(4))
+        valid = torch.zeros(B, L, dtype=torch.bool, device="cuda")
+        valid[0, :n] = True
+        valid[1, torch.randperm(L, generator=gen, device="cuda")[:n]] = True
+        stats = torch.empty(B, H, L, 2, device="cuda")
+        attn.attention_cuda(q, k, v, valid, None, stats)
+        got = attn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+        plain = attn.attention_bwd(q, k, v, valid, None, g)
+        rows.append({"valid_keys": n, **distance_from_float64(q, k, v, valid, g, got, plain)})
+    attn.LAUNCHES, attn.BWD_LAUNCHES = counts
+    log("attention backward with a few valid keys (B=2 H=2 L=2000 Dh=128 f32), kernel (plain) "
+        "distance from float64 over each gradient's max: " + "; ".join(
+            f"{r['valid_keys']} keys dk {r['dk']:.3g} ({r['plain_dk']:.3g}) dv {r['dv']:.3g} "
+            f"({r['plain_dv']:.3g}), max |dv| {r['max_abs_dv']:.3g}" for r in rows)
+        + f" (bar {GRAD_ATOL})")
+    if any(r["dk"] > GRAD_ATOL or r["dv"] > GRAD_ATOL for r in rows):
+        fail(f"attention backward kernel off float64 with a few valid keys: {rows}")
+    return rows
+
+
 def phase_train_kernel_grads(seed: int, attn_checked):
     """`attend` under autograd on the card (the Function: the kernel forward,
     the backward kernel at head dims up to 128, the recompute backward above)
@@ -1753,14 +1878,50 @@ def backward_bound(B, H, Lq, Lk, Dh, dtype_name, itemsize):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def library_backward(q, k, v, valid, g, kernel_grads, iters: int, stream):
+    """The library's attention backward alone, the yardstick of the backward
+    kernel (never called by the port): torch's
+    `_scaled_dot_product_efficient_attention_backward` on the output and
+    log-sum-exp of its forward (`compute_log_sumexp`), the key mask as an
+    additive bias (0 at valid keys, -1e9 at invalid ones) expanded to (B, H,
+    L, L). Its times by events and in a CUDA graph, and its gradients' largest
+    distance from the kernel's; or its error's text if torch refuses it."""
+    import torch
+    B, H, L, _ = q.shape
+    bias = torch.zeros(B, 1, 1, L, device=q.device).masked_fill(
+        ~valid[:, None, None, :], -1e9).expand(B, H, L, L)
+    try:
+        out, lse, philox_seed, philox_offset = \
+            torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, bias, True)
+
+        def backward():
+            return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                g, q, k, v, bias, out, lse, philox_seed, philox_offset, 0.0,
+                [True, True, True, False])
+
+        grads = backward()
+        torch.cuda.synchronize()
+        diff = {f"d{n}": float((a - b).abs().max())
+                for n, a, b in zip("qkv", grads, kernel_grads)}
+        return {"ms": cuda_time_ms(backward, iters),
+                "graph_ms": graph_time_ms(backward, iters, stream),
+                "max_abs_diff_from_kernel": diff, "error": None}
+    except RuntimeError as err:
+        return {"ms": None, "graph_ms": None, "max_abs_diff_from_kernel": None,
+                "error": str(err)[:500]}
+
+
 def time_train_attention():
     """The Function's forward + backward, the backward kernel alone (CUDA
     events over back-to-back calls, as the Function calls it, and in a CUDA
     graph: its device time), the plain recompute backward (what the
     Function ran before the backward kernel), autograd through the plain
-    version and SDPA's forward + backward (the yardstick), at B = 16, H = 2,
-    Dh = 128, f32, L = 128 and 512; every sample has a valid key (SDPA gives
-    NaN for a row with none)."""
+    version and SDPA's forward + backward (the yardstick), and the library's
+    backward alone (SDPA's efficient-attention backward from its forward's
+    output and log-sum-exp, the key mask as an additive -1e9 bias; events and
+    graph, its gradients held beside the kernel's), at B = 16, H = 2, Dh =
+    128, f32, L = 128 and 512; every sample has a valid key (SDPA gives NaN
+    for a row with none)."""
     import torch
     import torch.nn.functional as F
     from fscl_tpu_torch.ops import attention as attn
@@ -1799,6 +1960,7 @@ def time_train_attention():
         bwd_kernel_ms = cuda_time_ms(kernel_bwd, iters)
         bwd_kernel_graph_ms = graph_time_ms(kernel_bwd, iters, stream)
         bwd_ms = cuda_time_ms(lambda: attn.attention_bwd(q, k, v, valid, None, g), iters)
+        lib = library_backward(q, k, v, valid, g, kernel_bwd(), iters, stream)
         plain_ms = cuda_time_ms(
             fwd_bwd(lambda a, b, c: attn.attention_reference(a, b, c, valid)), iters)
         library_ms = cuda_time_ms(fwd_bwd(
@@ -1812,13 +1974,16 @@ def time_train_attention():
                "bwd_bound_ms": bwd_bound_ms, "bwd_bound_by": bwd_bound_by,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "fma_bound_ms": fma_ms,
-               "beats_sdpa": kernel_ms <= library_ms, "fwd_row_max_err_log2": m_err}
+               "beats_sdpa": kernel_ms <= library_ms, "fwd_row_max_err_log2": m_err,
+               "bwd_library": lib}
         rows.append(row)
         log(f"attention fwd + bwd B={B} H={H} L={L} Dh={Dh} f32: Function {kernel_ms:.4f} ms "
             f"(kernel forward {fwd_ms:.4f}, {fwd_stats_ms:.4f} with the row stats; backward "
             f"kernel {bwd_kernel_ms:.4f} ms by events, "
             f"{bwd_kernel_graph_ms:.4f} ms in a graph, bound {bwd_bound_ms:.4f} ms "
-            f"({bwd_bound_by}); plain recompute backward {bwd_ms:.4f} ms), plain autograd "
+            f"({bwd_bound_by}); plain recompute backward {bwd_ms:.4f} ms; the library's "
+            f"backward alone {lib['graph_ms']} ms in a graph, {lib['ms']} by events, "
+            f"{lib['max_abs_diff_from_kernel'] or lib['error']} from the kernel's), plain autograd "
             f"{plain_ms:.4f} ms, SDPA fwd + bwd {library_ms:.4f} ms "
             f"({'at or above' if kernel_ms <= library_ms else 'below'} the Function), bound "
             f"{bound_ms:.4f} ms ({bound_by}; f32 FMA bound {fma_ms:.4f} ms); the forward's row "
@@ -1941,6 +2106,11 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
     from fscl_tpu_torch.ops import mrf_stage as mrf
     from fscl_tpu_torch.train.trainer import Trainer
 
+    probe = score_bits_probe()
+    hold_backward_shapes([(*shape, dtype) for shape in BACKWARD_SHAPES
+                          for dtype in ("float32", "bfloat16")
+                          if shape[2:4] != (1, 1) or dtype == "float32"], "backward shapes")
+    few_keys = backward_few_keys(seed)
     grads = phase_train_kernel_grads(seed, attn_checked)
     cfg = train_model_config(dropout=True)
     t = cfg.transformer
@@ -2037,7 +2207,8 @@ def phase_train(seed: int, card: str, attn_checked, profile: bool, out_dir):
         "timed_steps": TIMED_STEPS, "timed_seconds": timed_s,
         "steps_per_s": TIMED_STEPS / timed_s, "ms_per_step": step_ms,
         "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
-        "kernel_grads_max_abs_err": grads,
+        "kernel_grads_max_abs_err": grads, "score_bits_probe": probe,
+        "backward_few_valid_keys": few_keys,
     }
     if profile:
         summary["profile"] = profile_steps(lambda: system.train_step(state, batch), 1, out_dir,
@@ -8008,9 +8179,13 @@ def main(argv=None) -> int:
         "plain_ms": bwd_row["bwd_ms"],
         "bound_ms": bwd_row["bwd_bound_ms"],
         "bound_by": bwd_row["bwd_bound_by"],
-        # no single PyTorch call computes the backward alone; SDPA's forward
-        # + backward beside the Function's is in by_shape
-        "library_ms": None,
+        # the library's backward alone (SDPA's efficient-attention backward
+        # from its forward's output and log-sum-exp) in a CUDA graph, as
+        # "ms"; None with its error's text if torch refused it
+        "library_ms": bwd_row["bwd_library"]["graph_ms"],
+        "library_call_ms": bwd_row["bwd_library"]["ms"],
+        "library_error": bwd_row["bwd_library"]["error"],
+        "library_max_abs_diff": bwd_row["bwd_library"]["max_abs_diff_from_kernel"],
         "timed_at": {k: bwd_row[k] for k in ("B", "H", "L", "Dh", "dtype")},
         "function_fwd_bwd_ms": bwd_row["ms"],
         "sdpa_fwd_bwd_ms": bwd_row["library_ms"],

@@ -5,17 +5,19 @@ backward kernel's algorithm emulated in torch.
 backward; its gradients are held to `jax.vjp` of fscl_tpu's `xla_attention`
 (what `_pallas_attention_bwd` differentiates) on the same numpy-seeded
 inputs. `csrc/attention_bwd.cu` cannot run here, so its arithmetic is
-emulated: the forward's scores (and the kernel's, the same bits) and g V^T
-with the forward's k-steps (columns 16j + 4t + 2h and + 1 of a 16) and a
-fresh accumulator every 16 columns, the forward's row max m and sum l,
-P = exp2(S - m) times 1 / l, D = rowsum(P * dP) from those bits (P taken
-as 0 at invalid keys, where dS is 0), split TF32
-products rounded as `cvt.rna` rounds (three passes, a pass dropped where
-an operand is a bf16 value), each mma adding its 8 exact products into its
-accumulator and truncating, dQ = ((P * dP) K - D (P K)) / temp and dK
-summed from a fresh accumulator per k-step of 8 rows into a sum per 32-row
-tile, then over the tiles, rounded to nearest, and dV = P^T g summed by f32
-FMAs one query row after the other. The emulation is held to `attention_bwd` within
+emulated: the forward's scores (and the kernel's, the same bits: a wgmma
+k-step adds the same products to the same bits as the forward's mma.sync
+one, which chip_smoke.py probes on the card) and g V^T with the forward's
+k-steps (columns 16j + 4t + 2h and + 1 of a 16) and a fresh accumulator
+every 16 columns, the forward's row max m and sum l, P = exp2(S - m) times
+1 / l, D = rowsum(P * dP) from those bits summed as the kernel sums it (P
+taken as 0 at invalid keys, where dS is 0), split TF32 products rounded as
+`cvt.rna` rounds (three passes, a pass dropped where an operand is a bf16
+value; bf16 scores and dP on the bf16 tensor cores as the forward's), each
+mma adding its exact products into its accumulator and truncating, dQ = ((P * dP) K - D (P K)) / temp and dK summed from a fresh
+accumulator per 32-row tile (the kernel's streamed tile) into the whole
+sum, rounded to nearest, and dV = P^T g summed by f32 FMAs one query row
+after the other. The emulation is held to `attention_bwd` within
 the f32 gradient bar (1e-5, chip_smoke.py's GRAD_ATOL); with one valid key
 its dv is the ascending f32 sum of g (cuBLAS's order on the card); the
 same algorithm with m + log2 l folded into one f32 number breaks the
@@ -100,17 +102,16 @@ HEAD_DIM_STEPS = [4 * t + 2 * h + e for h in range(2) for e in range(2) for t in
 
 
 def mma_product(a: torch.Tensor, b: torch.Tensor, chunk: int, a_split: bool = True,
-                b_split: bool = True, per_step: bool = False,
-                head_dim_steps: bool = False) -> torch.Tensor:
+                b_split: bool = True, head_dim_steps: bool = False,
+                k_step: int = 8) -> torch.Tensor:
     """a (..., M, K) @ b (..., K, N) in f32 as the kernel takes it: k-steps of
-    8 contraction columns, each TF32 pass (small*big, big*small, big*big; a
-    pass whose small part is zero skipped) one mma that adds its 8 exact
-    products into its accumulator and truncates; a fresh accumulator every
-    `chunk` columns from 0, added to the result rounded to nearest. With
-    `per_step`, a fresh accumulator every k-step instead, added rounded to
-    nearest into the chunk's sum (dQ and dK). With `head_dim_steps`, the
-    k-steps take the columns of each 16 in the forward's order. K is
-    zero-padded to whole chunks, as the kernel zero-fills a ragged tile."""
+    `k_step` contraction columns (8 for TF32, 16 for bf16 operands), each
+    TF32 pass (small*big, big*small, big*big; a pass whose small part is zero
+    skipped) one mma that adds its exact products into its accumulator and
+    truncates; a fresh accumulator every `chunk` columns from 0, added to the
+    result rounded to nearest. With `head_dim_steps`, the k-steps take the
+    columns of each 16 in the forward's order. K is zero-padded to whole
+    chunks, as the kernel's ragged tile comes in zero-filled."""
     pad = -a.shape[-1] % chunk
     a = torch.nn.functional.pad(a, (0, pad))
     b = torch.nn.functional.pad(b.transpose(-1, -2), (0, pad)).transpose(-1, -2)
@@ -124,27 +125,46 @@ def mma_product(a: torch.Tensor, b: torch.Tensor, chunk: int, a_split: bool = Tr
     out = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
     for c0 in range(0, a.shape[-1], chunk):
         fresh = torch.zeros_like(out)
-        step_sum = torch.zeros_like(out)
-        for k0 in range(c0, c0 + chunk, 8):
-            ks = slice(k0, k0 + 8)
+        for k0 in range(c0, c0 + chunk, k_step):
+            ks = slice(k0, k0 + k_step)
             for x, y in passes:
                 fresh = _rz(fresh.double() + x[..., ks].double() @ y[..., ks, :].double())
-            if per_step:
-                step_sum, fresh = step_sum + fresh, torch.zeros_like(out)
-        out = out + (step_sum if per_step else fresh)
+        out = out + fresh
     return out
 
 
+def row_sum_in_lanes(e: torch.Tensor) -> torch.Tensor:
+    """rowsum(e) (..., Lk) -> (..., 1) in f32 as the kernel sums D: the lane
+    t of a quad adds its keys 8i + 2t and + 1 one after the other in
+    ascending order, then the quad's four sums are added as (0 + 1) + (2 +
+    3)."""
+    e = torch.nn.functional.pad(e.float(), (0, -e.shape[-1] % 8))
+    keys = e.reshape(*e.shape[:-1], -1, 4, 2)          # (..., 8-key group i, lane t, c)
+    lanes = torch.zeros(*e.shape[:-1], 4)
+    for i in range(keys.shape[-3]):
+        for c in range(2):
+            lanes = lanes + keys[..., i, :, c]
+    return ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+
+
 def scores_log2(q, k, valid, temperature=None, exact=False):
-    """The forward kernel's f32 scores in log2 units (and the backward
-    kernel's, the same bits): Q K^T by split TF32 with the forward's k-steps
-    and a fresh accumulator every 16 columns, times log2(e) / temperature,
-    invalid keys at the -1e9 fill. exact: one pass (bf16 values)."""
+    """The forward kernel's scores in log2 units (and the backward kernel's,
+    the same bits), times log2(e) / temperature, invalid keys at the -1e9
+    fill: f32 Q K^T by split TF32 with the forward's k-steps and a fresh
+    accumulator every 16 columns (exact: one pass); bf16 on the bf16 tensor
+    cores, k-steps of 16 columns all into one accumulator."""
     temp = temperature if temperature is not None else q.shape[-1] ** 0.5
     scale = np.float32(LOG2E / temp)
-    s = mma_product(q.float(), k.float().transpose(-1, -2), 16, not exact, not exact,
+    s = bf16_product(q, k.transpose(-1, -2)) if q.dtype == torch.bfloat16 else \
+        mma_product(q.float(), k.float().transpose(-1, -2), 16, not exact, not exact,
                     head_dim_steps=True)
     return torch.where(valid[:, None, None, :], s * scale, torch.tensor(FILL_LOG2))
+
+
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) of bf16 values as the forward's and the
+    backward's bf16 scores take it: k-steps of 16 into one accumulator."""
+    return mma_product(a.float(), b.float(), a.shape[-1], False, False, k_step=16)
 
 
 def forward_row_stats(q, k, valid, temperature=None):
@@ -174,22 +194,23 @@ def emulated_bwd(q, k, v, valid, temperature, g, stats, fold_lse=False, one_pass
     dropped."""
     dtype = q.dtype
     exact = dtype == torch.bfloat16 or one_pass    # a bf16 value is exact in TF32
+    x = scores_log2(q, k, valid, temperature, exact)
+    dp = bf16_product(g, v.transpose(-1, -2)) if dtype == torch.bfloat16 else \
+        mma_product(g, v.transpose(-1, -2), 16, not exact, not exact, head_dim_steps=True)
     q, k, v, g = (t.float() for t in (q, k, v, g))
     temp = temperature if temperature is not None else q.shape[-1] ** 0.5
     ok = valid[:, None, None, :]
-    x = scores_log2(q, k, valid, temperature, exact)
-    dp = mma_product(g, v.transpose(-1, -2), 16, not exact, not exact, head_dim_steps=True)
     m, l = stats[..., :1], stats[..., 1:]
     p = torch.exp2(x - (m + torch.log2(l))) if fold_lse else torch.exp2(x - m) * (1.0 / l)
     p_ok = torch.where(ok, p, torch.zeros(()))     # dS is 0 at invalid keys
     e = p_ok * dp
-    D = e.double().sum(-1, keepdim=True).float()
+    D = row_sum_in_lanes(e)
     ds = torch.where(ok, p * (dp - D), torch.zeros(()))
     inv_temp = np.float32(1.0 / temp)
-    a = mma_product(e, k, KEY_TILE, not one_pass, not exact, True)
-    b = mma_product(p_ok, k, KEY_TILE, not one_pass, not exact, True)
+    a = mma_product(e, k, KEY_TILE, not one_pass, not exact)
+    b = mma_product(p_ok, k, KEY_TILE, not one_pass, not exact)
     dq = (a.double() - D.double() * b.double()).float() * inv_temp
-    dk = mma_product(ds.transpose(-1, -2), q, KEY_TILE, not one_pass, not exact, True) * inv_temp
+    dk = mma_product(ds.transpose(-1, -2), q, KEY_TILE, not one_pass, not exact) * inv_temp
     dv = sequential_fma(p, g)
     return tuple(d.to(dtype) for d in (dq, dk, dv))
 
@@ -206,7 +227,8 @@ def float64_bwd(q, k, v, valid, g):
     return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ g
 
 
-@pytest.mark.parametrize("B,H,Lq,Lk,Dh", [(3, 2, 96, 96, 64), (3, 2, 40, 70, 128)])
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh", [(3, 2, 96, 96, 64), (3, 2, 40, 70, 128),
+                                         (3, 2, 65, 130, 64)])
 def test_emulated_kernel_holds_the_f32_bar(B, H, Lq, Lk, Dh):
     q, k, v, valid, g = map(torch.from_numpy, _inputs(B * Lq + Dh, B, H, Lq, Lk, Dh))
     got = emulated_bwd(q, k, v, valid, None, g, forward_row_stats(q, k, valid))
@@ -245,6 +267,27 @@ def test_one_valid_key_weights_are_exactly_one_and_dv_sums_g_in_order():
     torch.testing.assert_close(got[2][1].double(), exact[2][1], atol=GRAD_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("L", [1, 40])
+def test_bf16_one_valid_key_weights_are_exactly_one(L):
+    """In bf16 too the recomputed scores are the forward's bits (both on the
+    bf16 tensor cores, k-steps of 16 into one sum): with one valid key the
+    weight there is exactly 1, so dS and dk are exactly 0, as the plain
+    version's are. dq = ((P * dP) K - D (P K)) / temp is a difference of two
+    rounded products, within GRAD_ATOL of the plain version's 0."""
+    q, k, v, valid, g = (torch.from_numpy(a) for a in _inputs(13 + L, 2, 2, L, L, 64, [1, 1]))
+    q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    stats = forward_row_stats(q, k, valid)
+    assert torch.equal(stats[..., 1], torch.ones(2, 2, L))
+    got = emulated_bwd(q, k, v, valid, None, g, stats)
+    assert float(got[1].float().abs().max()) == 0.0
+    plain = tattn.attention_bwd(q, k, v, valid, None, g)
+    assert float(plain[0].float().abs().max()) == 0.0
+    assert float(got[0].float().abs().max()) <= GRAD_ATOL
+    assert torch.equal(got[2], plain[2]) if L == 1 else \
+        float((got[2].float() - plain[2].float()).abs().max()) <= 1e-2 * float(
+            plain[2].float().abs().max())
+
+
 def test_one_tf32_pass_misses_the_f32_bar():
     """The premise of the three passes: with one TF32 product per f32
     product (no split), the same algorithm misses the bar."""
@@ -258,9 +301,10 @@ def test_one_tf32_pass_misses_the_f32_bar():
 
 
 def test_bf16_inputs_take_the_exact_pass_and_hold_the_bf16_bar():
-    """bf16 inputs are exact in TF32: S and dP take one pass, products with
-    P or dS two; the gradients, rounded to bf16, within 1e-2 of each one's
-    max of the plain version (chip_smoke.py's BF16_GRAD_REL)."""
+    """bf16 inputs: S and dP on the bf16 tensor cores (the forward's sums),
+    products with P or dS two TF32 passes (a bf16 value is exact in TF32);
+    the gradients, rounded to bf16, within 1e-2 of each one's max of the
+    plain version (chip_smoke.py's BF16_GRAD_REL)."""
     q, k, v, valid, g = (torch.from_numpy(a) for a in _inputs(11, 3, 2, 64, 64, 64))
     q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
     got = emulated_bwd(q, k, v, valid, None, g, forward_row_stats(q, k, valid))

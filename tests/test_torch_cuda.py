@@ -35,6 +35,8 @@ from fscl_tpu_torch.ops import attention as tattn
 from fscl_tpu_torch.ops import mrf_stage as tmrf
 from fscl_tpu_torch.systems.baseline import BaselineSystem
 
+from attention_grads_f64 import distance_from_float64
+
 F32_ATOL = 2e-5
 BF16_TOL = 1e-2
 CARD_VS_CPU_ATOL = 1e-3
@@ -1340,3 +1342,95 @@ def test_backward_kernel_folded_tasks_same_bits_as_alone(cuda_device):
         alone = grads(*(t[rows].contiguous() for t in (q, k, v, valid, g, stats)))
         for a, b in zip(folded, alone):
             assert torch.equal(a[rows], b)
+
+
+# Lq and Lk that cut the backward kernel's 64-row blocks and 32-row tiles
+# raggedly, one query row against one key, and B * H past one wave of
+# blocks (one a streaming multiprocessor) at L = 2000.
+# In bf16 the one-row shape is held by test_backward_kernel_one_row_one_key:
+# every gradient but dv is 0 there, so the bar relative to the plain
+# gradient's max would be 0.
+BWD_EDGE_SHAPES = [(8, 2, 1000, 1000, 128), (4, 2, 65, 130, 64), (2, 2, 1, 1, 128),
+                   (4, 2, 2000, 2000, 128)]
+BWD_EDGE_CASES = [(dtype, *shape) for shape in BWD_EDGE_SHAPES
+                  for dtype in (torch.float32, torch.bfloat16)
+                  if dtype == torch.float32 or shape[2:4] != (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,Lq,Lk,Dh", BWD_EDGE_CASES)
+def test_backward_kernel_matches_plain_version_at_ragged_and_long_shapes(
+        cuda_device, dtype, B, H, Lq, Lk, Dh):
+    """As test_backward_kernel_matches_plain_version, at the edges of the
+    kernel's tiles and past one wave of blocks: f32 within GRAD_ATOL, bf16
+    within BF16_GRAD_REL of each gradient's largest |entry|; where there is
+    a sample with no valid key (B >= 3), its dk exactly 0 and the plain
+    version's dv."""
+    q, k, v, valid, g = _bwd_inputs(B * Lq + Lk + Dh, B, H, Lq, Lk, Dh, dtype, cuda_device)
+    stats = torch.empty(B, H, Lq, 2, device=cuda_device)
+    tattn.attention_cuda(q, k, v, valid, None, stats)
+    before = tattn.BWD_LAUNCHES
+    got = tattn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+    torch.cuda.synchronize()
+    assert tattn.BWD_LAUNCHES == before + 2
+    want = tattn.attention_bwd(q, k, v, valid, None, g)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0, msg=f"d{name}")
+        else:
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= BF16_GRAD_REL * float(b.float().abs().max()), (name, err)
+    if B >= 3:
+        assert float(got[1][2].float().abs().max()) == 0.0
+        bar = (GRAD_ATOL if dtype == torch.float32
+               else BF16_GRAD_REL * float(want[2].float().abs().max()))
+        assert float((got[2][2].float() - want[2][2].float()).abs().max()) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [2, 3, 8])
+def test_backward_kernel_with_few_valid_keys_against_float64(cuda_device, n_valid):
+    """A few valid keys per sample at L = 2000 (the first ones in sample 0,
+    scattered in sample 1): every query row's weight sits on them, so their
+    dk and dv sum tens over the rows. The kernel's dk and dv within
+    GRAD_ATOL of each gradient's largest |entry| of float64 computed on the
+    host; the plain version's distance is printed beside them."""
+    B, H, L, Dh = 2, 2, 2000, 128
+    q, k, v, _, g = _bwd_inputs(40 + n_valid, B, H, L, L, Dh, torch.float32, cuda_device)
+    rng = np.random.default_rng(n_valid)
+    valid = np.zeros((B, L), dtype=bool)
+    valid[0, :n_valid] = True
+    valid[1, rng.choice(L, n_valid, replace=False)] = True
+    valid = torch.from_numpy(valid).to(cuda_device)
+    stats = torch.empty(B, H, L, 2, device=cuda_device)
+    tattn.attention_cuda(q, k, v, valid, None, stats)
+    got = tattn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+    plain = tattn.attention_bwd(q, k, v, valid, None, g)
+    d = distance_from_float64(q, k, v, valid, g, got, plain)
+    for name in ("dk", "dv"):
+        print(f"{n_valid} valid keys {name}: kernel {d[name]:.3g}, plain "
+              f"{d['plain_' + name]:.3g} of max {d['max_abs_' + name]:.3g}")
+        assert d[name] <= GRAD_ATOL, (name, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_one_row_one_key(cuda_device, dtype):
+    """One query row against one key (B = 2, H = 2, Dh = 128): the weight is
+    exactly 1 (the kernel recomputes the forward's scores, in bf16 on the
+    bf16 tensor cores as the forward does), so dk is exactly 0 and dv is g,
+    the plain version's bits; dq = ((P * dP) K - D (P K)) / temp, a
+    difference of two rounded products, within GRAD_ATOL of the plain
+    version's 0."""
+    q, k, v, valid, g = _bwd_inputs(77, 2, 2, 1, 1, 128, dtype, cuda_device)
+    assert bool(valid.all())
+    stats = torch.empty(2, 2, 1, 2, device=cuda_device)
+    tattn.attention_cuda(q, k, v, valid, None, stats)
+    got = tattn.attention_bwd_cuda(q, k, v, valid, None, g, stats)
+    want = tattn.attention_bwd(q, k, v, valid, None, g)
+    torch.cuda.synchronize()
+    assert float(want[0].float().abs().max()) == 0.0 and float(want[1].float().abs().max()) == 0.0
+    assert float(got[1].float().abs().max()) == 0.0
+    assert torch.equal(got[2], want[2])
+    assert float(got[0].float().abs().max()) <= GRAD_ATOL
