@@ -7,11 +7,17 @@ OTHER_DIR is the root of another checkout (say, the parent commit unpacked
 with `git archive`). The two run alternately, the other first (other, this,
 this, other), each in a process of its own that imports its own
 `chip_smoke.py` and runs its phases 1 (device), 2 (build), 3 (the attention
-kernel against its plain version, which phase 8 needs) and 8 (training,
-with the attention Function's and the backward kernel's timings). The last
-line of standard output is one JSON object: each run's train steps/s, its
-synchronised backward pass and the rows of its attention timings, under
-the card's name and power limit. Compare two versions only inside one call
+kernel against its plain version, which phase 8 needs), 8 (training, with
+the attention Function's and the backward kernel's timings) and 9 (the
+attention forward kernel at each key split, its plain version and SDPA,
+graph ms), then times the forward with row stats (the training path's)
+in a CUDA graph at the train decoder's and encoder's shapes and the
+vmapped adaptation's. After the four runs this tree alone times the narrow
+route at both key splits, without and with row stats, at the shapes that
+set `narrow_split`'s limits (the sweep). The last line of standard output
+is one JSON object: each run's train steps/s, its synchronised backward
+pass and the rows of its attention timings, and the sweep, under the
+card's name and power limit. Compare two versions only inside one call
 of this script: machines differ by more than the versions do.
 """
 import argparse
@@ -22,21 +28,66 @@ import time
 from pathlib import Path
 
 RUN = """
-import json, chip_smoke as c
+import json, torch, chip_smoke as c
+from fscl_tpu_torch.ops import attention as attn
 card = c.phase_device()
 c.phase_build()
 _, checked = c.phase_attention(0)
 train = c.phase_train(0, card, checked, False, None)
+timing = c.phase_attention_timing(0)
 keep = ("steps_per_s", "ms_per_step", "forward_ms", "backward_ms", "optimizer_ms",
         "attention_fwd_bwd")
-print("CHIP_AB " + json.dumps({k: train[k] for k in keep}))
+fwd_keep = ("B", "H", "L", "Dh", "dtype", "key_split", "ms", "ms_by_key_split", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share")
+gen = torch.Generator(device="cuda").manual_seed(7)
+stream = torch.cuda.Stream()
+stats_fwd = []
+for dtype in (torch.float32, torch.bfloat16):
+    for B, H, L, Dh in ((16, 2, 512, 128), (16, 2, 128, 128), (32, 2, 256, 128)):
+        q, k, v, valid = c.attention_inputs(gen, B, H, L, Dh, dtype)
+        stats = torch.empty(B, H, L, 2, device="cuda")
+        ms = c.graph_time_ms(lambda: attn.attention_cuda(q, k, v, valid, None, stats), 20, stream)
+        stats_fwd.append({"B": B, "H": H, "L": L, "Dh": Dh, "dtype": str(dtype)[6:], "ms": ms})
+print("CHIP_AB " + json.dumps({**{k: train[k] for k in keep},
+                               "attention_fwd": [{k: r[k] for k in fwd_keep} for r in timing],
+                               "attention_fwd_stats": stats_fwd}))
 """
-TIMEOUT = 600.0   # seconds one run may take
+# The sweep: graph ms of the narrow route at key split 1 and 2, without and
+# with row stats, and the split the wrapper picks. The shapes: head dims at
+# most 48 (2 heads, padded to 64) over the query lengths and batches an
+# upstream gives them; HuBERT's 16 heads of 64; the FFT blocks' 2 heads of
+# 128 at the training and adaptation shapes.
+SWEEP = """
+import json, torch, chip_smoke as c
+from fscl_tpu_torch.ops import attention as attn
+c.phase_build()
+shapes = [(8, 2, L, 40) for L in (64, 128, 199, 256, 399, 512, 1000)]
+shapes += [(8, 2, 199, 48)] + [(B, 2, L, 40) for B in (4, 16, 32) for L in (199, 399)]
+shapes += [(B, 16, L, 64) for B in (4, 32) for L in (64, 128, 199)]
+shapes += [(16, 2, L, 128) for L in (128, 199, 256, 512)]
+shapes += [(4, 2, 128, 128), (32, 2, 128, 128), (32, 2, 256, 128)]
+n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+gen = torch.Generator(device="cuda").manual_seed(9)
+stream = torch.cuda.Stream()
+rows = []
+for dtype in (torch.float32, torch.bfloat16):
+    for B, H, L, Dh in shapes:
+        q, k, v, valid = c.attention_inputs(gen, B, H, L, Dh, dtype)
+        for with_stats in (False, True):
+            st = torch.empty(B, H, L, 2, device="cuda") if with_stats else None
+            ms = {s: c.graph_time_ms(lambda: attn._launch(q, k, v, valid, None, s, st),
+                                     100 if L <= 256 else 20, stream) for s in (1, 2)}
+            rows.append({"B": B, "H": H, "L": L, "Dh": Dh, "dtype": str(dtype)[6:],
+                         "stats": with_stats, "ms_by_key_split": ms,
+                         "rule": attn.choose_key_split((B, H, L, Dh), dtype, n_sm, with_stats)})
+print("CHIP_AB " + json.dumps({"sweep": rows}))
+"""
+TIMEOUT = 900.0   # seconds one run may take
 
 
-def run(root: Path) -> dict:
+def run(root: Path, code: str = RUN) -> dict:
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", RUN], cwd=root, capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           timeout=TIMEOUT)
     lines = [l for l in proc.stdout.splitlines() if l.startswith("CHIP_AB ")]
     if proc.returncode != 0 or not lines:
@@ -68,10 +119,20 @@ def main(argv=None) -> int:
         runs.append({"tree": label, **r})
         bwd = {row["L"]: row["bwd_kernel_graph_ms"] for row in r["attention_fwd_bwd"]}
         fb = {row["L"]: row["ms"] for row in r["attention_fwd_bwd"]}
+        fwd = {f"{x['dtype'][0]}{x['B']},{x['H']},{x['L']},{x['Dh']}": round(x["ms"], 4)
+               for x in r["attention_fwd"]}
+        stats_fwd = {f"{x['dtype'][0]}{x['B']},{x['H']},{x['L']},{x['Dh']}": round(x["ms"], 4)
+                     for x in r["attention_fwd_stats"]}
         print(f"{label}: {r['steps_per_s']:.2f} steps/s, backward pass "
               f"{r['backward_ms']:.2f} ms, backward kernel (graph) ms by L {bwd}, the "
-              f"Function's fwd + bwd ms by L {fb}, {r['seconds']:.0f} s", flush=True)
-    record = {"card": card, "runs": runs}
+              f"Function's fwd + bwd ms by L {fb}; forward kernel (graph) ms {fwd}, with row "
+              f"stats {stats_fwd}; {r['seconds']:.0f} s", flush=True)
+    sweep = run(here, SWEEP)["sweep"]
+    for x in sweep:
+        print(f"sweep {x['dtype']:8s} B={x['B']} H={x['H']} L={x['L']} Dh={x['Dh']} stats "
+              f"{x['stats']:d}: split 1 {x['ms_by_key_split']['1']:.4f}, 2 "
+              f"{x['ms_by_key_split']['2']:.4f} ms; the rule takes {x['rule']}", flush=True)
+    record = {"card": card, "runs": runs, "sweep": sweep}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(record, indent=1))

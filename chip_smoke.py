@@ -13,10 +13,11 @@ non-zero exit code when it fails:
    their CLI runs, so they measure what a user gets).
 2. Build: compile every kernel under `fscl_tpu_torch/csrc/` with nvcc, one
    nvcc per source (per build part), all at once; ptxas's registers and
-   spills are printed, and the attention kernel's wide route must spill
-   nothing in any of its 6 instances, nor the attention backward kernel in
-   any of its 8 (dQ and dK/dV for f32 / bf16 at head dims 64 / 128) or its
-   two score-bits probes (f32, bf16).
+   spills are printed, and the attention kernel must spill nothing in any
+   of its narrow route's 6 instances (f32 with and without row stats, bf16,
+   at head dims 64 and 128) or its wide route's 6, nor the attention
+   backward kernel in any of its 8 (dQ and dK/dV for f32 / bf16 at head
+   dims 64 / 128) or its two score-orientation probes (f32, bf16).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
@@ -30,7 +31,8 @@ non-zero exit code when it fails:
    checks, at Lq = Lk = 16385 and 20000 (head dims 64 and 128), at
    B * H = 70000, at 18000 keys whose V has a common part (V = 1 + 0.1
    N(0, 1), head dims 64, 128 and 192), and at phase 14's shapes, at each
-   key split,
+   key split of the route (`attention.key_splits`: the narrow route's 1
+   and 2, the wide route's 1, 2 and 4),
    held to f32 2e-5 / bf16 1e-2
    and the all-invalid sample to the mean of V (timed in phase 9); phases
    4-14 fail if a main path launches it at a shape not held here. The MRF stage
@@ -60,9 +62,9 @@ non-zero exit code when it fails:
    vocoder times and launches.
 7. Card vs CPU, vocoder: one mel vocoded on the card and on the CPU with the
    same weights; then `chunked_vocode` on the card against the full vocode.
-8. Training: first the backward kernel's score-bits probe (its wgmma
-   scores, both ways round, in f32 and bf16, against a copy of the
-   forward's mma.sync arithmetic: no bit may differ), the kernel held to
+8. Training: first the score-orientation probe (the shared wgmma score
+   routine of the forward and the backward kernels, both ways round, in f32
+   and bf16: no bit of S^T may differ from S), the backward kernel held to
    `attention_bwd` at BACKWARD_SHAPES in f32 and bf16 (tests/test_torch_cuda.py's,
    ragged 64-row blocks and 32-row tiles, one row, B * H past one wave at
    L = 2000; the one-valid-key sample's dk exactly 0, which holds the
@@ -643,8 +645,16 @@ def phase_build():
         + ", ".join(f"{v}" for v in spills.values()))
     if len(spills) != 6 or any(v != (0, 0) for v in spills.values()):
         fail(f"the attention kernel's wide route spills or is missing: {spills}")
+    # the narrow route: f32 with and without row stats, bf16, at head dims
+    # 64 and 128
+    spills = kernel_spills(built["attention"].log, "attention_fwd_kernel")
+    log(f"attention narrow route: {len(spills)} instances, spill bytes (stores, loads) "
+        + ", ".join(f"{v}" for v in spills.values()))
+    if len(spills) != 6 or any(v != (0, 0) for v in spills.values()):
+        fail(f"the attention kernel's narrow route spills or is missing: {spills}")
     # the backward kernel: a dQ and a dK/dV kernel for each of f32 / bf16 x
-    # head dims 64 / 128, and the score-bits probe of phase 8 (f32, bf16)
+    # head dims 64 / 128, and the score-orientation probe of phase 8 (f32,
+    # bf16)
     spills = kernel_spills(built["attention_bwd"].log, "attention_bwd_")
     kernels = [name for name in spills if "_q_kernel" in name or "_kv_kernel" in name]
     probes = [name for name in spills if "score_probe" in name]
@@ -798,15 +808,15 @@ def phase_attention(seed: int):
         dname = str(dtype).split(".")[-1]
         for B, H, L, Dh in shapes:
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
-            auto = attn.choose_key_split(B * H, L, n_sm, dtype, Dh)
+            auto = attn.choose_key_split((B, H, L, Dh), dtype, n_sm, False)
             errs = {s: check_attention(attn, q, k, v, valid, None if s == auto else s,
                                        f"{dname} B={B} H={H} L={L} Dh={Dh} key_split={s}")
-                    for s in attn.KEY_SPLITS}
+                    for s in attn.key_splits(Dh)}
             max_err[dname] = max(max_err[dname], *errs.values())
             checked.add((B, H, L, Dh, dname))
             log(f"attention {dname:8s} B={B} H={H:2d} L={L:4d} Dh={Dh:3d}: max |kernel - plain| "
                 + ", ".join(f"{e:.3g}" + ("*" if s == auto else "") for s, e in errs.items())
-                + " at key_split 1, 2, 4 (* the wrapper's choice) ok")
+                + f" at key_split {', '.join(map(str, errs))} (* the wrapper's choice) ok")
             del q, k, v, valid
     # the wide route at Lq != Lk, every head dim above, every key split
     cross = hold_cross_shapes([(8, 2, 100, 200, d) for d in WIDE_DIMS], set(), "wide route")
@@ -824,11 +834,11 @@ def phase_attention(seed: int):
             q, k, v, valid = attention_inputs(gen, 2, 2, BIASED_L, Dh, dtype)
             v = (1.0 + 0.1 * v.float()).to(dtype)
             errs = [check_attention(attn, q, k, v, valid, s, f"{dname} biased V L={BIASED_L} "
-                                    f"Dh={Dh} key_split={s}") for s in attn.KEY_SPLITS]
+                                    f"Dh={Dh} key_split={s}") for s in attn.key_splits(Dh)]
             max_err[dname] = max(max_err[dname], *errs)
             log(f"attention {dname:8s} B=2 H=2 L={BIASED_L} Dh={Dh} V = 1 + 0.1 N(0, 1): max "
                 f"|kernel - plain| " + ", ".join(f"{e:.3g}" for e in errs)
-                + " at key_split 1, 2, 4 ok")
+                + f" at key_split {', '.join(map(str, attn.key_splits(Dh)))} ok")
             del q, k, v, valid
     torch.cuda.empty_cache()
     return max_err, checked
@@ -902,7 +912,7 @@ def check_backward(attn, q, k, v, valid, g, label) -> float:
     the plain dv. The sample with one valid key (the second) gets dk exactly
     0: its weight there is exactly 1 only if the kernel recomputes the
     forward kernel's scores bit for bit, so this holds csrc/attention.cu
-    itself where the score-bits probe holds a copy of its arithmetic. Fails
+    itself, whose f32 scores with stats are the backward's by construction. Fails
     on a miss; returns the largest error."""
     import torch
     stats = torch.empty(*q.shape[:3], 2, device=q.device)
@@ -1026,10 +1036,10 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
             q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
             mask4 = valid[:, None, None, :]
             iters = 100 if L <= 256 else 20
-            key_split = attn.choose_key_split(B * H, L, n_sm, dtype, Dh)
+            key_split = attn.choose_key_split((B, H, L, Dh), dtype, n_sm, False)
             split_ms = {s: graph_time_ms(lambda: attn._launch(q, k, v, valid, None, s),
                                          iters, stream)
-                        for s in (attn.KEY_SPLITS if full else (key_split,))}
+                        for s in (attn.key_splits(Dh) if full else (key_split,))}
             kernel_ms = split_ms[key_split]
             events_ms = cuda_time_ms(lambda: attn.attention_cuda(q, k, v, valid), 50) if full \
                 else None
@@ -1044,8 +1054,11 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
             lib_err = float((lib[:-1].float() - attn.attention_reference(q, k, v, valid)[:-1]
                              .float()).abs().max())
             bound_ms, bound_by, fma_ms = attention_bound(B, H, L, Dh, dname, q.element_size())
+            # the narrow route's work items (64- or 128-row query tiles)
+            items = (attn.narrow_items(B * H, L, key_split)
+                     if attn.padded_head_dim(Dh) <= attn.HEAD_DIMS[-1] else None)
             row = {"B": B, "H": H, "L": L, "Dh": Dh, "dtype": dname,
-                   "key_split": key_split,
+                   "key_split": key_split, "work_items": items,
                    "ms": kernel_ms, "ms_by_key_split": split_ms,
                    "events_ms": events_ms, "host_us": host_us, "plain_ms": plain_ms,
                    "library_ms": library_ms, "library_max_abs_err": lib_err,
@@ -1055,7 +1068,9 @@ def phase_attention_timing(seed: int, extra_f32=(), extra_bf16=()):
             timings.append(row)
             log(f"attention {dname:8s} B={B} H={H:2d} L={L:4d} Dh={Dh}: kernel {kernel_ms:.4f} ms "
                 f"(key_split {row['key_split']}"
-                + (("; 1/2/4: " + "/".join(f"{split_ms[s]:.4f}" for s in attn.KEY_SPLITS)
+                + (f", {items} work items" if items is not None else "")
+                + (("; " + "/".join(map(str, split_ms)) + ": "
+                    + "/".join(f"{split_ms[s]:.4f}" for s in split_ms)
                     + f"; events {events_ms:.4f} ms, host {host_us:.1f} us per call") if full
                    else "") + ")"
                 f", plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max |SDPA - plain| "
@@ -1711,20 +1726,22 @@ FEW_KEYS = (2, 3, 8)      # valid keys of each sample at L = 2000, held against 
 
 
 def score_bits_probe():
-    """The backward kernel recomputes the forward's scores bit for bit:
-    `fscl_attention_bwd_score_probe` sums 64 x 64 scores over head dim 128 by
-    mma.sync as the forward does (f32: split TF32 m16n8k8 with a fresh sum
-    every 16 columns; bf16: m16n8k16) and by the backward's wgmma in both
-    orientations (Q as A, and K as A), on normal and on wide-range
-    (e^N(0, 2)-scaled) inputs, in f32 and bf16. Fails on any differing bit.
-    The mma.sync side is a copy of the forward's arithmetic in
-    attention_bwd.cu, not csrc/attention.cu's code: `check_backward`'s
-    one-valid-key dk holds the forward kernel itself."""
+    """The forward kernel's f32 scores with row stats, and launch 1 of the
+    backward kernel, take S = Q K^T by csrc/hopper_attention.cuh's `scores`
+    with Q as A; launch 2 takes S^T with K as A (the first two split passes
+    swapped). `fscl_attention_bwd_score_probe` runs the routine both ways
+    round on 64 x 64 scores over head dim 128, from the row planes
+    split_rows makes of each 32-row half as TMA stores it, on normal and on
+    wide-range (e^N(0, 2)-scaled) inputs in f32 and bf16; S^T transposed
+    must be S's bits. That the forward's scores are launch 1's is by
+    construction (the same routine on the same planes); `check_backward`'s
+    one-valid-key dk, exactly 0 only at a weight of exactly 1, holds the
+    kernels end to end."""
     import ctypes
     import torch
     from fscl_tpu_torch.ops import cuda_lib
     fn = cuda_lib.build("attention_bwd").lib.fscl_attention_bwd_score_probe
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(17)
     rows = []
@@ -1735,30 +1752,26 @@ def score_bits_probe():
                 q, k = (x * torch.exp(2 * torch.randn(64, 128, generator=gen, device="cuda"))
                         for x in (q, k))
             q, k = q.to(dtype), k.to(dtype)
-            s_mma, s_wg, st_wg = (torch.full((64, 64), float("nan"), device="cuda")
-                                  for _ in range(3))
-            err = fn(q.data_ptr(), k.data_ptr(), s_mma.data_ptr(), s_wg.data_ptr(),
-                     st_wg.data_ptr(), code, torch.cuda.current_stream().cuda_stream)
+            s_wg, st_wg = (torch.full((64, 64), float("nan"), device="cuda") for _ in range(2))
+            err = fn(q.data_ptr(), k.data_ptr(), s_wg.data_ptr(), st_wg.data_ptr(), code,
+                     torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             if err != 0:
                 fail(f"score-bits probe: launch failed, cudaError {err}")
-            bits = s_mma.view(torch.int32)
             exact = q.double() @ k.double().T
             rows.append({
                 "dtype": str(dtype).split(".")[-1], "wide_range": trial >= 2,
-                "wgmma_bits_differ": int((s_wg.view(torch.int32) != bits).sum()),
-                "wgmma_transposed_bits_differ": int((st_wg.T.contiguous().view(torch.int32)
-                                                     != bits).sum()),
-                "rel_err_vs_f64": float((s_mma.double() - exact).abs().max()
+                "transposed_bits_differ": int((st_wg.T.contiguous().view(torch.int32)
+                                               != s_wg.view(torch.int32)).sum()),
+                "rel_err_vs_f64": float((s_wg.double() - exact).abs().max()
                                         / exact.abs().max())})
-    log("score-bits probe (64 x 64 scores, head dim 128): wgmma (m64n32k8 split TF32 in f32, "
-        "m64n32k16 in bf16) vs the forward's mma.sync, bits that differ: "
-        + ", ".join(f"{r['dtype']} {r['wgmma_bits_differ']} (S) / "
-                    f"{r['wgmma_transposed_bits_differ']} (S^T)"
+    log("score-orientation probe (64 x 64 scores, head dim 128): the shared `scores` with Q as "
+        "A vs with K as A (m64n32k8 split TF32 in f32, m64n32k16 in bf16), bits that differ: "
+        + ", ".join(f"{r['dtype']} {r['transposed_bits_differ']}"
                     f"{' wide-range' if r['wide_range'] else ''}" for r in rows)
         + f"; the sums {max(r['rel_err_vs_f64'] for r in rows):.3g} of their max from float64")
-    if any(r["wgmma_bits_differ"] or r["wgmma_transposed_bits_differ"] for r in rows):
-        fail("score-bits probe: wgmma's scores differ from the forward's mma.sync ones")
+    if any(r["transposed_bits_differ"] for r in rows):
+        fail("score-bits probe: S^T with K as A differs from S with Q as A")
     return rows
 
 
@@ -1819,8 +1832,8 @@ def phase_train_kernel_grads(seed: int, attn_checked):
     worst = {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
     for B, H, L, Dh in shapes:
         q, k, v, valid = attention_inputs(gen, B, H, L, Dh, torch.float32)
-        auto = attn.choose_key_split(B * H, L, n_sm, torch.float32, Dh)
-        for s in attn.KEY_SPLITS:
+        auto = attn.choose_key_split((B, H, L, Dh), torch.float32, n_sm, False)
+        for s in attn.key_splits(Dh):
             check_attention(attn, q, k, v, valid, None if s == auto else s,
                             f"train float32 B={B} L={L} key_split={s}")
         attn_checked.add((B, H, L, Dh, "float32"))
@@ -6438,8 +6451,8 @@ def hold_attention_shapes(shapes, checked, what: str) -> int:
     for B, H, L, Dh, dname in new:
         dtype = getattr(torch, dname)
         q, k, v, valid = attention_inputs(gen, B, H, L, Dh, dtype)
-        auto = attn.choose_key_split(B * H, L, n_sm, dtype, Dh)
-        for s in attn.KEY_SPLITS:
+        auto = attn.choose_key_split((B, H, L, Dh), dtype, n_sm, False)
+        for s in attn.key_splits(Dh):
             check_attention(attn, q, k, v, valid, None if s == auto else s,
                             f"{what}: {dname} B={B} H={H} L={L} Dh={Dh} key_split={s}")
         checked.add((B, H, L, Dh, dname))
@@ -6779,10 +6792,10 @@ def phase_precision_kernel(seed: int, attn_checked):
     H, Dh, worst = 2, 128, {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
     for L in (TRAIN_L, TRAIN_T):
         q, k, v, valid = attention_inputs(gen, TRAIN_B, H, L, Dh, torch.bfloat16)
-        auto = attn.choose_key_split(TRAIN_B * H, L, n_sm, torch.bfloat16)
+        auto = attn.choose_key_split((TRAIN_B, H, L, Dh), torch.bfloat16, n_sm, False)
         errs = {"fwd": max(check_attention(attn, q, k, v, valid, None if s == auto else s,
                                            f"precision bfloat16 B={TRAIN_B} L={L} key_split={s}")
-                           for s in attn.KEY_SPLITS)}
+                           for s in attn.key_splits(Dh))}
         attn_checked.add((TRAIN_B, H, L, Dh, "bfloat16"))
         g = torch.randn(q.shape, generator=gen, device=CARD).to(torch.bfloat16)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -7356,7 +7369,7 @@ def hold_cross_shapes(shapes, checked, what: str) -> list:
                 continue
             B, H, Lq, Lk, Dh = shape[:5]
             q, k, v, valid = cross_inputs(gen, B, H, Lq, Lk, Dh, getattr(torch, dname))
-            for s in attn.KEY_SPLITS:
+            for s in attn.key_splits(Dh):
                 errs[dname] = max(errs[dname], check_attention(
                     attn, q, k, v, valid, s,
                     f"{what}: {dname} B={B} H={H} Lq={Lq} Lk={Lk} Dh={Dh} key_split={s}"))
@@ -7384,8 +7397,8 @@ def phase_parallel_kernel(seed: int, cross_checked):
             q, k, v, valid = cross_inputs(gen, B, H, Lq, Lk, Dh, dtype)
             mask4 = valid[:, None, None, :]
             split_ms = {s: graph_time_ms(lambda: attn._launch(q, k, v, valid, None, s), 50,
-                                         stream) for s in attn.KEY_SPLITS}
-            key_split = attn.choose_key_split(B * H, Lq, n_sm, dtype)
+                                         stream) for s in attn.key_splits(Dh)}
+            key_split = attn.choose_key_split((B, H, Lq, Dh), dtype, n_sm, False)
             plain_ms = graph_time_ms(lambda: attn.attention_reference(q, k, v, valid), 10, stream)
             library_ms = graph_time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 50, stream)
@@ -7396,8 +7409,8 @@ def phase_parallel_kernel(seed: int, cross_checked):
                    "bound_by": bound_by, "bound_share": bound_ms / split_ms[key_split]}
             rows.append(row)
             log(f"attention {dname:8s} B={B} H={H} Lq={Lq} Lk={Lk} Dh={Dh}: kernel "
-                f"{row['ms']:.4f} ms (key_split {key_split}; 1/2/4: "
-                + "/".join(f"{split_ms[s]:.4f}" for s in attn.KEY_SPLITS)
+                f"{row['ms']:.4f} ms (key_split {key_split}; " + "/".join(map(str, split_ms)) + ": "
+                + "/".join(f"{split_ms[s]:.4f}" for s in split_ms)
                 + f"), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}), {100 * row['bound_share']:.1f}% of bound")
     return {"max_abs_err": errs, "timed": rows}

@@ -85,24 +85,22 @@
 // Exactness contracts (the card's tests hold each one):
 // - The forward's scores. The weights come from the forward (csrc/
 //   attention.cu, narrow route), which stores each query row's max m (f32,
-//   log2 units) and sum l. This file recomputes its scores bit for bit (f32
-//   below; bf16 under Arithmetic): the same TF32 splits (to nearest, ties away from zero), k-steps (the head
-//   dim permuted within each 16 in the planes and the A fragments so that a
-//   wgmma k-step holds the 8 columns of the forward's mma.sync k-step: 16j +
-//   4t + 2h and + 1), passes and a fresh accumulator every 16 columns added
-//   to the sum rounded to nearest; the scale and the subtraction unfused in
-//   both. A wgmma k-step adds the same products to the same bits as
-//   mma.sync does, in both orientations (S with Q as A, S^T with K as A and
-//   the first two passes swapped): chip_smoke.py phase 8 probes that with
-//   fscl_attention_bwd_score_probe on random split operands. The probe
-//   holds wgmma to a copy of the forward's mma.sync arithmetic kept in this
-//   file, not to csrc/attention.cu itself; so P = exp2(S log2(e) / temp -
-//   m) / l are the forward's weights exactly: a row with one valid key gets
-//   the weight 1 there and 0 elsewhere, a row with none 1 / Lk, as the
-//   plain version's softmax gives them. The witness against the forward
-//   kernel itself is a row with one valid key, whose dk is exactly 0 only
-//   where its weight is exactly 1: chip_smoke.py's check_backward at every
-//   backward shape it holds, and the card tests.
+//   log2 units) and sum l. The forward computes those scores with the
+//   header's `scores` (csrc/hopper_attention.cuh) from the same Q fragments
+//   and K row planes (split_rows) that launch 1 here recomputes them from:
+//   the same TF32 splits (to nearest, ties away from zero), k-steps, passes
+//   and a fresh accumulator every 16 columns added to the sum rounded to
+//   nearest, so the same bits by construction; the scale and the
+//   subtraction unfused in both. Launch 2 takes S^T by the same routine with
+//   K as A and the first two passes swapped, which adds the same partial
+//   products in the same order: chip_smoke.py phase 8 holds the two
+//   orientations to the same bits with fscl_attention_bwd_score_probe. So P
+//   = exp2(S log2(e) / temp - m) / l are the forward's weights exactly: a
+//   row with one valid key gets the weight 1 there and 0 elsewhere, a row
+//   with none 1 / Lk, as the plain version's softmax gives them. The
+//   witness end to end is a row with one valid key, whose dk is exactly 0
+//   only where its weight is exactly 1: chip_smoke.py's check_backward at
+//   every backward shape it holds, and the card tests.
 // - The row stats. m and l are kept apart, never folded into m + log2 l: a
 //   row whose keys are all invalid has m = -1e9 log2(e), where the f32 ulp
 //   is 128, so the fold would lose log2 Lk and give every key the weight 1
@@ -129,8 +127,8 @@
 // passes are skipped: the products with P, P * dP or dS take three passes in
 // f32 and two in bf16). In bf16, S and dP (and S^T, dP^T) are the bf16
 // tensor cores' (wgmma m64n32k16, B the tile as TMA stored it), every k-step
-// into one sum as the forward's bf16 scores are, so that there too the
-// weights are the forward's exactly (the probe checks bf16 as well). The tensor cores add into
+// into one sum by the same routine as the forward's bf16 scores, so that
+// there too the weights are the forward's exactly. The tensor cores add into
 // their accumulator with truncation, so sums go through fresh accumulators
 // added in f32 (round to nearest): S and dP every 16 columns of the head
 // dim, dK and dQ's two products every tile of 32 rows (32 columns of the
@@ -145,13 +143,10 @@
 // parts at once (FSCL_PART, below); part 0 also holds the entry points.
 // build parts: 4
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "hopper_attention.cuh"
+
 #include <limits.h>
 #include <math.h>
-#include <stdint.h>
-#include <type_traits>
 
 // Without FSCL_PART (one nvcc for the whole file) every part.
 #ifndef FSCL_PART
@@ -161,11 +156,8 @@
 
 namespace {
 
-constexpr int TILE = 32;             // rows of a streamed tile (keys in launch 1, queries in 2)
 constexpr int RES = 64;              // a block's resident rows: one wgmma M
 constexpr int THREADS = 384;         // the producer warpgroup, then two consumer warpgroups
-constexpr int MAX_SMEM = 227 * 1024; // sm_90's dynamic shared memory per block
-constexpr float MASK_FILL_LOG2 = -1e9f * 1.4426950408889634f;   // the forward's
 
 // Named barriers (0 is __syncthreads): each consumer warpgroup's own, and
 // the hand-overs between the two (READY: the data is there, FREE: read).
@@ -173,19 +165,11 @@ constexpr int BAR_WG1 = 1, BAR_WG2 = 2, BAR_X_READY = 3, BAR_X_FREE = 4, BAR_Y_R
               BAR_Y_FREE = 6, BAR_END = 7, BAR_KT_FREE = 8;
 
 template <typename T, int DH>
-struct Cfg {
-  static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int HD = DH;
-  static constexpr int KS = DH / 8;                  // k-steps over the head dim
-  static constexpr int NQ = DH / 32;                 // 32-column quarters of dQ, dK
-  static constexpr int ES = (int)sizeof(T);
-  static constexpr int BOX = 128 / ES;               // columns of a 128-byte TMA box
-  static constexpr int BOXES = DH / BOX;
-  static constexpr int RAW = TILE * DH * ES;         // a streamed tile as it came
+struct Cfg : Tiles<T, DH> {
+  using B = Tiles<T, DH>;
+  static constexpr bool F32 = B::F32;
+  static constexpr int HD = DH, NQ = B::NQ, RAW = B::RAW, PLANE = B::PLANE, OPERAND = B::OPERAND;
   static constexpr int STAGE = 2 * RAW + 1024;       // two tiles, then flags or row stats
-  static constexpr int PLANE = TILE * DH * 4;        // one TF32 part of a tile, either way round
-  static constexpr int NPL = F32 ? 2 : 1;            // parts: big, small (bf16: big only)
-  static constexpr int OPERAND = NPL * PLANE;
   static constexpr int ROWS = F32 ? OPERAND : 0;     // row planes (bf16 reads the tile as it came)
   static constexpr int XCH = RES * TILE * 4;         // a tile's 64 x 32 accumulator, by thread
   static constexpr int LDY = RES + 4;                // P for dV: queries x keys (floats)
@@ -216,394 +200,7 @@ struct Cfg {
   static_assert(RAW % 1024 == 0 && PLANE % 1024 == 0 && STAGE % 1024 == 0,
                 "swizzled regions start on 1024-byte boundaries");
   static_assert(Q_BYTES <= MAX_SMEM && KV_BYTES <= MAX_SMEM, "shared memory fits");
-  static_assert(DH == 64 || DH == 128, "head dims 64 and 128");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// f32 -> TF32 bits, to nearest with ties away from zero: cvt.rna.tf32.f32's
-// result for finite x (the carry of the add rounds the magnitude up).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32, |small| <= 2^-11 |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// -- mbarriers, named barriers, TMA -------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// An arrival that also expects `bytes` of TMA copies before the phase ends.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_u8(uint32_t addr, uint8_t x) {
-  asm volatile("st.shared.u8 [%0], %1;\n" :: "r"(addr), "h"((unsigned short)x) : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-// The box at (c0 columns, c1 rows, c2 batch * head) of a 3-d tensor map into
-// shared memory at dst; completion counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Generic-proxy writes to shared memory made visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A ring of NST stages of streamed tiles: tile it in stage it % NST, with
-// its full barrier (the producer warp's 32 lanes arrive, one of them
-// expecting the TMA bytes) and its empty one (each of the 8 consumer warps
-// arrives once done with the stage) at bars: full[NST], then empty[NST].
-template <int NST>
-struct Ring {
-  uint32_t bars;
-  __device__ __forceinline__ uint32_t full(int it) const { return bars + 8 * (it % NST); }
-  __device__ __forceinline__ uint32_t empty(int it) const { return bars + 8 * (NST + it % NST); }
-  __device__ __forceinline__ void init() const {
-    for (int s = 0; s < NST; ++s) {
-      mbar_init(bars + 8 * s, 32);
-      mbar_init(bars + 8 * (NST + s), 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  // the producer, before filling tile it's stage: its previous tile released
-  __device__ __forceinline__ void wait_empty(int it) const {
-    if (it >= NST) mbar_wait(empty(it), ((it / NST) + 1) & 1);
-  }
-  __device__ __forceinline__ void wait_full(int it) const { mbar_wait(full(it), (it / NST) & 1); }
-  // a consumer warp, done with tile it's stage
-  __device__ __forceinline__ void release(int it, int lane) const {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(it));
-  }
-};
-
-// -- wgmma ---------------------------------------------------------------------
-
-// Descriptor of a K-major operand with the 128-byte swizzle: rows 128 bytes
-// apart, 8-row groups 1024 bytes apart; `addr` is where its first row's
-// current k-step starts (k-steps advance 32 bytes within a 128-byte row).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32)
-         | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Until the warpgroup's committed groups are done.
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Ties accumulator registers to the wgmma waits around them, so that the
-// compiler moves no read or write of them across.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// x, opaque to the compiler: a shared-memory address or offset read anew
-// where it is used, so that what is computed from it (descriptors, copy
-// offsets) is not hoisted out of the tile loop, where it would hold
-// registers the whole loop long.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-// d (64 x 32) += A (64 x 8, registers: rows g and g + 8 of each warp's 16,
-// k = t and t + 4) B^T (B: 32 rows x 8, K-major at desc), TF32.
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// d (64 x 32) += A (64 x 16 bf16, registers: rows g and g + 8 of each
-// warp's 16, two columns a register at k = 2t and 2t + 8) B^T (B: 32 rows x
-// 16 bf16, K-major at desc).
-__device__ __forceinline__ void wgmma_n32_bf16(float (&d)[16], const uint32_t (&a)[4],
-                                               uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// -- the streamed tiles: as they came, and split into planes -------------------
-
-// 4 consecutive columns c (c % 4 == 0) of row r of a tile as TMA stored it:
-// 128-byte column boxes of TILE rows, 16-byte chunks swizzled by row; bf16
-// widened (exact).
-template <class C>
-__device__ __forceinline__ float4 raw4(const uint8_t* raw, int r, int c) {
-  if constexpr (C::F32) {
-    return *reinterpret_cast<const float4*>(raw + (c >> 5) * TILE * 128 + r * 128
-                                            + ((((c >> 2) & 7) ^ (r & 7)) << 4));
-  } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(raw + (c >> 6) * TILE * 128 + r * 128
-                                                    + ((((c >> 3) & 7) ^ (r & 7)) << 4)
-                                                    + ((c & 4) << 1));
-    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-  }
-}
-
-__device__ __forceinline__ float comp(const float4& x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
-}
-
-// Four values as one 16-byte chunk of each plane at `dst` (the small part
-// PLANE bytes on; bf16: the values, exact in TF32).
-template <class C>
-__device__ __forceinline__ void put_chunk(uint8_t* dst, float v0, float v1, float v2, float v3) {
-  if constexpr (C::F32) {
-    uint4 b, s;
-    split_tf32(v0, b.x, s.x);
-    split_tf32(v1, b.y, s.y);
-    split_tf32(v2, b.z, s.z);
-    split_tf32(v3, b.w, s.w);
-    *reinterpret_cast<uint4*>(dst) = b;
-    *reinterpret_cast<uint4*>(dst + C::PLANE) = s;
-  } else {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(__float_as_uint(v0), __float_as_uint(v1),
-                                                __float_as_uint(v2), __float_as_uint(v3));
-  }
-}
-
-// The row planes of a tile: B of S = Q K^T (launch 1: K, V) or of S^T = K
-// Q^T (launch 2: Q, g): TILE rows x DH, K-major, 32-column atoms of TILE x
-// 128 bytes, swizzled. The head dim is permuted within each 16: column 16j
-// + 4a + 2h + b sits at 16j + 8h + 4b + a, so that k-step 2j + h holds the
-// forward's columns 16j + 4t + 2h (k = t) and + 1 (k = t + 4). Thread tid
-// of a warpgroup: rows tid % 32, 16-column groups tid / 32 + 4u.
-template <class C>
-__device__ __forceinline__ void split_rows(uint8_t* planes, const uint8_t* raw, int tid) {
-  tid = opaque(tid);
-#pragma unroll
-  for (int u = 0; u < TILE * C::HD / 16 / 128; ++u) {
-    const int r = tid % TILE, j = tid / TILE + 4 * u;
-    float4 x[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = raw4<C>(raw, r, 16 * j + 4 * a);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {   // chunk 4j + m: columns 16j + 4a + m for a = 0..3
-      const int cc = 4 * j + m;
-      put_chunk<C>(planes + (cc >> 3) * TILE * 128 + r * 128 + (((cc & 7) ^ (r & 7)) << 4),
-                   comp(x[0], m), comp(x[1], m), comp(x[2], m), comp(x[3], m));
-    }
-  }
-}
-
-// The transposed planes of a tile: B of dQ = dS K (launch 1: K) or of dK =
-// dS^T Q (launch 2: Q): DH rows x TILE, K-major, one swizzled atom. The
-// tile's rows are permuted within each 8: row 8i + 2a + b sits at 8i + 4b +
-// a, so that k-step i takes a thread's accumulator columns 8i + 2t (k = t)
-// and + 1 (k = t + 4) as its A fragment. Thread tid of a warpgroup: chunks
-// (4 rows of the tile) tid % 8, 4-column groups tid / 8 + 16u.
-template <class C>
-__device__ __forceinline__ void split_cols(uint8_t* planes, const uint8_t* raw, int tid) {
-  tid = opaque(tid);
-#pragma unroll
-  for (int u = 0; u < 8 * C::HD / 4 / 128; ++u) {
-    const int cc = tid % 8, n4 = tid / 8 + 16 * u;
-    const int r0 = 8 * (cc >> 1) + (cc & 1);   // rows r0 + 2a
-    float4 y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) y[a] = raw4<C>(raw, r0 + 2 * a, 4 * n4);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int n = 4 * n4 + s;
-      put_chunk<C>(planes + n * 128 + ((cc ^ (n & 7)) << 4), comp(y[0], s), comp(y[1], s),
-                   comp(y[2], s), comp(y[3], s));
-    }
-  }
-}
-
-// -- the resident rows and the products ----------------------------------------
-
-// A warp's 16 rows (r and r + 8 from row0) of a (rows, DH) input as raw
-// wgmma A elements for every k-step, kept in registers for the whole block:
-// k-step 2j + h holds (X[r][c], X[r + 8][c], X[r][c + 1], X[r + 8][c + 1])
-// at c = 16j + 4t + 2h (the forward's k-steps), f32 as they are, bf16
-// packed two to a register. Rows past `rows` are 0.
-// bits() hands an element over opaque to the compiler, so that the split
-// (or the widening) of an element at each use is not hoisted out of the
-// tile loop, where the split parts of all of them would take twice the
-// registers.
-template <class C, typename T>
-struct RowFrags {
-  float a[C::KS][4];
-  __device__ __forceinline__ void load(const T* src, int row0, int rows, int g, int t) {
-    const T* r0 = src + (size_t)(row0 + g) * C::HD + 4 * t;
-    const T* r1 = r0 + 8 * C::HD;
-    const bool ok0 = row0 + g < rows, ok1 = row0 + g + 8 < rows;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < C::KS / 2; ++j) {
-      const float4 x = ok0 ? *reinterpret_cast<const float4*>(r0 + 16 * j) : zero;
-      const float4 y = ok1 ? *reinterpret_cast<const float4*>(r1 + 16 * j) : zero;
-      a[2 * j][0] = x.x; a[2 * j][1] = y.x; a[2 * j][2] = x.y; a[2 * j][3] = y.y;
-      a[2 * j + 1][0] = x.z; a[2 * j + 1][1] = y.z; a[2 * j + 1][2] = x.w; a[2 * j + 1][3] = y.w;
-    }
-  }
-  __device__ __forceinline__ uint32_t bits(int ks, int e) const {
-    uint32_t x = __float_as_uint(a[ks][e]);
-    asm volatile("" : "+r"(x));
-    return x;
-  }
-};
-
-// bf16: the forward's own A fragments (its QFrag), k16 step ks: (X[r][c],
-// X[r][c + 1]), the same of row r + 8, then both at c + 8, c = 16 ks + 2t;
-// bf16 scores are the products of the bf16 tensor cores, summed as the
-// forward sums them.
-template <class C>
-struct RowFrags<C, __nv_bfloat16> {
-  uint32_t a[C::HD / 16][4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* src, int row0, int rows, int g, int t) {
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(src + (size_t)(row0 + g) * C::HD);
-    const uint32_t* r1 = r0 + 4 * C::HD;
-    const bool ok0 = row0 + g < rows, ok1 = row0 + g + 8 < rows;
-#pragma unroll
-    for (int ks = 0; ks < C::HD / 16; ++ks) {
-      a[ks][0] = ok0 ? r0[8 * ks + t] : 0u;
-      a[ks][1] = ok1 ? r1[8 * ks + t] : 0u;
-      a[ks][2] = ok0 ? r0[8 * ks + t + 4] : 0u;
-      a[ks][3] = ok1 ? r1[8 * ks + t + 4] : 0u;
-    }
-  }
-};
-
-// s = (the warpgroup's 64 resident rows) (the tile's TILE rows)^T over the
-// head dim: S, dP, S^T or dP^T; `plane` is the tile's big row plane (bf16:
-// the tile as it came). Each 16 columns' passes go into a fresh
-// accumulator, added to s rounded to nearest: with Q and K, the forward's
-// f32 scores bit for bit. SWAP runs the
-// first two passes as big(A) small(B), small(A) big(B): with K (or V) as A,
-// the same partial products in the same order as with Q (or g) as A.
-// Element 4i + 2v + c of s: resident row 16 warp + g + 8v, tile row 8i + 2t
-// + c.
-template <class C, bool SWAP, class RF>
-__device__ __forceinline__ void scores(float (&s)[16], const RF& rf, uint32_t plane) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] = 0.f;
-  if constexpr (!C::F32) {
-    // bf16: the tile as TMA stored it (128-byte swizzled boxes of 64
-    // columns, k16 steps of 32 bytes) is B; every k-step into s, as the
-    // forward's mma.sync m16n8k16 sums them
-    fence_regs(s);
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < C::HD / 16; ++ks)
-      wgmma_n32_bf16(s, rf.a[ks], desc_sw128(plane + (ks >> 2) * TILE * 128 + (ks & 3) * 32));
-    wg_commit();
-    wg_wait();
-    fence_regs(s);
-  } else {
-#pragma unroll
-    for (int j = 0; j < C::KS / 2; ++j) {
-      const uint32_t pl = opaque(plane);
-      const uint64_t big = desc_sw128(pl), small = desc_sw128(pl + C::PLANE);
-      uint32_t ab[2][4], as[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split_tf32(__uint_as_float(rf.bits(2 * j + h, e)), ab[h][e], as[h][e]);
-      float f[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) f[i] = 0.f;
-      fence_regs(f);
-      wg_fence();
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ks = 2 * j + h;
-        const uint32_t off = ((ks >> 2) * TILE * 128 + (ks & 3) * 32) >> 4;
-        if constexpr (SWAP) {
-          wgmma_n32(f, ab[h], small + off);
-          wgmma_n32(f, as[h], big + off);
-        } else {
-          wgmma_n32(f, as[h], big + off);
-          wgmma_n32(f, ab[h], small + off);
-        }
-        wgmma_n32(f, ab[h], big + off);
-      }
-      wg_commit();
-      wg_wait();
-      fence_regs(f);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] += f[i];
-      fence_regs(s);   // added before the next group is issued: one f live at a time
-    }
-  }
-}
 
 // A B over one tile: A (64 resident rows x the tile's TILE rows) in
 // accumulator layout (P, P * dP or dS^T; split here), B the tile's big
@@ -680,13 +277,6 @@ struct SmemAcc {
   }
 };
 
-__device__ __forceinline__ void store2(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
 
 // Store a warpgroup's rows (row_base + 16 warp + g + 8v, below `rows`) of
 // get(qq, x)'s quarters times `scale` at dst (row pitch DH).
@@ -718,11 +308,6 @@ __device__ __forceinline__ float weight(float s, float m, float inv_l, bool in, 
   return in ? exp2f(__fsub_rn(x, m)) * inv_l : 0.f;
 }
 
-// The block's shared memory, aligned to 1024 bytes for the swizzled tiles.
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  const uint32_t s = smem_u32(raw);
-  return raw + (((s + 1023) & ~1023u) - s);
-}
 
 // -- launch 1: dQ and D ----------------------------------------------------------
 
@@ -745,7 +330,7 @@ attention_bwd_q_kernel(const __grid_constant__ CUtensorMap k_map,
   const int warp = tid / 32, lane = threadIdx.x % 32, gl = lane / 4, t = lane % 4;
   const int n_tiles = (Lk + TILE - 1) / TILE;
 
-  if (threadIdx.x == 0) ring.init();
+  if (threadIdx.x == 0) ring.init(32, 8);
   __syncthreads();
 
   if (wg == 0) {   // producer: warp 0 streams K, V and the key flags
@@ -916,7 +501,7 @@ attention_bwd_kv_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = tid / 32, lane = threadIdx.x % 32, gl = lane / 4, t = lane % 4;
   const int n_tiles = (Lq + TILE - 1) / TILE;
 
-  if (threadIdx.x == 0) ring.init();
+  if (threadIdx.x == 0) ring.init(32, 8);
   __syncthreads();
 
   if (wg == 0) {   // producer: warp 0 streams Q, g and the rows' (m, 1 / l, D, 0)
@@ -1101,55 +686,6 @@ attention_bwd_kv_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // -- host side -------------------------------------------------------------------
 
-// Dynamic shared memory above 48 KB is allowed once per kernel and device.
-cudaError_t allow_smem(const void* kernel, int bytes, bool* allowed) {
-  constexpr int MAX_DEVICES = 64;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = true;
-  return err;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime (the
-// library links no driver library of its own).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found)
-            == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a contiguous (bh, rows, cols) tensor in boxes of `box` columns
-// x TILE rows of one (batch, head); rows past `rows` read as zeros. swizzle:
-// the 128-byte swizzle (box * itemsize == 128).
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int itemsize,
-                       long long bh, int rows, int cols, int box, bool swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * itemsize, (cuuint64_t)rows * cols * itemsize};
-  const cuuint32_t boxes[3] = {(cuuint32_t)box, (cuuint32_t)TILE, 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides, boxes, steps,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The two launches on `s`: dQ with each row's (m, 1 / l, D) into `rowstats`
 // (B * H * Lq * 4 floats of scratch), then dK and dV. Grids of up to INT_MAX
 // blocks, or cudaErrorInvalidValue.
@@ -1197,122 +733,51 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 #if FSCL_OWNS(0)
 
-// 64 rows of q against 64 rows of k (head dim PROBE_DH) three ways: s_mma
-// by mma.sync as the forward sums them (f32: m16n8k8 split TF32 with a
-// fresh sum every 16 columns, scores_tf32; bf16: m16n8k16, every k-step
-// into the sum, `scores`), s_wg by this file's `scores` with q as A, st_wg
-// with k as A (S^T; f32: the passes swapped). chip_smoke.py holds the three
-// to the same bits. s_mma is a copy of the forward's arithmetic, not
-// csrc/attention.cu's code: a change to the forward's k-step order or
-// fresh-sum span shows in the one-valid-key rows' dk (see the header), not
-// here.
+// 64 rows of q against 64 rows of k (head dim PROBE_DH) by the header's
+// `scores` in both orientations: s with q as A and k's row planes as B (the
+// forward's scores and launch 1's), st with k as A and q's as B (launch 2's
+// S^T; f32: the first two passes swapped), each 32-row half laid out as TMA
+// stores a tile and (f32) split by split_rows. chip_smoke.py holds st^T to
+// s's bits: a weight exactly 1 in launch 1 is then exactly 1 in launch 2.
 constexpr int PROBE_DH = 128;
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows x 128 f32 at src into the row planes' layout at dst (TILE-row
-// halves), split
-__device__ void probe_planes(uint8_t* dst, const float* src) {
-  using C = Cfg<float, PROBE_DH>;
+// rows x PROBE_DH of src as TMA stores a tile: TILE-row halves `half` bytes
+// apart, 128-byte column boxes, 16-byte chunks swizzled by row
+template <class C, typename T>
+__device__ void probe_raw(uint8_t* dst, const T* src, int half) {
   for (int i = threadIdx.x; i < RES * PROBE_DH; i += 128) {
-    const int r = i / PROBE_DH, c = i % PROBE_DH;
-    const int pc = (c & ~15) | (((c >> 1) & 1) << 3) | ((c & 1) << 2) | ((c >> 2) & 3);
-    uint8_t* half = dst + (r / TILE) * C::OPERAND;
-    const int rr = r % TILE;
-    const uint32_t off = (pc >> 5) * TILE * 128 + rr * 128 + ((((pc >> 2) & 7) ^ (rr & 7)) << 4)
-                         + ((pc & 3) << 2);
-    uint32_t b, sm;
-    split_tf32(src[i], b, sm);
-    *reinterpret_cast<uint32_t*>(half + off) = b;
-    *reinterpret_cast<uint32_t*>(half + C::PLANE + off) = sm;
+    const int r = i / PROBE_DH, c = i % PROBE_DH, rr = r % TILE, byte = c * C::ES;
+    *reinterpret_cast<T*>(dst + (r / TILE) * half + (c / C::BOX) * TILE * 128 + rr * 128
+                          + ((((byte >> 4) & 7) ^ (rr & 7)) << 4) + byte % 16) = src[i];
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows x 128 bf16 at src as TMA stores a tile (TILE-row halves of 128-byte
-// swizzled boxes of 64 columns)
-__device__ void probe_raw(uint8_t* dst, const __nv_bfloat16* src) {
-  using C = Cfg<__nv_bfloat16, PROBE_DH>;
-  for (int i = threadIdx.x; i < RES * PROBE_DH; i += 128) {
-    const int r = i / PROBE_DH, c = i % PROBE_DH, rr = r % TILE;
-    *reinterpret_cast<__nv_bfloat16*>(dst + (r / TILE) * C::STAGE + (c >> 6) * TILE * 128
-                                      + rr * 128 + ((((c >> 3) & 7) ^ (rr & 7)) << 4)
-                                      + 2 * (c & 7)) = src[i];
-  }
-}
-
-__global__ void __launch_bounds__(128) score_probe_bf16_kernel(const __nv_bfloat16* q,
-                                                               const __nv_bfloat16* k,
-                                                               float* s_mma, float* s_wg,
-                                                               float* st_wg) {
-  using C = Cfg<__nv_bfloat16, PROBE_DH>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  probe_raw(smem, k);
-  probe_raw(smem + 2 * C::STAGE, q);
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  RowFrags<C, __nv_bfloat16> qf, kf;
-  qf.load(q, 16 * warp, RES, g, t);
-  kf.load(k, 16 * warp, RES, g, t);
-  for (int side = 0; side < 2; ++side)
-    for (int half = 0; half < 2; ++half) {
-      float s[16];
-      if (side) scores<C, true>(s, kf, smem_u32(smem + (2 + half) * C::STAGE));
-      else scores<C, false>(s, qf, smem_u32(smem + half * C::STAGE));
-      float* out = side ? st_wg : s_wg;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int v = 0; v < 2; ++v)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            out[(16 * warp + g + 8 * v) * RES + TILE * half + 8 * i + 2 * t + c] =
-                s[4 * i + 2 * v + c];
-    }
-  // the forward's bf16 scores: B (k = 2t, 2t + 1 | + 8; n = g) from row g of k
-  for (int nt = 0; nt < RES / 8; ++nt) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    const uint32_t* kr = reinterpret_cast<const uint32_t*>(k + (8 * nt + g) * PROBE_DH);
-    for (int ks = 0; ks < PROBE_DH / 16; ++ks)
-      mma_bf16(s, qf.a[ks], kr[8 * ks + t], kr[8 * ks + t + 4]);
-    for (int e = 0; e < 4; ++e)
-      s_mma[(16 * warp + g + 8 * (e >> 1)) * RES + 8 * nt + 2 * t + (e & 1)] = s[e];
-  }
-}
-
-__global__ void __launch_bounds__(128) score_probe_kernel(const float* q, const float* k,
-                                                          float* s_mma, float* s_wg,
+template <typename T>
+__global__ void __launch_bounds__(128) score_probe_kernel(const T* q, const T* k, float* s_wg,
                                                           float* st_wg) {
-  using C = Cfg<float, PROBE_DH>;
+  using C = Cfg<T, PROBE_DH>;
+  constexpr int HALF = C::RAW + (C::F32 ? C::OPERAND : 0);   // a half as it came, its planes
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  probe_planes(smem, k);
-  probe_planes(smem + 2 * C::OPERAND, q);
-  fence_async_smem();
+  probe_raw<C>(smem, k, HALF);
+  probe_raw<C>(smem + 2 * HALF, q, HALF);
   __syncthreads();
+  if constexpr (C::F32) {
+    for (int h = 0; h < 4; ++h) split_rows<C>(smem + h * HALF + C::RAW, smem + h * HALF, threadIdx.x);
+    fence_async_smem();
+    __syncthreads();
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   // with q as A, then with k as A (S^T): one RowFrags live at a time
   for (int side = 0; side < 2; ++side) {
-    RowFrags<C, float> rf;
+    RowFrags<C, T> rf;
     rf.load(side ? k : q, 16 * warp, RES, g, t);
     for (int half = 0; half < 2; ++half) {
+      const uint32_t plane = smem_u32(smem + ((side ? 2 : 0) + half) * HALF
+                                      + (C::F32 ? C::RAW : 0));
       float s[16];
-      if (side) scores<C, true>(s, rf, smem_u32(smem + (2 + half) * C::OPERAND));
-      else scores<C, false>(s, rf, smem_u32(smem + half * C::OPERAND));
+      if (side) scores<C, true>(s, rf, plane);
+      else scores<C, false>(s, rf, plane);
       float* out = side ? st_wg : s_wg;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -1324,31 +789,21 @@ __global__ void __launch_bounds__(128) score_probe_kernel(const float* q, const 
                 s[4 * i + 2 * v + c];
     }
   }
-  const float* r0 = q + (16 * warp + g) * PROBE_DH + 4 * t;
-  const float* r1 = r0 + 8 * PROBE_DH;
-  for (int nt = 0; nt < RES / 8; ++nt) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* kr = k + (8 * nt + g) * PROBE_DH + 4 * t;
-    for (int j = 0; j < PROBE_DH / 16; ++j) {
-      const float4 x = *reinterpret_cast<const float4*>(r0 + 16 * j);
-      const float4 y = *reinterpret_cast<const float4*>(r1 + 16 * j);
-      const float4 kk = *reinterpret_cast<const float4*>(kr + 16 * j);
-      const float a[2][4] = {{x.x, y.x, x.y, y.y}, {x.z, y.z, x.w, y.w}};
-      const float b[2][2] = {{kk.x, kk.y}, {kk.z, kk.w}};
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int h = 0; h < 2; ++h) {
-        uint32_t ab[4], as[4], bb[2], bs[2];
-        for (int e = 0; e < 4; ++e) split_tf32(a[h][e], ab[e], as[e]);
-        for (int e = 0; e < 2; ++e) split_tf32(b[h][e], bb[e], bs[e]);
-        mma_tf32(d, as, bb[0], bb[1]);
-        mma_tf32(d, ab, bs[0], bs[1]);
-        mma_tf32(d, ab, bb[0], bb[1]);
-      }
-      for (int e = 0; e < 4; ++e) s[e] += d[e];
-    }
-    for (int e = 0; e < 4; ++e)
-      s_mma[(16 * warp + g + 8 * (e >> 1)) * RES + 8 * nt + 2 * t + (e & 1)] = s[e];
-  }
+}
+
+template <typename T>
+cudaError_t launch_probe(const void* q, const void* k, void* s_wg, void* st_wg,
+                         cudaStream_t stream) {
+  using C = Cfg<T, PROBE_DH>;
+  constexpr int bytes = 4 * (C::RAW + (C::F32 ? C::OPERAND : 0)) + 1024;
+  static bool allowed[64] = {};
+  const cudaError_t err = allow_smem((const void*)score_probe_kernel<T>, bytes, allowed);
+  if (err != cudaSuccess) return err;
+  score_probe_kernel<T><<<1, 128, bytes, stream>>>(static_cast<const T*>(q),
+                                                   static_cast<const T*>(k),
+                                                   static_cast<float*>(s_wg),
+                                                   static_cast<float*>(st_wg));
+  return cudaGetLastError();
 }
 #endif
 
@@ -1417,34 +872,13 @@ extern "C" int fscl_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The score-bits probe (see score_probe_kernel): q, k contiguous (64, 128)
-// of dtype 0 = float32 or 1 = bfloat16; s_mma, s_wg, st_wg (64, 64) f32 out.
-// One block on `stream`.
-extern "C" int fscl_attention_bwd_score_probe(const void* q, const void* k, void* s_mma,
-                                              void* s_wg, void* st_wg, int dtype,
-                                              void* stream) {
+// of dtype 0 = float32 or 1 = bfloat16; s_wg, st_wg (64, 64) f32 out. One
+// block on `stream`.
+extern "C" int fscl_attention_bwd_score_probe(const void* q, const void* k, void* s_wg,
+                                              void* st_wg, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* out[3] = {static_cast<float*>(s_mma), static_cast<float*>(s_wg),
-                   static_cast<float*>(st_wg)};
-  static bool allowed[64] = {}, allowed_bf16[64] = {};
-  cudaError_t err;
-  if (dtype == 0) {
-    constexpr int bytes = 4 * Cfg<float, PROBE_DH>::OPERAND + 1024;
-    if ((err = allow_smem((const void*)score_probe_kernel, bytes, allowed)) != cudaSuccess)
-      return (int)err;
-    score_probe_kernel<<<1, 128, bytes, st>>>(static_cast<const float*>(q),
-                                              static_cast<const float*>(k), out[0], out[1],
-                                              out[2]);
-  } else if (dtype == 1) {
-    constexpr int bytes = 4 * Cfg<__nv_bfloat16, PROBE_DH>::STAGE + 1024;
-    if ((err = allow_smem((const void*)score_probe_bf16_kernel, bytes, allowed_bf16))
-        != cudaSuccess)
-      return (int)err;
-    score_probe_bf16_kernel<<<1, 128, bytes, st>>>(static_cast<const __nv_bfloat16*>(q),
-                                                   static_cast<const __nv_bfloat16*>(k), out[0],
-                                                   out[1], out[2]);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return (int)launch_probe<float>(q, k, s_wg, st_wg, st);
+  if (dtype == 1) return (int)launch_probe<__nv_bfloat16>(q, k, s_wg, st_wg, st);
+  return (int)cudaErrorInvalidValue;
 }
 #endif

@@ -4,6 +4,12 @@
 replaces the TPU kernel `_attn_kernel` (`fscl_tpu/ops/attention.py:48-66`).
 It runs on the tensor cores: bf16 products directly, f32 products by split
 TF32 (three TF32 products per f32 product, within 2e-5 of the plain version).
+At head dims 64 and 128 (the narrow route) a block is a producer warpgroup
+that streams K and V by TMA (and in f32 splits them into TF32 planes) and two
+consumer warpgroups that take S = Q K^T and P V with wgmma; `narrow_split`
+picks whether the two own 64 query rows each or split the key loop of one
+64-row tile, from the query length, the head dim and whether row stats are
+written, so no result depends on B * H.
 `attention_reference` is its plain PyTorch version, with the JAX package's
 math (`xla_attention`, `:24-43`): scores in f32, invalid keys filled with the
 finite -1e9, softmax in f32, the weights rounded to v's dtype (a no-op in
@@ -74,8 +80,17 @@ HEAD_DIMS = (64, 128)  # the narrow route's instances
 WIDE_STEP = 64         # the wide route takes multiples of 64 above 128
 WIDE_SLICE = 128       # O columns per block on the wide route (csrc/attention.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KEY_SPLITS = (1, 2, 4)
-QUERY_ROWS = {torch.float32: 128, torch.bfloat16: 64}   # per block at key_split 1
+KEY_SPLITS = (1, 2, 4)  # the wide route's
+QUERY_ROWS = {torch.float32: 128, torch.bfloat16: 64}   # per wide block at key_split 1
+# The narrow route's key splits: 1, two consumer warpgroups of 64 query rows
+# each (a block of 128); 2, one 64-row tile whose two warpgroups take
+# alternate key tiles and merge at the end.
+NARROW_SPLITS = (1, 2)
+WG_ROWS = 64            # query rows of a consumer warpgroup: one wgmma M
+# The longest query length `narrow_split` splits the key loop at, without
+# and with row stats (training), by the caller's head dim: the smallest key
+# at or above it, keys ascending.
+NARROW_SPLIT_MAX_L = {48: (256, 256), 64: (64, 64), 128: (512, 128)}
 
 # Launches of the CUDA kernel; chip_smoke.py reads it to show that the main
 # path went through the kernel.
@@ -139,24 +154,76 @@ def wide_slices(head_dim: int) -> int:
     return 1 if head_dim <= HEAD_DIMS[-1] else -(-head_dim // WIDE_SLICE)
 
 
-def choose_key_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype,
-                     head_dim: int = 128) -> int:
-    """Warps of a block that share the key loop. A block owns QUERY_ROWS
-    query rows in warps of 16 (8 warps in f32, 4 in bf16); with key_split s
-    it owns 1/s of them, and each warp takes a slice of every key tile. The
-    smallest s whose grid has a block for every two SMs, else 4: on an H100
-    that was the fastest split, or within 15 % of it, at B * H = 16 and
-    L = 64 ... 1000 in both types (chip_smoke.py phase 3). L is the query
-    length, which sets the grid; the key length only sets how many key
-    tiles each warp's slice runs through, so it does not enter. On the wide
-    route each query tile is `wide_slices(head_dim)` blocks, which count
-    toward the grid the same way."""
+def key_splits(head_dim: int) -> tuple:
+    """The key splits the kernel takes at `head_dim` (padded as `_launch`
+    pads it): NARROW_SPLITS on the narrow route, KEY_SPLITS on the wide."""
+    return NARROW_SPLITS if padded_head_dim(head_dim) <= HEAD_DIMS[-1] else KEY_SPLITS
+
+
+def narrow_split(L: int, head_dim: int, stats: bool) -> int:
+    """The narrow route's key split: 2 (the two consumer warpgroups of a
+    block split the key loop of one 64-row tile, twice the work items) up to
+    the query length NARROW_SPLIT_MAX_L gives the head dim (the caller's,
+    before padding) without or with row stats (training), else 1 (a 128-row
+    tile, each key tile read once for both warpgroups). Neither B nor H
+    enters: a sample's output is the same bits alone and folded into a
+    batch (the vmapped adaptation), at every B, and with its heads split
+    over ranks (tensor parallel). The same in both dtypes.
+
+    The limits come from chip_ab.py's sweep of both splits on an H100
+    (PERF.md, §6). The head dim stands for the head count of the port's
+    models, which sets how thin the grid is: up to 48 (the custom upstreams
+    below 128 wide, 2 heads, padded to 64; chip_smoke.py drives 40 and 48
+    at (8, 2, 199)), 64 (HuBERT, 16 heads), up to 128 (the FFT blocks, 2
+    heads). Split 2 was the faster at B <= 16 up to 256 rows at head dims
+    up to 48 (at B = 32 and 199 rows split 1 was, by 4-15 %); at HuBERT's
+    up to 64 rows (at 128 rows it depends on B: 4 wants 2, 32 wants 1); at
+    head dim 128 when serving (B = 8) up to 512 rows, and with row stats up
+    to 128 (the vmapped adaptation's (32, 2, 256) wants 1, by 40 %; the
+    train step's (16, 2, 199 | 256) would want 2, by 35 %). A 128-wide
+    custom upstream (2 heads of 64) takes HuBERT's limits.
+
+    Work items at B * H = 16: L = 64, 128, 256 get 16, 32, 64; (16, 2, 128)
+    with stats 64; (4, 2, 128) with stats 16; (8, 2, 512) 128; (8, 2, 1000)
+    128 (split 1); (8, 2, 199) at head dim 40 or 48, 64."""
+    limits = NARROW_SPLIT_MAX_L[next(d for d in NARROW_SPLIT_MAX_L if d >= head_dim)]
+    return 2 if L <= limits[1 if stats else 0] else 1
+
+
+def narrow_items(batch_heads: int, L: int, split: int) -> int:
+    """Work items (a 128- or 64-row query tile of one (batch, head)) of one
+    narrow-route launch at key split `split`. The kernel runs them in one
+    block each (f32 at head dim 128) or in a block per SM that runs several
+    in turn."""
+    return batch_heads * -(-L // (WG_ROWS * (3 - split)))
+
+
+def wide_split(batch_heads: int, L: int, n_sm: int, dtype: torch.dtype, head_dim: int) -> int:
+    """The wide route's key split: the warps of a block that share the key
+    loop. A block owns QUERY_ROWS query rows in warps of 16 (8 warps in
+    f32, 4 in bf16); with key_split s it owns 1/s of them, and each warp
+    takes a slice of every key tile. The smallest s whose grid has a block
+    for every two SMs, else 4. L is the query length, which sets the grid;
+    the key length only sets how many key tiles each warp's slice runs
+    through, so it does not enter. Each query tile is
+    `wide_slices(head_dim)` blocks, which count toward the grid the same
+    way."""
     rows = QUERY_ROWS[dtype]
     blocks = batch_heads * wide_slices(padded_head_dim(head_dim))
     for split in KEY_SPLITS:
         if 2 * -(-L // (rows // split)) * blocks >= n_sm:
             return split
     return KEY_SPLITS[-1]
+
+
+def choose_key_split(shape, dtype: torch.dtype, n_sm: int, stats: bool) -> int:
+    """The key split the wrapper launches q of `shape` (B, H, Lq, Dh, Dh the
+    caller's head dim) at: `narrow_split` on the narrow route (padded head
+    dim <= 128; `stats`: with row stats), `wide_split` above."""
+    B, H, Lq, Dh = shape
+    if padded_head_dim(Dh) <= HEAD_DIMS[-1]:
+        return narrow_split(Lq, Dh, stats)
+    return wide_split(B * H, Lq, n_sm, dtype, Dh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,9 +259,11 @@ def _launch(
     key_split: Optional[int],
     stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """`attention_cuda` at a given key split (1, 2 or 4), or at the one
-    `choose_key_split` picks when None. Tests and chip_smoke.py sweep every
-    split through it.
+    """`attention_cuda` at a given key split (`key_splits(Dh)`: 1 or 2 on
+    the narrow route, 1, 2 or 4 on the wide), or at the one
+    `choose_key_split` picks for CUDA tensors when None, from the shape
+    before any padding. Tests and chip_smoke.py sweep every split through
+    it.
 
     A head dim the kernel does not compute at (`padded_head_dim`: the
     `mel` upstream's 40, a custom upstream's 48 or 80, 200 on the wide
@@ -204,6 +273,9 @@ def _launch(
     package sends such shapes to XLA. The padding leaves the scores, and
     so `stats`, unchanged."""
     Dh = q.shape[-1]
+    if key_split is None and q.device.type == "cuda" and q.dim() == 4 and Dh >= 1:
+        key_split = choose_key_split(q.shape, q.dtype, _sm_count(q.device.index),
+                                     stats is not None)
     if q.dim() != 4 or Dh < 1 or padded_head_dim(Dh) == Dh:
         return _launch_kernel(q, k, v, key_valid, temperature, key_split, stats)
     pad = padded_head_dim(Dh) - Dh
@@ -222,18 +294,18 @@ def _launch_kernel(
     key_split: Optional[int],
     stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One launch of the kernel at a head dim it computes at: 64, 128 or a
-    multiple of 64 above 128."""
+    """One launch of the kernel at a head dim it computes at (64, 128 or a
+    multiple of 64 above 128), at the key split `_launch` gave."""
     global LAUNCHES
     _check_launch(q, k, v, key_valid, key_split)
     if stats is not None:
         _check_stats(stats, q)
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
+    if key_split is None:
+        raise ValueError("the launch takes the key split `_launch` chose")
     B, H, Lq, Dh = q.shape
     temp = float(temperature if temperature is not None else Dh ** 0.5)
-    if key_split is None:
-        key_split = choose_key_split(B * H, Lq, _sm_count(q.device.index), q.dtype, Dh)
 
     fn = _load()
     out = torch.empty_like(q)
@@ -264,7 +336,8 @@ def _check_launch(q, k, v, key_valid, key_split) -> None:
     other than float32 and bfloat16, a head dim `_launch` would have padded,
     an empty query or key axis, a key_valid that is not (B, Lk) bool on q's
     device, layouts that are not contiguous or start off a 16-byte boundary,
-    an unknown key split. Any length and any B * H pass."""
+    a key split the head dim's route does not take. Any length and any
+    B * H pass."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Lq, Dh), got {tuple(q.shape)}")
     B, H, Lq, Dh = q.shape
@@ -293,8 +366,8 @@ def _check_launch(q, k, v, key_valid, key_split) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:   # the kernel loads 16 bytes at a time
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if key_split is not None and key_split not in KEY_SPLITS:
-        raise ValueError(f"key_split {key_split} not in {KEY_SPLITS}")
+    if key_split is not None and key_split not in key_splits(Dh):
+        raise ValueError(f"key_split {key_split} not in {key_splits(Dh)} (head dim {Dh})")
 
 
 def attention_bwd(

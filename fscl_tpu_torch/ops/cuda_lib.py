@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` file exposes a plain C entry point. It is compiled with
 `nvcc` for `sm_90a` into a shared library and loaded with `ctypes`. The
 library lands in `fscl_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is built once per checkout. Importing this module builds nothing.
+the source, every header of `csrc/` it includes (`#include "x.cuh"`, and
+theirs) and the flags, so an edited source or header is rebuilt and an
+unchanged one is built once per checkout. Importing this module builds
+nothing.
 
 A source whose kernel instances take long to compile says so with a line
 `// build parts: N`: it is then compiled by N nvcc processes at once, the
@@ -33,6 +35,7 @@ GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
 PARTS = re.compile(r"^// build parts: (\d+)$", re.MULTILINE)
+LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"', re.MULTILINE)
 
 
 class Built(NamedTuple):
@@ -65,6 +68,29 @@ def build_parts(source: str) -> int:
     """How many nvcc processes compile `source` (its `// build parts: N`)."""
     found = PARTS.search(source)
     return int(found.group(1)) if found else 1
+
+
+def local_headers(src: Path) -> list:
+    """The headers `src` includes by a quoted name from its own directory,
+    and theirs, each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        for name in LOCAL_INCLUDE.findall(todo.pop(0).read_text()):
+            header = src.parent / name
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
+def source_digest(src: Path) -> str:
+    """The build key of `src`: a hash of it, of `local_headers(src)` and of
+    the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
 
 
 def _nvcc(args) -> str:
@@ -104,8 +130,7 @@ def build(name: str) -> Built:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / f"{name}-{digest}"
+    out_dir = BUILD_DIR / f"{name}-{source_digest(src)}"
     lib_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "nvcc.log"
     seconds = 0.0

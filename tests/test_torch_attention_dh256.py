@@ -145,7 +145,7 @@ def test_wrapper_routes_every_head_dim_above_128(launches, dh, padded):
                                atol=1e-5, rtol=0)
     want_temp = None if dh == padded else pytest.approx(dh ** 0.5)
     assert launches == [(padded, want_temp), (padded, 3.0)]
-    assert tattn.choose_key_split(B * H, L, 132, torch.float32, dh) in tattn.KEY_SPLITS
+    assert tattn.choose_key_split((B, H, L, dh), torch.float32, 132, False) in tattn.KEY_SPLITS
 
 
 @pytest.mark.parametrize("B_,H_,Lq,Lk,Dh", [(1, 2, 16385, 16385, 64), (1, 2, 20000, 20000, 128),
@@ -166,10 +166,10 @@ def test_wrapper_takes_long_keys_and_many_heads(monkeypatch, B_, H_, Lq, Lk, Dh)
     q = torch.empty(B_, H_, Lq, Dh, device="meta")
     k = v = torch.empty(B_, H_, Lk, Dh, device="meta")
     valid = torch.empty(B_, Lk, dtype=torch.bool, device="meta")
-    for split in (None, *tattn.KEY_SPLITS):
+    for split in (None, *tattn.key_splits(Dh)):
         out = tattn._launch(q, k, v, valid, None, split)
         assert out.shape == q.shape
-    assert seen == [(B_, H_, Lq, Dh, Lk, s) for s in (None, *tattn.KEY_SPLITS)]
+    assert seen == [(B_, H_, Lq, Dh, Lk, s) for s in (None, *tattn.key_splits(Dh))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

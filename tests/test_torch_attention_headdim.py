@@ -66,7 +66,7 @@ def test_padded_forward_matches_plain_version(launches, dh):
     padded = 64 if dh <= 64 else 128
     assert launches == [(padded, pytest.approx(dh ** 0.5))]
     # every key split goes through the same padding
-    for split in tattn.KEY_SPLITS:
+    for split in tattn.key_splits(dh):
         torch.testing.assert_close(tattn._launch(q, k, v, valid, 3.0, split),
                                    tattn.attention_reference(q, k, v, valid, 3.0),
                                    atol=ATOL, rtol=0)

@@ -71,14 +71,16 @@ def _inputs(seed, B, H, L, Dh, dtype, device):
     return q, k, v, valid
 
 
-# The kernel's tiling edges: 16-row warp tiles and 32- (f32) or 64-key (bf16)
-# ring stages, each split across 1, 2 or 4 warps; B * H = 32 at L = 256; and
-# the served L bucket 32 (one full f32 ring stage) at the served B = 8; the
-# 10 L = 2560 unit positions chained serving decodes for the L bucket 256;
-# L = 20000, past the 16384 keys an earlier design's shared memory held (the
-# key flags now travel with each ring stage).
+# The kernel's tiling edges: 64-row warpgroup tiles, 128-row blocks (key
+# split 1) or 64-row ones whose warpgroups split the key loop (2), 32-key
+# ring stages; B * H = 32 at L = 256; and the served L bucket 32 (one full
+# ring stage) at the served B = 8; the 10 L = 2560 unit positions chained
+# serving decodes for the L bucket 256; L = 20000, past the 16384 keys an
+# earlier design's shared memory held (the key flags travel with each ring
+# stage). "stats": the wrapper's split with row stats, the instance whose
+# f32 scores the backward kernel recomputes.
 @pytest.mark.cuda
-@pytest.mark.parametrize("key_split", [None, 1, 2, 4], ids=["auto", "ks1", "ks2", "ks4"])
+@pytest.mark.parametrize("key_split", [None, 1, 2, "stats"], ids=["auto", "ks1", "ks2", "stats"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dh,L,B,H", [
     (128, 16, 3, 2), (128, 1000, 3, 2), (64, 2048, 3, 2), (128, 77, 3, 2), (128, 1, 3, 2),
@@ -87,12 +89,22 @@ def _inputs(seed, B, H, L, Dh, dtype, device):
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, Dh, L, B, H, key_split):
     q, k, v, valid = _inputs(5, B, H, L, Dh, dtype, cuda_device)
     before = tattn.LAUNCHES
+    stats = None
     if key_split is None:
         got = tattn.attend(q, k, v, valid)
+    elif key_split == "stats":
+        stats = torch.full((B, H, L, 2), float("nan"), device=cuda_device)
+        got = tattn.attention_cuda(q, k, v, valid, None, stats)
     else:
         got = tattn._launch(q, k, v, valid, None, key_split)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == before + 1
+    if stats is not None:
+        # every row's max is finite and its sum of weights at least 1 (the
+        # weight of its max); the one-valid-key sample's sum is exactly 1
+        assert torch.isfinite(stats).all() and bool((stats[..., 1] >= 1).all())
+        if B > 3:
+            assert bool((stats[3, ..., 1] == 1).all())
     want = tattn.attention_reference(q, k, v, valid)
     atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -111,7 +123,7 @@ def test_cuda_kernel_pads_other_head_dims(cuda_device, dtype, Dh):
     q, k, v, valid = _inputs(14, 8, 2, 199, Dh, dtype, cuda_device)
     want = tattn.attention_reference(q, k, v, valid)
     atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
-    for key_split in (None, 1, 2, 4):
+    for key_split in (None, *tattn.key_splits(Dh)):
         before = tattn.LAUNCHES
         with torch.no_grad():
             got = (tattn.attend(q, k, v, valid) if key_split is None
@@ -182,7 +194,7 @@ def test_cuda_kernel_long_keys_with_a_common_value(cuda_device, Dh):
     q, k, v, valid = _inputs(24, 1, 2, 18000, Dh, torch.float32, cuda_device)
     v = 1.0 + 0.1 * v
     want = tattn.attention_reference(q, k, v, valid)
-    for key_split in (None, 1, 2, 4):
+    for key_split in (None, *tattn.key_splits(Dh)):
         with torch.no_grad():
             got = (tattn.attend(q, k, v, valid) if key_split is None
                    else tattn._launch(q, k, v, valid, None, key_split))
@@ -198,7 +210,7 @@ def test_cuda_kernel_past_65535_heads(cuda_device, dtype):
     q, k, v, valid = _inputs(23, 35000, 2, 16, 64, dtype, cuda_device)
     want = tattn.attention_reference(q, k, v, valid)
     atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
-    for key_split in (None, 1, 2, 4):
+    for key_split in (None, *tattn.key_splits(64)):
         before = tattn.LAUNCHES
         with torch.no_grad():
             got = (tattn.attend(q, k, v, valid) if key_split is None
@@ -206,6 +218,77 @@ def test_cuda_kernel_past_65535_heads(cuda_device, dtype):
         torch.cuda.synchronize()
         assert tattn.LAUNCHES == before + 1
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# The narrow route at the main path's shapes (PERF.md's forward table: the
+# served decoder at T = 512 and 1000, the train decoder, the FSCL upstream,
+# the vmapped adaptation, the bf16 upstream layout) and the sequence-parallel
+# upstream's Lq != Lk, at both of its key splits, with and without row
+# stats; samples with ragged, all, no and one valid key.
+NARROW_MAIN_SHAPES = [(8, 2, 512, 512, 128), (8, 2, 1000, 1000, 128), (16, 2, 512, 512, 128),
+                      (32, 16, 199, 199, 64), (32, 2, 256, 256, 128), (8, 16, 1000, 1000, 64),
+                      (32, 16, 100, 200, 64), (32, 16, 200, 100, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_stats", [False, True], ids=["serve", "stats"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh", NARROW_MAIN_SHAPES)
+def test_narrow_route_at_main_path_shapes(cuda_device, dtype, B, H, Lq, Lk, Dh, with_stats):
+    rng = np.random.default_rng(31)
+    q = torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)).to(cuda_device, dtype)
+    k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+            for a in rng.normal(size=(2, B, H, Lk, Dh)).astype(np.float32))
+    lens = np.resize(np.array([max(1, Lk - Lk // 3), Lk, 0, 1]), B)
+    valid = torch.from_numpy(np.arange(Lk)[None, :] < lens[:, None]).to(cuda_device)
+    want = tattn.attention_reference(q, k, v, valid)
+    atol, rtol = (F32_ATOL, 0) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+    mean_v = v[2].float().mean(dim=1, keepdim=True).expand(H, Lq, Dh)
+    for split in tattn.NARROW_SPLITS:
+        stats = torch.full((B, H, Lq, 2), float("nan"), device=cuda_device) if with_stats else None
+        got = tattn._launch(q, k, v, valid, None, split, stats)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(got[2].float(), mean_v, atol=atol, rtol=rtol)
+        if with_stats:
+            assert torch.isfinite(stats).all() and bool((stats[3, ..., 1] == 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,Dh", [(64, 128), (512, 128), (1000, 128), (199, 64), (199, 40)])
+def test_narrow_route_same_bits_alone_and_batched(cuda_device, dtype, L, Dh):
+    """The wrapper's key split depends on the query length, the head dim and
+    row stats alone, and no block reads another's rows: each sample's
+    output, and its row stats, are the same bits alone (B * H = 2) and in a
+    batch of 8 (B * H = 16)."""
+    q, k, v, valid = _inputs(32, 8, 2, L, Dh, dtype, cuda_device)
+    stats = torch.empty(8, 2, L, 2, device=cuda_device)
+    batched = tattn.attention_cuda(q, k, v, valid, None, stats)
+    for b in range(8):
+        one = torch.empty(1, 2, L, 2, device=cuda_device)
+        alone = tattn.attention_cuda(*(t[b:b + 1].contiguous() for t in (q, k, v, valid)), None, one)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], batched[b]) and torch.equal(one[0], stats[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,Dh", [(64, 128), (512, 128), (199, 64), (199, 40), (399, 48)])
+def test_wrapper_launches_the_split_of_the_true_head_dim(cuda_device, dtype, L, Dh):
+    """The wrapper launches the key split `narrow_split` gives the caller's
+    head dim (before padding), without and with row stats: its output and
+    row stats are the bits of that split's launch."""
+    q, k, v, valid = _inputs(33, 8, 2, L, Dh, dtype, cuda_device)
+    for with_stats in (False, True):
+        stats, want_stats = (torch.empty(8, 2, L, 2, device=cuda_device) if with_stats else None
+                             for _ in range(2))
+        got = tattn.attention_cuda(q, k, v, valid, None, stats)
+        want = tattn._launch(q, k, v, valid, None, tattn.narrow_split(L, Dh, with_stats),
+                             want_stats)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert not with_stats or torch.equal(stats, want_stats)
 
 
 @pytest.mark.cuda
@@ -1132,7 +1215,7 @@ def test_return_weights_on_card_come_from_the_plain_version(cuda_device, dtype):
 # a ragged pair past both tile edges, fewer keys than queries, and keys
 # shorter than one ring stage.
 @pytest.mark.cuda
-@pytest.mark.parametrize("key_split", [None, 1, 2, 4], ids=["auto", "ks1", "ks2", "ks4"])
+@pytest.mark.parametrize("key_split", [None, 1, 2, "stats"], ids=["auto", "ks1", "ks2", "stats"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Lq,Lk,Dh", [
     (4, 16, 100, 200, 64), (4, 16, 37, 199, 64), (3, 2, 64, 128, 128), (3, 2, 129, 65, 128),
@@ -1146,8 +1229,13 @@ def test_cuda_kernel_at_unequal_lengths_matches_plain_version(cuda_device, dtype
     lens = np.resize(np.array([max(1, Lk - Lk // 3), Lk, 0]), B)
     valid = torch.from_numpy(np.arange(Lk)[None, :] < lens[:, None]).to(cuda_device)
     before = tattn.LAUNCHES
-    got = (tattn.attend(q, k, v, valid) if key_split is None
-           else tattn._launch(q, k, v, valid, None, key_split))
+    if key_split == "stats":
+        stats = torch.full((B, H, Lq, 2), float("nan"), device=cuda_device)
+        got = tattn.attention_cuda(q, k, v, valid, None, stats)
+        assert torch.isfinite(stats).all()
+    else:
+        got = (tattn.attend(q, k, v, valid) if key_split is None
+               else tattn._launch(q, k, v, valid, None, key_split))
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == before + 1 and got.shape == q.shape
     want = tattn.attention_reference(q, k, v, valid)
