@@ -17,7 +17,9 @@ non-zero exit code when it fails:
    of its narrow route's 6 instances (f32 with and without row stats, bf16,
    at head dims 64 and 128) or its wide route's 6, nor the attention
    backward kernel in any of its 8 (dQ and dK/dV for f32 / bf16 at head
-   dims 64 / 128) or its two score-orientation probes (f32, bf16).
+   dims 64 / 128) or its two score-orientation probes (f32, bf16), nor the
+   MRF stage kernel in any of its 9 instances (f32 / bf16 by NP output
+   channels a pass, M rows a tile and weight stages).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes, in float32 and bfloat16; then the
    kernel, the plain version and (where one exists) the library call are
@@ -38,10 +40,12 @@ non-zero exit code when it fails:
    4-14 fail if a main path launches it at a shape not held here. The MRF stage
    kernel at the four HiFiGAN V1 stages, at B = 2 with a ragged T and at
    B = 8 in every mel bucket, then timed at B = 8, T_mel = 1000 beside its
-   route's bound (split TF32 or bf16 tensor cores) and the f32 FMA bound,
+   route's bound (split TF32 or bf16 tensor cores), the f32 FMA bound and
+   the floor of its chain's traffic (the passes over a (B, C, T) f32 tensor
+   that its launches make, by route: fused pairs or two launches a pair),
    its plain version, its conv_post + tanh kernel alone, the stage's convs
-   alone in cuDNN (no single library call computes a stage), and one conv
-   pair at each kernel size (time per tap and per conv launch); then one
+   alone in cuDNN (no single library call computes a stage), its launches,
+   and one conv pair at each kernel size (time per tap and per pair); then one
    batch of 65540 samples, past the kernel's 65535-sample grid, which the
    wrapper splits into two launches; then one sample of C * T = 1.5 x 2^31
    elements (C = 64, 12 GiB of f32 a tensor) in one launch, held on its
@@ -663,7 +667,29 @@ def phase_build():
     if len(kernels) != 8 or len(probes) != 2 or len(spills) != 10 \
             or any(v != (0, 0) for v in spills.values()):
         fail(f"the attention backward kernel spills or is missing instances: {spills}")
+    # the MRF stage: f32 / bf16 by NP channels a pass and M rows a tile
+    spills = mrf_spills()
+    log(f"mrf_stage: {len(spills)} instances, spill bytes (stores, loads) "
+        + ", ".join(f"{k} {v}" for k, v in spills.items()))
+    if len(spills) != 9 or any(v != (0, 0) for v in spills.values()):
+        fail(f"the MRF stage kernel spills or is missing instances: {spills}")
     return built
+
+
+def mrf_spills() -> dict:
+    """ptxas's spill bytes of each MRF stage kernel instance (from the
+    library's build log), by the name `f32|bf16 NP=.. M=.. [NW=..]` of its
+    template arguments (NW where the instance names its weight stages)."""
+    import re
+    from fscl_tpu_torch.ops import cuda_lib
+    out = {}
+    for name, v in kernel_spills(cuda_lib.build("mrf_stage").log, "pair_kernel").items():
+        found = re.search(r"pair_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+        key = (f"{'bf16' if found.group(1) == '1' else 'f32'} NP={found.group(2)} "
+               f"M={found.group(3)}" + (f" NW={found.group(4)}" if found.group(4) != "0" else "")
+               ) if found else name
+        out[key] = v
+    return out
 
 
 def kernel_spills(log_text: str, kernel: str) -> dict:
@@ -1111,6 +1137,17 @@ def stage_bound(B, T, C, post, dtype_name, taps, n_convs):
             conv_flops + post_flops, route, t_fma)
 
 
+def chain_floor(B, T, C, n_res, n_pairs, conv_launches):
+    """The stage's chain of launches as passes over a (B, C, T) f32 tensor
+    in device memory, from the conv launches the library queued for one
+    stage: a fused pair (one launch) reads its input and its residual and
+    writes its output (3); a pair in two launches also writes and reads h
+    (5); the last pairs of resblocks 2.. read the running mean (n_res - 1).
+    Returns the passes and their time at the HBM rate."""
+    passes = 3 * n_pairs + 2 * (conv_launches - n_pairs) + (n_res - 1)
+    return passes, passes * 4 * B * C * T / PEAK_BYTES_PER_S * 1e3
+
+
 def cudnn_convs(x, rbs, dtype):
     """A callable running the stage's convs alone (for V1, 18) as F.conv1d on
     x, in `dtype` tensors: cuDNN's time for the same products, a yardstick
@@ -1182,7 +1219,7 @@ def phase_mrf_stage(seed: int):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             for (C, up, post), (rbs, conv_post) in zip(V1_STAGES, stage_args):
-                # T = 37 * up is not a multiple of the kernel's 256- or 512-row tile
+                # T = 37 * up is a multiple of no tile's output rows (M - (k - 1))
                 for B, T_mel in [(2, 37)] + [(8, t) for t in MEL_BUCKETS]:
                     x = torch.randn(B, C, T_mel * up, generator=gen_x, device="cuda")
                     err = check_stage(mrf, x, rbs, conv_post, dtype, f"T_mel={T_mel:4d}")
@@ -1192,39 +1229,58 @@ def phase_mrf_stage(seed: int):
                 # timed on the last, largest input (B = 8, T_mel = 1000)
                 B, T = x.shape[0], x.shape[2]
                 kernel_ms = cuda_time_ms(lambda: mrf.mrf_stage_cuda(x, rbs, conv_post, dtype), 3, 1)
+                # the kernels one stage queues, as the library counts them
+                counts = mrf.CONV_LAUNCHES, mrf.POST_LAUNCHES
+                mrf.mrf_stage_cuda(x, rbs, conv_post, dtype)
+                conv_launches = mrf.CONV_LAUNCHES - counts[0]
+                launches = conv_launches + mrf.POST_LAUNCHES - counts[1]
                 plain_ms = cuda_time_ms(lambda: mrf.mrf_stage_reference(x, rbs, conv_post, dtype),
                                         3, 1)
                 post_ms = (cuda_time_ms(lambda: mrf._launch_post(x, conv_post, dtype), 10, 2)
                            if post else None)
                 convs, n_convs_run = cudnn_convs(x, rbs, dtype)
                 cudnn_ms = cuda_time_ms(convs, 3, 1)
-                # one resblock of one dilation-1 pair (two conv launches) at
-                # each kernel size: a straight line through the three splits
-                # a conv's time into a part per tap and a part per launch
+                # one resblock of one dilation-1 pair at each kernel size: a
+                # straight line through the three splits a conv's time into
+                # a part per tap and a fixed part (a pair is one launch where
+                # it is fused)
                 pair_ms = {k: cuda_time_ms(lambda: mrf.mrf_stage_cuda(x, [rb], None, dtype), 3, 1)
                            for k, rb in pairs[C].items()}
                 tap_ms = (pair_ms[11] - pair_ms[3]) / (2 * 8)
-                launch_ms = pair_ms[3] / 2 - 3 * tap_ms
+                fixed_ms = pair_ms[3] / 2 - 3 * tap_ms
                 bound_ms, bound_by, flops, route, fma_ms = stage_bound(B, T, C, post, dname, taps,
                                                                        n_convs)
+                passes, chain_ms = chain_floor(B, T, C, n, n_convs // 2, conv_launches)
                 row = {"B": B, "T_mel": T // up, "T": T, "C": C, "post": post, "dtype": dname,
                        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
                        "post_ms": post_ms, "cudnn_convs_ms": cudnn_ms, "cudnn_convs": n_convs_run,
                        "conv_pair_ms": pair_ms, "conv_ms_per_tap": tap_ms,
-                       "conv_ms_per_launch": launch_ms,
+                       "conv_ms_fixed": fixed_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": route,
                        "fma_bound_ms": fma_ms, "bound_share": bound_ms / kernel_ms,
+                       "chain_passes": passes, "chain_floor_ms": chain_ms,
+                       "route": mrf.route_on_card(C, dtype == torch.bfloat16)._asdict(),
+                       "launches_per_stage": launches,
                        "tflops": flops / kernel_ms / 1e9}
                 timings.append(row)
+                # a launch a pair where the route fuses it, which it must at
+                # every V1 width in bf16 and up to C = 128 in f32
+                want = n_convs // 2 * (1 if row["route"]["fused"] else 2)
+                if (conv_launches != want or launches != conv_launches + int(post)
+                        or (not row["route"]["fused"] and (C <= 128 or dname == "bfloat16"))):
+                    fail(f"MRF stage {dname} C={C}: {conv_launches} conv launches and "
+                         f"{launches - conv_launches} conv_post, route {row['route']}")
                 log(f"mrf_stage {dname:8s} B={B} C={C:3d} T={T:6d}: kernel {kernel_ms:.3f} ms "
                     f"({row['tflops']:.1f} TFLOP/s"
                     + (f"; conv_post + tanh alone {post_ms:.3f} ms" if post else "")
                     + f"), plain {plain_ms:.3f} ms, its {n_convs_run} convs alone in cuDNN "
                     f"{cudnn_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {route}), "
                     f"{100 * row['bound_share']:.1f}% of bound; f32 FMA bound {fma_ms:.3f} ms; "
-                    f"a conv pair at k = 3/7/11 "
+                    f"chain {passes} passes, floor {chain_ms:.3f} ms; {launches} launches "
+                    f"({'fused pairs' if row['route']['fused'] else 'two a pair'}, NP "
+                    f"{row['route']['np']}, M {row['route']['m']}); a conv pair at k = 3/7/11 "
                     + "/".join(f"{pair_ms[k]:.3f}" for k in (3, 7, 11))
-                    + f" ms: {tap_ms:.4f} ms per tap + {launch_ms:.4f} ms per conv")
+                    + f" ms: {tap_ms:.4f} ms per tap + {fixed_ms:.4f} ms fixed a conv")
                 del convs
                 del x
         # past the kernel's 65535-sample grid: the wrapper splits the batch
@@ -8239,6 +8295,12 @@ def main(argv=None) -> int:
         "bound_ms_bf16": sum(r["bound_ms"] for r in stage_timings if r["dtype"] == "bfloat16"),
         "post_ms": {r["dtype"]: r["post_ms"] for r in stage_timings if r["post"]},
         "max_abs_err_bf16": stage_err["bfloat16"],
+        # ptxas's spill bytes (stores, loads) of each instance (phase 2: all 0)
+        "spills": mrf_spills(),
+        # by (dtype, C) at B = 8, T_mel = 1000: the kernels one stage queued
+        # (fused pairs, or two a pair, + conv_post), as the library counted them
+        "launches_per_stage": {f"{r['dtype']} C={r['C']}": r["launches_per_stage"]
+                               for r in stage_timings},
         "by_shape": stage_timings,
     }, {
         "name": "dio_contour",

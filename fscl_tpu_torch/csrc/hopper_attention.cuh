@@ -1,26 +1,23 @@
 // Hopper building blocks of the attention kernels (csrc/attention.cu's
-// narrow route and csrc/attention_bwd.cu): TMA loads into rings of shared-
-// memory stages guarded by mbarriers, wgmma with swizzled descriptors, the
-// split of f32 operands into TF32 parts, and the score routine both files
-// call, so that the forward's scores (the ones its row stats are taken
-// from) and the backward's recomputed ones are the same code and the same
-// bits.
+// narrow route and csrc/attention_bwd.cu), over the generic ones of
+// csrc/hopper.cuh: the tiles' layouts, wgmma with swizzled descriptors, the
+// split of tiles into TF32 planes, and the score routine both files call,
+// so that the forward's scores (the ones its row stats are taken from) and
+// the backward's recomputed ones are the same code and the same bits.
 //
 // Everything here has internal linkage (an unnamed namespace): each build
 // part of each file compiles its own copy.
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <cuda_bf16.h>
-#include <stdint.h>
 #include <type_traits>
 
 namespace {
 
 constexpr int TILE = 32;             // rows of a streamed tile (keys, or query rows in dK / dV)
-constexpr int MAX_SMEM = 227 * 1024; // sm_90's dynamic shared memory per block
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASK_FILL_LOG2 = -1e9f * LOG2E;   // the finite fill of an invalid key's score
 
@@ -43,22 +40,6 @@ struct Tiles {
   static_assert(DH == 64 || DH == 128, "head dims 64 and 128");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// f32 -> TF32 bits, to nearest with ties away from zero: cvt.rna.tf32.f32's
-// result for finite x (the carry of the add rounds the magnitude up).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32, |small| <= 2^-11 |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
 __device__ __forceinline__ void store2(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
@@ -67,96 +48,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
-// -- mbarriers, named barriers, TMA -------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// An arrival that also expects `bytes` of TMA copies before the phase ends.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// `bytes` more of TMA copies before the phase ends, without an arrival.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
 __device__ __forceinline__ void st_shared_u8(uint32_t addr, uint8_t x) {
   asm volatile("st.shared.u8 [%0], %1;\n" :: "r"(addr), "h"((unsigned short)x) : "memory");
 }
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-// The box at (c0 columns, c1 rows, c2 batch * head) of a 3-d tensor map into
-// shared memory at dst; completion counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Generic-proxy writes to shared memory made visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A ring of NST stages of streamed tiles: tile it in stage it % NST, with
-// its full barrier (the producer's arrivals, one of them expecting the TMA
-// bytes where TMA fills the stage) and its empty one (each consumer warp
-// that reads the stage arrives once done with it) at bars: full[NST], then
-// empty[NST].
-template <int NST>
-struct Ring {
-  uint32_t bars;
-  __device__ __forceinline__ uint32_t full(int it) const { return bars + 8 * (it % NST); }
-  __device__ __forceinline__ uint32_t empty(int it) const { return bars + 8 * (NST + it % NST); }
-  __device__ __forceinline__ void init(int full_count, int empty_count) const {
-    for (int s = 0; s < NST; ++s) {
-      mbar_init(bars + 8 * s, full_count);
-      mbar_init(bars + 8 * (NST + s), empty_count);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  // the producer, before filling tile it's stage: its previous tile released
-  __device__ __forceinline__ void wait_empty(int it) const {
-    if (it >= NST) mbar_wait(empty(it), ((it / NST) + 1) & 1);
-  }
-  __device__ __forceinline__ void wait_full(int it) const { mbar_wait(full(it), (it / NST) & 1); }
-  // a consumer warp, done with tile it's stage
-  __device__ __forceinline__ void release(int it, int lane) const {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(it));
-  }
-};
 
 // -- wgmma ---------------------------------------------------------------------
 
@@ -175,44 +69,6 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 __device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t box_bytes) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((box_bytes >> 4) & 0x3FFF) << 16)
          | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Until at most N of the warpgroup's committed groups are pending.
-template <int N = 0>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Ties registers (accumulators, or the A operands of a wgmma) to the wgmma
-// waits around them, so that the compiler moves no read or write of them
-// across, and keeps an A operand's registers live until its wgmma is done.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// x, opaque to the compiler: a shared-memory address or offset read anew
-// where it is used, so that what is computed from it (descriptors, copy
-// offsets) is not hoisted out of the tile loop, where it would hold
-// registers the whole loop long.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
 }
 
 // d (64 x 32) += A (64 x 8, registers: rows g and g + 8 of each warp's 16,
@@ -512,38 +368,6 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 }
 
 // -- host side -------------------------------------------------------------------
-
-// Dynamic shared memory above 48 KB is allowed once per kernel and device.
-cudaError_t allow_smem(const void* kernel, int bytes, bool* allowed) {
-  constexpr int MAX_DEVICES = 64;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = true;
-  return err;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime (the
-// libraries link no driver library of their own).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found)
-            == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The map of a contiguous (bh, rows, cols) tensor in boxes of `box` columns
 // x TILE rows of one (batch, head); rows past `rows` read as zeros, never
 // the next (batch, head)'s. swizzle: the 128-byte swizzle (box * itemsize ==

@@ -1,5 +1,5 @@
 // One HiFiGAN multi-receptive-field (MRF) stage for Hopper (sm_90a), on the
-// tensor cores.
+// tensor cores by wgmma.
 //
 // Replaces the TPU kernel fscl_tpu/ops/hifigan_fused.py:_stage_kernel
 // (launched by _stage_call through fused_mrf_stage). On x (B, C, T) the stage
@@ -23,499 +23,620 @@
 //   bits, and one TF32 pass misses the stage's f32 bar (mean |d| 1e-5 against
 //   the plain version) by 6-9x. Each f32 operand x is split into big =
 //   tf32(x) and small = tf32(x - big), rounded to nearest with ties away from
-//   zero by two integer operations (the rounding of cvt.rna.tf32.f32, which
-//   issues more slowly), and each product is taken as small*big + big*small +
-//   big*big on the TF32 tensor cores, accumulated in f32. Three TF32 products
-//   per f32 product bound it at 3 * ops over 495 TFLOP/s, 2.5x below the f32
-//   FMA units (67 TFLOP/s).
-// The kernel is not bit-identical to the plain version (cuDNN sums in
-// another order, and the tensor cores' f32 accumulation rounds differently):
-// f32 mean |d| is 2e-7 to 3.5e-6 at the V1 stages.
+//   zero, and each product is taken as small*big + big*small + big*big on the
+//   TF32 tensor cores, accumulated in f32: 3 * ops over 495 TFLOP/s.
+// A chain of one launch per conv moves each (B, C, T) tensor through device
+// memory about 47 times a V1 stage (chip_smoke.py:chain_floor), more than the
+// bf16 products take; the TPU kernel kept the intermediates in VMEM.
 //
 // What the design does:
-// - The stage is a chain of launches of one fused conv kernel (18 for V1),
-//   plus a small conv_post + tanh kernel: the TPU kernel keeps the whole
-//   haloed window and the stage's intermediates in VMEM, several 200 KB
-//   buffers at C = 256, more than a block's 227 KB of shared memory. Bias,
-//   residual and the running mean of the resblocks are added in the
-//   epilogue, scaled by 1 / n_resblocks on the last conv.
-// - Each conv is an implicit GEMM on mma.sync (m16n8k8 TF32, m16n8k16 bf16):
-//   M = output channels, N = time rows, K = taps x input channels. The
-//   weights are the A operand and the activations the B operand, so a lane's
-//   accumulator pair is two consecutive time rows. A tile is 64 output
-//   channels x 512 rows (32 x 512 where C is not a multiple of 64), 8 warps
-//   of 32 x 128 (32 x 64) each, 128 (64) f32 accumulators a thread. One
-//   block per SM walks the tiles, channel block fastest, so that the blocks
-//   running at once read the same input window from L2.
-// - Input channels stream through a ring of shared-memory stages, as many
-//   as fit (3 at k = 11, up to 5 at k = 3), one mma k-step (8 channels f32,
-//   16 bf16) each. The ring runs on across a block's tiles, so it never
-//   drains between them. A stage holds the chunk's haloed window once (the
-//   tile's rows plus the reach rounded up to 4 on each side) and its weights
-//   for every tap: tap i reads the window at a row offset of i * dilation,
-//   so the conv is a GEMM without an unfold in memory.
-// - Copies go through Hopper's bulk copy engine (cp.async.bulk, completing on
-//   one mbarrier per stage): one copy per window row (the tensor's own
-//   layout, time contiguous) and per m16 tile of weights, issued by one
-//   warp: with per-thread 16-byte cp.async instead, the copies, not the
-//   products, bound the kernel (PERF.md). Rows outside
-//   [0, T) are zero-filled by plain stores; T not a multiple of 4 (or an
-//   unaligned tensor) takes 4-byte cp.async for the window instead.
-// - Once a stage has landed, each thread applies leaky to 4 rows of a window
-//   row and, in f32, writes their TF32 big parts in place and small parts
-//   LDP words on; in bf16 it rounds and packs channels 2p and 2p + 1 into the
-//   bf16x2 words m16n8k16's B operand wants. Each activation is thus split
-//   or rounded once per block, not once per warp. A tap's shift of i * d
-//   rows breaks 16-byte alignment, so B fragments are read with 32-bit loads;
-//   the row pitch (2 * LDP = 8 mod 32 words) keeps them free of bank
-//   conflicts for any shift.
-// - The weights are packed once on the host (ops/mrf_stage.py:_pack_weight)
-//   in fragment order, so a lane reads a tap's A fragment with one 16-byte
-//   load. In f32 they stay raw and are split in registers per tap: host-split
-//   big + small parts doubled the weight bytes of every stage, which at
-//   k = 11 would leave no room for a 3-stage ring of 512-row tiles.
-// - The three TF32 products accumulate into the same fragment (no second
-//   accumulator), issued small*big for 4 n8 tiles, then big*small, then
-//   big*big, so a product's three mma are 8 apart.
-// - res, accin and out may alias, so the epilogue issues all of a tile's
-//   loads before any store: a load behind a store would wait for it.
-// The chain's traffic stays: each (B, C, T) tensor goes through device
-// memory once per conv, which bounds the C = 32 stage (T = 256000 at
-// T_mel = 1000) by memory, not operations.
+// - Each conv pair (conv1 of dilation d, then conv2 of dilation 1) is one
+//   launch. A block owns M time rows of a sample: conv1 runs over the tile's
+//   BT = M - 2 r2 output rows plus conv2's halo of r2 = (k - 1) / 2 rows on
+//   each side; leaky(conv1 + bias), zero outside [0, T), is written to shared
+//   memory (h) in the layout conv2's A operand reads; conv2 then runs over the
+//   M rows, of which the BT inside the halo are stored, with the bias, the
+//   residual (the pair's input, read again from device memory) and the
+//   running mean of the resblocks and its scale in the epilogue. Where h for all C channels of M rows does not fit beside the
+//   rings (route(): f32 above C = 128, bf16 above C = 256; h's f32 rows are 4
+//   bytes a channel, bf16's 2), the pair is two launches of one conv each, h
+//   going through device memory: at C = 256 in f32 the stage is bound by its
+//   products (0.9 ms of traffic against 6.4 ms of operations). A V1 stage is
+//   then 9 launches plus conv_post (18 at C = 256 in f32).
+// - The operands: time rows are wgmma's M and output channels its N (N = NP
+//   channels a pass: 128, 64 or 32 by C, so that any multiple of 32 is
+//   taken and every V1 width fills N; conv1 runs C / NP passes over the same
+//   rows, each streaming the window again), K = input channels, one k-step
+//   (8 f32, 16 bf16) at a time, for each tap. With channels as M instead, C
+//   = 32 would be below wgmma's 64 rows, and a block would not hold every
+//   channel of h for its rows. A and B both come from shared memory, K-major
+//   (32-bit wgmma takes no other) and without swizzle: a row of the operand
+//   is 16 bytes of K, rows 16 bytes apart, so that tap i's shift of i * d
+//   rows is i * d added to the A descriptor (a swizzled layout's 1024-byte
+//   atoms break under any shift that is not a multiple of 8 rows). The two
+//   16-byte halves of a k-step lie a plane of rows apart (the descriptor's
+//   leading offset). The weights are B: output channels as rows.
+// - A producer warpgroup and two consumer warpgroups (setmaxnreg 40 / 232).
+//   Warp 0 streams the weights by bulk copy: each (pass, k-step, tap) is one
+//   contiguous chunk, packed once on the host in the operand layout
+//   (ops/mrf_stage.py:_pack_weight; f32 as TF32 big and small planes), TG
+//   taps a stage of a ring of NW. Warps 1-3 stream conv1's window for each
+//   k-step by TMA (a tensor map of the (B, C, T) input; rows outside [0, T)
+//   filled with zeros by the copy itself; the window starts on 16 bytes, up
+//   to 3 rows early; one window ahead, into a ring of NR) and write it once,
+//   leaky and split into TF32 planes (bf16: rounded), transposed into the
+//   operand layout of a ring of NA A stages; in f32 they also split h, a
+//   k-step of channels at a time, for conv2 (bf16 h is conv2's A operand as
+//   it lies). Consumer warpgroup c owns rows c * M / 2.. (MB m64 blocks) and
+//   holds their sums (NP / 2 * MB registers a thread); a group of wgmma a
+//   tap, one group in flight (wgmma.wait_group 1), each stage released when
+//   the last group that read it is done.
+// - The tile height M is a template argument: 256, 384 or 512 rows, the most
+//   for which h fits (route), so that small C, whose taps are little work,
+//   pay their per-tile costs (the halo, the handshakes, the epilogue) over
+//   more rows. Where a warpgroup's sums take at most 64 registers, the last
+//   conv's residual is loaded into registers before its products.
+// - f32 sums over more than 256 input channels (two launches a pair, C > 256)
+//   are taken in fresh sums of 256 channels added to a running sum in shared
+//   memory, rounded to nearest: the tensor cores' f32 adds truncate, and one
+//   sum over C = 512 x 11 taps missed the stage's f32 bar (mean 1.4e-5).
+// - Blocks are persistent, one per SM, walking the tiles (sample-major);
+//   blocks running at once read the same weights, so they come from L2.
+// - TMA needs 16-byte global strides: the wrapper pads a ragged T to a
+//   multiple of 4 (ld), reads and writes stop at T.
 // - Every global offset is 64-bit (size_t): a sample's C * T and a launch's
 //   B * C * T may pass 2^31 (a sample at C = 64, T = 2^25 is 8 GiB of f32).
 //   T, B, the channel and the time of a row, and the tile index stay int: T
 //   up to INT_MAX - 1024 (so that a window's last row, T plus the halo and a
 //   tile, still fits), B up to 65535 (the wrapper splits larger batches),
-//   and a launch's tiles below 2^31 (checked at launch: about 2^40 f32
-//   elements at C = 512, more than any card holds).
-
-// Build: its 12 conv instances take ptxas about 28-40 s in one nvcc, so
-// ops/cuda_lib.py compiles them in four parts at once, each one set of
-// (kernel size, type) families (FSCL_PART, below).
+//   and a launch's tiles below 2^31 (checked at launch).
+// - Every instance builds with 0 bytes of spill: 128 x 40 + 256 x 232
+//   registers stay within the block's 384 x 168 at launch; the epilogue's
+//   offsets are made where they are used.
+//
+// Build: 9 instances (f32 / bf16 by NP, M and weight stages, route), in four
+// parts at once (FSCL_PART, below).
 // build parts: 4
 
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <stddef.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
+constexpr int THREADS = 384;        // a producer warpgroup and two consumer warpgroups
+constexpr int PRODUCER_REGS = 40;   // 128 x 40 + 256 x 232 = 384 x 168, the block's at launch
+constexpr int CONSUMER_REGS = 232;
 constexpr int RMAX = 32;            // largest reach (k - 1) / 2 * dilation taken
-constexpr int MAX_SMEM = 232448;    // a block's shared memory on sm_90
-constexpr int MAX_STAGES = 8;
+constexpr int GUARD = 6;            // h rows beside a tile's M: conv2 reads r2 <= 5 past them
 constexpr int MAX_T = INT_MAX - 1024;   // T + halo + a tile's rows fit an int
+constexpr int BAR_CONSUMERS = 1;    // named barrier of the two consumer warpgroups
 constexpr float SLOPE = 0.1f;
 
-// A block owns BM output channels and BT = 512 time rows; each warp a 32 x
-// (8 NT) tile of them (MT = 2 m16 tiles by NT n8 tiles).
-template <int K, bool BF16, int BM>
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= THREADS * 168,
+              "setmaxnreg moves registers within the block's");
+
+// One instance: compute type, NP output channels a pass and M time rows a
+// tile (route picks the instance: the most rows for which h fits). Consumer
+// warpgroup c owns rows c * M / 2.. (MB m64 blocks), their sums NP / 2 * MB
+// registers a thread. Shared memory: the A ring (operand planes of a window
+// or of an h k-step, WR rows apart), the raw window ring (as TMA lands it:
+// KC channel rows of up to RAW_ROWS f32), the weight ring (TG taps of a
+// k-step a stage), the barriers, then h (fused pairs only: HR rows of each
+// channel).
+template <bool BF16, int NP, int M_, int NW_ = 0>
 struct Cfg {
-  static constexpr int MT = 2, NT = BM == 64 ? 16 : 8;
-  static constexpr int CO = BM;                       // output channels per block
-  static constexpr int WM = BM / 32;                  // warps along the channels
-  static constexpr int WN = WARPS / WM;               // warps along time
-  static constexpr int BT = WN * 8 * NT;              // time rows per block
-  static constexpr int KC = BF16 ? 16 : 8;            // input channels per ring stage
-  // Window: 8 rows of 2 * LDP words, one per B row k = 0..7 of the mma
-  // (f32: an input channel; bf16: a channel pair). f32: TF32 big parts in
-  // the first LDP words, small parts in the second. bf16: bf16x2 words in
-  // the first LDP words. The raw f32 rows land in place: f32 at the row's
-  // start, bf16's even channel there and its odd channel at LDP.
-  static constexpr int LDP = BT + 2 * RMAX + 4;
-  static constexpr int WIN_WORDS = 8 * 2 * LDP;
-  static constexpr int FRAG_WORDS = 128;               // one tap's A fragments, 32 lanes x 4
-  static constexpr int SEG_WORDS = K * FRAG_WORDS;     // an m16 tile's weights per stage
-  static constexpr int STAGE_WORDS = WIN_WORDS + (BM / 16) * SEG_WORDS;
-  static constexpr int STAGE_BYTES = STAGE_WORDS * 4;
-  // as deep a ring as shared memory holds, with one mbarrier per stage
-  static constexpr int STAGES = (MAX_SMEM - 8 * MAX_STAGES) / STAGE_BYTES < MAX_STAGES
-                                    ? (MAX_SMEM - 8 * MAX_STAGES) / STAGE_BYTES : MAX_STAGES;
-  static constexpr int BYTES = STAGES * STAGE_BYTES + 8 * STAGES;
-  static_assert(WM * 32 == BM && WM * WN == WARPS && BT == 512, "warps tile the block");
-  static_assert(LDP % 16 == 4, "B fragment loads free of bank conflicts (and LDP % 4 == 0)");
-  static_assert(STAGE_WORDS % 4 == 0, "16-byte aligned copies");
-  static_assert(STAGES >= 3, "a ring of at least 3 stages");
+  static constexpr int M = M_;                     // rows a block computes
+  static constexpr int MB = M / 128;               // m64 blocks of a consumer warpgroup
+  static constexpr int KC = BF16 ? 16 : 8;         // input channels a k-step
+  static constexpr int CPG = BF16 ? 8 : 4;         // channels of a 16-byte operand row
+  static constexpr int NPL = BF16 ? 1 : 2;         // operand planes (f32: TF32 big, small)
+  static constexpr int EB = BF16 ? 2 : 4;          // bytes of an h element
+  static constexpr int WR = M + 2 * RMAX + 8;      // window rows (and the A planes' pitch)
+  static constexpr int HR = M + 2 * GUARD;         // h rows
+  static constexpr int RAW_ROWS = WR + 8;          // the boxes round the window up
+  static constexpr int CHUNK = NPL * 2 * NP * 16;  // one tap's weights of a k-step and pass
+  // taps a weight stage: 8 KB of weights, or one tap (bf16 at NP = 128, so
+  // that h at C = 256 fits)
+  static constexpr int TG = BF16 && NP == 128 ? 1 : 8192 / CHUNK;
+  // ring stages, each depth the faster of those measured where shared
+  // memory allows (h at C = 128 f32 and C = 256 bf16 takes most of it): A
+  // 3 in bf16 below NP = 128, else 2; raw windows 3 in bf16 at NP = 64
+  // (over 512-row tiles with 2), else 2; weights NW_ where the instance
+  // names it (bf16 at NP = 128 and C = 128: 16 stages of one tap, the copies
+  // in flight to cover a tap's short products), else 6 in bf16 at NP = 128,
+  // 3 in f32 there, 4 below
+  static constexpr int NA = BF16 && NP < 128 ? 3 : 2, NR = BF16 && NP == 64 ? 3 : 2;
+  static constexpr int NW = NW_ ? NW_ : NP == 128 ? (BF16 ? 6 : 3) : 4;
+  static constexpr int A_STAGE = NPL * 2 * WR * 16;
+  static constexpr int RAW_STAGE = KC * RAW_ROWS * 4;
+  static constexpr int W_STAGE = TG * CHUNK;
+  static constexpr int RAW_AT = NA * A_STAGE;
+  static constexpr int W_AT = RAW_AT + NR * RAW_STAGE;
+  static constexpr int BARS = W_AT + NW * W_STAGE;
+  static constexpr int H_AT = (BARS + 8 * (2 * (NA + NR + NW) + 1) + 127) / 128 * 128;
+  static_assert(M % 128 == 0 && NP % 32 == 0 && TG >= 1 && HR <= WR, "tiles");
+  static_assert(A_STAGE % 128 == 0 && RAW_STAGE % 128 == 0 && W_STAGE % 128 == 0, "alignment");
+  static_assert(NP / 2 * MB <= 128, "a consumer's sums fit its registers");
+  // f32 convs over more than KSPLIT input channels (two launches a pair)
+  // sum them in fresh sums of KSPLIT channels, the running sum in shared
+  // memory where h lies in a fused pair
+  static constexpr int KSPLIT = 256;
+  static constexpr long long RUN_BYTES = 256LL * MB * NP / 2 * 4;
+  // dynamic shared memory of a launch (with 128 bytes to align the base)
+  static constexpr long long bytes(int C, bool fused) {
+    return H_AT + (fused ? (long long)HR * C * EB : !BF16 && C > KSPLIT ? RUN_BYTES : 0) + 128;
+  }
 };
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * SLOPE; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// src-size 0 zero-fills the destination and reads nothing
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// one arrival that also expects `bytes` of bulk copies in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-               " selp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of `bar` with this parity to complete; a copy that
-// never lands ends the kernel with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (int n = 0; !mbar_try_wait(bar, parity); ++n)
-    if (n > (1 << 24)) __trap();
-}
-
-// Hopper's bulk copy engine (TMA): `bytes` (a multiple of 16, both addresses
-// 16-byte aligned) from global to shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
-// this thread's shared-memory writes are ordered before later bulk copies
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// f32 -> TF32 bits, to nearest with ties away from zero: cvt.rna.tf32.f32's
-// result for finite x (the carry of the add rounds the magnitude up).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32, |small| <= 2^-11 |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// The first row of a window that must start at time `first`: rounded down
+// to a multiple of 4, as a TMA box's first element must lie on 16 bytes
+// (a box starting elsewhere, inside or outside [0, T), is an illegal
+// instruction on the card).
+__device__ __forceinline__ int window_start(int first) { return first & ~3; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// A tile of the conv: BM output channels from m16 tile `m16` on, BT time
-// rows from t0, sample b. Tiles are numbered with the channel block fastest,
-// so that blocks running at once share input windows in L2.
-struct Tile {
-  int m16, t0, b;
+// d (64 x N) += A (64 x K) B^T (B: N x K), A and B K-major in shared memory
+// at their descriptors (desc_rows), one k-step: K = 8 TF32 or 16 bf16.
+// Element r of d: row 16 * warp + g + 8 * ((r / 2) % 2), column 8 * (r / 4)
+// + 2 * t + r % 2 (g = lane / 4, t = lane % 4).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void tf32(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
 };
 
-template <class G>
-__device__ __forceinline__ Tile tile_of(int tile, int C, int T) {
-  const int co_blocks = C / G::CO;
-  const int t_blocks = (T + G::BT - 1) / G::BT;
-  const int rest = tile / co_blocks;
-  return {(tile - rest * co_blocks) * (G::CO / 16), (rest % t_blocks) * G::BT, rest / t_blocks};
-}
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void tf32(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 
-// out = ((conv(leaky(in)) + bias) + res + accin) * scale, tile by tile.
-// in, res, accin, out: (B, C, T) f32; wp: weights in fragment order
-// (ops/mrf_stage.py:_pack_weight), (C / 16, C / KC, K, 128) words;
-// res and accin may be null and may alias out (each element is read and
-// then written by the same thread). vec: T is a multiple of 4 and every
-// tensor 16-byte aligned, so window rows go by bulk copy; else by 4-byte
-// cp.async. A block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...;
-// its ring runs on from one tile's channel chunks into the next tile's, so
-// it never drains between tiles.
-template <int K, bool BF16, int BM>
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void tf32(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// A launch's arguments. The window source (conv1's input, or h between the
+// two launches of an unfused pair) is the tensor map beside them.
+struct ConvArgs {
+  const uint8_t* w0;     // phase 0 (conv1, or the one conv) weights, _pack_weight's layout
+  const float* b0;
+  const uint8_t* w1;     // phase 1 (conv2 of a fused pair)
+  const float* b1;
+  const float* res;      // added in the last epilogue, or null: (B, C, ld)
+  const float* accin;    // added after res, or null; may alias out
+  float* out;            // (B, C, ld): rows [0, T) written
+  int B, C, T, ld, k, d; // d: phase 0's dilation
+  int fused;             // 1: conv1 -> h in shared memory -> conv2; 0: one conv
+  int box_t, nb;         // rows a TMA box, boxes a window
+  int kgroup;            // k-steps a fresh sum takes before it is added to the
+                         // running sum in shared memory; 0: one sum of all
+  float scale;           // the last epilogue's factor
+};
+
+// The pair (or one conv) over a block's tiles; see the header. Phase 0 runs
+// conv1 on windows of the source into h (fused) or out; phase 1 (fused) runs
+// conv2 on h into out.
+template <bool BF16, int NP, int M, int NW>
 __global__ void __launch_bounds__(THREADS, 1)
-conv_kernel(const float* __restrict__ in, const uint32_t* __restrict__ wp,
-            const float* __restrict__ bias, const float* res, const float* accin,
-            float* out, int B, int C, int T, int dil, float scale, int vec) {
-  using G = Cfg<K, BF16, BM>;
-  constexpr int MT = G::MT, NT = G::NT, LDP = G::LDP, STAGES = G::STAGES;
-  constexpr int SRC_ROWS = BF16 ? 16 : 8;      // input channels a stage copies
-  extern __shared__ __align__(16) uint32_t ring[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE_WORDS);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / G::WN, wn = warp % G::WN;
-  const int reach = (K - 1) / 2 * dil;
-  const int r4 = (reach + 3) & ~3;             // window rows before t0, a multiple of 4
-  const int rows = G::BT + 2 * r4;             // window rows staged
-  const int n_chunks = C / G::KC;
-  const int n_tiles = (C / BM) * ((T + G::BT - 1) / G::BT) * B;   // < 2^31, checked at launch
-  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int n_steps = my_tiles * n_chunks;     // (tile, chunk) steps of this block
+pair_kernel(const __grid_constant__ CUtensorMap src, const ConvArgs a) {
+  using G = Cfg<BF16, NP, M, NW>;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 127) & ~127u;
+  const Ring<G::NA, true> ring_a{base + G::BARS};
+  const Ring<G::NR, true> ring_r{base + G::BARS + 16 * G::NA};
+  const Ring<G::NW, true> ring_w{base + G::BARS + 16 * (G::NA + G::NR)};
+  const uint32_t h_full = base + G::BARS + 16 * (G::NA + G::NR + G::NW);
+  const int r2 = a.fused ? (a.k - 1) / 2 : 0;      // conv2's reach
+  const int bt = G::M - 2 * r2;                     // output rows a tile
+  const int t_tiles = (a.T + bt - 1) / bt;
+  const int n_tiles = t_tiles * a.B;                // < 2^31, checked at launch
+  const int n_mine = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nk = a.C / G::KC, passes = a.C / NP;
+  const int phases = 1 + a.fused;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) mbar_init(bars + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    ring_a.init(3, 8);     // the 3 converter warps fill; the 8 consumer warps release
+    ring_r.init(1, 3);     // TMA fills; the converter warps release
+    ring_w.init(1, 8);     // bulk copies fill; the consumer warps release
+    mbar_init(h_full, 8);  // the consumer warps, once a tile's h is written
   }
   __syncthreads();
 
-  // Start the copies of step s (this block's tile s / n_chunks, channel
-  // chunk s % n_chunks) into its ring stage: the weights always, and the
-  // window rows with vec, by bulk copy; the window rows otherwise by
-  // cp.async, zero outside [0, T).
-  auto load_step = [&](int s) {
-    uint32_t* st = ring + (s % STAGES) * G::STAGE_WORDS;
-    uint64_t* bar = bars + s % STAGES;
-    const int chunk = s % n_chunks;
-    const Tile tl = tile_of<G>(blockIdx.x + (s / n_chunks) * gridDim.x, C, T);
-    const float* src = in + ((size_t)tl.b * C + chunk * G::KC) * T;   // the chunk's first channel
-    const int w0 = tl.t0 - r4;                                         // time of window row 0
-    const int lo = max(w0, 0), hi = min(w0 + rows, T);                 // rows inside [0, T)
-    constexpr uint32_t W_BYTES = (BM / 16) * G::SEG_WORDS * 4;
-    // source channel c lands at (c / 2) * 2 LDP + (c % 2) LDP in bf16, c * 2 LDP in f32
-    auto dst_row = [&](int c) { return st + (BF16 ? (c / 2) * 2 * LDP + (c % 2) * LDP : c * 2 * LDP); };
+  // Each thread's indices are made after setmaxnreg in its warpgroup's
+  // branch, from threadIdx.x read anew (values live across the branch spill).
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    const int tid = (int)opaque(threadIdx.x), warp = tid / 32, lane = tid % 32;
+    const uint32_t b0 = opaque(base);
     if (warp == 0) {
-      if (lane == 0) mbar_expect_tx(bar, W_BYTES + (vec ? SRC_ROWS * (hi - lo) * 4 : 0));
-      __syncwarp();
-      if (lane < BM / 16)
-        bulk_copy(st + G::WIN_WORDS + lane * G::SEG_WORDS,
-                  wp + ((size_t)(tl.m16 + lane) * n_chunks + chunk) * G::SEG_WORDS,
-                  G::SEG_WORDS * 4, bar);
-      else if (vec && lane - BM / 16 < SRC_ROWS) {
-        const int c = lane - BM / 16;
-        bulk_copy(dst_row(c) + (lo - w0), src + (size_t)c * T + lo, (hi - lo) * 4, bar);
-      }
-    }
-    if (vec) {
-      // edge tiles: zero the rows outside [0, T) (plain stores)
-      if (lo > w0 || hi < w0 + rows)
-        for (int e = threadIdx.x; e < SRC_ROWS * rows; e += THREADS) {
-          const int c = e / rows, r = e - c * rows;
-          if (w0 + r < lo || w0 + r >= hi) dst_row(c)[r] = 0u;
-        }
-    } else {
-      // by the 4-row units convert_stage gives each thread, so that the
-      // thread that converts a unit issued its copies
-      const int quads = rows / 4;
-      for (int u = threadIdx.x; u < 8 * quads; u += THREADS) {
-        const int row = u / quads, r = 4 * (u - row * quads);
-#pragma unroll
-        for (int h = 0; h < (BF16 ? 2 : 1); ++h) {
-          const int c = BF16 ? 2 * row + h : row;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int tt = w0 + r + e;
-            const bool ok = tt >= 0 && tt < T;
-            cp_async4(dst_row(c) + r + e, ok ? src + (size_t)c * T + tt : src, ok);
-          }
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  // Once the stage has landed: leaky, then split (f32: big parts in place,
-  // small parts LDP further) or round and pack channel pairs (bf16), four
-  // rows at a time.
-  auto convert_stage = [&](uint32_t* st) {
-    const int quads = rows / 4;
-    for (int u = threadIdx.x; u < 8 * quads; u += THREADS) {
-      const int row = u / quads;
-      uint32_t* p = st + row * 2 * LDP + 4 * (u - row * quads);
-      const float4 a = *reinterpret_cast<const float4*>(p);
-      if (BF16) {
-        const float4 c = *reinterpret_cast<const float4*>(p + LDP);    // the odd channel
-        *reinterpret_cast<uint4*>(p) = make_uint4(
-            pack_bf16(leaky(a.x), leaky(c.x)), pack_bf16(leaky(a.y), leaky(c.y)),
-            pack_bf16(leaky(a.z), leaky(c.z)), pack_bf16(leaky(a.w), leaky(c.w)));
-      } else {
-        uint4 big, small;
-        split_tf32(leaky(a.x), big.x, small.x);
-        split_tf32(leaky(a.y), big.y, small.y);
-        split_tf32(leaky(a.z), big.z, small.z);
-        split_tf32(leaky(a.w), big.w, small.w);
-        *reinterpret_cast<uint4*>(p) = big;
-        *reinterpret_cast<uint4*>(p + LDP) = small;
-      }
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s)
-    if (s < n_steps) load_step(s);
-    else cp_async_commit();
-  const int row0 = wn * 8 * NT + g + (r4 - reach);   // window row of this lane's n at tap 0
-  for (int s = 0; s < n_steps; ++s) {
-    uint32_t* st = ring + (s % STAGES) * G::STAGE_WORDS;
-    if (!vec) cp_async_wait<STAGES - 2>();   // this thread's window copies of step s
-    mbar_wait(bars + s % STAGES, (s / STAGES) & 1);
-    convert_stage(st);
-    fence_proxy_async();           // the stage is refilled by bulk copies later
-    __syncthreads();               // everyone's, converted; and everyone is done with step s - 1
-    if (s + STAGES - 1 < n_steps) load_step(s + STAGES - 1);   // into the stage s - 1 used
-    else cp_async_commit();
-
-    const uint32_t* ws = st + G::WIN_WORDS + 2 * wm * G::SEG_WORDS;   // this warp's m16 tiles
-    const uint32_t* xw = st + t * 2 * LDP;    // B rows k = t and (+ 8 LDP) t + 4
-    // One tap at a time: its A fragments (f32: split here, in registers),
-    // then its B fragments four n8 tiles at a time.
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const int r = row0 + i * dil;     // window row of the lane's n at tap i
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const uint4 v = *reinterpret_cast<const uint4*>(ws + m * G::SEG_WORDS + i * 128 + 4 * lane);
-        a[m][0] = v.x; a[m][1] = v.y; a[m][2] = v.z; a[m][3] = v.w;
-      }
-      if constexpr (BF16) {
-#pragma unroll
-        for (int j0 = 0; j0 < NT; j0 += 4) {
-          uint32_t b[4][2];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            b[j][0] = xw[r + 8 * (j0 + j)];               // channels 2t, 2t + 1
-            b[j][1] = xw[8 * LDP + r + 8 * (j0 + j)];     // channels 2t + 8, 2t + 9
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j0 + j], a[m], b[j]);
-        }
-      } else {
-        uint32_t ab[MT][4], as[MT][4];
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[m][e]), ab[m][e], as[m][e]);
-#pragma unroll
-        for (int j0 = 0; j0 < NT; j0 += 4) {
-          uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t* p = xw + r + 8 * (j0 + j);
-            bb[j][0] = p[0];                // channel t
-            bb[j][1] = p[8 * LDP];          // channel t + 4
-            bs[j][0] = p[LDP];
-            bs[j][1] = p[9 * LDP];
-          }
-          // small*big, then big*small, then big*big into the same
-          // accumulator; a product's three mma are 4 * MT = 8 apart
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j0 + j], as[m], bb[j]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j0 + j], ab[m], bs[j]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j0 + j], ab[m], bb[j]);
-        }
-      }
-    }
-    if (s % n_chunks != n_chunks - 1) continue;
-
-    // The tile's last chunk: the epilogue. Accumulator element e is channel
-    // 16m + g + 8 (e / 2), time 8j + 2t + e % 2 of the warp's tile. res,
-    // accin and out may alias, so a load placed after a store would wait for
-    // it: every load of the tile is issued first (no store between them),
-    // then every store.
-    const Tile tl = tile_of<G>(blockIdx.x + (s / n_chunks) * gridDim.x, C, T);
-    const int tw = tl.t0 + wn * 8 * NT + 2 * t;     // time of the lane's first pair
-    auto row_of = [&](int m, int hh) {
-      return ((size_t)tl.b * C + 16 * (tl.m16 + 2 * wm + m) + 8 * hh + g) * T;
-    };
-    // ((acc + bias) + res) + accin, in that order
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float bb = bias[16 * (tl.m16 + 2 * wm + m) + 8 * hh + g];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          acc[m][j][2 * hh] += bb;
-          acc[m][j][2 * hh + 1] += bb;
-        }
-      }
-    auto add = [&](const float* src) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float* p = src + row_of(m, hh);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int tt = tw + 8 * j;
-            if (vec) {                                 // T even: tt + 1 < T too
-              if (tt < T) {
-                const float2 x = *reinterpret_cast<const float2*>(p + tt);
-                acc[m][j][2 * hh] += x.x;
-                acc[m][j][2 * hh + 1] += x.y;
+      // the weights: every (phase, pass, k-step) in the order the consumers
+      // take them, TG taps (contiguous chunks) a stage
+      if (lane == 0) {
+        const int steps = passes * nk;
+        int qw = 0;
+        for (int n = 0; n < n_mine; ++n)
+          for (int ph = 0; ph < phases; ++ph) {
+            const uint8_t* w = ph ? a.w1 : a.w0;
+            for (int s = 0; s < steps; ++s)
+              for (int i0 = 0; i0 < a.k; i0 += G::TG, ++qw) {
+                const uint32_t bytes = min(G::TG, a.k - i0) * G::CHUNK;
+                ring_w.wait_empty(qw);
+                mbar_expect(ring_w.full(qw), bytes);
+                bulk_load(b0 + G::W_AT + (qw % G::NW) * G::W_STAGE,
+                          w + ((size_t)s * a.k + i0) * G::CHUNK, bytes, ring_w.full(qw));
               }
-            } else {
-              if (tt < T) acc[m][j][2 * hh] += p[tt];
-              if (tt + 1 < T) acc[m][j][2 * hh + 1] += p[tt + 1];
-            }
           }
-        }
+      }
+      return;
+    }
+    uint8_t* smem = smem_raw + (b0 - smem_u32(smem_raw));
+    const int ct = tid - 32;                         // converter thread 0..95
+    const int per_tile = passes * nk;                // phase 0 windows a tile
+    const int windows = n_mine * per_tile;
+    const int W = min(a.nb * a.box_t, G::WR);        // window rows converted
+    // window u (this block's tile u / per_tile, k-step u % nk) into its raw
+    // stage: nb boxes of box_t rows x KC channels from window_start
+    auto issue = [&](int u) {
+      ring_r.wait_empty(u);
+      const int tile = (int)blockIdx.x + (u / per_tile) * (int)gridDim.x;
+      const int b = tile / t_tiles, t0 = (tile % t_tiles) * bt;
+      const int w0 = window_start(t0 - r2 - (a.k - 1) / 2 * a.d);
+      const uint32_t bar = ring_r.full(u);
+      const uint32_t dst = b0 + G::RAW_AT + (u % G::NR) * G::RAW_STAGE;
+      mbar_expect(bar, (uint32_t)(a.nb * G::KC * a.box_t * 4));
+      for (int i = 0; i < a.nb; ++i)
+        tma_load(dst + i * G::KC * a.box_t * 4, &src, bar, w0 + i * a.box_t, (u % nk) * G::KC, b);
     };
-    if (res) add(res);
-    if (accin) add(accin);
+    if (ct == 0 && windows > 0) issue(0);
+    int qa = 0, u = 0;
+    for (int n = 0; n < n_mine; ++n) {
+      for (int w = 0; w < per_tile; ++w, ++u, ++qa) {
+        if (ct == 0 && u + 1 < windows) issue(u + 1);
+        ring_r.wait_full(u);
+        ring_a.wait_empty(qa);
+        const float* raw = reinterpret_cast<const float*>(smem + G::RAW_AT + (u % G::NR) * G::RAW_STAGE);
+        uint8_t* dst = smem + (qa % G::NA) * G::A_STAGE;
+        // row r of box bi, 16-byte operand row kg: channels kg * CPG.. of
+        // window row bi * box_t + r, leaky, split (bf16: rounded)
+        for (int bi = 0; bi < a.nb; ++bi)
+          for (int kg = 0; kg < 2; ++kg)
+            for (int r = ct; r < a.box_t; r += 96) {
+              const int row = bi * a.box_t + r;
+              if (row >= W) continue;
+              const float* col = raw + (bi * G::KC + kg * G::CPG) * a.box_t + r;
+              uint8_t* o = dst + (kg * G::WR + row) * 16;
+              if constexpr (BF16) {
+                uint32_t v[4];
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float* p = out + row_of(m, hh);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int tt = tw + 8 * j;
-          const float v0 = acc[m][j][2 * hh] * scale, v1 = acc[m][j][2 * hh + 1] * scale;
-          acc[m][j][2 * hh] = acc[m][j][2 * hh + 1] = 0.f;
-          if (vec) {
-            if (tt < T) *reinterpret_cast<float2*>(p + tt) = make_float2(v0, v1);
-          } else {
-            if (tt < T) p[tt] = v0;
-            if (tt + 1 < T) p[tt + 1] = v1;
-          }
+                for (int e = 0; e < 4; ++e)
+                  v[e] = pack_bf16(leaky(col[2 * e * a.box_t]), leaky(col[(2 * e + 1) * a.box_t]));
+                *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
+              } else {
+                uint4 big, small;
+                split_tf32(leaky(col[0]), big.x, small.x);
+                split_tf32(leaky(col[a.box_t]), big.y, small.y);
+                split_tf32(leaky(col[2 * a.box_t]), big.z, small.z);
+                split_tf32(leaky(col[3 * a.box_t]), big.w, small.w);
+                *reinterpret_cast<uint4*>(o) = big;
+                *reinterpret_cast<uint4*>(o + 2 * G::WR * 16) = small;
+              }
+            }
+        fence_async_smem();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(ring_a.full(qa));
+          mbar_arrive(ring_r.empty(u));
         }
       }
+      if (!BF16 && a.fused) {
+        // conv2's A operand: h's k-steps split into TF32 planes, once the
+        // consumers have written this tile's h
+        mbar_wait_bounded(h_full, n & 1);
+        for (int p = 0; p < passes; ++p)
+          for (int s = 0; s < nk; ++s, ++qa) {
+            ring_a.wait_empty(qa);
+            const uint8_t* hs = smem + G::H_AT + 2 * s * G::HR * 16;
+            uint8_t* dst = smem + (qa % G::NA) * G::A_STAGE;
+            for (int e = ct; e < 2 * G::HR; e += 96) {
+              const int kg = e >= G::HR, row = e - kg * G::HR;
+              const float4 v = *reinterpret_cast<const float4*>(hs + (kg * G::HR + row) * 16);
+              uint4 big, small;
+              split_tf32(v.x, big.x, small.x);
+              split_tf32(v.y, big.y, small.y);
+              split_tf32(v.z, big.z, small.z);
+              split_tf32(v.w, big.w, small.w);
+              uint8_t* o = dst + (kg * G::WR + row) * 16;
+              *reinterpret_cast<uint4*>(o) = big;
+              *reinterpret_cast<uint4*>(o + 2 * G::WR * 16) = small;
+            }
+            fence_async_smem();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(ring_a.full(qa));
+          }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int tx = (int)opaque(threadIdx.x), c = tx / 128 - 1, tid = tx % 128;
+  const int warp = tid / 32, lane = tx % 32, g = lane / 4, t = lane % 4;
+  const uint32_t b0 = opaque(base);
+  uint8_t* smem = smem_raw + (b0 - smem_u32(smem_raw));
+  const int r1 = (a.k - 1) / 2 * a.d;
+  constexpr int mw = G::M / 2;                     // rows of a warpgroup
+  constexpr bool PREFETCH = G::MB * NP / 2 <= 64;
+  float acc[G::MB][NP / 2];
+  int qa = 0, qw = 0;
+  for (int n = 0; n < n_mine; ++n) {
+    const int tile = (int)blockIdx.x + n * (int)gridDim.x;
+    const int b = tile / t_tiles, t0 = (tile % t_tiles) * bt;
+    for (int ph = 0; ph < phases; ++ph) {
+      const bool ring = ph == 0 || !BF16;              // A from the ring, or bf16 h as it lies
+      const int dil = ph == 0 ? a.d : 1;
+      // operand row of this warpgroup's first row at tap 0
+      const int first = t0 - r2 - r1;                  // time of window row 0's tap 0
+      const int row0 = (ph == 0 ? first - window_start(first) : GUARD - r2) + c * mw;
+      for (int p = 0; p < passes; ++p) {
+        // f(m64 block, sum, channel, offset) on each of this thread's sums
+        // of the pass whose row is stored: rows [r2, M - r2) inside [0, T).
+        // With PREFETCH the tile's first time is read anew by each call, so
+        // that the offsets are made where they are used, not held from the
+        // prefetch across the products (they spilled).
+        auto each = [&](auto&& f) {
+          const int t_first = PREFETCH ? (int)opaque((uint32_t)(t0 - r2)) : t0 - r2;
+#pragma unroll
+          for (int mb = 0; mb < G::MB; ++mb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int m = c * mw + 64 * mb + 16 * warp + g + 8 * hh;
+              const int tau = t_first + m;
+              if (m < r2 || m >= G::M - r2 || tau >= a.T) continue;
+#pragma unroll
+              for (int q = 0; q < NP / 8; ++q)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int co = p * NP + 8 * q + 2 * t + e;
+                  f(mb, 4 * q + 2 * hh + e, co, ((size_t)b * a.C + co) * a.ld + tau);
+                }
+            }
+        };
+        // PREFETCH: where the sums take at most 64 registers, the last
+        // phase's residual is loaded before its products, so that the
+        // loads' latency hides behind them
+        float rv[PREFETCH ? G::MB : 1][PREFETCH ? NP / 2 : 1];
+        if constexpr (PREFETCH) {
+          if (ph == phases - 1 && a.res)
+            each([&](int mb, int i, int, size_t o) { rv[mb][i] = a.res[o]; });
+        }
+#pragma unroll
+        for (int mb = 0; mb < G::MB; ++mb) {
+#pragma unroll
+          for (int e = 0; e < NP / 2; ++e) acc[mb][e] = 0.f;
+          fence_regs(acc[mb]);
+        }
+        wg_fence();
+        // The pass's products: a wgmma group a tap (the warpgroup's MB m64
+        // blocks, straight-line: a branch among a group's wgmma makes ptxas
+        // fence them apart), one group in flight; a weight stage is released
+        // once the group of its last tap is done, an A stage once that of its
+        // k-step's last tap is.
+        {
+          // the stages (w, a; -1: none) the group in flight frees once done
+          // (one group in flight: two measured slower, holding a stage more)
+          int pw = -1, pa = -1;
+          auto drain = [&]() {   // every group done: release what it held
+            if (pw >= 0) ring_w.release(pw, lane);
+            if (pa >= 0) ring_a.release(pa, lane);
+            pw = pa = -1;
+          };
+          for (int s = 0; s < nk; ++s) {
+            if (!BF16 && a.kgroup && s > 0 && s % a.kgroup == 0) {
+              // the tensor cores' sums truncate each add: a long K is summed
+              // in fresh sums of kgroup k-steps, added to the running sum
+              // (this thread's own slots after h's offset) rounded to nearest
+              wg_wait<0>();
+              drain();
+              float* run = reinterpret_cast<float*>(smem + G::H_AT) + (tx - 128);
+#pragma unroll
+              for (int mb = 0; mb < G::MB; ++mb) {
+                fence_regs(acc[mb]);
+#pragma unroll
+                for (int e = 0; e < NP / 2; ++e) {
+                  float* slot = run + (mb * NP / 2 + e) * 256;
+                  *slot = s == a.kgroup ? acc[mb][e] : *slot + acc[mb][e];
+                  acc[mb][e] = 0.f;
+                }
+                fence_regs(acc[mb]);
+              }
+              wg_fence();
+            }
+            uint64_t da;
+            if (ring) {
+              ring_a.wait_full(qa);
+              da = desc_rows(opaque(b0) + (qa % G::NA) * G::A_STAGE, G::WR * 16);
+            } else {
+              da = desc_rows(opaque(b0) + G::H_AT + 2 * s * G::HR * 16, G::HR * 16);
+            }
+            da += row0;
+            const int a_done = ring ? qa : -1;   // freed by the k-step's last group
+            for (int i0 = 0; i0 < a.k; i0 += G::TG, ++qw) {
+              ring_w.wait_full(qw);
+              const uint64_t dw = desc_rows(opaque(b0) + G::W_AT + (qw % G::NW) * G::W_STAGE, NP * 16);
+              // one group: tap i of the stage's weights at db; w_done, a_done:
+              // the stages it frees once done
+              auto group = [&](int i, uint64_t db, int w_done, int a_last) {
+                const uint64_t di = da + i * dil;
+#pragma unroll
+                for (int mb = 0; mb < G::MB; ++mb) {
+                  if constexpr (BF16) {
+                    Wgmma<NP>::bf16(acc[mb], di + 64 * mb, db);
+                  } else {
+                    // small*big, big*small, then big*big into the same sums
+                    Wgmma<NP>::tf32(acc[mb], di + 64 * mb + 2 * G::WR, db);
+                    Wgmma<NP>::tf32(acc[mb], di + 64 * mb, db + 2 * NP);
+                    Wgmma<NP>::tf32(acc[mb], di + 64 * mb, db);
+                  }
+                }
+                wg_commit();
+                wg_wait<1>();      // the previous group is done
+                drain();
+                pw = w_done;
+                pa = a_last;
+              };
+              if constexpr (G::TG == 1) {
+                group(i0, dw, qw, i0 == a.k - 1 ? a_done : -1);
+              } else {
+                const int nt = min(G::TG, a.k - i0);
+                for (int j = 0; j < nt; ++j)
+                  group(i0 + j, dw + j * (G::CHUNK / 16), j == nt - 1 ? qw : -1,
+                        i0 + j == a.k - 1 ? a_done : -1);
+              }
+            }
+            if (ring) ++qa;
+          }
+          wg_wait<0>();
+          drain();
+        }
+#pragma unroll
+        for (int mb = 0; mb < G::MB; ++mb) fence_regs(acc[mb]);
+        if (!BF16 && a.kgroup && nk > a.kgroup) {
+          const float* run = reinterpret_cast<const float*>(smem + G::H_AT) + (tx - 128);
+#pragma unroll
+          for (int mb = 0; mb < G::MB; ++mb)
+#pragma unroll
+            for (int e = 0; e < NP / 2; ++e) acc[mb][e] = run[(mb * NP / 2 + e) * 256] + acc[mb][e];
+        }
+
+        const float* bias = ph ? a.b1 : a.b0;
+        if (ph == 0 && a.fused) {
+          // h = leaky(conv1 + bias), 0 outside [0, T), in conv2's operand
+          // layout; first, both warpgroups are done with the last tile's h
+          if (p == 0) bar_sync(BAR_CONSUMERS, 256);
+#pragma unroll
+          for (int mb = 0; mb < G::MB; ++mb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int j = c * mw + 64 * mb + 16 * warp + g + 8 * hh;
+              const int tau = t0 - r2 + j;
+              const bool inside = tau >= 0 && tau < a.T;
+#pragma unroll
+              for (int q = 0; q < NP / 8; ++q) {
+                const int co = p * NP + 8 * q + 2 * t;
+                float v0 = acc[mb][4 * q + 2 * hh] + bias[co];
+                float v1 = acc[mb][4 * q + 2 * hh + 1] + bias[co + 1];
+                v0 = inside ? leaky(v0) : 0.f;
+                v1 = inside ? leaky(v1) : 0.f;
+                if constexpr (BF16) {
+                  *reinterpret_cast<uint32_t*>(smem + G::H_AT + ((co / 8) * G::HR + GUARD + j) * 16
+                                               + (co % 8) * 2) = pack_bf16(v0, v1);
+                } else {
+                  *reinterpret_cast<float2*>(smem + G::H_AT + ((co / 4) * G::HR + GUARD + j) * 16
+                                             + (co % 4) * 4) = make_float2(v0, v1);
+                }
+              }
+            }
+          continue;
+        }
+        // out = ((conv + bias) + res + accin) * scale on rows [r2, M - r2)
+        // inside [0, T). accin may alias out: every load of the tile first,
+        // then every store.
+        each([&](int mb, int i, int co, size_t) { acc[mb][i] += bias[co]; });
+        if (a.res) {
+          if constexpr (PREFETCH) each([&](int mb, int i, int, size_t) { acc[mb][i] += rv[mb][i]; });
+          else each([&](int mb, int i, int, size_t o) { acc[mb][i] += a.res[o]; });
+        }
+        if (a.accin) each([&](int mb, int i, int, size_t o) { acc[mb][i] += a.accin[o]; });
+        each([&](int mb, int i, int, size_t o) { a.out[o] = acc[mb][i] * a.scale; });
+      }
+      if (ph == 0 && a.fused) {
+        // h is whole: wgmma (bf16) and the converters (f32) may read it
+        fence_async_smem();
+        bar_sync(BAR_CONSUMERS, 256);
+        if (!BF16) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(h_full);
+        }
+      }
+    }
   }
 }
 
@@ -530,183 +651,297 @@ __device__ __forceinline__ float activate(float v, int round_bf16) {
 // wav[b, t] = tanh(bias + sum_{i, c} w[i, c] * act(y[b, c, t + i - 3])) with w
 // packed as (7, C); one thread per output sample, f32 FMAs (2 * 7 * C
 // operations per sample, under 1 % of a stage's). Every thread of a warp
-// reads the same weight at once, a broadcast from L1.
+// reads the same weight at once, a broadcast from L1. y's rows are ld apart.
 __global__ void post_kernel(const float* __restrict__ y, const float* __restrict__ wp,
                             const float* __restrict__ pb, float* __restrict__ wav,
-                            int C, int T, int round_bf16) {
+                            int C, int T, int ld, int round_bf16) {
   const int b = blockIdx.y;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
-  const float* yb = y + (size_t)b * C * T;
+  const float* yb = y + (size_t)b * C * ld;
   constexpr int reach = (POST_K - 1) / 2;
   float s = 0.f;
   for (int c = 0; c < C; ++c) {
 #pragma unroll
     for (int i = 0; i < POST_K; ++i) {
       const int tt = t + i - reach;
-      if (tt >= 0 && tt < T) s = fmaf(activate(yb[(size_t)c * T + tt], round_bf16), wp[i * C + c], s);
+      if (tt >= 0 && tt < T) s = fmaf(activate(yb[(size_t)c * ld + tt], round_bf16), wp[i * C + c], s);
     }
   }
   wav[(size_t)b * T + t] = tanhf(s + pb[0]);
 }
 
+// `launched`, where given, counts the launch once it is queued.
 cudaError_t post(const float* y, const float* wp, const float* pb, float* wav, int B, int C, int T,
-                 int round_bf16, cudaStream_t s) {
+                 int ld, int round_bf16, cudaStream_t s, int* launched) {
   const int threads = 256;
   const dim3 grid((T + threads - 1) / threads, B);
-  post_kernel<<<grid, threads, 0, s>>>(y, wp, pb, wav, C, T, round_bf16);
-  return cudaGetLastError();
+  post_kernel<<<grid, threads, 0, s>>>(y, wp, pb, wav, C, T, ld, round_bf16);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && launched != nullptr) ++*launched;
+  return err;
 }
 
-template <int K, bool BF16, int BM>
-cudaError_t launch_conv(const float* in, const uint32_t* wp, const float* bias, const float* res,
-                        const float* accin, float* out, int B, int C, int T, int dil,
-                        float scale, int vec, cudaStream_t s) {
-  using G = Cfg<K, BF16, BM>;
-  auto kernel = conv_kernel<K, BF16, BM>;
-  // The shared-memory allowance and the resident blocks (SMs x blocks per
-  // SM) are looked up once per instance and device.
+// The map of the window source, a (B, C, ld) f32 tensor of T valid rows, in
+// boxes of box_t rows x kc channels of one sample; rows outside [0, T) read
+// as zeros.
+cudaError_t window_map(CUtensorMap* map, const float* ptr, int B, int C, int T, int ld, int kc,
+                       int box_t) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)T, (cuuint64_t)C, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)C * ld * 4};
+  const cuuint32_t boxes[3] = {(cuuint32_t)box_t, (cuuint32_t)kc, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims,
+                        strides, boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The SMs of the current device, looked up once per device.
+cudaError_t sm_count(int* sms) {
   constexpr int MAX_DEVICES = 64;
-  static int resident[MAX_DEVICES] = {};
+  static int cached[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int slots = dev < MAX_DEVICES ? resident[dev] : 0;
-  if (slots == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
-    if (err != cudaSuccess) return err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, G::BYTES);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    slots = sms * per_sm;
-    if (dev < MAX_DEVICES) resident[dev] = slots;
+  if (dev < MAX_DEVICES && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
   }
-  const long long tiles = (long long)(C / BM) * (((long long)T + G::BT - 1) / G::BT) * B;
-  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
-  const int grid = tiles < slots ? (int)tiles : slots;
-  kernel<<<grid, THREADS, G::BYTES, s>>>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec);
-  return cudaGetLastError();
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < MAX_DEVICES) cached[dev] = *sms;
+  return err;
 }
 
-template <int K, bool BF16>
-cudaError_t conv_k(const float* in, const uint32_t* wp, const float* bias, const float* res,
-                   const float* accin, float* out, int B, int C, int T, int dil, float scale,
-                   int vec, cudaStream_t s) {
-  if (C % 64 == 0)
-    return launch_conv<K, BF16, 64>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s);
-  return launch_conv<K, BF16, 32>(in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s);
+// The route of a stage's convs: NP output channels a pass (the largest of
+// 128, 64, 32 dividing C) and M rows a tile, the first of the heights built
+// for that NP (Heights) at which h of all C channels fits beside the rings:
+// the pairs run fused (f32 up to C = 128, bf16 up to C = 256, HiFiGAN V1's
+// widths among them); else two launches of one conv each at the first.
+struct Route {
+  int np, m, fused, nw;   // nw: the instance's weight stages, 0 for its type's default
+};
+
+template <bool BF16, int NP, int M, int NW = 0>
+bool fits(int C) {
+  return Cfg<BF16, NP, M, NW>::bytes(C, true) <= MAX_SMEM;
+}
+
+template <bool BF16, int NP, int M1, int M2 = 0>
+Route first_fit(int C) {
+  if (fits<BF16, NP, M1>(C)) return {NP, M1, 1, 0};
+  if constexpr (M2 > 0) {
+    if (fits<BF16, NP, M2>(C)) return {NP, M2, 1, 0};
+  }
+  return {NP, M1, 0, 0};
+}
+
+// The instances: (type, NP) -> the tile heights built, most rows first;
+// bf16 at NP = 128 also with 16 weight stages where h leaves them room
+// (and for its two-launch pairs).
+Route route(int C, int round_bf16) {
+  if (round_bf16 && C % 128 == 0) {
+    if (fits<true, 128, 256, 16>(C)) return {128, 256, 1, 16};
+    const Route r = first_fit<true, 128, 256>(C);
+    return r.fused ? r : Route{128, 256, 0, 16};
+  }
+  if (round_bf16)
+    return C % 64 == 0 ? first_fit<true, 64, 256>(C) : first_fit<true, 32, 512, 256>(C);
+  return C % 128 == 0 ? first_fit<false, 128, 256>(C) : C % 64 == 0 ? first_fit<false, 64, 384>(C)
+                                                                   : first_fit<false, 32, 512, 256>(C);
+}
+
+// One launch over src (B, C, ld; T valid rows): a fused pair (w1 != null)
+// or one conv of dilation d, counted in *launched once it is queued.
+template <bool BF16, int NP, int M, int NW = 0>
+cudaError_t launch(const float* src, const uint8_t* w0, const float* b0, const uint8_t* w1,
+                   const float* b1, const float* res, const float* accin, float* out, int B, int C,
+                   int T, int ld, int k, int d, float scale, cudaStream_t s, int* launched) {
+  using G = Cfg<BF16, NP, M, NW>;
+  auto kernel = pair_kernel<BF16, NP, M, NW>;
+  static bool allowed[64] = {};
+  cudaError_t err = allow_smem((const void*)kernel, MAX_SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  const bool fused = w1 != nullptr;
+  const long long bytes = G::bytes(C, fused);
+  if (bytes > MAX_SMEM || C % NP) return cudaErrorInvalidValue;
+  ConvArgs a{w0, b0, w1, b1, res, accin, out, B, C, T, ld, k, d, fused ? 1 : 0, 0, 0,
+             !BF16 && !fused && C > G::KSPLIT ? G::KSPLIT / G::KC : 0, scale};
+  // window rows: the tile's rows, the reach on each side, up to 3 more
+  // before them (window_start)
+  const int W = G::M + (k - 1) * d + 3;
+  a.nb = (W + 255) / 256;                      // TMA boxes hold at most 256 rows
+  a.box_t = ((W + a.nb - 1) / a.nb + 3) & ~3;  // of 16-byte multiples
+  if (a.nb * a.box_t > G::RAW_ROWS) return cudaErrorInvalidValue;
+  const int bt = G::M - 2 * (fused ? (k - 1) / 2 : 0);
+  const long long tiles = (((long long)T + bt - 1) / bt) * B;
+  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  if ((err = window_map(&map, src, B, C, T, ld, G::KC, a.box_t)) != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int grid = tiles < sms ? (int)tiles : sms;
+  kernel<<<grid, THREADS, (int)bytes, s>>>(map, a);
+  if ((err = cudaGetLastError()) == cudaSuccess) ++*launched;
+  return err;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 
-// The (kernel size, type) families, each compiled in one build part; without
-// FSCL_PART (one nvcc for the whole file) every family and the entry points.
+// The instances, compiled in four build parts (the NP = 128 ones and the
+// entry points, NP = 64, f32 NP = 32, bf16 NP = 32); without FSCL_PART (one
+// nvcc for the whole file) every instance and the entry points.
 #ifndef FSCL_PART
 #define FSCL_PART -1
 #endif
 #define FSCL_OWNS(part) (FSCL_PART < 0 || FSCL_PART == (part))
-#define FSCL_CONV_ARGS                                                                        \
-  const float *in, const uint32_t *wp, const float *bias, const float *res, const float *accin, \
-      float *out, int B, int C, int T, int dil, float scale, int vec, cudaStream_t s
-#define FSCL_CONV_CALL in, wp, bias, res, accin, out, B, C, T, dil, scale, vec, s
+#define FSCL_CONV_ARGS                                                                         \
+  const float *src, const uint8_t *w0, const float *b0, const uint8_t *w1, const float *b1,     \
+      const float *res, const float *accin, float *out, int B, int C, int T, int ld, int k,    \
+      int d, float scale, cudaStream_t s, int *launched
+#define FSCL_CONV_CALL src, w0, b0, w1, b1, res, accin, out, B, C, T, ld, k, d, scale, s, launched
+#define FSCL_INSTANCE(name, bf16, np, m, nw) \
+  cudaError_t name(FSCL_CONV_ARGS) { return launch<bf16, np, m, nw>(FSCL_CONV_CALL); }
 
-cudaError_t fscl_mrf_conv_3_f32(FSCL_CONV_ARGS);
-cudaError_t fscl_mrf_conv_7_f32(FSCL_CONV_ARGS);
-cudaError_t fscl_mrf_conv_11_f32(FSCL_CONV_ARGS);
-cudaError_t fscl_mrf_conv_3_bf16(FSCL_CONV_ARGS);
-cudaError_t fscl_mrf_conv_7_bf16(FSCL_CONV_ARGS);
-cudaError_t fscl_mrf_conv_11_bf16(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_f32_128_256(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_bf16_128_256(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_bf16_128_256_w16(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_f32_64_384(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_bf16_64_256(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_f32_32_512(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_f32_32_256(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_bf16_32_512(FSCL_CONV_ARGS);
+cudaError_t fscl_mrf_conv_bf16_32_256(FSCL_CONV_ARGS);
 
 #if FSCL_OWNS(0)
-cudaError_t fscl_mrf_conv_11_f32(FSCL_CONV_ARGS) { return conv_k<11, false>(FSCL_CONV_CALL); }
+FSCL_INSTANCE(fscl_mrf_conv_f32_128_256, false, 128, 256, 0)
+FSCL_INSTANCE(fscl_mrf_conv_bf16_128_256, true, 128, 256, 0)
+FSCL_INSTANCE(fscl_mrf_conv_bf16_128_256_w16, true, 128, 256, 16)
 #endif
 #if FSCL_OWNS(1)
-cudaError_t fscl_mrf_conv_11_bf16(FSCL_CONV_ARGS) { return conv_k<11, true>(FSCL_CONV_CALL); }
+FSCL_INSTANCE(fscl_mrf_conv_f32_64_384, false, 64, 384, 0)
+FSCL_INSTANCE(fscl_mrf_conv_bf16_64_256, true, 64, 256, 0)
 #endif
 #if FSCL_OWNS(2)
-cudaError_t fscl_mrf_conv_3_f32(FSCL_CONV_ARGS) { return conv_k<3, false>(FSCL_CONV_CALL); }
-cudaError_t fscl_mrf_conv_7_f32(FSCL_CONV_ARGS) { return conv_k<7, false>(FSCL_CONV_CALL); }
+FSCL_INSTANCE(fscl_mrf_conv_f32_32_512, false, 32, 512, 0)
+FSCL_INSTANCE(fscl_mrf_conv_f32_32_256, false, 32, 256, 0)
 #endif
 #if FSCL_OWNS(3)
-cudaError_t fscl_mrf_conv_3_bf16(FSCL_CONV_ARGS) { return conv_k<3, true>(FSCL_CONV_CALL); }
-cudaError_t fscl_mrf_conv_7_bf16(FSCL_CONV_ARGS) { return conv_k<7, true>(FSCL_CONV_CALL); }
+FSCL_INSTANCE(fscl_mrf_conv_bf16_32_512, true, 32, 512, 0)
+FSCL_INSTANCE(fscl_mrf_conv_bf16_32_256, true, 32, 256, 0)
 #endif
 
 #if FSCL_OWNS(0)
-static cudaError_t conv_f32(int k, FSCL_CONV_ARGS) {
-  return k == 3 ? fscl_mrf_conv_3_f32(FSCL_CONV_CALL) : k == 7 ? fscl_mrf_conv_7_f32(FSCL_CONV_CALL)
-       : k == 11 ? fscl_mrf_conv_11_f32(FSCL_CONV_CALL) : cudaErrorInvalidValue;
+static cudaError_t conv(const Route& rt, int round_bf16, FSCL_CONV_ARGS) {
+  if (round_bf16)
+    return rt.np == 128 ? (rt.nw == 16 ? fscl_mrf_conv_bf16_128_256_w16(FSCL_CONV_CALL)
+                                       : fscl_mrf_conv_bf16_128_256(FSCL_CONV_CALL))
+         : rt.np == 64 ? fscl_mrf_conv_bf16_64_256(FSCL_CONV_CALL)
+         : rt.m == 512 ? fscl_mrf_conv_bf16_32_512(FSCL_CONV_CALL)
+                       : fscl_mrf_conv_bf16_32_256(FSCL_CONV_CALL);
+  return rt.np == 128 ? fscl_mrf_conv_f32_128_256(FSCL_CONV_CALL)
+       : rt.np == 64 ? fscl_mrf_conv_f32_64_384(FSCL_CONV_CALL)
+       : rt.m == 512 ? fscl_mrf_conv_f32_32_512(FSCL_CONV_CALL)
+                     : fscl_mrf_conv_f32_32_256(FSCL_CONV_CALL);
 }
 
-static cudaError_t conv_bf16(int k, FSCL_CONV_ARGS) {
-  return k == 3 ? fscl_mrf_conv_3_bf16(FSCL_CONV_CALL) : k == 7 ? fscl_mrf_conv_7_bf16(FSCL_CONV_CALL)
-       : k == 11 ? fscl_mrf_conv_11_bf16(FSCL_CONV_CALL) : cudaErrorInvalidValue;
+// The route the stage takes at C channels (see Route): out[0..3] = NP, M,
+// fused, weight stages (0: the type's default). ops/mrf_stage.py:route_on_card
+// reads it.
+extern "C" int fscl_mrf_route(int C, int round_bf16, int* out) {
+  if (C < 32 || C % 32) return (int)cudaErrorInvalidValue;
+  const Route r = route(C, round_bf16);
+  out[0] = r.np;
+  out[1] = r.m;
+  out[2] = r.fused;
+  out[3] = r.nw;
+  return 0;
 }
 
-// The whole stage on `stream`. x, out, h, r: (B, C, T) f32 on the device
+// The whole stage on `stream`. x, out, h, r: (B, C, ld) f32 on the device,
+// rows [0, T) valid, ld a multiple of 4 and every pointer 16-byte aligned
 // (h and r are work buffers; out holds the stage output, or the mean before
 // conv_post when post_w, packed as (7, C), is given, and then wav (B, T)
 // receives the wav).
 // Resblock j has kernel ks[j] and n_dil[j] dilations, read in order from
 // dils; weights/biases are host arrays of device pointers, two convs (convs1,
 // convs2) per dilation in resblock order, weights packed by
-// ops/mrf_stage.py:_pack_weight for the compute type (f32: TF32 big and
-// small parts; round_bf16: bf16). Returns 0 or the first CUDA error.
+// ops/mrf_stage.py:_pack_weight for the compute type and route(C).
+// launched[0] and launched[1] count the conv launches (pair_kernel) and the
+// conv_post launches (post_kernel) queued. Returns 0 or the first CUDA error.
 extern "C" int fscl_mrf_stage(const void* x, void* out, void* h, void* r, void* wav, int B,
-                              int C, int T, int n_res, const int* ks, const int* n_dil,
+                              int C, int T, int ld, int n_res, const int* ks, const int* n_dil,
                               const int* dils, const void* const* weights,
                               const void* const* biases, const void* post_w,
-                              const void* post_b, int round_bf16, void* stream) {
+                              const void* post_b, int round_bf16, void* stream, int* launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || T < 1 || T > MAX_T || C < 32 || C % 32 || n_res < 1 || B > 65535 || C / 32 > 65535)
+  if (B < 1 || T < 1 || T > MAX_T || ld < T || ld % 4 || C < 32 || C % 32 || n_res < 1
+      || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(out) || !aligned16(h) || !aligned16(r))
     return (int)cudaErrorInvalidValue;
   for (int j = 0, di = 0; j < n_res; ++j) {
     if ((ks[j] != 3 && ks[j] != 7 && ks[j] != 11) || n_dil[j] < 1) return (int)cudaErrorInvalidValue;
     for (int q = 0; q < n_dil[j]; ++q, ++di)
       if (dils[di] < 1 || (ks[j] - 1) / 2 * dils[di] > RMAX) return (int)cudaErrorInvalidValue;
   }
+  const Route rt = route(C, round_bf16);
   const float* xin = static_cast<const float*>(x);
   float* fout = static_cast<float*>(out);
-  float* fh = static_cast<float*>(h);
-  float* fr = static_cast<float*>(r);
-  const int vec = T % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(h) && aligned16(r);
+  float* bufs[2] = {static_cast<float*>(r), static_cast<float*>(h)};
   const float inv_n = 1.0f / (float)n_res;
-  auto conv = round_bf16 ? conv_bf16 : conv_f32;
   int ci = 0, di = 0;
   for (int j = 0; j < n_res; ++j) {
     for (int q = 0; q < n_dil[j]; ++q, ++di, ci += 2) {
-      const bool first = q == 0;
       const bool last = q == n_dil[j] - 1;
-      const float* src = first ? xin : fr;
-      cudaError_t err = conv(ks[j], src, static_cast<const uint32_t*>(weights[ci]),
-                             static_cast<const float*>(biases[ci]), nullptr, nullptr, fh, B, C, T,
-                             dils[di], 1.0f, vec, s);
-      if (err != cudaSuccess) return (int)err;
-      err = conv(ks[j], fh, static_cast<const uint32_t*>(weights[ci + 1]),
-                 static_cast<const float*>(biases[ci + 1]), src,
-                 (last && j > 0) ? fout : nullptr, last ? fout : fr, B, C, T, 1,
-                 (last && j == n_res - 1) ? inv_n : 1.0f, vec, s);
+      const float* accin = (last && j > 0) ? fout : nullptr;
+      const float scale = (last && j == n_res - 1) ? inv_n : 1.0f;
+      const uint8_t* w1 = static_cast<const uint8_t*>(weights[ci]);
+      const uint8_t* w2 = static_cast<const uint8_t*>(weights[ci + 1]);
+      const float* b1 = static_cast<const float*>(biases[ci]);
+      const float* b2 = static_cast<const float*>(biases[ci + 1]);
+      cudaError_t err;
+      if (rt.fused) {
+        // ping-pong between the work buffers: a launch's windows reach into
+        // its neighbours' rows of src, so src is never written by it
+        const float* src = q == 0 ? xin : bufs[(q - 1) % 2];
+        float* dst = last ? fout : bufs[q % 2];
+        err = conv(rt, round_bf16, src, w1, b1, w2, b2, src, accin, dst, B, C, T, ld, ks[j],
+                   dils[di], scale, s, launched);
+      } else {
+        // h through device memory: conv1 into h, then conv2 from h into r
+        // (res and out may alias: each element is read, then written, by
+        // the same thread)
+        const float* src = q == 0 ? xin : bufs[0];
+        float* dst = last ? fout : bufs[0];
+        err = conv(rt, round_bf16, src, w1, b1, nullptr, nullptr, nullptr, nullptr, bufs[1], B,
+                   C, T, ld, ks[j], dils[di], 1.0f, s, launched);
+        if (err == cudaSuccess)
+          err = conv(rt, round_bf16, bufs[1], w2, b2, nullptr, nullptr, src, accin, dst, B, C, T,
+                     ld, ks[j], 1, scale, s, launched);
+      }
       if (err != cudaSuccess) return (int)err;
     }
   }
   if (post_w != nullptr)
     return (int)post(fout, static_cast<const float*>(post_w), static_cast<const float*>(post_b),
-                     static_cast<float*>(wav), B, C, T, round_bf16, s);
+                     static_cast<float*>(wav), B, C, T, ld, round_bf16, s, launched + 1);
   return 0;
 }
 
-// conv_post + tanh alone on y (B, C, T) f32, into wav (B, T): the last
-// kernel of a stage with `post`, launched by itself to time it apart.
+// conv_post + tanh alone on y (B, C, ld; T valid rows) f32, into wav (B,
+// T): the last kernel of a stage with `post`, launched by itself to time it
+// apart.
 extern "C" int fscl_mrf_post(const void* y, const void* post_w, const void* post_b, void* wav,
-                             int B, int C, int T, int round_bf16, void* stream) {
-  if (B < 1 || T < 1 || T > MAX_T || C < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+                             int B, int C, int T, int ld, int round_bf16, void* stream) {
+  if (B < 1 || T < 1 || T > MAX_T || ld < T || C < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   return (int)post(static_cast<const float*>(y), static_cast<const float*>(post_w),
-                   static_cast<const float*>(post_b), static_cast<float*>(wav), B, C, T,
-                   round_bf16, static_cast<cudaStream_t>(stream));
+                   static_cast<const float*>(post_b), static_cast<float*>(wav), B, C, T, ld,
+                   round_bf16, static_cast<cudaStream_t>(stream), nullptr);
 }
 #endif

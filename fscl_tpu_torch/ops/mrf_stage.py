@@ -3,9 +3,10 @@
 
 `mrf_stage_cuda` launches the Hopper kernels of `csrc/mrf_stage.cu`, which
 replace the TPU kernel `_stage_kernel` (`fscl_tpu/ops/hifigan_fused.py:52`):
-its convs run on the tensor cores, float32 by split TF32 and bfloat16
-directly, on weights packed once per module in the kernel's fragment order
-(`_pack_weight`).
+each conv pair of a resblock is one launch on wgmma, float32 by split TF32
+and bfloat16 directly, with the pair's intermediate in shared memory where it
+fits (the library's route, `route_on_card`), on weights packed once per
+module in the kernel's operand layout (`_pack_weight`).
 `mrf_stage_reference` is its plain PyTorch version: the mean of the
 ResBlock1 forwards on `F.conv1d`, then, with `post`, leaky -> conv_post ->
 tanh. Leaky ReLU has slope 0.1. With a bfloat16 compute dtype both round the
@@ -21,12 +22,13 @@ takes at most 65535 samples, so `mrf_stage_cuda` splits the batch into
 launches of at most that many (`batch_splits`), as fscl_tpu's XLA convs take
 any batch. Its offsets are 64-bit: a sample or a launch of 2^31 elements or
 more (over 8 GiB in float32) runs in one launch. T is an int up to
-MAX_T.
+MAX_T; the kernel's copies need rows a multiple of 4 floats apart, so a T
+that is not is padded to one (`row_pitch`) in work buffers of the wrapper.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +45,36 @@ POST_KERNEL = 7                # conv_post's kernel, the only one the kernel tak
 # whole chain of conv launches); chip_smoke.py reads it to show that the
 # main path went through the kernel.
 LAUNCHES = 0
+# The kernel launches those stage launches queued, as the library counts
+# them where it queues each: conv launches (pair_kernel: a fused pair, or one
+# conv of a pair in two launches) and conv_post launches (post_kernel).
+CONV_LAUNCHES = 0
+POST_LAUNCHES = 0
 
-MAX_BATCH = 65535              # the kernel's grid: one block row per sample
+MAX_BATCH = 65535              # samples a launch takes (csrc/mrf_stage.cu's check)
 MAX_T = 2 ** 31 - 1 - 1024     # csrc/mrf_stage.cu MAX_T: T and a window's rows are ints
+
+
+class Route(NamedTuple):
+    """The library's route at C channels (csrc/mrf_stage.cu:route)."""
+    np: int        # output channels a pass (wgmma's N)
+    m: int         # time rows a tile computes
+    fused: bool    # a conv pair is one launch, its intermediate in shared memory
+    nw: int = 0    # the instance's weight stages (0: its type's default)
+
+
+def pass_width(C: int) -> int:
+    """NP, the output channels a pass of the kernel computes (wgmma's N):
+    the largest of 128, 64 and 32 that divides C (csrc/mrf_stage.cu:route)."""
+    if C < 32 or C % 32:
+        raise ValueError(f"channels {C} not a multiple of 32")
+    return 128 if C % 128 == 0 else 64 if C % 64 == 0 else 32
+
+
+def row_pitch(T: int) -> int:
+    """The rows' pitch in the kernel's buffers: T rounded up to a multiple of
+    4 floats (TMA's 16-byte strides)."""
+    return (T + 3) // 4 * 4
 
 
 def batch_splits(B: int, C: int, T: int):
@@ -104,35 +133,45 @@ def _load():
     built = cuda_lib.build("mrf_stage")
     fn = built.lib.fscl_mrf_stage
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_int)] * 3
                        + [ctypes.POINTER(ctypes.c_void_p)] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                       + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _pack_weight(w: torch.Tensor, round_bf16: bool) -> torch.Tensor:
-    """A (C_out, C_in, k) conv weight in the kernel's fragment order: for each
-    (16 output channels m, input-channel k-step c, tap i), the mma.sync A
-    fragments of the 32 lanes (g, t) = (lane // 4, lane % 4), registers
-    a0..a3 at rows g, g + 8, g, g + 8 and k offsets 0, 0, +half, +half.
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero: cvt.rna.tf32.f32's rounding."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
-    float32: (C_out/16, C_in/8, k, 32, 4), m16n8k8's
-    a[r] = w[16m + g + 8(r % 2), 8c + t + 4(r // 2), i], as float32 (the
-    kernel splits each into its TF32 big and small parts in registers).
-    bfloat16: (C_out/16, C_in/16, k, 32, 4, 2), m16n8k16's register r as
-    the pair w[16m + g + 8(r % 2), 16c + 2t + 8(r // 2) + (0, 1), i]."""
+
+def _pack_weight(w: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    """A (C, C, k) conv weight in the kernel's B operand layout: for each
+    (pass p, k-step s, tap i), one contiguous chunk that the kernel copies as
+    it lies, K-major without swizzle: 16-byte rows of input channels, one per
+    output channel n of the pass (wgmma's N = NP, `pass_width`), the k-step's two
+    16-byte halves (kg) a plane of NP rows apart.
+
+    float32: (C/NP, C/8, k, 2, 2, NP, 4): [p, s, i, part, kg, n, e] =
+    part(w[p NP + n, 8 s + 4 kg + e, i]), part 0 the TF32 big part
+    tf32(w) and 1 the small part tf32(w - big) (both rounded as
+    cvt.rna.tf32.f32 rounds; big + small is w within 2^-22).
+    bfloat16: (C/NP, C/16, k, 2, NP, 8): [p, s, i, kg, n, e] =
+    bf16(w[p NP + n, 16 s + 8 kg + e, i])."""
     c_out, c_in, k = w.shape
+    np_ = pass_width(c_out)
     w = w.detach().float()
     if round_bf16:
-        # co = 16m + 8h + g, ci = 16c + 8q + 2t + e -> (m, c, i, g, t, q, h, e)
-        a = w.to(torch.bfloat16).reshape(c_out // 16, 2, 8, c_in // 16, 2, 4, 2, k)
-        return a.permute(0, 3, 7, 2, 5, 4, 1, 6).reshape(
-            c_out // 16, c_in // 16, k, 32, 4, 2).contiguous()
-    # co = 16m + 8h + g, ci = 8c + 4q + t -> (m, c, i, g, t, q, h)
-    a = w.reshape(c_out // 16, 2, 8, c_in // 8, 2, 4, k).permute(0, 3, 6, 2, 5, 4, 1)
-    return a.reshape(c_out // 16, c_in // 8, k, 32, 4).contiguous()
+        a = w.to(torch.bfloat16).reshape(c_out // np_, np_, c_in // 16, 2, 8, k)
+        return a.permute(0, 2, 5, 3, 1, 4).contiguous()
+    big = _tf32(w)
+    parts = torch.stack([big, _tf32(w - big)])
+    a = parts.reshape(2, c_out // np_, np_, c_in // 8, 2, 4, k)
+    return a.permute(1, 3, 6, 0, 4, 2, 5).contiguous()
 
 
 def _pack_post(w: torch.Tensor, round_bf16: bool) -> torch.Tensor:
@@ -225,28 +264,58 @@ def mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence, post: Optional[nn.Conv1
 def _launch_stage(x, out, ks, n_dil, dils, packed, post_w, post_b, round_bf16: bool) -> None:
     """One launch of the stage on x (B, C, T) within the kernel's limits,
     into out: the stage output, or the wav (B, T) when post_w is given."""
-    global LAUNCHES
+    global LAUNCHES, CONV_LAUNCHES, POST_LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage_cuda takes CUDA tensors, got {x.device}")
     B, C, T = x.shape
-    h = torch.empty_like(x)
-    r = torch.empty_like(x)
-    stage_out, wav = (torch.empty_like(x), out) if post_w is not None else (out, None)
+    ld = row_pitch(T)
+    padded = ld != T
+    if padded or x.data_ptr() % 16:
+        # rows ld apart, 16-byte aligned; rows [T, ld) are never read
+        xp = torch.empty(B, C, ld, dtype=x.dtype, device=x.device)
+        xp[..., :T] = x
+        x = xp
+    h = torch.empty(B, C, ld, dtype=x.dtype, device=x.device)
+    r = torch.empty_like(h)
+    if post_w is not None:
+        stage_out, wav = torch.empty_like(h), out
+    else:
+        stage_out, wav = (torch.empty_like(h) if padded or out.data_ptr() % 16 else out), None
 
     # The launches run after this returns. The work buffers may be freed then:
     # PyTorch's caching allocator hands their memory only to work queued later
     # on the same stream.
     fn = _load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    launched = (ctypes.c_int * 2)()
     err = fn(x.data_ptr(), stage_out.data_ptr(), h.data_ptr(), r.data_ptr(),
-             wav.data_ptr() if wav is not None else None, B, C, T, len(ks),
+             wav.data_ptr() if wav is not None else None, B, C, T, ld, len(ks),
              _ints(ks), _ints(n_dil), _ints(dils), _ptrs([w for w, _ in packed]),
              _ptrs([b for _, b in packed]),
              post_w.data_ptr() if post_w is not None else None,
-             post_b.data_ptr() if post_b is not None else None, int(round_bf16), stream)
+             post_b.data_ptr() if post_b is not None else None, int(round_bf16), stream,
+             launched)
+    CONV_LAUNCHES += launched[0]
+    POST_LAUNCHES += launched[1]
     if err != 0:
         raise RuntimeError(f"MRF stage kernel launch failed: cudaError {err}")
+    if wav is None and stage_out is not out:
+        out.copy_(stage_out[..., :T])
     LAUNCHES += 1
+
+
+def route_on_card(C: int, round_bf16: bool) -> Route:
+    """The library's route at C channels (fscl_mrf_route): the kernel picks
+    it at launch; read here to report it and to test it on the card."""
+    fn = cuda_lib.build("mrf_stage").lib.fscl_mrf_route
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    got = (ctypes.c_int * 4)()
+    err = fn(C, int(round_bf16), got)
+    if err != 0:
+        raise RuntimeError(f"fscl_mrf_route({C}) failed: cudaError {err}")
+    return Route(got[0], got[1], bool(got[2]), got[3])
 
 
 def _launch_post(y: torch.Tensor, post: nn.Conv1d,
@@ -264,9 +333,9 @@ def _launch_post(y: torch.Tensor, post: nn.Conv1d,
     wav = torch.empty(B, T, dtype=torch.float32, device=y.device)
     fn = cuda_lib.build("mrf_stage").lib.fscl_mrf_post
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(y.data_ptr(), post_w.data_ptr(), post_b.data_ptr(), wav.data_ptr(), B, C, T,
+    err = fn(y.data_ptr(), post_w.data_ptr(), post_b.data_ptr(), wav.data_ptr(), B, C, T, T,
              int(round_bf16), torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv_post kernel launch failed: cudaError {err}")

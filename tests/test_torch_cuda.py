@@ -461,14 +461,45 @@ def _stage(C, post, seed=0):
     return rbs, conv_post
 
 
-# The stage kernel's time tile (csrc/mrf_stage.cu, Cfg::BT): 512 rows. Per V1
-# stage width: a ragged T, T = 1, one short of the tile and one past it (odd
-# T: 4-byte window copies), and a ragged T that is a multiple of 4 (bulk
-# copies with zero-filled edge rows, as every served T).
-TIME_TILE = 512
+# Per V1 stage width: a ragged T; T = 1; a T shorter than the widest halo (5).
 STAGE_SHAPES = [(256, 517, False), (128, 1031, False), (64, 2053, False), (32, 4099, True)] + [
-    (C, T, C == 32) for C in (256, 128, 64, 32)
-    for T in (1, TIME_TILE - 1, TIME_TILE + 1, TIME_TILE + 4)]
+    (C, T, C == 32) for C in (256, 128, 64, 32) for T in (1, 5)]
+# The stage kernel's time tile is the library's (route_on_card(C, bf16).m:
+# 256, 384 or 512 rows by width and type), of which a fused pair stores
+# M - (k - 1) rows and a pair in two launches all M. T = M - cut + dt, per V1
+# stage width and type: one either side of each kernel size's output rows
+# (odd T, padded to a multiple of 4 rows), one either side of M, and M + 4 (a
+# multiple of 4 past it, as every served T, no padding).
+TILE_EDGES = [(k - 1, dt) for k in (3, 7, 11) for dt in (-1, 1)] + [(0, -1), (0, 1), (0, 4)]
+# Each kernel size at its largest reach (k - 1) / 2 * d <= 32, and C = 512
+# (the bf16 route's two-launch pairs, as f32 above C = 128).
+REACH_SHAPES = [(3, 16), (7, 10), (11, 6)]
+
+
+def _check_stage(cuda_device, rbs, conv_post, x, compute_dtype):
+    for m in rbs + ([conv_post] if conv_post is not None else []):
+        m.to(cuda_device)
+    x = x.to(cuda_device)
+    want = tmrf.mrf_stage_reference(x, rbs, conv_post, compute_dtype)
+    before = tmrf.LAUNCHES, tmrf.CONV_LAUNCHES, tmrf.POST_LAUNCHES
+    got = tmrf.mrf_stage(x, rbs, conv_post, compute_dtype)
+    torch.cuda.synchronize()
+    B, C, T = x.shape
+    # the library's own count of the kernels it queued: a launch a pair
+    # where the route fuses it, else two, and conv_post
+    fused = tmrf.route_on_card(C, compute_dtype == torch.bfloat16).fused
+    n_pairs = sum(len(rb.dilations) for rb in rbs)
+    assert (tmrf.LAUNCHES - before[0], tmrf.CONV_LAUNCHES - before[1],
+            tmrf.POST_LAUNCHES - before[2]) == (1, n_pairs * (1 if fused else 2),
+                                                int(conv_post is not None))
+    assert got.shape == want.shape == ((B, T) if conv_post is not None else (B, C, T))
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    if compute_dtype == torch.float32:
+        assert err.mean() < STAGE_F32_MEAN and err.max() < STAGE_F32_MAX
+    else:
+        scale = want.abs().max()
+        assert err.mean() < STAGE_BF16_MEAN * scale and err.max() < STAGE_BF16_MAX * scale
 
 
 @pytest.mark.cuda
@@ -477,23 +508,61 @@ STAGE_SHAPES = [(256, 517, False), (128, 1031, False), (64, 2053, False), (32, 4
 @pytest.mark.parametrize("C,T,post", STAGE_SHAPES)
 def test_mrf_stage_kernel_matches_plain_version(cuda_device, compute_dtype, C, T, post):
     rbs, conv_post = _stage(C, post)
-    for m in rbs + ([conv_post] if post else []):
-        m.to(cuda_device)
     rng = np.random.default_rng(C)
-    x = torch.from_numpy(rng.normal(size=(2, C, T)).astype(np.float32)).to(cuda_device)
-    want = tmrf.mrf_stage_reference(x, rbs, conv_post, compute_dtype)
-    before = tmrf.LAUNCHES
-    got = tmrf.mrf_stage(x, rbs, conv_post, compute_dtype)
-    torch.cuda.synchronize()
-    assert tmrf.LAUNCHES == before + 1
-    assert got.shape == want.shape == ((2, T) if post else (2, C, T))
-    assert torch.isfinite(got).all()
-    err = (got - want).abs()
-    if compute_dtype == torch.float32:
-        assert err.mean() < STAGE_F32_MEAN and err.max() < STAGE_F32_MAX
-    else:
-        scale = want.abs().max()
-        assert err.mean() < STAGE_BF16_MEAN * scale and err.max() < STAGE_BF16_MAX * scale
+    x = torch.from_numpy(rng.normal(size=(2, C, T)).astype(np.float32))
+    _check_stage(cuda_device, rbs, conv_post, x, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cut,dt", TILE_EDGES)
+@pytest.mark.parametrize("C", [256, 128, 64, 32])
+def test_mrf_stage_kernel_at_the_tile_edges(cuda_device, compute_dtype, C, cut, dt):
+    T = tmrf.route_on_card(C, compute_dtype == torch.bfloat16).m - cut + dt
+    rbs, conv_post = _stage(C, C == 32)
+    x = torch.from_numpy(np.random.default_rng(T).normal(size=(2, C, T)).astype(np.float32))
+    _check_stage(cuda_device, rbs, conv_post, x, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,d", REACH_SHAPES)
+@pytest.mark.parametrize("C", [64, 512])
+def test_mrf_stage_kernel_at_the_largest_reach(cuda_device, compute_dtype, k, d, C):
+    """One resblock of dilations 1 and d at the kernel's largest reach, over
+    T = 700 (several tiles, a ragged last one)."""
+    torch.manual_seed(k)
+    rbs = [ResBlock1(C, k, (1, d))]
+    x = torch.from_numpy(np.random.default_rng(d).normal(size=(2, C, 700)).astype(np.float32))
+    _check_stage(cuda_device, rbs, None, x, compute_dtype)
+
+
+# (C, compute dtype) -> (NP, M, fused): NP the largest of 128, 64, 32
+# dividing C; a pair is one launch at the first height built for NP (f32:
+# 256 at NP = 128, 384 at 64, 512 or 256 at 32; bf16: 256 at 128 and 64, 512
+# or 256 at 32) for which h (M + 12 rows x C channels, 4 bytes in f32, 2 in
+# bf16) fits beside the rings: f32 up to C = 128, bf16 up to 256.
+ROUTES = [
+    (32, False, 32, 512, True), (64, False, 64, 384, True), (96, False, 32, 256, True),
+    (128, False, 128, 256, True), (160, False, 32, 512, False), (192, False, 64, 384, False),
+    (256, False, 128, 256, False), (512, False, 128, 256, False),
+    (32, True, 32, 512, True), (64, True, 64, 256, True), (96, True, 32, 256, True),
+    (128, True, 128, 256, True), (192, True, 64, 256, True), (256, True, 128, 256, True),
+    (288, True, 32, 512, False), (320, True, 64, 256, False), (384, True, 128, 256, False),
+    (512, True, 128, 256, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,round_bf16,np_,m,fused", ROUTES)
+def test_mrf_stage_route_is_the_rule(cuda_device, C, round_bf16, np_, m, fused):
+    """The library's route (csrc/mrf_stage.cu:route) at the widths that set
+    it, and its NP the one the host packs the weights for."""
+    r = tmrf.route_on_card(C, round_bf16)
+    assert (r.np, r.m, r.fused) == (np_, m, fused)
+    assert r.np == tmrf.pass_width(C)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The build key of a CUDA source (ops/cuda_lib.py:source_digest) covers the
 headers of `csrc/` it includes, so that editing csrc/hopper_attention.cuh
-rebuilds both attention libraries. No nvcc needed: only the key."""
+rebuilds both attention libraries, and csrc/hopper.cuh all three. No nvcc
+needed: only the key."""
 from fscl_tpu_torch.ops import cuda_lib
 
 
@@ -28,10 +29,13 @@ def test_a_changed_header_changes_the_digest(tmp_path):
 
 
 def test_both_attention_sources_include_the_shared_header():
+    """Both attention files include csrc/hopper_attention.cuh, and through it
+    csrc/hopper.cuh, the Hopper helpers that the MRF stage includes too."""
     for name in ("attention", "attention_bwd"):
         headers = cuda_lib.local_headers(cuda_lib.CSRC_DIR / f"{name}.cu")
-        assert [h.name for h in headers] == ["hopper_attention.cuh"]
-    assert cuda_lib.local_headers(cuda_lib.CSRC_DIR / "mrf_stage.cu") == []
+        assert [h.name for h in headers] == ["hopper_attention.cuh", "hopper.cuh"]
+    headers = cuda_lib.local_headers(cuda_lib.CSRC_DIR / "mrf_stage.cu")
+    assert [h.name for h in headers] == ["hopper.cuh"]
 
 
 def test_a_source_without_headers_keeps_its_digest(tmp_path):

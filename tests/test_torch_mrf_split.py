@@ -1,5 +1,5 @@
-"""The numerical premise of the CUDA MRF stage kernel's f32 route, and the
-layout of its packed weights.
+"""The numerical premise of the CUDA MRF stage kernel's f32 route, the
+layout of its packed weights, and the passes that layout follows.
 
 `csrc/mrf_stage.cu` takes every f32 conv product on the TF32 tensor cores by
 split TF32: each operand x (the activation after leaky, and the weight) is
@@ -8,18 +8,21 @@ ties away from zero as `cvt.rna.tf32.f32` does, and a product is taken as
 small*big + big*small + big*big, with products exact and sums in f32.
 Emulated here in torch for a whole HiFiGAN V1 stage (three ResBlock1 with
 kernels 3, 7, 11 and dilations 1, 3, 5; conv_post, which the kernel takes on
-the f32 FMA units, in plain f32), it must stay within the f32 stage bars of
-`mrf_stage_reference` (mean |d| < 1e-5, max < 5e-3: the bars
-tests/test_hifigan_fused.py holds the TPU kernel to); one TF32 product per
-f32 product must miss the mean bar. This runs on the CPU; the kernel itself
-is held to the same bars on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+the f32 FMA units, in plain f32), on the weight parts the host packs for the
+kernel, it must stay within the f32 stage bars of `mrf_stage_reference`
+(mean |d| < 1e-5, max < 5e-3: the bars tests/test_hifigan_fused.py holds the
+TPU kernel to); one TF32 product per f32 product must miss the mean bar.
+This runs on the CPU; the kernel itself is held to the same bars on the card
+by tests/test_torch_cuda.py and chip_smoke.py.
 
-The weights reach the kernel packed once on the host in its mma.sync
-fragment order (`_pack_weight`; in f32 the kernel splits them in registers);
-unpacked here by the fragment layouts of m16n8k8 (TF32) and m16n8k16 (bf16)
-A operands, the f32 packing gives back the weight exactly and the bf16
-packing exactly the bf16-rounded weight.
+The weights reach the kernel packed once on the host in its wgmma B operand
+layout (`_pack_weight`: per pass, k-step and tap a contiguous chunk of
+16-byte rows of input channels, one row per output channel; in f32 as TF32
+big and small parts). Unpacked here by that layout, the f32 parts give back
+the weight within 2^-22 of each element and are both TF32, and the bf16
+packing gives back exactly the bf16-rounded weight. `pass_width` (NP, the
+output channels a pass, which the layout follows) is pinned at the widths
+that set it.
 """
 import numpy as np
 import pytest
@@ -49,14 +52,17 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 def emulated_conv(h, conv, dilation, passes):
     """conv(leaky(h)) as the kernel takes it: split-TF32 products (passes = 3)
-    or one TF32 product (passes = 1), exact, summed in f32; bias after."""
+    or one TF32 product (passes = 1), exact, summed in f32 as the kernel
+    issues them (small*big, big*small, then big*big); bias after. The
+    weight's parts are the ones the host packs for the kernel."""
     a, w = F.leaky_relu(h, tmrf.SLOPE), conv.weight
-    a_big, w_big = tf32_rna(a), tf32_rna(w)
+    C, _, k = w.shape
+    w_big, w_small = unpack_f32(tmrf._pack_weight(w, False), C, C, k)
+    a_big = tf32_rna(a)
     kw = dict(padding=(w.shape[-1] - 1) // 2 * dilation, dilation=dilation)
     y = F.conv1d(a_big, w_big, **kw)
     if passes == 3:
-        y = (F.conv1d(tf32_rna(a - a_big), w_big, **kw) + F.conv1d(a_big, tf32_rna(w - w_big), **kw)
-             + y)
+        y = (F.conv1d(tf32_rna(a - a_big), w_big, **kw) + F.conv1d(a_big, w_small, **kw)) + y
     return y + conv.bias[:, None]
 
 
@@ -104,43 +110,72 @@ def test_split_tf32_stage_holds_the_f32_bars(C, T, post):
 
 
 def unpack_f32(packed, c_out, c_in, k):
-    """Invert the m16n8k8 TF32 A fragments: lane (g, t) = (lane // 4,
-    lane % 4) holds a[r] = W[16m + g + 8 (r % 2), 8c + t + 4 (r // 2), i]."""
-    assert packed.shape == (c_out // 16, c_in // 8, k, 32, 4)
+    """Invert the f32 packing: [p, s, i, part, kg, n, e] holds part (0 big,
+    1 small) of W[p NP + n, 8 s + 4 kg + e, i]. Returns (big, small)."""
+    np_ = tmrf.pass_width(c_out)
+    assert packed.shape == (c_out // np_, c_in // 8, k, 2, 2, np_, 4)
     assert packed.dtype == torch.float32
-    w = torch.full((c_out, c_in, k), float("nan"))
-    for lane in range(32):
-        g, t = lane // 4, lane % 4
-        for r in range(4):
-            co, ci = g + 8 * (r % 2), t + 4 * (r // 2)
-            w[co::16, ci::8] = packed[:, :, :, lane, r]
-    return w
+    parts = packed.permute(3, 0, 5, 1, 4, 6, 2).reshape(2, c_out, c_in, k)
+    return parts[0], parts[1]
 
 
 def unpack_bf16(packed, c_out, c_in, k):
-    """Invert the m16n8k16 bf16 A fragments: lane (g, t) holds in register r
-    the pair W[16m + g + 8 (r % 2), 16c + 2t + 8 (r // 2) + (0, 1), i], the
-    lower k in the low half."""
-    assert packed.shape == (c_out // 16, c_in // 16, k, 32, 4, 2)
+    """Invert the bf16 packing: [p, s, i, kg, n, e] holds
+    W[p NP + n, 16 s + 8 kg + e, i]."""
+    np_ = tmrf.pass_width(c_out)
+    assert packed.shape == (c_out // np_, c_in // 16, k, 2, np_, 8)
     assert packed.dtype == torch.bfloat16
-    w = torch.zeros(c_out, c_in, k, dtype=torch.bfloat16)
-    for lane in range(32):
-        g, t = lane // 4, lane % 4
-        for r in range(4):
-            co, ci = g + 8 * (r % 2), 2 * t + 8 * (r // 2)
-            for e in range(2):
-                w[co::16, ci + e::16] = packed[:, :, :, lane, r, e]
-    return w
+    return packed.permute(0, 4, 1, 3, 5, 2).reshape(c_out, c_in, k)
 
 
-@pytest.mark.parametrize("C,k", [(32, 3), (64, 11), (96, 7)])
+# NP = 32 (C = 32, 96: three passes), 64 and 128 (C = 256: two passes)
+PACK_CASES = [(32, 3), (64, 11), (96, 7), (128, 3), (256, 11)]
+
+
+@pytest.mark.parametrize("C,k", PACK_CASES)
 def test_f32_packing_is_the_weight_in_fragment_order(C, k):
+    """The packed parts, read back by the layout the kernel's B descriptor
+    reads, are TF32 (13 low bits zero), the big part is the weight rounded as
+    cvt.rna.tf32.f32 rounds, and big + small is the weight within 2^-22."""
     w = torch.from_numpy(np.random.default_rng(k).normal(size=(C, C, k)).astype(np.float32))
-    assert torch.equal(unpack_f32(tmrf._pack_weight(w, False), C, C, k), w)
+    big, small = unpack_f32(tmrf._pack_weight(w, False), C, C, k)
+    for part in (big, small):
+        assert ((part.contiguous().view(torch.int32) & 0x1fff) == 0).all()
+    assert torch.equal(big, tf32_rna(w))
+    assert torch.equal(small, tf32_rna(w - big))
+    assert ((big + small - w).abs() <= 2.0 ** -22 * w.abs()).all()
 
 
-@pytest.mark.parametrize("C,k", [(32, 3), (64, 11), (96, 7)])
+@pytest.mark.parametrize("C,k", PACK_CASES)
 def test_bf16_packing_is_the_rounded_weight_in_fragment_order(C, k):
     w = torch.from_numpy(np.random.default_rng(k + 1).normal(size=(C, C, k)).astype(np.float32))
     got = unpack_bf16(tmrf._pack_weight(w, True), C, C, k)
     assert torch.equal(got, w.to(torch.bfloat16))
+
+
+# C -> NP, the output channels a pass (wgmma's N): the largest of 128, 64
+# and 32 dividing C. The packing's layout follows it; the tile height and
+# whether a pair is fused are the library's (pinned on the card by
+# tests/test_torch_cuda.py::test_mrf_stage_route_is_the_rule).
+PASS_WIDTHS = [(32, 32), (64, 64), (96, 32), (128, 128), (160, 32), (192, 64), (224, 32),
+               (256, 128), (288, 32), (320, 64), (384, 128), (448, 64), (512, 128),
+               (544, 32), (640, 128), (736, 32), (832, 64), (1024, 128)]
+
+
+@pytest.mark.parametrize("C,np_", PASS_WIDTHS)
+def test_pass_width_rule(C, np_):
+    assert tmrf.pass_width(C) == np_
+    w = torch.zeros(C, C, 3)
+    assert tmrf._pack_weight(w, False).shape[0] == tmrf._pack_weight(w, True).shape[0] == C // np_
+
+
+@pytest.mark.parametrize("C", [0, 16, 48, 100])
+def test_pass_width_refuses_widths_the_kernel_cannot_take(C):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tmrf.pass_width(C)
+
+
+@pytest.mark.parametrize("T,ld", [(1, 4), (4, 4), (5, 8), (255, 256), (256, 256), (8000, 8000),
+                                  (3 * 2 ** 24 + 100, 3 * 2 ** 24 + 100)])
+def test_row_pitch_is_t_rounded_up_to_4(T, ld):
+    assert tmrf.row_pitch(T) == ld
